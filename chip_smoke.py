@@ -1,0 +1,405 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+1. Build: compile the three gossip-mix kernels from ``src/repro_torch/
+   kernels/csrc`` (one nvcc per source, in parallel) and print ptxas's
+   register and spill report.
+2. Kernels: hold each kernel against its plain PyTorch version on the card
+   at the main path's leaf shapes, at W=500 / density 0.05 / F=4096, and at
+   a ragged F, for every payload type it takes.
+3. Timings: device time per call (CUDA graphs of back-to-back calls, timed
+   with CUDA events) of the kernel, its plain version and, where one
+   exists, one PyTorch library call computing the same function.
+4. End to end: the port's ``run_defta`` on the card in the Table 2 world
+   (20 workers + 2 noise attackers, MLP, 20 epochs) on the fp32 wire with
+   ``auto`` (sparse kernel), the int8 + EF21 wire (quant kernel) and
+   ``backend="pallas"`` (dense kernel), and the CNN world on ``auto``;
+   every run's launch counts must equal leaves x epochs. A small world is
+   also run on the card and on the CPU (plain versions) from the same
+   initial state and draws, and the two must agree.
+
+Exits non-zero, before the last line, on any failure or without a card.
+The last lines are the card's name and power limit, one JSON object with
+every kernel's numbers, and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+FP32_FLOPS = 67e12                 # H100 SXM, fp32 outside tensor cores
+REPLACES = {
+    "gossip_mix": "src/repro/kernels/gossip_mix.py:40",
+    "gossip_mix_sparse": "src/repro/kernels/gossip_mix_sparse.py:66",
+    "gossip_mix_quant": "src/repro/kernels/gossip_mix_quant.py:68",
+}
+SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAILED: {msg}", flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Inputs
+# ---------------------------------------------------------------------------
+
+def world_csr(w: int, k_peers: int, seed: int, dev):
+    """A random k-out topology with self-loops and a row-stochastic P on it
+    (about half the peers unsampled, i.e. zero weight, as in a round):
+    returns P [W, W], idx [W, K] int32, val [W, K], nnz (non-pad slots)."""
+    from repro_torch.core.gossip import sparse_support, sparse_weights
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((w, w), bool)
+    for i in range(w):
+        adj[i, rng.choice([j for j in range(w) if j != i], size=k_peers,
+                          replace=False)] = True
+    keep = (adj & (rng.random((w, w)) < 0.5)) | np.eye(w, dtype=bool)
+    P = keep * rng.uniform(0.5, 1.5, (w, w))
+    P = torch.tensor(P / P.sum(1, keepdims=True), dtype=torch.float32,
+                     device=dev)
+    idx, val = sparse_weights(P, adj)
+    return P, idx, val.contiguous(), int(sparse_support(adj)[1].sum())
+
+
+def payload(gen, w: int, f: int, dtype):
+    x = torch.randn(w, f, generator=gen, device=gen.device)
+    if dtype == "int8":
+        from repro_torch.core.gossip import quantize_rows_int8
+        return quantize_rows_int8(x)
+    return x.to(getattr(torch, dtype)).contiguous(), None
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernel vs plain version
+# ---------------------------------------------------------------------------
+
+def kernel_calls(ops, ref, P, idx, val, w_in, scale):
+    """(kernel call, plain call) per kernel for one payload."""
+    calls = {}
+    if scale is None:
+        calls["gossip_mix"] = (lambda: ops.gossip_mix(P, w_in),
+                               lambda: ref.gossip_mix_ref(P, w_in))
+        if w_in.dtype != torch.int8:
+            calls["gossip_mix_sparse"] = (
+                lambda: ops.gossip_mix_sparse(idx, val, w_in),
+                lambda: ref.gossip_mix_sparse_ref(idx, val, w_in))
+    else:
+        Pw = (P * scale[None, :]).contiguous()   # the pallas backend's fold
+        calls["gossip_mix"] = (lambda: ops.gossip_mix(Pw, w_in),
+                               lambda: ref.gossip_mix_ref(Pw, w_in))
+        calls["gossip_mix_quant"] = (
+            lambda: ops.gossip_mix_quant(idx, val, scale, w_in),
+            lambda: ref.gossip_mix_quant_ref(idx, val, scale, w_in))
+    return calls
+
+
+def check_kernels(dev):
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cases = []
+    # the main path's leaves: MLP(32, 10, hidden 64) and CNN(10, 1, 10, 8)
+    for f in (2048, 64, 640, 10, 72, 1152):
+        cases.append(("main", 22, 4, f))
+    cases += [("ragged", 22, 4, 1001), ("w500", 500, 24, 4096),
+              ("w500-ragged", 500, 24, 4099)]
+    max_err = {k: 0.0 for k in REPLACES}
+    for tag, w, kp, f in cases:
+        P, idx, val, _ = world_csr(w, kp, seed=w + f, dev=dev)
+        for dtype in ("float32", "bfloat16", "int8"):
+            w_in, scale = payload(gen, w, f, dtype)
+            for name, (kern, plain) in kernel_calls(
+                    ops, ref, P, idx, val, w_in, scale).items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                if got.shape != want.shape or got.dtype != torch.float32:
+                    fail(f"{name} {tag} {dtype}: shape/dtype {got.shape} "
+                         f"{got.dtype}")
+                err = float((got - want).abs().max())
+                tol = 1e-5 * (1.0 + float(want.abs().max()))
+                print(f"  check {name:18s} {tag:11s} W={w:3d} F={f:5d} "
+                      f"{dtype:8s} max_abs_err={err:.3e} tol={tol:.1e}")
+                if not err <= tol:
+                    fail(f"{name} disagrees with its plain version")
+                max_err[name] = max(max_err[name], err)
+    return max_err
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: timings
+# ---------------------------------------------------------------------------
+
+def device_ms(fn, calls: int = 50, repeats: int = 7) -> float:
+    """Median device milliseconds per call: ``calls`` back-to-back calls
+    captured in one CUDA graph (so host overhead does not show), replayed
+    ``repeats`` times between CUDA events, after a warm-up."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def bound(name, w, k_nnz, k_slots, f, in_bytes):
+    """(bound_ms, bound_by): bytes over the card's memory rate vs fp32
+    operations over its CUDA-core rate, each input read once and the
+    output written once."""
+    if name == "gossip_mix":
+        nbytes = w * f * in_bytes + w * f * 4 + w * w * 4
+        flops = 2 * w * w * f
+    else:
+        nbytes = w * f * in_bytes + w * f * 4 + w * k_slots * 8
+        nbytes += w * 4 if name == "gossip_mix_quant" else 0
+        flops = 2 * k_nnz * f
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def time_kernels(dev, tag, w, kp, f):
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    P, idx, val, nnz = world_csr(w, kp, seed=7, dev=dev)
+    w32, _ = payload(gen, w, f, "float32")
+    q, scale = payload(gen, w, f, "int8")
+    csr = torch.sparse_coo_tensor(
+        torch.stack([torch.arange(w, device=dev).repeat_interleave(
+            idx.shape[1]), idx.reshape(-1).long()]), val.reshape(-1),
+        (w, w)).coalesce().to_sparse_csr()
+    rows = {
+        "gossip_mix": (lambda: ops.gossip_mix(P, w32),
+                       lambda: ref.gossip_mix_ref(P, w32),
+                       lambda: torch.matmul(P, w32), 4),
+        "gossip_mix_sparse": (lambda: ops.gossip_mix_sparse(idx, val, w32),
+                              lambda: ref.gossip_mix_sparse_ref(idx, val,
+                                                                w32),
+                              lambda: torch.sparse.mm(csr, w32), 4),
+        "gossip_mix_quant": (
+            lambda: ops.gossip_mix_quant(idx, val, scale, q),
+            lambda: ref.gossip_mix_quant_ref(idx, val, scale, q), None, 1),
+    }
+    out = {}
+    for name, (kern, plain, lib, in_bytes) in rows.items():
+        ms, plain_ms = device_ms(kern), device_ms(plain)
+        lib_ms = device_ms(lib) if lib is not None else None
+        b_ms, b_by = bound(name, w, nnz, idx.shape[1], f, in_bytes)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": b_by}
+        print(f"  time {name:18s} {tag:5s} W={w:3d} K={idx.shape[1]:2d} "
+              f"F={f:5d} kernel={ms * 1e3:9.2f}us plain={plain_ms * 1e3:9.2f}"
+              f"us library={'-' if lib_ms is None else f'{lib_ms * 1e3:.2f}'}"
+              f"us bound={b_ms * 1e3:.2f}us ({b_by})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: end to end
+# ---------------------------------------------------------------------------
+
+class MovedDraws:
+    """CPU-generated draws handed to a run on any device, so a card run and
+    a CPU run consume the same random numbers."""
+
+    def __init__(self, seed, dev):
+        from repro_torch.rng import TorchDraws
+        gen = torch.Generator()
+        gen.manual_seed(seed)
+        self.inner, self.dev = TorchDraws(gen), dev
+
+    def __call__(self, *args):
+        d = self.inner(*args)
+        d.gumbel, d.perm = d.gumbel.to(self.dev), d.perm.to(self.dev)
+        if d.noise is not None:
+            d.noise = {k: v.to(self.dev) for k, v in d.noise.items()}
+        return d
+
+
+def card_vs_cpu():
+    """A small world run on the card (kernels) and on the CPU (plain
+    versions) from one initial state and one draw stream."""
+    from repro_torch.config import DeFTAConfig, TrainConfig
+    from repro_torch.convert import state_from_jax, state_to_numpy
+    from repro_torch.core.defta import run_defta
+    from repro_torch.core.engine import init_state
+    from repro_torch.core.tasks import mlp_task
+    from repro_torch.data import federated_dataset
+    data = federated_dataset("vector", 12, np.random.default_rng(1),
+                             n_per_worker=48)
+    task = mlp_task(32, 10)
+    train = TrainConfig(learning_rate=0.05, batch_size=32)
+    for wire, backend, kernel in (("float32", "auto", "gossip_mix_sparse"),
+                                  ("int8", "auto", "gossip_mix_quant"),
+                                  ("float32", "pallas", "gossip_mix")):
+        cfg = DeFTAConfig(num_workers=12, avg_peers=2, num_sampled=1,
+                          local_epochs=2, gossip_dtype=wire)
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        init = state_to_numpy(init_state(gen, task, 13,
+                                         wire_error=wire == "int8"))
+        res = {}
+        for dev in ("cuda", "cpu"):
+            st, *_ = run_defta(0, task, cfg, train, data, epochs=4,
+                               num_malicious=1, gossip_backend=backend,
+                               device=dev, init=state_from_jax(init, dev),
+                               draws=MovedDraws(5, dev))
+            res[dev] = state_to_numpy(st)
+        a, b = res["cuda"], res["cpu"]
+        # fp32: summation order only (rtol 1e-3 covers SGD's drift over 4
+        # rounds); int8: a flipped round-half tie moves a loss further
+        rtol = 1e-3 if wire == "float32" else 2e-2
+        loss_err = float(np.abs(a["last_loss"] - b["last_loss"]).max())
+        ok = np.allclose(a["last_loss"], b["last_loss"], rtol=rtol) \
+            and np.allclose(a["conf"], b["conf"], rtol=rtol, atol=1e-4)
+        if wire == "float32":
+            ok = ok and all(np.allclose(a["params"][k], b["params"][k],
+                                        rtol=rtol, atol=1e-4)
+                            for k in a["params"])
+        print(f"  card-vs-cpu {kernel:18s} wire={wire:7s} "
+              f"max|last_loss diff|={loss_err:.3e} agree={ok}")
+        if not ok:
+            fail(f"card run of {kernel} disagrees with the CPU run")
+
+
+def end_to_end():
+    from repro_torch.config import DeFTAConfig, TrainConfig
+    from repro_torch.core.defta import run_defta
+    from repro_torch.core.tasks import cnn_task, mlp_task
+    from repro_torch.data import federated_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.telemetry import RunLedger
+
+    epochs = 20
+    runs = (
+        ("mlp fp32 auto", "vector", "float32", "auto", "gossip_mix_sparse"),
+        ("mlp int8+ef auto", "vector", "int8", "auto", "gossip_mix_quant"),
+        ("mlp fp32 pallas", "vector", "float32", "pallas", "gossip_mix"),
+        ("cnn fp32 auto", "image", "float32", "auto", "gossip_mix_sparse"),
+    )
+    launches = {}
+    for label, kind, wire, backend, kernel in runs:
+        rng = np.random.default_rng(0)     # benchmarks/common.make_setup
+        if kind == "image":
+            data = federated_dataset("image", 20, rng, hw=10,
+                                     n_per_worker=100)
+            task = cnn_task(10, 1, 10, width=8)
+        else:
+            data = federated_dataset("vector", 20, rng, n_per_worker=150)
+            task = mlp_task(32, 10)
+        cfg = DeFTAConfig(num_workers=20, avg_peers=4, num_sampled=2,
+                          local_epochs=5, seed=0, gossip_dtype=wire)
+        train = TrainConfig(learning_rate=0.05, batch_size=32)
+        led = RunLedger()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        st, _, _, hist = run_defta(0, task, cfg, train, data, epochs=epochs,
+                                   num_malicious=2, gossip_backend=backend,
+                                   eval_every=5, test_x=data["test_x"],
+                                   test_y=data["test_y"], ledger=led)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        leaves = len(st.params)
+        acc = hist[-1][1]
+        per_epoch = [1e3 * s / 5 for s in led.superstep_s]  # 5-epoch chunks
+        print(f"  e2e {label:17s} epochs={epochs} wall={wall:.2f}s "
+              f"per_epoch_ms={[round(x, 2) for x in per_epoch]} "
+              f"vanilla_acc={[round(h[1], 4) for h in hist]} "
+              f"launches={counts}")
+        if not bool(torch.isfinite(st.last_loss).all()):
+            fail(f"{label}: non-finite loss")
+        want = {k: leaves * epochs if k == kernel else 0 for k in counts}
+        if counts != want:
+            fail(f"{label}: launch counts {counts}, expected {want}")
+        if label == "mlp fp32 auto" and not acc > 0.3:
+            fail(f"{label}: vanilla accuracy {acc} <= 0.3")
+        launches.setdefault(kernel, counts[kernel])
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+
+    dev = resolve_device(None)
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    report = build.build()
+    print(f"[1] build: {time.perf_counter() - t0:.1f}s wall "
+          + ", ".join(f"{k} {v['seconds']:.1f}s" for k, v in report.items()))
+    for name, r in report.items():
+        for line in r["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+    print("[2] kernels vs plain versions", flush=True)
+    max_err = check_kernels(dev)
+
+    print("[3] timings", flush=True)
+    main_t = time_kernels(dev, "main", 22, 4, 2048)
+    time_kernels(dev, "w500", 500, 24, 4096)
+
+    print("[4] end to end", flush=True)
+    card_vs_cpu()
+    launches = end_to_end()
+
+    kernels = [dict(name=k, route="cuda", source=SOURCES[k],
+                    replaces=REPLACES[k], launches=launches[k],
+                    max_abs_err=max_err[k], **main_t[k]) for k in REPLACES]
+    print(card_line())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

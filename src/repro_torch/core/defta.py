@@ -1,0 +1,143 @@
+"""Synchronous DeFTA (Algorithm 1), simulation mode: the port of
+``repro.core.defta``.
+
+All W workers are carried as worker-stacked tensors and advanced one
+round per global epoch by the engine's stage pipeline
+(``engine.build_defta_round``) under the Python-loop driver
+(``engine.drive_epochs``). Malicious workers are appended after the
+vanilla ones and send ``aggregate + noise`` (the paper's attack model).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.config import DeFTAConfig, TrainConfig
+from repro_torch.core.engine import (DeFTAState, build_defta_round,
+                                     drive_epochs, init_state)
+from repro_torch.core.gossip import uses_error_feedback
+from repro_torch.core.tasks import Task
+from repro_torch.core.topology import make_topology
+from repro_torch.device import resolve_device
+from repro_torch.rng import TorchDraws
+
+__all__ = ["DeFTAState", "evaluate", "global_model", "run_defta"]
+
+
+def evaluate(task: Task, state: DeFTAState, test_x, test_y,
+             malicious: np.ndarray):
+    """Mean/std test accuracy across vanilla (non-malicious) workers, and
+    every worker's accuracy (numpy)."""
+    dev = state.conf.device
+    x = torch.as_tensor(np.asarray(test_x)).to(dev)
+    y = torch.as_tensor(np.asarray(test_y)).to(dev)
+    w = state.conf.shape[0]
+    with torch.no_grad():
+        accs = task.accuracy(state.params, x.expand(w, *x.shape),
+                             y.expand(w, *y.shape),
+                             torch.ones(w, x.shape[0], device=dev))
+    accs = accs.cpu().numpy()[~np.asarray(malicious, bool)]
+    return float(accs.mean()), float(accs.std()), accs
+
+
+def _pad_workers(data, sizes, extra: int):
+    """Pad stacked per-worker data/sizes with ``extra`` attacker slots
+    (unused training slots — only what attackers *send* matters)."""
+    sizes = np.concatenate([np.asarray(sizes),
+                            np.full(extra, int(np.mean(sizes)))])
+    if extra:
+        pad = lambda a: np.concatenate(
+            [a, np.repeat(a[-1:], extra, 0)], 0)
+        data = {**data, "x": pad(data["x"]), "y": pad(data["y"]),
+                "mask": pad(data["mask"])}
+    return data, sizes
+
+
+def run_defta(seed: int, task: Task, cfg: DeFTAConfig, train: TrainConfig,
+              data, *, epochs: int, num_malicious: int = 0, scenario=None,
+              gossip_backend: str = "auto", eval_every: int = 0,
+              test_x=None, test_y=None, ledger=None,
+              shards: Optional[int] = None, device=None,
+              init: Optional[DeFTAState] = None, draws=None):
+    """End-to-end driver. Malicious workers are appended after the vanilla
+    ones (paper §4.3: normal workers fixed, attackers newly joined).
+
+    ``seed`` seeds the one ``torch.Generator`` (on the run's device) that
+    initializes the parameters and feeds the default ``rng.TorchDraws``.
+    ``init`` replaces the drawn initial state (e.g. one carried across from
+    the reference by ``convert.state_from_jax``); ``draws`` replaces the
+    draw provider. ``device=None`` runs on the card and raises without one;
+    ``device="cpu"`` runs the kernels' plain versions. ``gossip_backend``
+    defaults to ``"auto"`` (the sparse kernel on DeFTA topologies).
+
+    ``eval_every`` with ``test_x``/``test_y`` evaluates every that many
+    epochs into the returned history as ``(done, mean, std)``. ``ledger``
+    (a ``telemetry.RunLedger``) receives the per-chunk round counts and wall
+    seconds (the reference's ``stats`` dict is ``ledger.as_stats()``).
+    ``scenario`` and ``shards`` are later items of the port and raise
+    ``NotImplementedError``.
+
+    Returns ``(state, adj, malicious, history)``.
+    """
+    dev = resolve_device(device)
+    if scenario is not None:
+        raise NotImplementedError("scenario is not ported yet (ROADMAP.md, "
+                                  "queue 1, item 8: scenarios)")
+    if shards is not None and shards > 1:
+        raise NotImplementedError("sharded workers are not ported yet "
+                                  "(ROADMAP.md, queue 1, item 13)")
+    w = cfg.num_workers + num_malicious
+    malicious = np.zeros(w, bool)
+    malicious[cfg.num_workers:] = True
+    adj = make_topology(cfg.topology, w, cfg.avg_peers, cfg.seed)
+    data, sizes = _pad_workers(data, data["sizes"], w - cfg.num_workers)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    wire_error = uses_error_feedback(cfg)
+    if init is None:
+        state = init_state(gen, task, w, wire_error=wire_error)
+    else:
+        if tuple(init.conf.shape) != (w, w) or \
+                (init.wire_err is not None) != wire_error:
+            raise ValueError(f"init state does not fit W={w} "
+                             f"(wire_error={wire_error})")
+        state = init
+    rnd_fn = build_defta_round(task, cfg, train, adj, sizes, malicious,
+                               draws=draws or TorchDraws(gen), device=dev,
+                               gossip_backend=gossip_backend)
+    tdata = {k: torch.as_tensor(np.asarray(data[k])).to(dev)
+             for k in ("x", "y", "mask")}
+
+    eval_fn = None
+    if test_x is not None:
+        def eval_fn(st, done):
+            m, s, _ = evaluate(task, st, test_x, test_y, malicious)
+            return (done, m, s)
+    state, history = drive_epochs(rnd_fn, state, tdata, epochs,
+                                  eval_every=eval_every, eval_fn=eval_fn,
+                                  ledger=ledger)
+    return state, adj, malicious, history
+
+
+def global_model(state: DeFTAState, sizes, sample: int = 0,
+                 generator: Optional[torch.Generator] = None):
+    """Paper §5.3: the stable global model of a decentralized cluster —
+    average (a sample of) the workers' models with dataset-size weights
+    Σ_k (n_k / Σn) w_k. ``sample`` workers are drawn without replacement
+    from ``generator`` when both are given."""
+    dev = state.conf.device
+    sizes = torch.as_tensor(np.asarray(sizes, np.float32)).to(dev)
+    w = sizes.shape[0]
+    mask = torch.ones(w, device=dev)
+    if sample and generator is not None:
+        idx = torch.randperm(w, generator=generator,
+                             device=generator.device)[:min(sample, w)]
+        mask = torch.zeros(w, device=dev)
+        mask[idx.to(dev)] = 1.0
+    weights = mask * sizes
+    weights = weights / weights.sum()
+    return {k: torch.einsum("i,i...->...", weights.to(x.dtype), x)
+            for k, x in state.params.items()}
