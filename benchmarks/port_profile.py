@@ -1,17 +1,25 @@
-"""Where an epoch of the PyTorch port's sync DeFTA goes, on one CUDA card.
+"""Where the PyTorch port's time goes, on one CUDA card.
 
-    PYTHONPATH=src python benchmarks/port_profile.py [--epochs 3] \
-        [--table PATH]
+    PYTHONPATH=src python benchmarks/port_profile.py [defta|serve] \
+        [--epochs 3] [--table PATH]
 
-Runs the Table 2 worlds of ``chip_smoke.py`` (MLP fp32 ``auto``, MLP int8
-+ EF21 ``auto``, CNN fp32 ``auto``; 20 workers + 2 noise attackers) through
-``repro_torch.core.defta.run_defta`` under ``torch.profiler`` after a
-warm-up epoch, and prints per epoch: wall ms, each round stage's host ms
-(its ``record_function`` range) and GPU span, the kernels' busy ms (the
-sum of kernel times) and the device's idle share (1 - busy / wall, with
-the profiler's own host overhead in the wall), plus the top kernels.
-With ``--table PATH`` the profiler's full tables are written to PATH.
-Imports nothing of JAX or of the ``repro`` package.
+``defta`` (the default) runs the Table 2 worlds of ``chip_smoke.py`` (MLP
+fp32 ``auto``, MLP int8 + EF21 ``auto``, CNN fp32 ``auto``; 20 workers + 2
+noise attackers) through ``repro_torch.core.defta.run_defta`` after a
+warm-up epoch, per epoch. ``serve`` draws DeepSeekMoE-16B at full size on
+the card (random weights, seed 0) and runs, after a warm-up, two
+``build_prefill_step`` calls at B=4, S=512, two at B=1, S=4096, and 8
+decode steps of the serve loop (batch 4, after a 32-token prompt), per call
+or step.
+
+Each window runs under ``torch.profiler`` and prints: the wall ms
+(synchronized; the profiler's own host overhead is in it), the kernels'
+busy ms (the sum of kernel times), the device's idle share (1 - busy /
+wall), the kernel launches, the busy ms by kernel family (the port's own
+kernels, cuBLAS/CUTLASS GEMMs, everything else) and the top kernels; for
+DeFTA also each round stage's host ms (its ``record_function`` range) and
+GPU span. With ``--table PATH`` the profiler's full tables are written to
+PATH. Imports nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
 
@@ -36,6 +44,67 @@ from repro_torch.data import federated_dataset  # noqa: E402
 STAGES = ("split_draws", "scenario_view", "peer_sample", "transport",
           "damage_check", "local_train", "attack_inject", "trust_update",
           "finalize")
+FAMILIES = (("gossip_mix", ("mix_kernel",)),
+            ("flash_attention", ("flash_kernel",)),
+            ("moe_router", ("router_kernel",)),
+            ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas",
+                      "sm90_")))
+SERVE_ARCH, PROMPT, DECODE_STEPS = "deepseek-moe-16b", 32, 8
+
+
+def family(name: str) -> str:
+    low = name.lower()
+    for fam, keys in FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return "other"
+
+
+def profile_window(label, fn, units, unit, out, stages=()):
+    """Run ``fn`` (``units`` epochs, calls or steps) once under the
+    profiler and print its numbers per ``unit``."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / units
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    # each stage shows up twice: its CPU range and its GPU annotation (the
+    # span from its first to its last kernel); neither is a kernel
+    host = {e.key: e for e in events if e.device_type != cuda}
+    span = {e.key: e for e in events if e.device_type == cuda}
+    kernels = sorted((e for e in events if e.device_type == cuda
+                      and e.key not in stages
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: -e.self_device_time_total)
+    per = {e.key: e.self_device_time_total / 1e3 / units for e in kernels}
+    busy_ms = sum(per.values())
+    fams = {}
+    for name, ms in per.items():
+        fams[family(name)] = fams.get(family(name), 0.0) + ms
+    print(f"{label}: wall {wall_ms:.2f} ms/{unit}, kernels busy "
+          f"{busy_ms:.3f} ms/{unit}, device idle share "
+          f"{1 - busy_ms / wall_ms:.4f}, kernel launches "
+          f"{sum(e.count for e in kernels) // units}/{unit}")
+    print("  by family: " + ", ".join(
+        f"{f} {ms:.3f} ms ({ms / busy_ms:.1%})"
+        for f, ms in sorted(fams.items(), key=lambda x: -x[1])))
+    for s in stages:
+        h = host[s].cpu_time_total / 1e3 / units if s in host else 0.0
+        g = span[s].device_time_total / 1e3 / units if s in span else 0.0
+        print(f"  stage {s:14s} host {h:8.3f} ms/{unit}  gpu span "
+              f"{g:8.3f} ms/{unit}")
+    for e in kernels[:12]:
+        print(f"  kernel {per[e.key]:8.3f} ms x{e.count // units:5d}  "
+              f"{e.key[:90]}")
+    if out is not None:
+        out.write(f"== {label}\n")
+        out.write(events.table(sort_by="self_device_time_total",
+                               row_limit=40))
+        out.write("\n")
 
 
 def world(kind: str, wire: str):
@@ -51,50 +120,62 @@ def world(kind: str, wire: str):
     return task, cfg, TrainConfig(learning_rate=0.05, batch_size=32), data
 
 
-def profile_world(label, kind, wire, epochs, out):
-    task, cfg, train, data = world(kind, wire)
-    run = lambda n: run_defta(0, task, cfg, train, data, epochs=n,  # noqa
-                              num_malicious=2, gossip_backend="auto")
-    run(1)                                         # warm-up (cuDNN, cuBLAS)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(epochs)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / epochs
-    events = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
-    # each stage shows up twice: its CPU range and its GPU annotation (the
-    # span from its first to its last kernel); neither is a kernel
-    host = {e.key: e for e in events if e.device_type != cuda}
-    span = {e.key: e for e in events if e.device_type == cuda}
-    kernels = sorted((e for e in events if e.device_type == cuda
-                      and e.key not in STAGES
-                      and not getattr(e, "is_user_annotation", False)),
-                     key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / epochs
-    print(f"{label}: wall {wall_ms:.2f} ms/epoch, kernels busy "
-          f"{busy_ms:.3f} ms/epoch, device idle share "
-          f"{1 - busy_ms / wall_ms:.4f}")
-    for s in STAGES:
-        h = host[s].cpu_time_total / 1e3 / epochs if s in host else 0.0
-        g = span[s].device_time_total / 1e3 / epochs if s in span else 0.0
-        print(f"  stage {s:14s} host {h:8.3f} ms/epoch  gpu span "
-              f"{g:8.3f} ms/epoch")
-    for e in kernels[:10]:
-        print(f"  kernel {e.self_device_time_total / 1e3 / epochs:8.3f} "
-              f"ms/epoch x{e.count // epochs:5d}/epoch  {e.key[:80]}")
-    if out is not None:
-        out.write(f"== {label}\n")
-        out.write(events.table(sort_by="self_device_time_total",
-                               row_limit=40))
-        out.write("\n")
+def profile_defta(epochs, out):
+    for label, kind, wire in (("mlp fp32 auto", "mlp", "float32"),
+                              ("mlp int8+ef auto", "mlp", "int8"),
+                              ("cnn fp32 auto", "cnn", "float32")):
+        task, cfg, train, data = world(kind, wire)
+        run = lambda n: run_defta(0, task, cfg, train, data,  # noqa: E731
+                                  epochs=n, num_malicious=2,
+                                  gossip_backend="auto")
+        run(1)                                     # warm-up (cuDNN, cuBLAS)
+        profile_window(label, lambda: run(epochs), epochs, "epoch", out,
+                       stages=STAGES)
+
+
+def repeat(fn, n):
+    for _ in range(n):
+        fn()
+
+
+def profile_serve(out):
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models import model
+
+    cfg = get_config(SERVE_ARCH)
+    dev = resolve_device(None)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init_params(gen, cfg)
+    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
+    for b, s in ((4, 512), (1, 4096)):
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device=dev)}
+        prefill(params, batch)                           # warm-up
+        profile_window(f"{SERVE_ARCH} prefill B={b} S={s}",
+                       lambda: repeat(lambda: prefill(params, batch), 2), 2,
+                       "call", out)
+    total = PROMPT + 2 * DECODE_STEPS
+    cache = model.init_cache(cfg, 4, total)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen,
+                           device=dev)
+    pos = iter(range(total))
+    step = lambda: decode(params, tokens, cache, next(pos))  # noqa: E731
+    repeat(step, PROMPT + DECODE_STEPS)       # the prompt, then a warm-up
+    profile_window(f"{SERVE_ARCH} decode batch=4 (positions "
+                   f"{PROMPT + DECODE_STEPS}..{total - 1})",
+                   lambda: repeat(step, DECODE_STEPS), DECODE_STEPS, "step",
+                   out)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--epochs", type=int, default=3)
+    ap.add_argument("path", nargs="?", choices=("defta", "serve"),
+                    default="defta")
+    ap.add_argument("--epochs", type=int, default=3,
+                    help="DeFTA epochs to profile")
     ap.add_argument("--table", help="write the full profiler tables here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -106,10 +187,10 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}")
     out = open(args.table, "w") if args.table else None
     try:
-        for label, kind, wire in (("mlp fp32 auto", "mlp", "float32"),
-                                  ("mlp int8+ef auto", "mlp", "int8"),
-                                  ("cnn fp32 auto", "cnn", "float32")):
-            profile_world(label, kind, wire, args.epochs, out)
+        if args.path == "serve":
+            profile_serve(out)
+        else:
+            profile_defta(args.epochs, out)
     finally:
         if out is not None:
             out.close()

@@ -3,22 +3,39 @@
 
     python3 chip_smoke.py
 
-1. Build: compile the three gossip-mix kernels from ``src/repro_torch/
-   kernels/csrc`` (one nvcc per source, in parallel) and print ptxas's
-   register and spill report.
-2. Kernels: hold each kernel against its plain PyTorch version on the card
-   at the main path's leaf shapes, at W=500 / density 0.05 / F=4096, and at
-   a ragged F, for every payload type it takes.
+1. Build: compile the five kernels (three gossip mixes, flash attention,
+   the MoE router) from ``src/repro_torch/kernels/csrc`` (one nvcc per
+   source, in parallel) and print ptxas's register and spill report.
+2. Kernels: hold each kernel against its plain PyTorch version on the card.
+   Gossip mixes at the main path's leaf shapes, at W=500 / density 0.05 /
+   F=4096 and at a ragged F, for every payload type; flash attention at
+   S in {200, 256, 512, 4096}, D in {64, 128}, causal, window 128 and
+   non-causal, and at the main path's two prefill shapes in its layout
+   (bf16 views of [B, S, H, D] tensors); the router at T in {4, 1000,
+   2048, 4096}, (E, k) in {(64, 6), (16, 2)}, with rows of exact ties;
+   both in f32 and bf16.
 3. Timings: device time per call (CUDA graphs of back-to-back calls, timed
    with CUDA events) of the kernel, its plain version and, where one
-   exists, one PyTorch library call computing the same function.
-4. End to end: the port's ``run_defta`` on the card in the Table 2 world
-   (20 workers + 2 noise attackers, MLP, 20 epochs) on the fp32 wire with
-   ``auto`` (sparse kernel), the int8 + EF21 wire (quant kernel) and
+   exists, one PyTorch library call computing the same function, at the
+   main paths' shapes (flash in the main path's layout).
+4. DeFTA end to end: the port's ``run_defta`` on the card in the Table 2
+   world (20 workers + 2 noise attackers, MLP, 20 epochs) on the fp32 wire
+   with ``auto`` (sparse kernel), the int8 + EF21 wire (quant kernel) and
    ``backend="pallas"`` (dense kernel), and the CNN world on ``auto``;
-   every run's launch counts must equal leaves x epochs. A small world is
-   also run on the card and on the CPU (plain versions) from the same
-   initial state and draws, and the two must agree.
+   every run's launch counts must equal leaves x epochs (0 for the serving
+   kernels). A small world is also run on the card and on the CPU (plain
+   versions) from the same initial state and draws, and the two must
+   agree.
+5. Serving end to end: DeepSeekMoE-16B at full width and depth (28 layers,
+   64 routed experts top-6 + 2 shared, bf16, random weights from a seed)
+   initialised on the card; ``build_prefill_step`` at B=4, S=512 and at
+   B=1, S=4096 (finite logits, wall ms), then the port's serve loop at its
+   defaults (batch 4, prompt 32, 32 new tokens, greedy). Launch counts:
+   28 flash and 27 router launches per prefill call, 27 router launches
+   per decode step, none of the gossip kernels. A reduced DeepSeekMoE
+   (f32) is also served on the card and on the CPU from the same
+   parameters (logits within 1e-4, equal greedy tokens), and its
+   teacher-forced decode on the card must match its prefill within 2e-3.
 
 Exits non-zero, before the last line, on any failure or without a card.
 The last lines are the card's name and power limit, one JSON object with
@@ -40,11 +57,16 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM, fp32 outside tensor cores
+BF16_FLOPS = 989e12                # H100 SXM, bf16 tensor cores, dense
 REPLACES = {
     "gossip_mix": "src/repro/kernels/gossip_mix.py:40",
     "gossip_mix_sparse": "src/repro/kernels/gossip_mix_sparse.py:66",
     "gossip_mix_quant": "src/repro/kernels/gossip_mix_quant.py:68",
+    "flash_attention": "src/repro/kernels/flash_attention.py:87",
+    "moe_router": "src/repro/kernels/moe_router.py:45",
 }
+GOSSIP = ("gossip_mix", "gossip_mix_sparse", "gossip_mix_quant")
+SERVING = ("flash_attention", "moe_router")
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
 
 
@@ -124,7 +146,7 @@ def check_kernels(dev):
         cases.append(("main", 22, 4, f))
     cases += [("ragged", 22, 4, 1001), ("w500", 500, 24, 4096),
               ("w500-ragged", 500, 24, 4099)]
-    max_err = {k: 0.0 for k in REPLACES}
+    max_err = {k: 0.0 for k in GOSSIP}
     for tag, w, kp, f in cases:
         P, idx, val, _ = world_csr(w, kp, seed=w + f, dev=dev)
         for dtype in ("float32", "bfloat16", "int8"):
@@ -232,8 +254,171 @@ def time_kernels(dev, tag, w, kp, f):
     return out
 
 
+def flash_err(got, want, dtype):
+    """(max |got - want|, its worst ratio to the limit) over the elements.
+    f32: 5e-5 (the JAX package's bound). bf16: one ulp of each element,
+    |want| * 2**-7 (ulp(x) <= |x| * 2**-7), + 1e-5: both compute in fp32
+    (they agree within 1e-6 in f32) and round once to bf16, so they differ
+    by at most one rounding step of the element itself."""
+    err = (got.float() - want.float()).abs()
+    lim = 5e-5 if dtype == torch.float32 \
+        else want.float().abs() * 2.0 ** -7 + 1e-5
+    return float(err.max()), float((err / lim).max())
+
+
+def main_path_qkv(gen, b, s, dev):
+    """q, k, v as attention.py hands them to the kernel: bf16 [B, 16, S,
+    128] views of [B, S, 16, 128] tensors (DeepSeekMoE-16B's heads)."""
+    return tuple(torch.randn(b, s, 16, 128, generator=gen, device=dev)
+                 .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+
+
+def check_flash(dev):
+    """flash_attention against its plain version: S in {200 (ragged), 256,
+    512, 4096}, D in {64, 128}, causal / window 128 / non-causal, f32 and
+    bf16 (limits in ``flash_err``); then the main path's two prefill
+    shapes in its own layout (``main_path_qkv``), causal, window 0."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    cases = []
+    for s in (200, 256, 512, 4096):
+        b, h = (2, 4) if s <= 512 else (1, 2)
+        for d in (64, 128):
+            for dtype in (torch.float32, torch.bfloat16):
+                qkv = tuple(torch.randn(b, h, s, d, generator=gen,
+                                        device=dev).to(dtype)
+                            for _ in range(3))
+                cases += [("", qkv, causal, window) for causal, window in
+                          ((True, 0), (True, 128), (False, 0))]
+    for b, s in ((4, 512), (1, 4096)):
+        cases.append(("main-path strided", main_path_qkv(gen, b, s, dev),
+                      True, 0))
+    worst = 0.0
+    for tag, (q, k, v), causal, window in cases:
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err, ratio = flash_err(got, want, q.dtype)
+        print(f"  check flash_attention {list(q.shape)} {str(q.dtype)[6:]:8s}"
+              f" causal={causal:d} window={window:3d} max_abs_err={err:.3e}"
+              f" worst_err/limit={ratio:.3f} {tag}")
+        if got.dtype != q.dtype or got.shape != q.shape or not ratio <= 1.0:
+            fail("flash_attention disagrees with its plain version")
+        worst = max(worst, err)
+    return worst
+
+
+def router_rows(gen, t, e, dev, dtype):
+    """Normal logits; every third row has an exact tie across the top
+    (half the experts at 6.0), every fifth row rounded logits (ties inside
+    the top-k). Returns (logits, mask of tie rows)."""
+    x = torch.randn(t, e, generator=gen, device=dev)
+    x[::3, : e // 2] = 6.0
+    x[1::5] = torch.round(x[1::5])
+    ties = torch.zeros(t, dtype=torch.bool, device=dev)
+    ties[::3] = True
+    ties[1::5] = True
+    return x.to(dtype), ties
+
+
+def check_router(dev):
+    """moe_router against its plain version: T in {4, 1000, 2048, 4096},
+    (E, k) in {(64, 6), (16, 2)}, f32 and bf16 logits. Indices must be
+    equal, except that on a row of random logits two experts whose fp32
+    probabilities round to within 1e-6 may swap (the two softmaxes sum in
+    another order); the gates of such a swap still agree. Rows with exact
+    ties must match exactly. Gates within 1e-6."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    worst, swaps = 0.0, 0
+    for t in (4, 1000, 2048, 4096):
+        for e, k in ((64, 6), (16, 2)):
+            for dtype in (torch.float32, torch.bfloat16):
+                x, ties = router_rows(gen, t, e, dev, dtype)
+                gates, idx = ops.moe_router_topk(x, k)
+                wgates, widx = ref.moe_router_topk_ref(x, k)
+                torch.cuda.synchronize()
+                err = float((gates - wgates).abs().max())
+                bad = (idx != widx).any(dim=1)
+                print(f"  check moe_router T={t:4d} E={e:2d} k={k} "
+                      f"{str(dtype)[6:]:8s} gate_max_abs_err={err:.3e} "
+                      f"tol=1.0e-06 idx_rows_differ={int(bad.sum())}")
+                if idx.dtype != torch.int32 or not err <= 1e-6 \
+                        or bool((bad & ties).any()):
+                    fail("moe_router disagrees with its plain version")
+                swaps += int(bad.sum())
+                worst = max(worst, err)
+    if swaps > 2:
+        fail(f"moe_router: {swaps} rows with swapped indices")
+    return worst
+
+
+def flash_bound(b, h, s, d, itemsize, causal=True):
+    """(bound_ms, bound_by): q, k, v read and out written once, against
+    4*D flops per visible (q, k) pair at the bf16 tensor-core peak (bf16
+    inputs) or the fp32 CUDA-core peak."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    nbytes = 4 * b * h * s * d * itemsize
+    flops = 4 * b * h * pairs * d
+    peak = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def router_bound(t, e, k, itemsize):
+    """Logits read once, gates and indices written once, against the
+    softmax's 3 and the k rounds' k fp32 operations per logit."""
+    nbytes = t * e * itemsize + t * k * 8
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, t * e * (3 + k) / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def time_serving_kernels(dev):
+    """Flash attention at the prefill shapes and layout
+    (``main_path_qkv``: [4, 16, 512, 128] and [1, 16, 4096, 128], bf16,
+    causal) and the router at T = 2048 (prefill
+    B=4 x S=512), 4096 and 4 (a decode step), E = 64, k = 6, f32 logits.
+    Returns the rows of the first shape of each."""
+    from repro_torch.kernels import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    out = {}
+    for b, s in ((4, 512), (1, 4096)):
+        q, k, v = main_path_qkv(gen, b, s, dev)
+        calls = 50 if s <= 512 else 5
+        ms = device_ms(lambda: ops.flash_attention(q, k, v), calls)
+        plain_ms = device_ms(lambda: ref.flash_attention_ref(q, k, v),
+                             calls)
+        lib_ms = device_ms(lambda: sdpa(q, k, v, is_causal=True), calls)
+        b_ms, b_by = flash_bound(b, 16, s, 128, 2)
+        print(f"  time flash_attention [{b},16,{s},128] bf16 strided causal "
+              f"kernel={ms * 1e3:.2f}us plain={plain_ms * 1e3:.2f}us "
+              f"library(sdpa)={lib_ms * 1e3:.2f}us bound={b_ms * 1e3:.2f}us "
+              f"({b_by})")
+        out.setdefault("flash_attention", {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by})
+    for t in (2048, 4096, 4):
+        x = torch.randn(t, 64, generator=gen, device=dev)
+        ms = device_ms(lambda: ops.moe_router_topk(x, 6))
+        plain_ms = device_ms(lambda: ref.moe_router_topk_ref(x, 6))
+        b_ms, b_by = router_bound(t, 64, 6, 4)
+        print(f"  time moe_router T={t:4d} E=64 k=6 f32 kernel="
+              f"{ms * 1e3:.2f}us plain={plain_ms * 1e3:.2f}us library=- "
+              f"bound={b_ms * 1e3:.3f}us ({b_by})")
+        out.setdefault("moe_router", {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by})
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: end to end
+# Phase 4: DeFTA end to end
 # ---------------------------------------------------------------------------
 
 class MovedDraws:
@@ -356,6 +541,142 @@ def end_to_end():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: serving end to end
+# ---------------------------------------------------------------------------
+
+def n_params(tree) -> int:
+    return sum(n_params(v) if isinstance(v, dict) else v.numel()
+               for v in tree.values())
+
+
+def to_device(tree, dev):
+    return {k: to_device(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def wall_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def serve_full(dev):
+    """DeepSeekMoE-16B at full width and depth: init, two prefill shapes,
+    the serve loop; returns the serving kernels' launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import model
+
+    cfg = get_config("deepseek-moe-16b")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params, init_ms = wall_ms(lambda: model.init_params(gen, cfg))
+    n = n_params(params)
+    print(f"  deepseek-moe-16b: {n} parameters ({cfg.dtype}), init "
+          f"{init_ms / 1e3:.2f}s, peak memory after init "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    if n != n_params(model.abstract_params(cfg)):
+        fail(f"parameter count {n}")
+    prefill = build_prefill_step(cfg)
+    shapes = ((4, 512), (1, 4096))
+    batches = {bs: {"tokens": torch.randint(0, cfg.vocab_size, bs,
+                                            generator=gen, device=dev)}
+               for bs in shapes}
+    prompts = torch.randint(0, cfg.vocab_size, (4, 32), generator=gen,
+                            device=dev)
+    for bs in shapes:                                # warm-up, not counted
+        prefill(params, batches[bs])
+    serve.generate(params, cfg, prompts[:, :2], 2)
+
+    ops.reset_launches()
+    for bs in shapes:
+        times = []
+        for _ in range(3):
+            before = dict(ops.LAUNCHES)
+            logits, ms = wall_ms(lambda: prefill(params, batches[bs]))
+            times.append(ms)
+            delta = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+            want = {k: 0 for k in ops.LAUNCHES}
+            want.update(flash_attention=28, moe_router=27)
+            if delta != want:
+                fail(f"prefill {bs}: launches {delta}, expected {want}")
+            if tuple(logits.shape) != bs + (cfg.vocab_size,) \
+                    or not bool(torch.isfinite(logits).all()):
+                fail(f"prefill {bs}: logits {tuple(logits.shape)} not "
+                     f"finite or of the wrong shape")
+            del logits
+        print(f"  prefill B={bs[0]} S={bs[1]}: wall_ms="
+              f"{[round(x, 2) for x in times]} launches per call: 28 flash, "
+              f"27 router")
+    before = dict(ops.LAUNCHES)
+    tokens, st = serve.generate(params, cfg, prompts, 32)
+    delta = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+    steps = 32 + 32                  # prompt steps + new tokens
+    want = {k: 0 for k in ops.LAUNCHES}
+    want["moe_router"] = 27 * steps
+    if delta != want:
+        fail(f"serve loop: launches {delta}, expected {want}")
+    if tuple(tokens.shape) != (4, 32) or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= cfg.vocab_size:
+        fail("serve loop: bad tokens")
+    print(f"  serve batch=4 prompt=32 new=32 greedy: prefill "
+          f"{st['prefill_s']:.3f}s, decode {st['decode_s']:.3f}s, "
+          f"{st['tok_per_s']:.1f} tok/s, {st['decode_s'] / 32 * 1e3:.2f} "
+          f"ms/step; launches {delta}")
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    counts = {k: ops.LAUNCHES[k] for k in SERVING}
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_reduced_card_vs_cpu(dev):
+    """A reduced DeepSeekMoE (f32) from one set of parameters on the card
+    (kernels) and on the CPU (plain versions): prefill logits within 1e-4
+    (summation order: cuBLAS vs CPU GEMMs, flash vs full softmax), equal
+    greedy tokens, and on the card teacher-forced decode equal to the
+    prefill within 2e-3 (tests/test_arch_smoke.py's bound)."""
+    from repro_torch.config import reduced
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_decode_step, \
+        build_prefill_step
+    from repro_torch.models import model
+
+    cfg = reduced(get_config("deepseek-moe-16b"))
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    cpu_params = model.init_params(gen, cfg)
+    card_params = to_device(cpu_params, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 24), generator=gen)
+    prefill = build_prefill_step(cfg)
+    a = prefill(card_params, {"tokens": tokens.to(dev)}).cpu()
+    b = prefill(cpu_params, {"tokens": tokens})
+    err = float((a - b).abs().max())
+    ga, _ = serve.generate(card_params, cfg, tokens[:, :8].to(dev), 12)
+    gb, _ = serve.generate(cpu_params, cfg, tokens[:, :8], 12)
+    same = bool(torch.equal(ga.cpu(), gb))
+    full = build_prefill_step(cfg, moe_strategy="dense")(
+        card_params, {"tokens": tokens.to(dev)})
+    decode = build_decode_step(cfg)
+    cache = model.init_cache(cfg, 3, 24, device=dev)
+    tf_err = 0.0
+    for t in range(24):
+        lg, cache = decode(card_params, tokens[:, t:t + 1].to(dev), cache, t)
+        tf_err = max(tf_err, float((lg[:, 0] - full[:, t]).abs().max()))
+    print(f"  reduced deepseek f32 card-vs-cpu: max|logit diff|={err:.3e} "
+          f"(tol 1e-4), greedy tokens equal={same}; teacher-forced decode "
+          f"vs prefill on the card max diff={tf_err:.3e} (tol 2e-3)")
+    if not (err <= 1e-4 and same and tf_err < 2e-3):
+        fail("reduced DeepSeekMoE: card and CPU disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -381,14 +702,21 @@ def main() -> int:
 
     print("[2] kernels vs plain versions", flush=True)
     max_err = check_kernels(dev)
+    max_err["flash_attention"] = check_flash(dev)
+    max_err["moe_router"] = check_router(dev)
 
     print("[3] timings", flush=True)
     main_t = time_kernels(dev, "main", 22, 4, 2048)
     time_kernels(dev, "w500", 500, 24, 4096)
+    main_t.update(time_serving_kernels(dev))
 
-    print("[4] end to end", flush=True)
+    print("[4] DeFTA end to end", flush=True)
     card_vs_cpu()
     launches = end_to_end()
+
+    print("[5] serving end to end", flush=True)
+    launches.update(serve_full(dev))
+    serve_reduced_card_vs_cpu(dev)
 
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],

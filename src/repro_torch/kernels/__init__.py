@@ -1,3 +1,4 @@
-"""The gossip-mix kernels: CUDA C++ for ``sm_90a`` (``csrc/``, built by
-``build``), their wrappers with launch counters (``ops``) and their plain
-PyTorch versions (``ref``)."""
+"""The port's kernels (three gossip mixes, flash attention, the MoE
+router): CUDA C++ for ``sm_90a`` (``csrc/``, built by ``build``), their
+wrappers with launch counters (``ops``) and their plain PyTorch versions
+(``ref``)."""

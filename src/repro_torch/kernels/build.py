@@ -21,7 +21,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-KERNELS = ("gossip_mix", "gossip_mix_sparse", "gossip_mix_quant")
+KERNELS = ("gossip_mix", "gossip_mix_sparse", "gossip_mix_quant",
+           "flash_attention", "moe_router")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600
@@ -35,6 +36,10 @@ SIGNATURES = {
                           (_P, _P, _P, _P, _I, _I, _L, _I, _P)),
     "gossip_mix_quant": ("gossip_mix_quant_launch",
                          (_P, _P, _P, _P, _P, _I, _I, _L, _P)),
+    "flash_attention": ("flash_attention_launch",
+                        (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L,
+                         _L, _I, _I, _I, _P)),
+    "moe_router": ("moe_router_launch", (_P, _P, _P, _I, _I, _I, _I, _P)),
 }
 
 _loaded: dict = {}

@@ -1,12 +1,12 @@
-"""Wrappers of the three gossip-mix kernels.
+"""Wrappers of the port's kernels: the three gossip mixes, flash attention
+and the MoE router.
 
-Each wrapper checks device, dtype, shape and contiguity, then runs the
-plain PyTorch version (``ref``) when the tensors lie on the CPU and the
-CUDA kernel (``csrc/``, built by ``build``) when they lie on the card. On
-the card it launches the kernel or raises; it never falls back. Every
-output is a fresh float32 [W, F] tensor. ``LAUNCHES[name]`` counts kernel
-launches (never plain-version calls), so a run can show that it went
-through the kernels.
+Each wrapper checks device, dtype, shape and layout, then runs the plain
+PyTorch version (``ref``) when the tensors lie on the CPU and the CUDA
+kernel (``csrc/``, built by ``build``) when they lie on the card. On the
+card it launches the kernel or raises; it never falls back. Every output
+is a fresh tensor. ``LAUNCHES[name]`` counts kernel launches (never
+plain-version calls), so a run can show that it went through the kernels.
 
 The padded-CSR ``idx`` must lie in [0, W) (``core.gossip.sparse_weights``
 builds it so). It is not checked on the card, where a check would cost a
@@ -113,3 +113,85 @@ def gossip_mix_quant(idx, val, scale, q):
         return out
     return _launch("gossip_mix_quant", out, idx.data_ptr(), val.data_ptr(),
                    scale.data_ptr(), q.data_ptr(), out.data_ptr(), n, k, f)
+
+
+FLASH_HEAD_DIMS = (32, 64, 128)
+ROUTER_MAX_EXPERTS, ROUTER_MAX_K = 512, 32
+
+
+def _used_strides(t):
+    """(dim, stride) of every dim above size 1 (a size-1 dim's stride is
+    never used)."""
+    return [(i, t.stride(i)) for i in range(t.dim()) if t.shape[i] > 1]
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Attention with scale 1/sqrt(D) over q, k, v [B, H, S, D] of one
+    shape and dtype (f32 or bf16), D in ``FLASH_HEAD_DIMS``. ``causal``
+    hides keys after the query, ``window > 0`` keys at or before
+    ``q - window``. On the card q, k and v must share their strides, with
+    D contiguous (a [B, S, H, D] tensor's ``transpose(1, 2)`` is taken as
+    it is); the output has q's dtype and q's layout (``empty_like``)."""
+    if q.dim() != 4:
+        raise ValueError(f"q: expected [B, H, S, D], got {tuple(q.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention: dtype {q.dtype} not in "
+                        f"[torch.float32, torch.bfloat16]")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected {q.dtype}")
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(q.shape)}")
+    b, h, s, d = q.shape
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in "
+                         f"{FLASH_HEAD_DIMS}")
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+    if q.stride(-1) != 1 or _used_strides(k) != _used_strides(q) \
+            or _used_strides(v) != _used_strides(q):
+        raise ValueError("flash_attention: q, k and v must share their "
+                         "strides, with the head dim contiguous")
+    if not _on_card(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if b * h > 65535:
+        raise ValueError(f"flash_attention: B*H = {b * h} > 65535")
+    # the kernel copies rows of D elements in 4-byte words
+    if any(t.data_ptr() % 16 for t in (q, k, v)) or any(
+            st * q.element_size() % 4 for i, st in _used_strides(q) if i < 3):
+        raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
+                         "with rows on 4-byte boundaries")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    return _launch("flash_attention", out, q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), out.data_ptr(), b * h, h, s, d,
+                   *q.stride()[:3], *out.stride()[:3], int(causal),
+                   int(window), _DTYPE_CODE[q.dtype])
+
+
+def moe_router_topk(logits, k: int):
+    """Fused softmax + top-k routing: logits [T, E] f32 or bf16 ->
+    (gates [T, k] f32, idx [T, k] int32). The k largest softmax
+    probabilities in descending order, the lower expert index first on a
+    tie, renormalized by their sum + 1e-9. E <= 512, 1 <= k <= min(E,
+    32)."""
+    if logits.dim() != 2:
+        raise ValueError(f"logits: expected [T, E], got "
+                         f"{tuple(logits.shape)}")
+    t, e = logits.shape
+    _check("logits", logits, (torch.float32, torch.bfloat16), (t, e))
+    if e > ROUTER_MAX_EXPERTS or not 1 <= k <= min(e, ROUTER_MAX_K):
+        raise ValueError(f"moe_router_topk: E = {e}, k = {k}; need E <= "
+                         f"{ROUTER_MAX_EXPERTS} and 1 <= k <= "
+                         f"min(E, {ROUTER_MAX_K})")
+    if not _on_card(logits):
+        return ref.moe_router_topk_ref(logits, k)
+    gates = torch.empty((t, k), dtype=torch.float32, device=logits.device)
+    idx = torch.empty((t, k), dtype=torch.int32, device=logits.device)
+    if t == 0:
+        return gates, idx
+    _launch("moe_router", gates, logits.data_ptr(), gates.data_ptr(),
+            idx.data_ptr(), t, e, k, _DTYPE_CODE[logits.dtype])
+    return gates, idx

@@ -1,8 +1,12 @@
-"""Plain PyTorch versions of the three gossip-mix kernels (the contracts of
+"""Plain PyTorch versions of the port's kernels (the contracts of
 ``repro.kernels.ref``). The wrappers in ``ops`` run these for CPU tensors;
-``chip_smoke.py`` holds each CUDA kernel against them on the card. Every
-output is float32 (the mix accumulates in fp32 whatever the payload)."""
+``chip_smoke.py`` holds each CUDA kernel against them on the card. The
+gossip mixes return float32 (they accumulate in fp32 whatever the
+payload); attention returns q's dtype; the router fp32 gates and int32
+indices."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -25,3 +29,37 @@ def gossip_mix_quant_ref(idx, val, scale, q):
     q[idx[i, k]]."""
     deq = q.float() * scale.float().reshape(-1, 1)            # [W, F]
     return torch.einsum("wk,wkf->wf", val.float(), deq[idx.long()])
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """q, k, v: [B, H, S, D] (same S). Full-matrix attention with scale
+    1/sqrt(D), computed in fp32 and returned in q's dtype. Keys at
+    ``k > q`` are masked when ``causal``, keys at ``k <= q - window`` when
+    ``window > 0``."""
+    s, d = q.shape[2], q.shape[3]
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    scores = scores / math.sqrt(d)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+def moe_router_topk_ref(logits, k: int):
+    """logits: [T, E] -> (gates [T, k] fp32, idx [T, k] int32): the fp32
+    softmax (exp(x - max) / sum), its k largest entries in descending order
+    with the lower expert index first on a tie (a stable sort; torch.topk
+    promises no tie order), renormalized by their sum + 1e-9."""
+    x = logits.float()
+    ex = torch.exp(x - x.max(dim=-1, keepdim=True).values)
+    probs = ex / ex.sum(dim=-1, keepdim=True)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :k], idx[:, :k]
+    gates = vals / (vals.sum(dim=-1, keepdim=True) + 1e-9)
+    return gates, idx.to(torch.int32)

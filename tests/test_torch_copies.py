@@ -1,7 +1,8 @@
 """The port's copies of the reference's numpy-only modules stay equal to the
-originals, its configs keep the reference's fields and defaults, and the
-port stands alone: it imports neither ``jax`` nor any ``repro`` module and
-runs on the CPU only when asked to."""
+originals, its configs (run configs, model config classes, ``reduced`` and
+the architecture files) keep the reference's fields, defaults and values,
+and the port stands alone: it imports neither ``jax`` nor any ``repro``
+module and runs on the CPU only when asked to."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,12 +17,13 @@ import pytest
 import torch
 
 import repro.config as jconfig
+import repro.configs as jconfigs
 from repro.core import topology as jtopology
 from repro.data import partition as jpartition
 from repro.data import synthetic as jsynthetic
 from repro.telemetry.ledger import RunLedger as JRunLedger
 
-from repro_torch import config, device as tdevice
+from repro_torch import config, configs, device as tdevice
 from repro_torch.core import topology
 from repro_torch.data import partition, synthetic
 from repro_torch.telemetry import RunLedger
@@ -80,7 +82,8 @@ def test_run_ledger_copy_equal():
     assert a.rounds_done == b.rounds_done == 5
 
 
-@pytest.mark.parametrize("name", ["DeFTAConfig", "TrainConfig"])
+@pytest.mark.parametrize("name", ["DeFTAConfig", "TrainConfig", "MoEConfig",
+                                  "SSMConfig", "ModelConfig"])
 def test_config_fields_and_defaults_equal(name):
     ours = dataclasses.fields(getattr(config, name))
     theirs = dataclasses.fields(getattr(jconfig, name))
@@ -88,9 +91,45 @@ def test_config_fields_and_defaults_equal(name):
         [(f.name, f.default) for f in theirs]
 
 
+def test_block_kinds_equal():
+    for kind in ("ATTN_DENSE", "ATTN_MOE", "MAMBA", "MAMBA_MOE"):
+        assert getattr(config, kind) == getattr(jconfig, kind)
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_arch_configs_equal(arch):
+    """Each architecture file is the reference's with only its import
+    redirected; the configs, their reduced variants, schedules and
+    parameter counts are equal."""
+    name = jconfigs._modname(arch) + ".py"
+    ours = (ROOT / "src" / "repro_torch" / "configs" / name).read_text()
+    theirs = (ROOT / "src" / "repro" / "configs" / name).read_text()
+    assert ours == theirs.replace("from repro.config import",
+                                  "from repro_torch.config import")
+    a, b = configs.get_config(arch), jconfigs.get_config(arch)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    for kw in ({}, {"num_layers": 3, "d_model": 128, "max_experts": 8}):
+        ra, rb = config.reduced(a, **kw), jconfig.reduced(b, **kw)
+        assert dataclasses.asdict(ra) == dataclasses.asdict(rb)
+        assert ra.block_schedule() == rb.block_schedule()
+    assert a.block_schedule() == b.block_schedule()
+    assert a.param_count() == b.param_count()
+    assert a.param_count(active_only=True) == \
+        b.param_count(active_only=True)
+
+
+def test_arch_registry_equal():
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert configs.get_config("qwen2-5-32b") == \
+        configs.get_config("qwen2.5-32b")
+    with pytest.raises(KeyError):
+        configs.get_config("no-such-arch")
+
+
 def test_port_runs_without_jax_or_repro():
-    """A fresh interpreter imports the port and runs a tiny CPU run_defta;
-    neither jax nor any repro module may be loaded afterwards."""
+    """A fresh interpreter imports the port, runs a tiny CPU run_defta and
+    serves a reduced DeepSeekMoE on the CPU; neither jax nor any repro
+    module may be loaded afterwards."""
     code = """
 import sys
 import numpy as np
@@ -105,6 +144,11 @@ cfg = DeFTAConfig(num_workers=4, avg_peers=2, num_sampled=1,
 st, *_ = run_defta(0, mlp_task(32, 10), cfg, TrainConfig(batch_size=16),
                    data, epochs=2, num_malicious=1, device="cpu")
 assert st.epoch.tolist() == [2] * 5
+from repro_torch.launch import serve
+tokens, _ = serve.main(["--arch", "deepseek-moe-16b", "--smoke", "--device",
+                        "cpu", "--batch", "2", "--prompt-len", "4",
+                        "--max-new", "3"])
+assert tuple(tokens.shape) == (2, 3)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
 print("LOADED", bad)
@@ -118,7 +162,7 @@ print("LOADED", bad)
 
 def test_port_sources_import_no_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py"]
+        + [ROOT / "chip_smoke.py", ROOT / "benchmarks" / "port_profile.py"]
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)"
                          r"|from\s+(jax|repro)(\.|\s))", re.M)
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}" for f in files
@@ -142,3 +186,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
         run_defta(0, mlp_task(32, 10), config.DeFTAConfig(num_workers=4),
                   config.TrainConfig(), data, epochs=1)
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "deepseek-moe-16b", "--smoke"])
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    cfg = config.reduced(get_config("deepseek-moe-16b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(cfg, 1, 4)
+    assert model.init_cache(cfg, 1, 4, device="cpu")["prefix"]["0"][
+        "k"].device == torch.device("cpu")

@@ -1,14 +1,18 @@
-"""The port's three gossip-mix ops on the CPU (their plain versions, reached
-through the ``repro_torch.kernels.ops`` wrappers) against the JAX package's
-``ops.*`` Pallas kernels in interpret mode and its ``ref.*`` oracles, plus
-the int8 wire encode and ``mix_pytree`` across backends and wires.
+"""The port's kernel ops on the CPU (their plain versions, reached through
+the ``repro_torch.kernels.ops`` wrappers) against the JAX package's
+``ops.*`` Pallas kernels in interpret mode and its ``ref.*`` oracles: the
+three gossip mixes, plus the int8 wire encode and ``mix_pytree`` across
+backends and wires, flash attention and the MoE router.
 
 Inputs come from numpy with a seed. W in {4, 13}, ragged F (not a multiple
 of any block size) and topologies whose rows have unequal degree, so the
 padded-CSR support has pad slots. Tolerances: fp32 results at rtol = atol
 = 1e-6 (summation order only); bf16 payloads are rounded once from the
 same fp32 values on both sides (both round to nearest even) and compared
-in fp32 at the same tolerance; int8 q and scale are bit-equal.
+in fp32 at the same tolerance; int8 q and scale are bit-equal. Flash
+attention at atol 5e-5 in fp32 (the JAX package's own bound; 3e-2 for bf16
+outputs, one bf16 rounding of values below 4); the router's indices equal,
+its gates within atol 1e-6.
 """
 from __future__ import annotations
 
@@ -217,3 +221,146 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     with pytest.raises(ValueError):
         ops.gossip_mix(torch.tensor(P), torch.tensor(x).t().contiguous()
                        .t())
+
+
+# ---------------------------------------------------------------------------
+# Flash attention and the MoE router
+# ---------------------------------------------------------------------------
+
+def qkv(shape, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("b,h,s,d", [(2, 4, 256, 64), (1, 2, 128, 32),
+                                     (1, 2, 200, 128)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 128),
+                                           (False, 0)])
+def test_flash_attention_matches_jax(b, h, s, d, causal, window):
+    """The shapes of the JAX package's kernel tests, S <= 256. At S = 200
+    (not a block multiple) without the causal mask the JAX wrapper's
+    zero-padded keys enter the softmax (repro/kernels/ops.py:89-91), so
+    that case is held against the JAX oracle only; the port masks
+    ``kpos < S`` instead of padding."""
+    q, k, v = qkv((b, h, s, d), b + h + s + d)
+    got = ops.flash_attention(*map(torch.tensor, (q, k, v)), causal=causal,
+                              window=window)
+    want = jref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
+    if causal or s % 128 == 0:
+        kern = jops.flash_attention(q, k, v, causal=causal, window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(kern), atol=5e-5)
+
+
+def test_flash_attention_bf16_and_strided_layout():
+    q, k, v = qkv((1, 2, 256, 64), 7)
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    tq, tk, tv = (torch.tensor(x).to(torch.bfloat16) for x in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    want = jops.flash_attention(jq, jk, jv)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=3e-2)
+    # a [B, S, H, D] tensor read through its transposed view
+    f = [torch.tensor(x).transpose(1, 2).contiguous().transpose(1, 2)
+         for x in (q, k, v)]
+    np.testing.assert_allclose(
+        ops.flash_attention(*f, window=32).numpy(),
+        np.asarray(jref.flash_attention_ref(q, k, v, window=32)), atol=5e-5)
+
+
+def router_logits(t, e, seed, ties: bool):
+    """Normal logits; with ``ties``, every third row repeats values (an
+    exact tie at the top and inside the top-k)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(t, e)).astype(np.float32)
+    if ties:
+        x[::3, : e // 2] = 6.0          # above every normal draw
+        x[1::3, ::4] = np.round(x[1::3, ::4])
+    return x
+
+
+@pytest.mark.parametrize("t,e,k", [(64, 8, 2), (100, 64, 6), (512, 384, 8),
+                                   (33, 16, 2), (4, 64, 6)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_moe_router_topk_matches_jax(t, e, k, ties):
+    x = router_logits(t, e, t + e, ties)
+    gates, idx = ops.moe_router_topk(torch.tensor(x), k)
+    assert gates.dtype == torch.float32 and idx.dtype == torch.int32
+    for jg, ji in (jops.moe_router_topk(jnp.asarray(x), k),
+                   jref.moe_router_topk_ref(jnp.asarray(x), k)):
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(gates.numpy(), np.asarray(jg), rtol=0,
+                                   atol=1e-6)
+    if ties:                    # the lower index first on an exact tie
+        np.testing.assert_array_equal(idx.numpy()[0, :k], np.arange(k))
+    gates_bf, idx_bf = ops.moe_router_topk(
+        torch.tensor(x).to(torch.bfloat16), k)
+    want_g, want_i = ref.moe_router_topk_ref(
+        torch.tensor(x).to(torch.bfloat16).float(), k)
+    torch.testing.assert_close(idx_bf, want_i, rtol=0, atol=0)
+    torch.testing.assert_close(gates_bf, want_g, rtol=0, atol=0)
+
+
+def test_new_wrappers_check_inputs_and_count_only_kernel_launches():
+    q, k, v = (torch.tensor(x) for x in qkv((1, 2, 16, 32), 0))
+    logits = torch.tensor(router_logits(8, 16, 0, False))
+    before = dict(ops.LAUNCHES)
+    ops.flash_attention(q, k, v)
+    ops.moe_router_topk(logits, 2)
+    assert ops.LAUNCHES == before            # plain versions: no launches
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q[..., :16], k[..., :16], v[..., :16])
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k.double(), v)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="strides"):
+        ops.flash_attention(q, k.transpose(1, 2).contiguous().transpose(
+            1, 2), v)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[0], k[0], v[0])
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, window=-1)
+    with pytest.raises(ValueError):
+        ops.moe_router_topk(logits, 17)                   # k > E
+    with pytest.raises(ValueError):
+        ops.moe_router_topk(torch.zeros(4, 513), 2)       # E > 512
+    with pytest.raises(ValueError):
+        ops.moe_router_topk(torch.zeros(4, 64), 33)       # k > 32
+    with pytest.raises(TypeError):
+        ops.moe_router_topk(logits.double(), 2)
+    with pytest.raises(ValueError):
+        ops.moe_router_topk(logits.t(), 2)                # not contiguous
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_side_checks_and_launch_arguments(monkeypatch, dtype):
+    """The wrappers' card-side branch, driven on the CPU with the launch
+    stubbed: the C entry receives B*H, H, S, D, q's and out's (b, h, s)
+    element strides of a [B, S, H, D] tensor read through its transposed
+    view, the mask flags and the dtype code; misaligned input is refused
+    before any launch."""
+    calls = []
+    monkeypatch.setattr(ops, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(ops, "_launch",
+                        lambda name, out, *args: calls.append(
+                            (name, args)) or out)
+    b, s, h, d = 2, 40, 3, 64
+    q, k, v = (torch.zeros(b, s, h, d, dtype=dtype).transpose(1, 2)
+               for _ in range(3))
+    out = ops.flash_attention(q, k, v, causal=False, window=7)
+    assert out.shape == q.shape and out.stride() == q.stride()
+    name, args = calls.pop()
+    assert name == "flash_attention"
+    assert args[4:] == (b * h, h, s, d, s * h * d, d, h * d, s * h * d, d,
+                        h * d, 0, 7, ops._DTYPE_CODE[dtype])
+    gates, idx = ops.moe_router_topk(torch.zeros(5, 64, dtype=dtype), 6)
+    assert gates.shape == idx.shape == (5, 6) and idx.dtype == torch.int32
+    name, args = calls.pop()
+    assert name == "moe_router" and args[3:] == (5, 64, 6,
+                                                 ops._DTYPE_CODE[dtype])
+    odd = torch.zeros(b * h * s * d + 1, dtype=dtype)[1:].view(b, h, s, d)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(odd, odd, odd)
+    assert calls == []
