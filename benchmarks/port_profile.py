@@ -6,11 +6,12 @@
 ``defta`` (the default) runs the Table 2 worlds of ``chip_smoke.py`` (MLP
 fp32 ``auto``, MLP int8 + EF21 ``auto``, CNN fp32 ``auto``; 20 workers + 2
 noise attackers) through ``repro_torch.core.defta.run_defta`` after a
-warm-up epoch, per epoch. ``serve`` draws DeepSeekMoE-16B at full size on
-the card (random weights, seed 0) and runs, after a warm-up, two
-``build_prefill_step`` calls at B=4, S=512, two at B=1, S=4096, and 8
+warm-up epoch, per epoch. ``serve`` draws each served model at full size
+on the card in turn (random weights, seed 0) and runs, after a warm-up,
+two ``build_prefill_step`` calls at each of its two prefill shapes and 8
 decode steps of the serve loop (batch 4, after a 32-token prompt), per call
-or step.
+or step: DeepSeekMoE-16B at B=4, S=512 and B=1, S=4096; Mamba2-780M at
+B=4, S=2048 and B=1, S=16384.
 
 Each window runs under ``torch.profiler`` and prints: the wall ms
 (synchronized; the profiler's own host overhead is in it), the kernels'
@@ -47,9 +48,12 @@ STAGES = ("split_draws", "scenario_view", "peer_sample", "transport",
 FAMILIES = (("gossip_mix", ("mix_kernel",)),
             ("flash_attention", ("flash_kernel",)),
             ("moe_router", ("router_kernel",)),
+            ("ssd_chunk", ("ssd_chunk_kernel",)),
             ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas",
                       "sm90_")))
-SERVE_ARCH, PROMPT, DECODE_STEPS = "deepseek-moe-16b", 32, 8
+SERVE_MODELS = (("deepseek-moe-16b", ((4, 512), (1, 4096))),
+                ("mamba2-780m", ((4, 2048), (1, 16384))))
+PROMPT, DECODE_STEPS = 32, 8
 
 
 def family(name: str) -> str:
@@ -144,30 +148,34 @@ def profile_serve(out):
     from repro_torch.launch.steps import build_decode_step, build_prefill_step
     from repro_torch.models import model
 
-    cfg = get_config(SERVE_ARCH)
     dev = resolve_device(None)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    params = model.init_params(gen, cfg)
-    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
-    for b, s in ((4, 512), (1, 4096)):
-        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
-                                         generator=gen, device=dev)}
-        prefill(params, batch)                           # warm-up
-        profile_window(f"{SERVE_ARCH} prefill B={b} S={s}",
-                       lambda: repeat(lambda: prefill(params, batch), 2), 2,
-                       "call", out)
-    total = PROMPT + 2 * DECODE_STEPS
-    cache = model.init_cache(cfg, 4, total)
-    tokens = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen,
-                           device=dev)
-    pos = iter(range(total))
-    step = lambda: decode(params, tokens, cache, next(pos))  # noqa: E731
-    repeat(step, PROMPT + DECODE_STEPS)       # the prompt, then a warm-up
-    profile_window(f"{SERVE_ARCH} decode batch=4 (positions "
-                   f"{PROMPT + DECODE_STEPS}..{total - 1})",
-                   lambda: repeat(step, DECODE_STEPS), DECODE_STEPS, "step",
-                   out)
+    for arch, shapes in SERVE_MODELS:
+        cfg = get_config(arch)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = model.init_params(gen, cfg)
+        prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
+        for b, s in shapes:
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                             generator=gen, device=dev)}
+            prefill(params, batch)                       # warm-up
+            profile_window(f"{arch} prefill B={b} S={s}",
+                           lambda: repeat(lambda: prefill(params, batch), 2),
+                           2, "call", out)
+            del batch
+        total = PROMPT + 2 * DECODE_STEPS
+        cache = model.init_cache(cfg, 4, total)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen,
+                               device=dev)
+        pos = iter(range(total))
+        step = lambda: decode(params, tokens, cache, next(pos))  # noqa: E731
+        repeat(step, PROMPT + DECODE_STEPS)   # the prompt, then a warm-up
+        profile_window(f"{arch} decode batch=4 (positions "
+                       f"{PROMPT + DECODE_STEPS}..{total - 1})",
+                       lambda: repeat(step, DECODE_STEPS), DECODE_STEPS,
+                       "step", out)
+        del params, cache
+        torch.cuda.empty_cache()
 
 
 def main() -> int:

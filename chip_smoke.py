@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-1. Build: compile the five kernels (three gossip mixes, flash attention,
-   the MoE router) from ``src/repro_torch/kernels/csrc`` (one nvcc per
-   source, in parallel) and print ptxas's register and spill report.
+1. Build: compile the six kernels (three gossip mixes, flash attention,
+   the MoE router, the SSD intra-chunk term) from
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and
+   print ptxas's register and spill report.
 2. Kernels: hold each kernel against its plain PyTorch version on the card.
    Gossip mixes at the main path's leaf shapes, at W=500 / density 0.05 /
    F=4096 and at a ragged F, for every payload type; flash attention at
@@ -13,11 +14,17 @@
    non-causal, and at the main path's two prefill shapes in its layout
    (bf16 views of [B, S, H, D] tensors); the router at T in {4, 1000,
    2048, 4096}, (E, k) in {(64, 6), (16, 2)}, with rows of exact ties;
-   both in f32 and bf16.
+   both in f32 and bf16. ssd_chunk in the main path's layout (x a view of
+   the model's [G, T, H, P] chunks) with the model's decays (A_log =
+   log(1..H), dt = softplus): Mamba2-780M's [G, H, T, N, P] = [32, 48, 256,
+   128, 64] and [64, 48, 256, 128, 64], a ragged T = 200, the Jamba shape
+   (N = 16, H = 128), a reduced shape (N = 16, P = 32, T = 32), H = 12
+   at P = 16, and the main shape with x contiguous; limit 1e-5 * max|y|
+   of each call.
 3. Timings: device time per call (CUDA graphs of back-to-back calls, timed
    with CUDA events) of the kernel, its plain version and, where one
    exists, one PyTorch library call computing the same function, at the
-   main paths' shapes (flash in the main path's layout).
+   main paths' shapes (flash and ssd_chunk in the main path's layout).
 4. DeFTA end to end: the port's ``run_defta`` on the card in the Table 2
    world (20 workers + 2 noise attackers, MLP, 20 epochs) on the fp32 wire
    with ``auto`` (sparse kernel), the int8 + EF21 wire (quant kernel) and
@@ -32,10 +39,20 @@
    B=1, S=4096 (finite logits, wall ms), then the port's serve loop at its
    defaults (batch 4, prompt 32, 32 new tokens, greedy). Launch counts:
    28 flash and 27 router launches per prefill call, 27 router launches
-   per decode step, none of the gossip kernels. A reduced DeepSeekMoE
-   (f32) is also served on the card and on the CPU from the same
-   parameters (logits within 1e-4, equal greedy tokens), and its
+   per decode step, none of the gossip kernels nor ssd_chunk. A reduced
+   DeepSeekMoE (f32) is also served on the card and on the CPU from the
+   same parameters (logits within 1e-4, equal greedy tokens), and its
    teacher-forced decode on the card must match its prefill within 2e-3.
+6. Mamba2-780M at full width and depth (48 layers, bf16, 780,148,992
+   parameters, random weights from a seed) initialised on the card;
+   prefill at B=4, S=2048 and B=1, S=16384 with exactly 48 ssd_chunk
+   launches per call and no other kernel; the serve loop at its defaults
+   with no kernel launch (decode is the plain recurrence); peak memory. A
+   reduced Mamba2 (f32) card vs CPU as in 5, at S = 40, which is not a
+   multiple of its chunk of 32, so the pad path runs on the card.
+7. Jamba at full width cut to one 8-layer period (13,267,656,416
+   parameters, bf16): two prefill calls at B=1, S=4096 with 7 ssd_chunk,
+   1 flash and 4 router launches each and finite logits.
 
 Exits non-zero, before the last line, on any failure or without a card.
 The last lines are the card's name and power limit, one JSON object with
@@ -43,6 +60,7 @@ every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -64,9 +82,12 @@ REPLACES = {
     "gossip_mix_quant": "src/repro/kernels/gossip_mix_quant.py:68",
     "flash_attention": "src/repro/kernels/flash_attention.py:87",
     "moe_router": "src/repro/kernels/moe_router.py:45",
+    "ssd_chunk": "src/repro/kernels/ssd_chunk.py:44",
 }
 GOSSIP = ("gossip_mix", "gossip_mix_sparse", "gossip_mix_quant")
 SERVING = ("flash_attention", "moe_router")
+MAMBA2_PARAMS = 780_148_992             # repro.models.model.abstract_params
+JAMBA_PERIOD_PARAMS = 13_267_656_416    # the same, jamba at num_layers=8
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
 
 
@@ -417,6 +438,104 @@ def time_serving_kernels(dev):
     return out
 
 
+def ssd_inputs(gen, b, s, h, n, p, chunk, dev):
+    """ssd_chunk's arguments as ``models.ssm.ssd_scan`` hands them to the
+    kernel (``ssm.ssd_chunk_inputs``: x a [G, H, T, P] view of the
+    [G, T, H, P] chunks), from the model's decay range: A_log = log(1..H),
+    so A reaches -H, and dt = softplus of a unit normal (dt_bias 0), so
+    acum falls by up to ~33 a step on the last head at H = 48."""
+    from repro_torch.models import ssm
+    x = torch.randn(b, s, h, p, generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen,
+                                                  device=dev))
+    A = torch.log(torch.arange(1, h + 1, dtype=torch.float32, device=dev))
+    B = torch.randn(b, s, n, generator=gen, device=dev)
+    C = torch.randn(b, s, n, generator=gen, device=dev)
+    args, _ = ssm.ssd_chunk_inputs(x, dt, A, B, C, chunk)
+    return args
+
+
+def ssd_bound(g, h, t, n, p):
+    """(bound_ms, bound_by): C, B, acum, dt, x read and y written once
+    (fp32), against 2N flops per causal (q, k) pair for the scores and
+    2P + 4 per pair and head (exp of the difference, two products, w . x)
+    at the fp32 CUDA-core peak."""
+    pairs = t * (t + 1) // 2
+    nbytes = 4 * (2 * g * t * n + 2 * g * h * t + 2 * g * h * t * p)
+    flops = g * pairs * (2 * n + h * (2 * p + 4))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+# (tag, batch, seq, heads, d_state, head_dim, chunk); G = batch * seq / chunk
+SSD_MAIN = ("mamba2-780m B=4 S=2048", 4, 2048, 48, 128, 64, 256)
+SSD_CASES = (SSD_MAIN,
+             ("mamba2-780m B=1 S=16384", 1, 16384, 48, 128, 64, 256),
+             ("ragged T=200", 2, 200, 48, 128, 64, 200),
+             ("jamba", 1, 1024, 128, 16, 64, 256),
+             ("reduced", 2, 64, 16, 16, 32, 32),
+             ("H=12 P=16 N=32 T=100", 2, 100, 12, 32, 16, 100))
+
+
+def check_ssd(dev):
+    """ssd_chunk against its plain version at the main path's shapes and
+    layout (Mamba2-780M at B=4/S=2048 and B=1/S=16384), a ragged T = 200,
+    the Jamba shape, a reduced shape and a last head group of 4 at P = 16,
+    all in the main path's layout, plus the main shape with x contiguous. Limit: 1e-5 * max|y| of the
+    call (both sum in fp32, possibly in another order, and take the
+    exponent of the same fp32 difference). Each check must launch the
+    kernel once."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    worst, worst_ratio = 0.0, 0.0
+    for tag, b, s, h, n, p, chunk in SSD_CASES + (
+            ("main contiguous x",) + SSD_MAIN[1:],):
+        args = ssd_inputs(gen, b, s, h, n, p, chunk, dev)
+        if tag == "main contiguous x":
+            args = args[:4] + (args[4].contiguous(),)
+        launched = ops.LAUNCHES["ssd_chunk"]
+        got = ops.ssd_chunk(*args)
+        want = ref.ssd_chunk_ref(*args)
+        torch.cuda.synchronize()
+        if ops.LAUNCHES["ssd_chunk"] != launched + 1:
+            fail(f"ssd_chunk {tag}: the kernel was not launched")
+        err = float((got - want).abs().max())
+        lim = 1e-5 * float(want.abs().max())
+        print(f"  check ssd_chunk {tag:24s} [G,H,T,N,P]="
+              f"{[args[4].shape[0], h, args[4].shape[2], n, p]} "
+              f"max|y|={float(want.abs().max()):.3e} max_abs_err={err:.3e} "
+              f"err/limit={err / lim:.3f} "
+              f"min(acum)={float(args[2].min()):.1f}")
+        if got.shape != want.shape or got.dtype != torch.float32 \
+                or not bool(torch.isfinite(got).all()) or not err <= lim:
+            fail(f"ssd_chunk {tag} disagrees with its plain version")
+        worst, worst_ratio = max(worst, err), max(worst_ratio, err / lim)
+    print(f"  ssd_chunk worst err/limit {worst_ratio:.3f}")
+    return worst
+
+
+def time_ssd(dev):
+    """ssd_chunk, its plain version and its bound at the main path's shape
+    and layout (``SSD_MAIN``: [32, 48, 256, 128, 64]); no single PyTorch
+    call computes this function."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    _, b, s, h, n, p, chunk = SSD_MAIN
+    args = ssd_inputs(gen, b, s, h, n, p, chunk, dev)
+    g, t = args[4].shape[0], args[4].shape[2]
+    ms = device_ms(lambda: ops.ssd_chunk(*args), 20)
+    plain_ms = device_ms(lambda: ref.ssd_chunk_ref(*args), 5)
+    b_ms, b_by = ssd_bound(g, h, t, n, p)
+    print(f"  time ssd_chunk [{g},{h},{t},{n},{p}] f32 main-path layout "
+          f"kernel={ms * 1e3:.2f}us plain={plain_ms * 1e3:.2f}us library=- "
+          f"bound={b_ms * 1e3:.2f}us ({b_by})")
+    return {"ssd_chunk": {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                          "bound_ms": b_ms, "bound_by": b_by}}
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: DeFTA end to end
 # ---------------------------------------------------------------------------
@@ -563,6 +682,29 @@ def wall_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def prefill_launches(prefill, params, batch, vocab, want_counts, calls):
+    """``calls`` prefill calls, each checked for exactly ``want_counts``
+    kernel launches (0 for the others) and finite logits of shape
+    batch + (vocab,); returns the wall ms of each."""
+    from repro_torch.kernels import ops
+    times = []
+    bs = tuple(batch["tokens"].shape)
+    for _ in range(calls):
+        before = dict(ops.LAUNCHES)
+        logits, ms = wall_ms(lambda: prefill(params, batch))
+        times.append(ms)
+        delta = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+        want = {k: want_counts.get(k, 0) for k in ops.LAUNCHES}
+        if delta != want:
+            fail(f"prefill {bs}: launches {delta}, expected {want}")
+        if tuple(logits.shape) != bs + (vocab,) \
+                or not bool(torch.isfinite(logits).all()):
+            fail(f"prefill {bs}: logits {tuple(logits.shape)} not finite or "
+                 f"of the wrong shape")
+        del logits
+    return times
+
+
 def serve_full(dev):
     """DeepSeekMoE-16B at full width and depth: init, two prefill shapes,
     the serve loop; returns the serving kernels' launch counts."""
@@ -596,21 +738,9 @@ def serve_full(dev):
 
     ops.reset_launches()
     for bs in shapes:
-        times = []
-        for _ in range(3):
-            before = dict(ops.LAUNCHES)
-            logits, ms = wall_ms(lambda: prefill(params, batches[bs]))
-            times.append(ms)
-            delta = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
-            want = {k: 0 for k in ops.LAUNCHES}
-            want.update(flash_attention=28, moe_router=27)
-            if delta != want:
-                fail(f"prefill {bs}: launches {delta}, expected {want}")
-            if tuple(logits.shape) != bs + (cfg.vocab_size,) \
-                    or not bool(torch.isfinite(logits).all()):
-                fail(f"prefill {bs}: logits {tuple(logits.shape)} not "
-                     f"finite or of the wrong shape")
-            del logits
+        times = prefill_launches(prefill, params, batches[bs],
+                                 cfg.vocab_size, {"flash_attention": 28,
+                                                  "moe_router": 27}, 3)
         print(f"  prefill B={bs[0]} S={bs[1]}: wall_ms="
               f"{[round(x, 2) for x in times]} launches per call: 28 flash, "
               f"27 router")
@@ -636,12 +766,13 @@ def serve_full(dev):
     return counts
 
 
-def serve_reduced_card_vs_cpu(dev):
-    """A reduced DeepSeekMoE (f32) from one set of parameters on the card
-    (kernels) and on the CPU (plain versions): prefill logits within 1e-4
-    (summation order: cuBLAS vs CPU GEMMs, flash vs full softmax), equal
-    greedy tokens, and on the card teacher-forced decode equal to the
-    prefill within 2e-3 (tests/test_arch_smoke.py's bound)."""
+def serve_reduced_card_vs_cpu(dev, arch, seq):
+    """A reduced ``arch`` (f32) from one set of parameters on the card
+    (kernels) and on the CPU (plain versions): prefill logits of 3 x
+    ``seq`` tokens within 1e-4 (summation order: cuBLAS vs CPU GEMMs, the
+    kernels vs their plain versions), equal greedy tokens, and on the card
+    teacher-forced decode equal to the prefill within 2e-3
+    (tests/test_arch_smoke.py's bound)."""
     from repro_torch.config import reduced
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -649,12 +780,12 @@ def serve_reduced_card_vs_cpu(dev):
         build_prefill_step
     from repro_torch.models import model
 
-    cfg = reduced(get_config("deepseek-moe-16b"))
+    cfg = reduced(get_config(arch))
     gen = torch.Generator()
     gen.manual_seed(1)
     cpu_params = model.init_params(gen, cfg)
     card_params = to_device(cpu_params, dev)
-    tokens = torch.randint(0, cfg.vocab_size, (3, 24), generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (3, seq), generator=gen)
     prefill = build_prefill_step(cfg)
     a = prefill(card_params, {"tokens": tokens.to(dev)}).cpu()
     b = prefill(cpu_params, {"tokens": tokens})
@@ -665,16 +796,116 @@ def serve_reduced_card_vs_cpu(dev):
     full = build_prefill_step(cfg, moe_strategy="dense")(
         card_params, {"tokens": tokens.to(dev)})
     decode = build_decode_step(cfg)
-    cache = model.init_cache(cfg, 3, 24, device=dev)
+    cache = model.init_cache(cfg, 3, seq, device=dev)
     tf_err = 0.0
-    for t in range(24):
+    for t in range(seq):
         lg, cache = decode(card_params, tokens[:, t:t + 1].to(dev), cache, t)
         tf_err = max(tf_err, float((lg[:, 0] - full[:, t]).abs().max()))
-    print(f"  reduced deepseek f32 card-vs-cpu: max|logit diff|={err:.3e} "
-          f"(tol 1e-4), greedy tokens equal={same}; teacher-forced decode "
-          f"vs prefill on the card max diff={tf_err:.3e} (tol 2e-3)")
+    print(f"  reduced {arch} f32 S={seq} card-vs-cpu: max|logit diff|="
+          f"{err:.3e} (tol 1e-4), greedy tokens equal={same}; teacher-forced "
+          f"decode vs prefill on the card max diff={tf_err:.3e} (tol 2e-3)")
     if not (err <= 1e-4 and same and tf_err < 2e-3):
-        fail("reduced DeepSeekMoE: card and CPU disagree")
+        fail(f"reduced {arch}: card and CPU disagree")
+
+
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: the ssm and hybrid families
+# ---------------------------------------------------------------------------
+
+def serve_mamba2(dev):
+    """Mamba2-780M at full width and depth (48 layers, bf16, random
+    weights from seed 0): init on the card, prefill at B=4/S=2048 (G = 32)
+    and B=1/S=16384 (G = 64), 3 calls each after a warm-up with 48
+    ssd_chunk launches per call and nothing else, then the serve loop at
+    its defaults, which launches no kernel (decode is the plain
+    recurrence). Returns the ssd_chunk launches of the prefill calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import model
+
+    cfg = get_config("mamba2-780m")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params, init_ms = wall_ms(lambda: model.init_params(gen, cfg))
+    n = n_params(params)
+    print(f"  mamba2-780m: {n} parameters ({cfg.dtype}), init "
+          f"{init_ms / 1e3:.2f}s, peak memory after init "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    if n != MAMBA2_PARAMS or n != n_params(model.abstract_params(cfg)):
+        fail(f"mamba2-780m parameter count {n}, expected {MAMBA2_PARAMS}")
+    prefill = build_prefill_step(cfg)
+    shapes = ((4, 2048), (1, 16384))
+    batches = {bs: {"tokens": torch.randint(0, cfg.vocab_size, bs,
+                                            generator=gen, device=dev)}
+               for bs in shapes}
+    prompts = torch.randint(0, cfg.vocab_size, (4, 32), generator=gen,
+                            device=dev)
+    for bs in shapes:                                # warm-up, not counted
+        prefill(params, batches[bs])
+    serve.generate(params, cfg, prompts[:, :2], 2)
+
+    ops.reset_launches()
+    for bs in shapes:
+        times = prefill_launches(prefill, params, batches[bs],
+                                 cfg.vocab_size, {"ssd_chunk": 48}, 3)
+        print(f"  prefill B={bs[0]} S={bs[1]}: wall_ms="
+              f"{[round(x, 2) for x in times]} launches per call: 48 "
+              f"ssd_chunk")
+    counts = {"ssd_chunk": ops.LAUNCHES["ssd_chunk"]}
+    before = dict(ops.LAUNCHES)
+    tokens, st = serve.generate(params, cfg, prompts, 32)
+    delta = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+    if any(delta.values()):
+        fail(f"mamba2 serve loop: launches {delta}, expected none")
+    if tuple(tokens.shape) != (4, 32) or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= cfg.vocab_size:
+        fail("mamba2 serve loop: bad tokens")
+    print(f"  serve batch=4 prompt=32 new=32 greedy: prefill "
+          f"{st['prefill_s']:.3f}s, decode {st['decode_s']:.3f}s, "
+          f"{st['tok_per_s']:.1f} tok/s, {st['decode_s'] / 32 * 1e3:.2f} "
+          f"ms/step; launches {delta}")
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def prefill_jamba_period(dev):
+    """Jamba at full width cut to one 8-layer period (mamba, mamba_moe,
+    mamba, mamba_moe, attn_dense, mamba_moe, mamba, mamba_moe; 13.3B
+    parameters, bf16: the whole 32 layers, ~104 GB, do not fit one card):
+    two prefill calls at B=1, S=4096, each with 7 ssd_chunk, 1 flash and 4
+    router launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=8)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params, init_ms = wall_ms(lambda: model.init_params(gen, cfg))
+    n = n_params(params)
+    print(f"  jamba-v0.1-52b, one period: {n} parameters ({cfg.dtype}), "
+          f"schedule {cfg.block_schedule()}, init {init_ms / 1e3:.2f}s")
+    if n != JAMBA_PERIOD_PARAMS:
+        fail(f"jamba period parameter count {n}, expected "
+             f"{JAMBA_PERIOD_PARAMS}")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 4096),
+                                     generator=gen, device=dev)}
+    times = prefill_launches(build_prefill_step(cfg), params, batch,
+                             cfg.vocab_size, {"ssd_chunk": 7,
+                                              "flash_attention": 1,
+                                              "moe_router": 4}, 2)
+    print(f"  prefill B=1 S=4096: wall_ms={[round(x, 2) for x in times]} "
+          f"(the first is a cold call) launches per call: 7 ssd_chunk, 1 "
+          f"flash, 4 router; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del params
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -704,11 +935,13 @@ def main() -> int:
     max_err = check_kernels(dev)
     max_err["flash_attention"] = check_flash(dev)
     max_err["moe_router"] = check_router(dev)
+    max_err["ssd_chunk"] = check_ssd(dev)
 
     print("[3] timings", flush=True)
     main_t = time_kernels(dev, "main", 22, 4, 2048)
     time_kernels(dev, "w500", 500, 24, 4096)
     main_t.update(time_serving_kernels(dev))
+    main_t.update(time_ssd(dev))
 
     print("[4] DeFTA end to end", flush=True)
     card_vs_cpu()
@@ -716,7 +949,14 @@ def main() -> int:
 
     print("[5] serving end to end", flush=True)
     launches.update(serve_full(dev))
-    serve_reduced_card_vs_cpu(dev)
+    serve_reduced_card_vs_cpu(dev, "deepseek-moe-16b", 24)
+
+    print("[6] serving mamba2-780m end to end", flush=True)
+    launches.update(serve_mamba2(dev))
+    serve_reduced_card_vs_cpu(dev, "mamba2-780m", 40)
+
+    print("[7] jamba, one period at full width", flush=True)
+    prefill_jamba_period(dev)
 
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],

@@ -1,5 +1,5 @@
-"""Wrappers of the port's kernels: the three gossip mixes, flash attention
-and the MoE router.
+"""Wrappers of the port's kernels: the three gossip mixes, flash attention,
+the MoE router and the Mamba2 SSD intra-chunk term.
 
 Each wrapper checks device, dtype, shape and layout, then runs the plain
 PyTorch version (``ref``) when the tensors lie on the CPU and the CUDA
@@ -195,3 +195,51 @@ def moe_router_topk(logits, k: int):
     _launch("moe_router", gates, logits.data_ptr(), gates.data_ptr(),
             idx.data_ptr(), t, e, k, _DTYPE_CODE[logits.dtype])
     return gates, idx
+
+
+SSD_STATE_DIMS = (16, 32, 64, 128)
+SSD_HEAD_DIMS = (16, 32, 64)
+SSD_MAX_CHUNK = 256
+
+
+def ssd_chunk(C, B, acum, dt, x):
+    """Mamba2 SSD intra-chunk term (``ref.ssd_chunk_ref``): C, B [G, T, N]
+    and acum, dt [G, H, T], contiguous; x [G, H, T, P] with P contiguous
+    (the model's [G, T, H, P] chunk view is taken as it is); all fp32, N in
+    ``SSD_STATE_DIMS``, P in ``SSD_HEAD_DIMS``, 1 <= T <= 256. Returns y
+    [G, H, T, P] fp32 in x's layout (``empty_like``)."""
+    if x.dim() != 4:
+        raise ValueError(f"x: expected [G, H, T, P], got {tuple(x.shape)}")
+    g, h, t, p = x.shape
+    n = C.shape[-1]
+    _check("C", C, (torch.float32,), (g, t, n))
+    _check("B", B, (torch.float32,), (g, t, n))
+    _check("acum", acum, (torch.float32,), (g, h, t))
+    _check("dt", dt, (torch.float32,), (g, h, t))
+    if x.dtype != torch.float32:
+        raise TypeError(f"ssd_chunk: x dtype {x.dtype}, expected "
+                        f"torch.float32")
+    if n not in SSD_STATE_DIMS or p not in SSD_HEAD_DIMS:
+        raise ValueError(f"ssd_chunk: N = {n}, P = {p}; need N in "
+                         f"{SSD_STATE_DIMS} and P in {SSD_HEAD_DIMS}")
+    if not 1 <= t <= SSD_MAX_CHUNK:
+        raise ValueError(f"ssd_chunk: chunk length T = {t} not in "
+                         f"[1, {SSD_MAX_CHUNK}]")
+    if x.stride(-1) != 1:
+        raise ValueError("ssd_chunk: x must have its head dim contiguous")
+    if not _on_card(C, B, acum, dt, x):
+        return ref.ssd_chunk_ref(C, B, acum, dt, x)
+    if g > 65535:
+        raise ValueError(f"ssd_chunk: G = {g} > 65535")
+    # C, B and x rows are copied 16 bytes at a time
+    if any(a.data_ptr() % 16 for a in (C, B, x)) or any(
+            st % 4 for _, st in _used_strides(x)[:-1]):
+        raise ValueError("ssd_chunk: C, B, x must be 16-byte aligned with "
+                         "x's rows on 16-byte boundaries")
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    return _launch("ssd_chunk", y, C.data_ptr(), B.data_ptr(),
+                   acum.data_ptr(), dt.data_ptr(), x.data_ptr(),
+                   y.data_ptr(), g, h, t, n, p, *x.stride()[:3],
+                   *y.stride()[:3])

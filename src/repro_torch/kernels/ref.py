@@ -3,7 +3,7 @@
 ``chip_smoke.py`` holds each CUDA kernel against them on the card. The
 gossip mixes return float32 (they accumulate in fp32 whatever the
 payload); attention returns q's dtype; the router fp32 gates and int32
-indices."""
+indices; the SSD intra-chunk term x's dtype."""
 from __future__ import annotations
 
 import math
@@ -63,3 +63,22 @@ def moe_router_topk_ref(logits, k: int):
     vals, idx = vals[:, :k], idx[:, :k]
     gates = vals / (vals.sum(dim=-1, keepdim=True) + 1e-9)
     return gates, idx.to(torch.int32)
+
+
+def ssd_chunk_ref(C, B, acum, dt, x):
+    """Mamba2 SSD intra-chunk term (``models.ssm.ssd_scan``'s y_diag in the
+    chunk-local view). C, B: [G, T, N]; acum, dt: [G, H, T]; x: [G, H, T,
+    P] -> y [G, H, T, P], computed in fp32:
+    y[g, h, q] = sum_{k <= q} (C[g, q] . B[g, k]) * exp(acum[g, h, q] -
+    acum[g, h, k]) * dt[g, h, k] * x[g, h, k]. The causal mask is applied
+    to the exponent's argument before the exponent, so the differences
+    above the diagonal (positive, up to thousands in the real model) never
+    overflow to inf."""
+    t = C.shape[1]
+    scores = torch.einsum("gqn,gkn->gqk", C.float(), B.float())
+    acum = acum.float()
+    causal = torch.ones((t, t), dtype=torch.bool, device=C.device).tril()
+    diff = (acum[..., :, None] - acum[..., None, :]).masked_fill(
+        ~causal, float("-inf"))
+    w = scores[:, None] * torch.exp(diff) * dt.float()[..., None, :]
+    return torch.einsum("ghqk,ghkp->ghqp", w, x.float()).to(x.dtype)

@@ -4,6 +4,7 @@ step it token by token, greedy at ``--temperature 0`` and sampled from a
 ``torch.Generator`` otherwise.
 
     python -m repro_torch.launch.serve --arch deepseek-moe-16b
+    python -m repro_torch.launch.serve --arch mamba2-780m
     python -m repro_torch.launch.serve --arch deepseek-moe-16b --smoke --device cpu
 
 Runs on the card unless ``--device cpu`` is given. Parameters and prompts

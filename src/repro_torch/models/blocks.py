@@ -1,13 +1,15 @@
-"""Block assembly: pre-norm residual blocks (attention + dense MLP,
-attention + MoE) and the layer stack (the port of ``repro.models.blocks``).
+"""Block assembly: pre-norm residual blocks of four kinds (attention +
+dense MLP, attention + MoE, mamba, mamba + MoE) and the layer stack (the
+port of ``repro.models.blocks``).
 
 The parameter tree is the reference's: the schedule is factored into
 ``prefix + pattern * repeats``; prefix layers live under ``prefix``, the
 repeated pattern's parameters under ``scan`` with a leading layer axis
 (when ``cfg.scan_layers``), and the rest under ``layers``. The reference's
 ``lax.scan`` over the stacked axis becomes a Python loop that indexes it,
-which takes views, not copies. Mamba blocks (ssm and hybrid families) and
-cross-attention (whisper) are not ported yet.
+which takes views, not copies; the decode caches are stacked the same way
+and every layer updates its views in place. Cross-attention (whisper) is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -15,20 +17,15 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.config import ATTN_DENSE, ATTN_MOE, ModelConfig
+from repro_torch.config import ATTN_DENSE, ATTN_MOE, MAMBA_MOE, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (Builder, gelu_mlp, init_gelu_mlp,
                                        init_mlp, mlp, rms_norm)
 
 ATTN_KINDS = (ATTN_DENSE, ATTN_MOE)
-
-
-def _check_kind(kind: str):
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} (Mamba2 SSD blocks) is not ported yet: "
-            f"ROADMAP.md queue 1, item 15")
+MOE_KINDS = (ATTN_MOE, MAMBA_MOE)
 
 
 def tree_map(fn, *trees):
@@ -73,10 +70,12 @@ def _scanned(cfg: ModelConfig, repeats: int) -> bool:
 # ---------------------------------------------------------------------------
 
 def init_block(b: Builder, cfg: ModelConfig, kind: str):
-    _check_kind(kind)
     b.ones("ln1", (cfg.d_model,))
-    attn_mod.init_attention(b.sub("attn"), cfg)
-    if kind == ATTN_MOE:
+    if kind in ATTN_KINDS:
+        attn_mod.init_attention(b.sub("attn"), cfg)
+    else:
+        ssm_mod.init_ssm(b.sub("ssm"), cfg)
+    if kind in MOE_KINDS:
         b.ones("ln2", (cfg.d_model,))
         moe_mod.init_moe(b.sub("moe"), cfg)
     elif cfg.d_ff > 0:
@@ -89,7 +88,7 @@ def init_block(b: Builder, cfg: ModelConfig, kind: str):
 
 def _ffn(params, cfg: ModelConfig, kind: str, x, moe_strategy: str):
     """The block's second residual branch: (x + ffn(norm(x)), aux)."""
-    if kind == ATTN_MOE:
+    if kind in MOE_KINDS:
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         h, aux = moe_mod.moe_ffn(params["moe"], cfg, h, strategy=moe_strategy)
         return x + h, aux
@@ -103,11 +102,13 @@ def _ffn(params, cfg: ModelConfig, kind: str, x, moe_strategy: str):
 def block_apply(params, cfg: ModelConfig, kind: str, x, positions, aux,
                 *, window: int = 0, moe_strategy="grouped"):
     """Prefill. x: [B,S,D] -> (x, aux)."""
-    _check_kind(kind)
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    x = x + attn_mod.attention(params["attn"], cfg, h, positions,
+    if kind in ATTN_KINDS:
+        h = attn_mod.attention(params["attn"], cfg, h, positions,
                                window=window)
-    x, moe_aux = _ffn(params, cfg, kind, x, moe_strategy)
+    else:
+        h = ssm_mod.ssm_block(params["ssm"], cfg, h)
+    x, moe_aux = _ffn(params, cfg, kind, x + h, moe_strategy)
     return x, aux if moe_aux is None else aux + moe_aux
 
 
@@ -115,10 +116,12 @@ def block_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int,
                  *, window: int = 0, moe_strategy="dense"):
     """One-token decode. x: [B,1,D] -> (x, cache), the cache updated in
     place."""
-    _check_kind(kind)
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    h, cache = attn_mod.decode_attention(params["attn"], cfg, h, cache, pos,
-                                         window=window)
+    if kind in ATTN_KINDS:
+        h, cache = attn_mod.decode_attention(params["attn"], cfg, h, cache,
+                                             pos, window=window)
+    else:
+        h, cache = ssm_mod.ssm_decode_step(params["ssm"], cfg, h, cache)
     x, _ = _ffn(params, cfg, kind, x + h, moe_strategy)
     return x, cache
 
@@ -182,22 +185,29 @@ def stack_apply(params, cfg: ModelConfig, x, positions, *, window: int = 0,
     return x, aux
 
 
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
+                     window: int, device):
+    if kind in ATTN_KINDS:
+        return attn_mod.init_kv_cache(cfg, batch, seq_len, window, device)
+    return ssm_mod.init_ssm_cache(cfg, batch, device)
+
+
 def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int,
                      window: int, device):
+    """Every layer's cache by its kind (a KV cache or the conv window and
+    SSD state), stacked per pattern position for a scanned stack."""
     schedule = cfg.block_schedule()
     prefix_len, pattern, repeats = factor_schedule(schedule)
-    for kind in schedule:
-        _check_kind(kind)
 
-    def one():
-        return attn_mod.init_kv_cache(cfg, batch, seq_len, window, device)
-    cache = {"prefix": {str(i): one() for i in range(prefix_len)}}
+    def one(kind):
+        return init_block_cache(cfg, kind, batch, seq_len, window, device)
+    cache = {"prefix": {str(i): one(schedule[i]) for i in range(prefix_len)}}
     if _scanned(cfg, repeats):
         cache["scan"] = {str(pos): tree_map(
-            lambda t: torch.stack([t] * repeats), one())
-            for pos in range(len(pattern))}
+            lambda t: torch.stack([t] * repeats), one(kind))
+            for pos, kind in enumerate(pattern)}
     else:
-        cache["layers"] = {str(i): one()
+        cache["layers"] = {str(i): one(schedule[i])
                            for i in range(prefix_len, len(schedule))}
     return cache
 

@@ -70,6 +70,13 @@ class Builder:
     def ones(self, name, shape):
         return self._put(name, shape, lambda t: t.fill_(1))
 
+    def const(self, name, value):
+        """A given value (array-like, computed in fp32) cast to the
+        builder's dtype (round to nearest even, as the reference's
+        ``jnp.asarray(value, dtype)``)."""
+        value = torch.as_tensor(value)
+        return self._put(name, tuple(value.shape), lambda t: t.copy_(value))
+
     def sub(self, name):
         into = None if self.into is None else self.into[name]
         b = Builder(self.gen, self.dtype, self.device, self.abstract, into)

@@ -1,5 +1,5 @@
-"""Top-level causal LM for the dense and moe families (the port of
-``repro.models.model``):
+"""Top-level causal LM for the dense, moe, ssm and hybrid families (the
+port of ``repro.models.model``):
 
     params = init_params(gen, cfg)          # gen: a torch.Generator
     shapes = abstract_params(cfg)           # meta tensors, no storage
@@ -7,8 +7,10 @@
     cache  = init_cache(cfg, batch, seq_len, device)  # None: the card
     logits, cache = decode_step(params, cfg, tokens, cache, pos)
 
-``batch`` is a dict with ``tokens`` [B, S]. The vlm prefix, the whisper
-encoder-decoder and ``loss_fn`` (training) are not ported yet.
+``batch`` is a dict with ``tokens`` [B, S]. The cache holds a KV cache per
+attention layer and a conv window and SSD state per mamba layer. The vlm
+prefix, the whisper encoder-decoder and ``loss_fn`` (training) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.models.layers import (Builder, embed, init_embed, rms_norm,
 
 def check_supported(cfg: ModelConfig):
     """Raise ``NotImplementedError`` for the parts of the zoo the port
-    does not carry yet (Mamba blocks raise where a block is built)."""
+    does not carry yet: the whisper encoder-decoder and the vlm prefix."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder (cross and bidirectional "
@@ -87,8 +89,9 @@ def loss_fn(*args, **kwargs):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
-    """The stack's KV cache; ``device=None`` means the card (raises without
-    one)."""
+    """The stack's decode cache (KV per attention layer, conv window and
+    SSD state per mamba layer); ``device=None`` means the card (raises
+    without one)."""
     check_supported(cfg)
     return blocks.init_stack_cache(cfg, batch, seq_len,
                                    window=cfg.sliding_window,

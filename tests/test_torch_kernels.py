@@ -2,7 +2,8 @@
 the ``repro_torch.kernels.ops`` wrappers) against the JAX package's
 ``ops.*`` Pallas kernels in interpret mode and its ``ref.*`` oracles: the
 three gossip mixes, plus the int8 wire encode and ``mix_pytree`` across
-backends and wires, flash attention and the MoE router.
+backends and wires, flash attention, the MoE router and the Mamba2 SSD
+intra-chunk term.
 
 Inputs come from numpy with a seed. W in {4, 13}, ragged F (not a multiple
 of any block size) and topologies whose rows have unequal degree, so the
@@ -12,7 +13,8 @@ same fp32 values on both sides (both round to nearest even) and compared
 in fp32 at the same tolerance; int8 q and scale are bit-equal. Flash
 attention at atol 5e-5 in fp32 (the JAX package's own bound; 3e-2 for bf16
 outputs, one bf16 rounding of values below 4); the router's indices equal,
-its gates within atol 1e-6.
+its gates within atol 1e-6. The SSD intra-chunk term in fp32 at rtol =
+atol = 1e-5 relative to max|y| of the case (summation order only).
 """
 from __future__ import annotations
 
@@ -363,4 +365,140 @@ def test_card_side_checks_and_launch_arguments(monkeypatch, dtype):
     odd = torch.zeros(b * h * s * d + 1, dtype=dtype)[1:].view(b, h, s, d)
     with pytest.raises(ValueError, match="aligned"):
         ops.flash_attention(odd, odd, odd)
+    assert calls == []
+
+
+
+# ---------------------------------------------------------------------------
+# The Mamba2 SSD intra-chunk term
+# ---------------------------------------------------------------------------
+
+def ssd_case(g, h, t, n, p, seed, steep):
+    """C, B [G, T, N]; acum, dt [G, H, T]; x [G, H, T, P] from numpy.
+    ``steep``: the real model's decays, A = -exp(log(1..H)) * 48 / H so
+    the last head reaches A = -48, dt = softplus(normal) (acum falls by
+    up to ~33 a step); else the JAX package's own mild draws."""
+    rng = np.random.default_rng(seed)
+    C = rng.normal(size=(g, t, n)).astype(np.float32)
+    B = rng.normal(size=(g, t, n)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(g, h, t)))).astype(np.float32)
+    if steep:
+        A = -np.arange(1, h + 1, dtype=np.float32) * (48.0 / h)
+        acum = np.cumsum(dt * A[None, :, None], axis=-1).astype(np.float32)
+    else:
+        acum = -np.abs(rng.normal(size=(g, h, t))).cumsum(-1).astype(
+            np.float32)
+    x = rng.normal(size=(g, h, t, p)).astype(np.float32)
+    return C, B, acum, dt, x
+
+
+def ssd_close(got, want):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("t", [32, 64, 200])
+@pytest.mark.parametrize("n,p", [(16, 16), (16, 32), (32, 16), (32, 32)])
+@pytest.mark.parametrize("steep", [False, True])
+def test_ssd_chunk_matches_jax(t, n, p, steep):
+    """The wrapper's plain version against the JAX package's Pallas kernel
+    (interpret mode) and its oracle; the steep case must reach decays
+    whose exp(acum[q]) * exp(-acum[k]) would overflow."""
+    args = ssd_case(2, 3, t, n, p, t + n + p, steep)
+    if steep:
+        assert args[2].min() < -88.0       # exp(88.7) is fp32's largest
+    got = ops.ssd_chunk(*map(torch.tensor, args))
+    assert got.dtype == torch.float32 and got.shape == (2, 3, t, p)
+    assert torch.isfinite(got).all()
+    ssd_close(got, jops.ssd_chunk(*map(jnp.asarray, args)))
+    ssd_close(got, jref.ssd_chunk_ref(*map(jnp.asarray, args)))
+
+
+def test_ssd_chunk_is_the_y_diag_of_jax_ssd_scan():
+    """On the chunk views that ``models.ssm.ssd_chunk_inputs`` builds (x a
+    transposed view, not a copy) the op computes the JAX model's y_diag
+    (``repro.models.ssm.ssd_scan``, the einsum with ``_segsum``)."""
+    from repro.models.ssm import _segsum
+    from repro_torch.models import ssm
+    rng = np.random.default_rng(9)
+    b_, nc, t, hh, n, p = 2, 3, 32, 4, 16, 32
+    x = rng.normal(size=(b_, nc * t, hh, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(b_, nc * t, hh)))) \
+        .astype(np.float32)
+    A_log = np.log(np.arange(1, hh + 1, dtype=np.float32))
+    Bm = rng.normal(size=(b_, nc * t, n)).astype(np.float32)
+    Cm = rng.normal(size=(b_, nc * t, n)).astype(np.float32)
+    args, _ = ssm.ssd_chunk_inputs(*map(torch.tensor, (x, dt, A_log, Bm, Cm)),
+                                   t)
+    xg = args[4]
+    assert xg.shape == (b_ * nc, hh, t, p) and not xg.is_contiguous()
+    assert xg.stride() == (t * hh * p, p, hh * p, 1)
+    got = ops.ssd_chunk(*args).transpose(1, 2).reshape(b_, nc, t, hh, p)
+
+    xc = jnp.asarray(x).reshape(b_, nc, t, hh, p)
+    dtc = jnp.asarray(dt).reshape(b_, nc, t, hh)
+    Cc = jnp.asarray(Cm).reshape(b_, nc, t, n)
+    Bc = jnp.asarray(Bm).reshape(b_, nc, t, n)
+    dA = jnp.moveaxis(dtc * (-jnp.exp(A_log))[None, None, None, :], -1, 2)
+    L = jnp.exp(_segsum(dA))
+    scores = jnp.einsum("bcqn,bckn->bcqk", Cc, Bc)
+    want = jnp.einsum("bcqk,bchqk,bckh,bckhp->bcqhp", scores, L, dtc, xc)
+    ssd_close(got, want)
+
+
+def test_ssd_chunk_wrapper_checks_and_counts_only_launches():
+    C, B, acum, dt, x = map(torch.tensor, ssd_case(2, 3, 40, 16, 32, 0,
+                                                   False))
+    before = dict(ops.LAUNCHES)
+    ops.ssd_chunk(C, B, acum, dt, x)
+    assert ops.LAUNCHES == before            # plain version: no launch
+    with pytest.raises(TypeError):
+        ops.ssd_chunk(C.double(), B, acum, dt, x)
+    with pytest.raises(TypeError):
+        ops.ssd_chunk(C, B, acum, dt, x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="N = 8"):
+        ops.ssd_chunk(C[..., :8].contiguous(), B[..., :8].contiguous(),
+                      acum, dt, x)
+    with pytest.raises(ValueError, match="P = 24"):
+        ops.ssd_chunk(C, B, acum, dt, x[..., :24].contiguous())
+    with pytest.raises(ValueError, match="T = 300"):
+        big = ssd_case(1, 1, 300, 16, 16, 1, False)
+        ops.ssd_chunk(*map(torch.tensor, big))
+    with pytest.raises(ValueError):
+        ops.ssd_chunk(C, B[:, :39], acum, dt, x)           # T differs
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssd_chunk(C.transpose(1, 2).contiguous().transpose(1, 2), B,
+                      acum, dt, x)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.ssd_chunk(C, B, acum, dt,
+                      x.transpose(2, 3).contiguous().transpose(2, 3))
+
+
+def test_ssd_chunk_card_side_launch_arguments(monkeypatch):
+    """The card-side branch with the launch stubbed: the C entry gets G,
+    H, T, N, P and x's and y's (g, h, t) element strides of the model's
+    [G, T, H, P] view; y keeps x's layout; a misaligned x is refused
+    before any launch."""
+    calls = []
+    monkeypatch.setattr(ops, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(ops, "_launch",
+                        lambda name, out, *args: calls.append(
+                            (name, args)) or out)
+    g, t, h, n, p = 3, 200, 5, 32, 64
+    C, B = torch.zeros(g, t, n), torch.zeros(g, t, n)
+    acum, dt = torch.zeros(g, h, t), torch.zeros(g, h, t)
+    x = torch.zeros(g, t, h, p).transpose(1, 2)
+    y = ops.ssd_chunk(C, B, acum, dt, x)
+    assert y.shape == x.shape and y.stride() == x.stride()
+    name, args = calls.pop()
+    assert name == "ssd_chunk"
+    assert args[6:] == (g, h, t, n, p, t * h * p, p, h * p, t * h * p, p,
+                        h * p)
+    odd = torch.zeros(g * t * h * p + 1)[1:].view(g, t, h, p).transpose(1, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.ssd_chunk(C, B, acum, dt, odd)
+    with pytest.raises(ValueError, match="aligned"):        # rows of 6 words
+        ops.ssd_chunk(C, B, acum, dt,
+                      torch.zeros(g, t, h, p + 2)[..., :p].transpose(1, 2))
     assert calls == []

@@ -4,9 +4,11 @@ module and for the whole slice.
 
 Parameters are drawn by the reference's own init and carried across with
 ``convert.model_params_from_jax`` (every leaf perturbed by numpy noise where
-an init would leave biases at 0 and norms at 1); activations and tokens come
-from numpy with a seed. Everything runs in float32 on reduced configs
-(``config.reduced``: 2 layers, d_model 256, at most 4 experts), so the
+an init would leave biases at 0 and norms at 1; the Mamba2 blocks' D,
+dt_bias and conv_b, which the init leaves at 0, are drawn anew in the
+whole-model cases too); activations and tokens come from numpy with a seed.
+Everything runs in float32 on reduced configs (``config.reduced``: 2
+layers unless a case says more, d_model 256, at most 4 experts), so the
 tolerance is summation order only: rtol = atol = 1e-4 (measured: at most
 1.0e-6 on forward logits of magnitude up to 1.5). The port's kernels run their
 plain versions here (the tensors lie on the CPU); the reference runs its
@@ -28,6 +30,7 @@ from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
 from repro.models import moe as jmoe
+from repro.models import ssm as jssm
 
 from repro_torch.config import reduced
 from repro_torch.configs import get_config
@@ -35,15 +38,18 @@ from repro_torch.convert import model_params_from_jax, model_params_to_numpy
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.launch.steps import build_decode_step, build_prefill_step
-from repro_torch.models import attention, layers, model, moe
+from repro_torch.models import attention, blocks, layers, model, moe, ssm
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def configs(arch, **replace):
-    """The reduced config of ``arch`` on both sides, with ``replace``."""
-    return (dataclasses.replace(jreduced(jget_config(arch)), **replace),
-            dataclasses.replace(reduced(get_config(arch)), **replace))
+def configs(arch, layers=2, **replace):
+    """The reduced config of ``arch`` (``reduced(..., num_layers=layers)``)
+    on both sides, with ``replace``."""
+    return (dataclasses.replace(jreduced(jget_config(arch),
+                                         num_layers=layers), **replace),
+            dataclasses.replace(reduced(get_config(arch), num_layers=layers),
+                                **replace))
 
 
 def perturbed(tree, seed):
@@ -53,6 +59,17 @@ def perturbed(tree, seed):
     return jax.tree.map(
         lambda a: (np.asarray(a) + 0.05 * rng.normal(size=a.shape))
         .astype(np.float32), tree)
+
+
+def nonzero_ssm_leaves(tree, seed):
+    """The numpy tree with every Mamba2 block's D, dt_bias and conv_b (0 at
+    init) drawn from a normal, so the D skip, the dt bias and the conv
+    bias are exercised."""
+    rng = np.random.default_rng(seed)
+    scale = {"D": 0.5, "dt_bias": 0.5, "conv_b": 0.1}
+    return jax.tree_util.tree_map_with_path(
+        lambda path, a: (rng.normal(size=a.shape) * scale[path[-1].key])
+        .astype(a.dtype) if path[-1].key in scale else a, tree)
 
 
 def jax_init(init_fn, jcfg, seed):
@@ -229,22 +246,34 @@ MODEL_CASES = [
     ("qwen3-0.6b", {}),
     # prefix layer + two scanned repeats: stacked params and stacked cache
     ("deepseek-moe-16b", {"num_layers": 3, "scan_layers": True}),
+    ("mamba2-780m", {}),
+    # three scanned repeats: the SSD caches are views updated in place
+    ("mamba2-780m", {"num_layers": 3, "scan_layers": True}),
+    # mamba, mamba_moe, mamba, attn_moe: every kind jamba uses
+    ("jamba-v0.1-52b", {"layers": 4}),
+    # that period scanned twice: stacked KV and SSD caches side by side
+    ("jamba-v0.1-52b", {"layers": 4, "num_layers": 8, "scan_layers": True}),
 ]
 
 
 def model_pair(arch, replace, seed):
     jcfg, cfg = configs(arch, **replace)
-    jp = jmodel.init_params(jax.random.PRNGKey(seed), jcfg)
-    return jcfg, cfg, jp, model_params_from_jax(
-        jax.tree.map(np.asarray, jp), "cpu")
+    tree = nonzero_ssm_leaves(jax.tree.map(
+        np.asarray, jmodel.init_params(jax.random.PRNGKey(seed), jcfg)), seed)
+    return jcfg, cfg, jax.tree.map(jnp.asarray, tree), \
+        model_params_from_jax(tree, "cpu")
 
 
 @pytest.mark.parametrize("arch,replace", MODEL_CASES)
 def test_forward_and_decode_match_jax(arch, replace):
+    """Mamba cases run S = 40 against the reduced chunk of 32, so the
+    prefill pads to a chunk multiple."""
     jcfg, cfg, jp, tp = model_pair(arch, replace, 11)
     if replace.get("scan_layers"):
-        assert tp["scan"]["0"]["moe"]["wi"].shape[0] == 2
-    b_, s = 2, 10
+        _, _, repeats = blocks.factor_schedule(cfg.block_schedule())
+        assert repeats > 1 and all(t.shape[0] == repeats
+                                   for t in flat(tp["scan"]).values())
+    b_, s = 2, 40 if cfg.ssm else 10
     tokens = np.random.default_rng(12).integers(0, cfg.vocab_size, (b_, s))
     batch, jbatch = {"tokens": torch.tensor(tokens)}, \
         {"tokens": jnp.asarray(tokens, jnp.int32)}
@@ -272,14 +301,22 @@ def test_forward_and_decode_match_jax(arch, replace):
         # own bound, tests/test_arch_smoke.py)
         np.testing.assert_allclose(lg[:, 0].numpy(),
                                    got["dense"][:, t].numpy(), atol=2e-3)
+    # every layer's cache (KV, conv window, SSD state) as the reference's
+    ours, theirs = flat(cache), flat(jax.tree.map(np.asarray, jcache))
+    assert sorted(ours) == sorted(theirs)
+    for k in ours:
+        close(ours[k], theirs[k])
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-0.6b"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-0.6b",
+                                  "mamba2-780m", "jamba-v0.1-52b"])
 def test_greedy_serving_matches_jax(arch):
     """The reference's serve loop (prefill by stepping the cache, then
     greedy steps) and the port's ``serve.generate`` take the same 8
-    tokens from the same parameters and prompts."""
-    jcfg, cfg, jp, tp = model_pair(arch, {}, 13)
+    tokens from the same parameters and prompts (jamba at 4 layers: all
+    three of its block kinds)."""
+    jcfg, cfg, jp, tp = model_pair(
+        arch, {"layers": 4} if arch.startswith("jamba") else {}, 13)
     b_, plen, new = 3, 6, 8
     prompts = np.random.default_rng(14).integers(0, cfg.vocab_size,
                                                  (b_, plen))
@@ -324,6 +361,141 @@ def test_serving_goes_through_the_kernel_wrappers(monkeypatch):
     assert calls == {"flash_attention": 4, "moe_router_topk": 6}
 
 
+def test_ssm_serving_goes_through_the_kernel_wrappers(monkeypatch):
+    """Jamba at 4 layers (mamba, mamba_moe, mamba, attn_moe): a prefill
+    call runs ssd_chunk once per mamba layer, flash once per attention
+    layer and the router once per MoE layer; a decode step runs only the
+    router (the SSD recurrence is plain torch)."""
+    calls = {"ssd_chunk": 0, "flash_attention": 0, "moe_router_topk": 0}
+    for name in calls:
+        real = getattr(ops, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(ops, name, counted)
+    cfg = reduced(get_config("jamba-v0.1-52b"), num_layers=4)
+    assert cfg.block_schedule() == ("mamba", "mamba_moe", "mamba",
+                                    "attn_moe")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = model.init_params(gen, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 37), generator=gen)
+    build_prefill_step(cfg)(params, {"tokens": tokens})
+    assert calls == {"ssd_chunk": 3, "flash_attention": 1,
+                     "moe_router_topk": 2}
+    cache = model.init_cache(cfg, 2, 37, device="cpu")
+    build_decode_step(cfg)(params, tokens[:, :1], cache, 0)
+    assert calls == {"ssd_chunk": 3, "flash_attention": 1,
+                     "moe_router_topk": 4}
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 blocks
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ["mamba2-780m", "jamba-v0.1-52b"]
+
+
+def ssm_pair(jcfg, seed):
+    return both(nonzero_ssm_leaves(jax_init(jssm.init_ssm, jcfg, seed),
+                                   seed))
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+@pytest.mark.parametrize("s", [64, 40, 20])
+def test_ssm_block_matches_jax(arch, s):
+    """S = 64: two chunks of 32; S = 40: padded to 64; S = 20: one chunk
+    of 20 (chunk = min(chunk_size, S))."""
+    jcfg, cfg = configs(arch)
+    jp, tp = ssm_pair(jcfg, 15)
+    assert all(float(np.abs(np.asarray(jp[k])).min()) > 0
+               for k in ("D", "dt_bias"))
+    x = np.random.default_rng(16).normal(
+        size=(2, s, cfg.d_model)).astype(np.float32)
+    close(ssm.ssm_block(tp, cfg, torch.tensor(x)),
+          jssm.ssm_block(jp, jcfg, x))
+
+
+@pytest.mark.parametrize("nc", [1, 3])
+def test_ssd_scan_matches_jax(nc):
+    """The chunked scan with the model's steep decays (A_log = log(1..H)):
+    y and the final state."""
+    rng = np.random.default_rng(nc)
+    b_, t, h, p, n = 2, 32, 16, 32, 16
+    x = rng.normal(size=(b_, nc * t, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(b_, nc * t, h)))).astype(
+        np.float32)
+    A = np.log(np.arange(1, h + 1, dtype=np.float32))
+    Bm, Cm = (rng.normal(size=(b_, nc * t, n)).astype(np.float32)
+              for _ in range(2))
+    D = rng.normal(size=(h,)).astype(np.float32)
+    args = (x, dt, A, Bm, Cm, D)
+    y, final = ssm.ssd_scan(*map(torch.tensor, args), t)
+    jy, jfinal = jssm.ssd_scan(*map(jnp.asarray, args), t)
+    close(y, jy)
+    close(final, jfinal)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_decode_step_matches_jax(arch):
+    """12 recurrent steps, output and cache each step; the port updates
+    the cache tensors in place."""
+    jcfg, cfg = configs(arch)
+    jp, tp = ssm_pair(jcfg, 17)
+    rng = np.random.default_rng(18)
+    jcache = jssm.init_ssm_cache(jcfg, 2)
+    cache = ssm.init_ssm_cache(cfg, 2, "cpu")
+    ptrs = {k: v.data_ptr() for k, v in cache.items()}
+    for k in cache:
+        assert cache[k].shape == jcache[k].shape
+        assert str(cache[k].dtype)[6:] == str(jcache[k].dtype), k
+    for _ in range(12):
+        x = rng.normal(size=(2, 1, cfg.d_model)).astype(np.float32)
+        want, jcache = jssm.ssm_decode_step(jp, jcfg, x, jcache)
+        got, cache = ssm.ssm_decode_step(tp, cfg, torch.tensor(x), cache)
+        close(got, want)
+        for k in cache:
+            close(cache[k], jcache[k])
+    assert {k: v.data_ptr() for k, v in cache.items()} == ptrs
+
+
+def test_init_ssm_full_width_and_const_rounding():
+    """``init_ssm`` at Mamba2-780M's and Jamba's full widths in bf16:
+    names, shapes and dtypes as the reference's, A_log = log(1..H)
+    rounded to bf16 exactly as JAX rounds it (``Builder.const``), D and
+    dt_bias 0, norm 1; ``const`` in abstract mode gives a meta tensor and
+    with ``into=`` fills the given slice."""
+    for arch in SSM_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), dtype="bfloat16")
+        jb = jlayers.Builder(jax.random.PRNGKey(0), jnp.bfloat16)
+        jssm.init_ssm(jb, jcfg := dataclasses.replace(jget_config(arch),
+                                                      dtype="bfloat16"))
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        tb = layers.Builder(gen, torch.bfloat16, "cpu")
+        ssm.init_ssm(tb, cfg)
+        assert sorted(tb.params) == sorted(jb.params)
+        for k, t in tb.params.items():
+            assert tuple(t.shape) == jb.params[k].shape, k
+            assert t.dtype == torch.bfloat16, k
+        h = jcfg.ssm.expand * jcfg.d_model // jcfg.ssm.head_dim
+        assert tb.params["A_log"].shape == (h,)
+        np.testing.assert_array_equal(
+            tb.params["A_log"].float().numpy(),
+            np.asarray(jb.params["A_log"].astype(jnp.float32)))
+        for k, v in (("D", 0), ("dt_bias", 0), ("norm", 1), ("conv_b", 0)):
+            assert torch.all(tb.params[k] == v), k
+    value = torch.log(torch.arange(1, 49, dtype=torch.float32))
+    meta = layers.Builder(None, torch.bfloat16, abstract=True)
+    assert meta.const("A_log", value).device.type == "meta"
+    stacked = torch.zeros(3, 48, dtype=torch.bfloat16)
+    layers.Builder(None, torch.bfloat16, "cpu",
+                   into={"A_log": stacked[1]}).const("A_log", value)
+    assert torch.equal(stacked[1], value.to(torch.bfloat16))
+    assert not stacked[0].any() and not stacked[2].any()
+
+
 # ---------------------------------------------------------------------------
 # Parameters: the full-size tree, init, carrying across
 # ---------------------------------------------------------------------------
@@ -338,7 +510,8 @@ def flat(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-0.6b"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-0.6b",
+                                  "mamba2-780m", "jamba-v0.1-52b"])
 def test_abstract_params_full_config_equal_to_jax(arch):
     """The full-width, full-depth tree, leaf by leaf, without allocating
     (meta tensors on the port's side)."""
@@ -353,6 +526,11 @@ def test_abstract_params_full_config_equal_to_jax(arch):
     if arch == "deepseek-moe-16b":
         assert n == 16_375_728_128
         assert tuple(ours["scan/0/moe/wi"].shape) == (27, 64, 2048, 1408)
+    if arch == "mamba2-780m":
+        assert n == 780_148_992
+        assert tuple(ours["scan/0/ssm/in_proj"].shape) == (48, 1536, 6448)
+    if arch == "jamba-v0.1-52b":
+        assert n == 51_460_000_640
 
 
 def test_init_params_draws_each_stacked_slice_from_the_generator():
@@ -391,11 +569,33 @@ def test_convert_round_trips_bf16():
     assert flat(f32)["embedding"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-v0.1-52b",
-                                  "whisper-tiny", "internvl2-2b"])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-2b"])
 def test_unported_families_raise(arch):
     gen = torch.Generator()
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         model.init_params(gen, reduced(get_config(arch)))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         model.loss_fn()
+
+
+def test_convert_carries_ssm_leaves():
+    """A scanned bf16 Mamba2 tree: every SSM leaf arrives with its name,
+    stacked shape, dtype and values."""
+    jcfg = dataclasses.replace(jreduced(jget_config("mamba2-780m")),
+                               num_layers=3, scan_layers=True,
+                               dtype="bfloat16")
+    tree = nonzero_ssm_leaves(jax.tree.map(np.asarray, jmodel.init_params(
+        jax.random.PRNGKey(1), jcfg)), 1)
+    got = flat(model_params_from_jax(tree, "cpu"))
+    want = flat(tree)
+    assert sorted(got) == sorted(want)
+    for leaf in ("A_log", "D", "dt_bias", "conv_w", "conv_b", "norm",
+                 "in_proj", "out_proj"):
+        t, a = got[f"scan/0/ssm/{leaf}"], want[f"scan/0/ssm/{leaf}"]
+        assert t.dtype == torch.bfloat16 and a.dtype.name == "bfloat16"
+        assert t.shape[0] == 3 and tuple(t.shape) == a.shape, leaf
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      a.astype(np.float32))
+    assert sorted(flat(model.abstract_params(
+        dataclasses.replace(reduced(get_config("mamba2-780m")),
+                            num_layers=3, scan_layers=True)))) == sorted(got)
