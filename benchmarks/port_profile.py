@@ -46,7 +46,7 @@ STAGES = ("split_draws", "scenario_view", "peer_sample", "transport",
           "damage_check", "local_train", "attack_inject", "trust_update",
           "finalize")
 FAMILIES = (("gossip_mix", ("mix_kernel",)),
-            ("flash_attention", ("flash_kernel",)),
+            ("flash_attention", ("flash_kernel", "flash_tc_kernel")),
             ("moe_router", ("router_kernel",)),
             ("ssd_chunk", ("ssd_chunk_kernel",)),
             ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas",

@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 KERNELS = ("gossip_mix", "gossip_mix_sparse", "gossip_mix_quant",
-           "flash_attention", "moe_router", "ssd_chunk")
+           "flash_attention", "flash_attention_tc", "moe_router",
+           "ssd_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600
@@ -39,6 +40,9 @@ SIGNATURES = {
     "flash_attention": ("flash_attention_launch",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L,
                          _L, _I, _I, _I, _P)),
+    "flash_attention_tc": ("flash_attention_tc_launch",
+                           (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
+                            _L, _L, _I, _I, _P)),
     "moe_router": ("moe_router_launch", (_P, _P, _P, _I, _I, _I, _I, _P)),
     "ssd_chunk": ("ssd_chunk_launch",
                   (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,

@@ -1,5 +1,6 @@
-"""Wrappers of the port's kernels: the three gossip mixes, flash attention,
-the MoE router and the Mamba2 SSD intra-chunk term.
+"""Wrappers of the port's kernels: the three gossip mixes, flash attention
+(a tensor-core kernel for bf16 at D in {64, 128}, a SIMT kernel for the
+rest), the MoE router and the Mamba2 SSD intra-chunk term.
 
 Each wrapper checks device, dtype, shape and layout, then runs the plain
 PyTorch version (``ref``) when the tensors lie on the CPU and the CUDA
@@ -116,6 +117,8 @@ def gossip_mix_quant(idx, val, scale, q):
 
 
 FLASH_HEAD_DIMS = (32, 64, 128)
+FLASH_TC_HEAD_DIMS = (64, 128)
+FLASH_TC_TILE = 128           # query rows per CTA of the tensor-core kernel
 ROUTER_MAX_EXPERTS, ROUTER_MAX_K = 512, 32
 
 
@@ -125,13 +128,31 @@ def _used_strides(t):
     return [(i, t.stride(i)) for i in range(t.dim()) if t.shape[i] > 1]
 
 
+def flash_kernel(dtype, d: int) -> str:
+    """The kernel ``flash_attention`` launches on the card for this dtype
+    and head dim: ``flash_attention_tc`` for bf16 at D in
+    ``FLASH_TC_HEAD_DIMS``, else the SIMT ``flash_attention``."""
+    return "flash_attention_tc" if dtype == torch.bfloat16 \
+        and d in FLASH_TC_HEAD_DIMS else "flash_attention"
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Attention with scale 1/sqrt(D) over q, k, v [B, H, S, D] of one
     shape and dtype (f32 or bf16), D in ``FLASH_HEAD_DIMS``. ``causal``
     hides keys after the query, ``window > 0`` keys at or before
     ``q - window``. On the card q, k and v must share their strides, with
     D contiguous (a [B, S, H, D] tensor's ``transpose(1, 2)`` is taken as
-    it is); the output has q's dtype and q's layout (``empty_like``)."""
+    it is); the output has q's dtype and q's layout (``empty_like``).
+
+    On the card the kernel follows from dtype and head dim alone
+    (``flash_kernel``), never from a failure: bf16 at D in
+    ``FLASH_TC_HEAD_DIMS`` launches the tensor-core kernel
+    ``flash_attention_tc`` (TMA loads, wgmma; p enters P.V rounded to
+    bf16, held to ``ref.flash_tc_limit``), which needs 16-byte aligned
+    bases and (b, h, s) strides of whole 16 bytes; f32 at any D and bf16
+    at D = 32 launch the SIMT kernel ``flash_attention`` (fp32
+    throughout), so every f32 caller, the reduced f32 models included,
+    runs it."""
     if q.dim() != 4:
         raise ValueError(f"q: expected [B, H, S, D], got {tuple(q.shape)}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -155,6 +176,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                          "strides, with the head dim contiguous")
     if not _on_card(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if flash_kernel(q.dtype, d) == "flash_attention_tc":
+        return _flash_attention_tc(q, k, v, causal, window)
     if b * h > 65535:
         raise ValueError(f"flash_attention: B*H = {b * h} > 65535")
     # the kernel copies rows of D elements in 4-byte words
@@ -169,6 +192,35 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                    v.data_ptr(), out.data_ptr(), b * h, h, s, d,
                    *q.stride()[:3], *out.stride()[:3], int(causal),
                    int(window), _DTYPE_CODE[q.dtype])
+
+
+def _tma_strides(t):
+    """(b, h, s) element strides of a [B, H, S, D] tensor for its tensor
+    map. A size-1 dim's stride is never used, so it gets D, which any
+    tensor map takes."""
+    return tuple(t.stride(i) if t.shape[i] > 1 else t.shape[3]
+                 for i in range(3))
+
+
+def _flash_attention_tc(q, k, v, causal, window):
+    """The tensor-core kernel's card-side branch of ``flash_attention``
+    (bf16, D in ``FLASH_TC_HEAD_DIMS``, inputs already checked)."""
+    b, h, s, d = q.shape
+    strides = _tma_strides(q)
+    if any(t.data_ptr() % 16 for t in (q, k, v)) or any(
+            st % 8 or st * 2 >= 2 ** 40 for st in strides):
+        raise ValueError("flash_attention: bf16 q, k, v go through TMA, "
+                         "which needs 16-byte aligned bases and (b, h, s) "
+                         "strides of whole 16 bytes")
+    if b * h * -(-s // FLASH_TC_TILE) >= 2 ** 31:
+        raise ValueError(f"flash_attention: B*H*ceil(S/{FLASH_TC_TILE}) "
+                         f"must stay below 2**31")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    return _launch("flash_attention_tc", out, q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), out.data_ptr(), b, h, s, d, *strides,
+                   *out.stride()[:3], int(causal), int(window))
 
 
 def moe_router_topk(logits, k: int):

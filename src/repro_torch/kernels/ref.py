@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -49,6 +50,77 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+def flash_tc_limit(q, k, v, want, *, causal: bool = True, window: int = 0):
+    """Per-element limit of the tensor-core flash kernel against the plain
+    version's output ``want``: |want| * 2**-6 + 2**-8 * (P.|v|) + 1e-5,
+    where P.|v| = sum_k p_k |v_k| / l is this plain version applied to |v|
+    in f32. The kernel rounds p to bf16 before P.V (8 significant bits:
+    each term moves by at most 2**-8 relative) and sums l from the fp32 p
+    as this version does; got and want are each rounded once to bf16
+    (half an ulp each, ulp(x) <= |x| * 2**-7). Derivation in
+    csrc/flash_attention_tc.cu."""
+    pv_abs = flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                 causal=causal, window=window)
+    return want.float().abs() * 2.0 ** -6 + 2.0 ** -8 * pv_abs + 1e-5
+
+
+# kind -> (S, causal, window) of ``flash_adversarial``
+FLASH_ADVERSARIAL = {"diagonal": (300, True, 0),
+                     "window_edge": (300, True, 64),
+                     "ragged_negative": (1000, False, 0),
+                     "growing": (512, True, 0)}
+
+
+def flash_adversarial(kind: str, d: int, seed: int = 0, device=None):
+    """f32 q, k, v [1, 2, S, D] (from numpy with ``seed``) on which a mask
+    or rescaling fault moves the output far beyond ``flash_tc_limit``, and
+    the case's (causal, window) (``FLASH_ADVERSARIAL``):
+
+    - ``diagonal``: the key just past the diagonal (k = q + 1) dominates
+      each row's scores by ~13.5 (natural log), so a causal mask that is
+      one key late takes v[q + 1] for the output;
+    - ``window_edge``: the same for the key at q - window, the first one
+      the window hides;
+    - ``ragged_negative``: no causal mask and S = 1000 (not a multiple of
+      128); every visible score is about -20, so a key past S left
+      unmasked (score 0, v = 0) would take almost all the weight; v has
+      mean 1;
+    - ``growing``: scores rise by 0.05 a key, ~6.4 over a 128-key tile, so
+      a missing rescale of earlier tiles by alpha shows.
+    Returns (q, k, v, causal, window)."""
+    s, causal, window = FLASH_ADVERSARIAL[kind]
+    rng = np.random.default_rng(seed)
+    shape = (1, 2, s, d)
+    u = rng.normal(size=shape)
+    v = rng.normal(size=shape)
+    if kind in ("diagonal", "window_edge"):
+        a = 1.3
+        q = a * u
+        k = a * rng.normal(size=shape)
+        if kind == "diagonal":           # k[j] = a u[j - 1]: q . k[q + 1]
+            k[:, :, 1:] = a * u[:, :, :-1]
+        else:                            # k[j] = a u[j + window]
+            k[:, :, :s - window] = a * u[:, :, window:]
+    elif kind == "ragged_negative":
+        w = rng.normal(size=(1, 2, 1, d))
+        c = math.sqrt(20.0 / math.sqrt(d))
+        q = -c * w + 0.3 * u
+        k = c * w + 0.3 * rng.normal(size=shape)
+        v = v + 1.0
+    elif kind == "growing":
+        w = rng.normal(size=(1, 2, 1, d))
+        w *= math.sqrt(d) / np.linalg.norm(w, axis=-1, keepdims=True)
+        q = np.broadcast_to(w, shape).copy()
+        pos = np.arange(s).reshape(1, 1, s, 1)
+        # q . k[j] / sqrt(D) = 0.05 j + noise
+        k = 0.05 * pos * w / math.sqrt(d) + 0.1 * rng.normal(size=shape)
+    else:
+        raise ValueError(f"unknown adversarial case {kind!r}")
+    q, k, v = (torch.tensor(x, dtype=torch.float32, device=device)
+               for x in (q, k, v))
+    return q, k, v, causal, window
 
 
 def moe_router_topk_ref(logits, k: int):

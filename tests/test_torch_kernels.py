@@ -18,6 +18,8 @@ atol = 1e-5 relative to max|y| of the case (summation order only).
 """
 from __future__ import annotations
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -339,10 +341,11 @@ def test_new_wrappers_check_inputs_and_count_only_kernel_launches():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_card_side_checks_and_launch_arguments(monkeypatch, dtype):
     """The wrappers' card-side branch, driven on the CPU with the launch
-    stubbed: the C entry receives B*H, H, S, D, q's and out's (b, h, s)
-    element strides of a [B, S, H, D] tensor read through its transposed
-    view, the mask flags and the dtype code; misaligned input is refused
-    before any launch."""
+    stubbed: the C entry receives B*H (SIMT) or B (tensor cores), H, S,
+    D, q's and out's (b, h, s) element strides of a [B, S, H, D] tensor
+    read through its transposed view, the mask flags and, for the SIMT
+    kernel, the dtype code; bf16 at D = 64 goes to the tensor-core kernel;
+    misaligned input is refused before any launch."""
     calls = []
     monkeypatch.setattr(ops, "_on_card", lambda *ts: True)
     monkeypatch.setattr(ops, "_launch",
@@ -354,9 +357,14 @@ def test_card_side_checks_and_launch_arguments(monkeypatch, dtype):
     out = ops.flash_attention(q, k, v, causal=False, window=7)
     assert out.shape == q.shape and out.stride() == q.stride()
     name, args = calls.pop()
-    assert name == "flash_attention"
-    assert args[4:] == (b * h, h, s, d, s * h * d, d, h * d, s * h * d, d,
-                        h * d, 0, 7, ops._DTYPE_CODE[dtype])
+    if dtype == torch.bfloat16:
+        assert name == "flash_attention_tc"
+        assert args[4:] == (b, h, s, d, s * h * d, d, h * d, s * h * d, d,
+                            h * d, 0, 7)
+    else:
+        assert name == "flash_attention"
+        assert args[4:] == (b * h, h, s, d, s * h * d, d, h * d, s * h * d,
+                            d, h * d, 0, 7, ops._DTYPE_CODE[dtype])
     gates, idx = ops.moe_router_topk(torch.zeros(5, 64, dtype=dtype), 6)
     assert gates.shape == idx.shape == (5, 6) and idx.dtype == torch.int32
     name, args = calls.pop()
@@ -367,6 +375,186 @@ def test_card_side_checks_and_launch_arguments(monkeypatch, dtype):
         ops.flash_attention(odd, odd, odd)
     assert calls == []
 
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core flash kernel: dispatch, launch arguments, numerics
+# ---------------------------------------------------------------------------
+
+def stub_launches(monkeypatch):
+    """Drive the card-side branch on the CPU: every launch is recorded as
+    (name, args) and returns its output unfilled."""
+    calls = []
+    monkeypatch.setattr(ops, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(ops, "_launch",
+                        lambda name, out, *args: calls.append(
+                            (name, args)) or out)
+    return calls
+
+
+@pytest.mark.parametrize("dtype,d,name", [
+    (torch.float32, 32, "flash_attention"),
+    (torch.float32, 64, "flash_attention"),
+    (torch.float32, 128, "flash_attention"),
+    (torch.bfloat16, 32, "flash_attention"),
+    (torch.bfloat16, 64, "flash_attention_tc"),
+    (torch.bfloat16, 128, "flash_attention_tc")])
+def test_flash_attention_dispatch_by_dtype_and_head_dim(monkeypatch, dtype,
+                                                        d, name):
+    """On the card the kernel follows from dtype and D alone: bf16 at D in
+    {64, 128} launches the tensor-core kernel, f32 at any D and bf16 at
+    D = 32 the SIMT kernel; one launch per call."""
+    calls = stub_launches(monkeypatch)
+    q, k, v = (torch.zeros(2, 3, 40, d, dtype=dtype) for _ in range(3))
+    out = ops.flash_attention(q, k, v)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert [c[0] for c in calls] == [name]
+    assert ops.FLASH_TC_HEAD_DIMS == (64, 128)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("layout", ["bshd", "bhsd", "bshd-b1"])
+def test_flash_attention_tc_launch_arguments(monkeypatch, d, layout):
+    """The tensor-core entry gets B, H, S, D, the (b, h, s) element strides
+    of the tensor maps (the tensor's own; a size-1 dim's, never used, as
+    D) and out's, and the mask flags: for the main path's [B, S, H, D]
+    view and for a contiguous [B, H, S, D] tensor, read in place."""
+    calls = stub_launches(monkeypatch)
+    b, s, h = (1 if layout == "bshd-b1" else 2), 40, 3
+    if layout == "bhsd":
+        q, k, v = (torch.zeros(b, h, s, d, dtype=torch.bfloat16)
+                   for _ in range(3))
+        strides = (h * s * d, s * d, d)
+    else:
+        q, k, v = (torch.zeros(b, s, h, d, dtype=torch.bfloat16)
+                   .transpose(1, 2) for _ in range(3))
+        strides = (s * h * d if b > 1 else d, d, h * d)
+    out = ops.flash_attention(q, k, v, causal=True, window=5)
+    assert out.stride() == q.stride()
+    (name, args), = calls
+    assert name == "flash_attention_tc"
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr())
+    assert args[4:] == (b, h, s, d) + strides + out.stride()[:3] + (1, 5)
+
+
+def test_flash_attention_tc_refuses_what_tma_cannot_read(monkeypatch):
+    """TMA reads 16-byte aligned bases and strides of whole 16 bytes: a
+    row stride of D + 4 bf16 (136 bytes at D = 64) and a base 2 bytes off
+    are refused with a ValueError before any launch; f32 with the same
+    strides still goes to the SIMT kernel."""
+    calls = stub_launches(monkeypatch)
+    b, h, s, d = 2, 3, 40, 64
+    padded = [torch.zeros(b, h, s, d + 4, dtype=torch.bfloat16)[..., :d]
+              for _ in range(3)]
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.flash_attention(*padded)
+    flat = torch.zeros(b * h * s * d + 1, dtype=torch.bfloat16)
+    odd = flat[1:].view(b, h, s, d)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(odd, odd, odd)
+    assert calls == []
+    ops.flash_attention(*(t.float() for t in padded))
+    assert [c[0] for c in calls] == ["flash_attention"]
+
+
+def tc_emulation(q, k, v, causal, window, *, causal_shift=0,
+                 window_shift=0, rescale=True, mask_ragged=True, bk=128):
+    """The tensor-core kernel's numerics in plain torch: 128-key tiles,
+    running max and sum in fp32 (exp2 domain), p rounded to bf16 before
+    P.V, l summed from the fp32 p, the output rounded to bf16. The
+    keywords make faulty variants: a causal mask ``causal_shift`` keys
+    late, a window edge ``window_shift`` keys early, no alpha rescale of
+    the earlier tiles, keys past S (zero-filled) left unmasked."""
+    q, k, v = (x.float() for x in (q, k, v))
+    s, d = q.shape[2], q.shape[3]
+    n = -(-s // bk)
+    pad = (0, 0, 0, n * bk - s)
+    kp, vp = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+    c = math.log2(math.e) / math.sqrt(d)
+    m = torch.full(q.shape[:3], -math.inf)
+    l = torch.zeros(q.shape[:3])
+    acc = torch.zeros(q.shape)
+    qpos = torch.arange(s)[:, None]
+    for t in range(n):
+        kt, vt = kp[:, :, t * bk:(t + 1) * bk], vp[:, :, t * bk:(t + 1) * bk]
+        kpos = torch.arange(t * bk, (t + 1) * bk)[None, :]
+        ok = torch.ones(s, bk, dtype=torch.bool)
+        if mask_ragged:
+            ok &= kpos < s
+        if causal:
+            ok &= kpos <= qpos + causal_shift
+        if window > 0:
+            ok &= kpos > qpos - window - window_shift
+        sc = (q @ kt.transpose(-1, -2)).masked_fill(~ok, -math.inf)
+        m_new = torch.maximum(m, sc.amax(-1) * c)
+        m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+        p = torch.exp2(sc * c - m_use[..., None])
+        if rescale:
+            alpha = torch.exp2(m - m_use)
+            l, acc = l * alpha, acc * alpha[..., None]
+        l = l + p.sum(-1)
+        acc = acc + p.bfloat16().float() @ vt
+        m = m_new
+    return (acc / l.clamp_min(1e-20)[..., None]).bfloat16()
+
+
+def tc_worst_ratio(got, q, k, v, causal, window, want=None):
+    """max |got - want| / ref.flash_tc_limit over the elements; ``want``
+    defaults to the port's plain version."""
+    if want is None:
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    lim = ref.flash_tc_limit(q, k, v, want, causal=causal, window=window)
+    return float(((got.float() - want.float()).abs() / lim).max())
+
+
+@pytest.mark.parametrize("s", [17, 64, 200, 300])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 128),
+                                           (False, 0)])
+def test_tc_numerics_stay_inside_the_stated_limit(s, d, causal, window):
+    """The kernel's numerics (``tc_emulation``) on bf16 inputs from numpy
+    stay inside ``ref.flash_tc_limit`` against the JAX package's oracle
+    over shapes, masks and two seeds. The oracle gets the same bf16 values
+    in f32 and its f32 output is rounded to bf16 (on bf16 arrays it rounds
+    the scores and probabilities to bf16 itself, a coarser contract than
+    the plain version's fp32)."""
+    for seed in (0, 1):
+        tq, tk, tv = (torch.tensor(x).to(torch.bfloat16)
+                      for x in qkv((2, 2, s, d), seed + s + d))
+        jq, jk, jv = (jnp.asarray(x.float().numpy()) for x in (tq, tk, tv))
+        want = torch.tensor(np.asarray(jref.flash_attention_ref(
+            jq, jk, jv, causal=causal, window=window))).to(torch.bfloat16)
+        got = tc_emulation(tq, tk, tv, causal, window)
+        assert tc_worst_ratio(got, tq, tk, tv, causal, window, want) <= 1.0
+
+
+@pytest.mark.parametrize("kind", sorted(ref.FLASH_ADVERSARIAL))
+@pytest.mark.parametrize("d", [64, 128])
+def test_tc_numerics_hold_on_the_adversarial_cases(kind, d):
+    """The emulation stays inside the limit on every adversarial case."""
+    q, k, v, causal, window = (x.to(torch.bfloat16) if torch.is_tensor(x)
+                               else x for x in ref.flash_adversarial(kind, d))
+    assert tc_worst_ratio(tc_emulation(q, k, v, causal, window), q, k, v,
+                          causal, window) <= 1.0
+
+
+@pytest.mark.parametrize("kind,fault", [
+    ("diagonal", {"causal_shift": 1}),
+    ("window_edge", {"window_shift": 1}),
+    ("ragged_negative", {"mask_ragged": False}),
+    ("growing", {"rescale": False}),
+    ("diagonal", {"rescale": False}),
+    ("window_edge", {"causal_shift": 1})])
+@pytest.mark.parametrize("d", [64, 128])
+def test_adversarial_cases_catch_mask_and_rescale_faults(kind, fault, d):
+    """A mask one key off, keys past a ragged S left in, or a missing alpha
+    rescale move the output on its adversarial case by more than 20 times
+    the limit, so the card check would catch each."""
+    q, k, v, causal, window = (x.to(torch.bfloat16) if torch.is_tensor(x)
+                               else x for x in ref.flash_adversarial(kind, d))
+    got = tc_emulation(q, k, v, causal, window, **fault)
+    assert tc_worst_ratio(got, q, k, v, causal, window) > 20.0
 
 
 # ---------------------------------------------------------------------------
