@@ -11,7 +11,8 @@ on the card in turn (random weights, seed 0) and runs, after a warm-up,
 two ``build_prefill_step`` calls at each of its two prefill shapes and 8
 decode steps of the serve loop (batch 4, after a 32-token prompt), per call
 or step: DeepSeekMoE-16B at B=4, S=512 and B=1, S=4096; Mamba2-780M at
-B=4, S=2048 and B=1, S=16384.
+B=4, S=2048 and B=1, S=16384; Jamba-v0.1 at full width cut to one 8-layer
+period (the whole model does not fit one card) at B=1, S=4096.
 
 Each window runs under ``torch.profiler`` and prints: the wall ms
 (synchronized; the profiler's own host overhead is in it), the kernels'
@@ -25,6 +26,7 @@ PATH. Imports nothing of JAX or of the ``repro`` package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -48,11 +50,13 @@ STAGES = ("split_draws", "scenario_view", "peer_sample", "transport",
 FAMILIES = (("gossip_mix", ("mix_kernel",)),
             ("flash_attention", ("flash_kernel", "flash_tc_kernel")),
             ("moe_router", ("router_kernel",)),
-            ("ssd_chunk", ("ssd_chunk_kernel",)),
+            ("ssd_chunk", ("ssd_chunk_kernel", "ssd_tc_kernel")),
             ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas",
                       "sm90_")))
-SERVE_MODELS = (("deepseek-moe-16b", ((4, 512), (1, 4096))),
-                ("mamba2-780m", ((4, 2048), (1, 16384))))
+# (arch, prefill (batch, seq) shapes, layers kept: None for all)
+SERVE_MODELS = (("deepseek-moe-16b", ((4, 512), (1, 4096)), None),
+                ("mamba2-780m", ((4, 2048), (1, 16384)), None),
+                ("jamba-v0.1-52b", ((1, 4096),), 8))
 PROMPT, DECODE_STEPS = 32, 8
 
 
@@ -149,8 +153,11 @@ def profile_serve(out):
     from repro_torch.models import model
 
     dev = resolve_device(None)
-    for arch, shapes in SERVE_MODELS:
+    for arch, shapes, layers in SERVE_MODELS:
         cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+            arch = f"{arch} ({layers} layers)"
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         params = model.init_params(gen, cfg)

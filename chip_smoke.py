@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-1. Build: compile the seven kernels (three gossip mixes, the SIMT and
-   the tensor-core flash attention, the MoE router, the SSD intra-chunk
-   term) from ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
-   parallel) and print ptxas's register and spill report and warnings.
+1. Build: compile the eight kernels (three gossip mixes, the SIMT and
+   the tensor-core flash attention, the MoE router, the SIMT and the
+   tensor-core SSD intra-chunk term) from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, in parallel) and print ptxas's register and
+   spill report and warnings; a spill in ``ssd_chunk_tc`` fails.
 2. Kernels: hold each kernel against its plain PyTorch version on the card.
    Gossip mixes at the main path's leaf shapes, at W=500 / density 0.05 /
    F=4096 and at a ragged F, for every payload type; flash attention at
@@ -23,14 +24,19 @@
    log(1..H), dt = softplus): Mamba2-780M's [G, H, T, N, P] = [32, 48, 256,
    128, 64] and [64, 48, 256, 128, 64], a ragged T = 200, the Jamba shape
    (N = 16, H = 128), a reduced shape (N = 16, P = 32, T = 32), H = 12
-   at P = 16, and the main shape with x contiguous; limit 1e-5 * max|y|
-   of each call.
+   at P = 16, and the main shape with x contiguous, each through the
+   kernel ``ops.ssd_kernel`` picks (the tensor-core ``ssd_chunk_tc`` at
+   P in {32, 64}, the SIMT ``ssd_chunk`` at P = 16) and through the SIMT
+   kernel's C entry; limit 1e-5 * max|y| of each call.
 3. Timings: device time per call (CUDA graphs of back-to-back calls, timed
    with CUDA events) of the kernel, its plain version and, where one
    exists, one PyTorch library call computing the same function, at the
    main paths' shapes (flash and ssd_chunk in the main path's layout;
    flash as the tensor-core kernel, the SIMT kernel through its C entry
-   at the same bf16 shapes, the plain version and SDPA).
+   at the same bf16 shapes, the plain version and SDPA; ssd_chunk as the
+   tensor-core kernel, the SIMT kernel through its C entry and the plain
+   version at Mamba2-780M's two prefill shapes and Jamba's [16, 128, 256,
+   16, 64]).
 4. DeFTA end to end: the port's ``run_defta`` on the card in the Table 2
    world (20 workers + 2 noise attackers, MLP, 20 epochs) on the fp32 wire
    with ``auto`` (sparse kernel), the int8 + EF21 wire (quant kernel) and
@@ -53,14 +59,16 @@
    flash kernel and not the tensor-core one.
 6. Mamba2-780M at full width and depth (48 layers, bf16, 780,148,992
    parameters, random weights from a seed) initialised on the card;
-   prefill at B=4, S=2048 and B=1, S=16384 with exactly 48 ssd_chunk
-   launches per call and no other kernel; the serve loop at its defaults
-   with no kernel launch (decode is the plain recurrence); peak memory. A
-   reduced Mamba2 (f32) card vs CPU as in 5, at S = 40, which is not a
-   multiple of its chunk of 32, so the pad path runs on the card.
+   prefill at B=4, S=2048 and B=1, S=16384 with exactly 48 ssd_chunk_tc
+   launches per call and no other kernel (0 SIMT ssd_chunk); the serve
+   loop at its defaults with no kernel launch (decode is the plain
+   recurrence); peak memory. A reduced Mamba2 (f32) card vs CPU as in 5,
+   at S = 40, which is not a multiple of its chunk of 32, so the pad path
+   runs on the card; its card runs must launch ssd_chunk_tc.
 7. Jamba at full width cut to one 8-layer period (13,267,656,416
-   parameters, bf16): two prefill calls at B=1, S=4096 with 7 ssd_chunk,
-   1 tensor-core flash and 4 router launches each and finite logits.
+   parameters, bf16): two prefill calls at B=1, S=4096 with 7
+   ssd_chunk_tc, 1 tensor-core flash and 4 router launches each (0 SIMT
+   ssd_chunk) and finite logits.
 
 Exits non-zero, before the last line, on any failure or without a card.
 The last lines are the card's name and power limit, one JSON object with
@@ -70,6 +78,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -84,6 +93,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM, fp32 outside tensor cores
 BF16_FLOPS = 989e12                # H100 SXM, bf16 tensor cores, dense
+TF32_FLOPS = 495e12                # H100 SXM, TF32 tensor cores, dense
 REPLACES = {
     "gossip_mix": "src/repro/kernels/gossip_mix.py:40",
     "gossip_mix_sparse": "src/repro/kernels/gossip_mix_sparse.py:66",
@@ -92,6 +102,7 @@ REPLACES = {
     "flash_attention_tc": "src/repro/kernels/flash_attention.py:87",
     "moe_router": "src/repro/kernels/moe_router.py:45",
     "ssd_chunk": "src/repro/kernels/ssd_chunk.py:44",
+    "ssd_chunk_tc": "src/repro/kernels/ssd_chunk.py:44",
 }
 GOSSIP = ("gossip_mix", "gossip_mix_sparse", "gossip_mix_quant")
 SERVING = ("flash_attention_tc", "moe_router")
@@ -527,16 +538,25 @@ def ssd_inputs(gen, b, s, h, n, p, chunk, dev):
 
 
 def ssd_bound(g, h, t, n, p):
-    """(bound_ms, bound_by): C, B, acum, dt, x read and y written once
-    (fp32), against 2N flops per causal (q, k) pair for the scores and
-    2P + 4 per pair and head (exp of the difference, two products, w . x)
-    at the fp32 CUDA-core peak."""
+    """(bound_ms, bound_by, cuda_core_ms) of the SSD intra-chunk term for a
+    kernel on the tensor cores: C, B, acum, dt, x read and y written once
+    (fp32) over the memory rate, against the operations: the products (2N
+    flops per causal (q, k) pair for the scores, 2P per pair and head for
+    w . x), three TF32 products each in 3xTF32, at the TF32 tensor-core
+    rate, and the exponent and the two scalings (4 per pair and head) at
+    the fp32 CUDA-core rate; the two pipes run side by side, so the larger
+    of the two. ``cuda_core_ms`` is the earlier yardstick, every operation
+    (2N per pair, 2P + 4 per pair and head) at the fp32 CUDA-core rate,
+    which the SIMT kernel cannot beat but a tensor-core kernel can."""
     pairs = t * (t + 1) // 2
     nbytes = 4 * (2 * g * t * n + 2 * g * h * t + 2 * g * h * t * p)
-    flops = g * pairs * (2 * n + h * (2 * p + 4))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    products = g * pairs * (2 * n + 2 * p * h)
+    scalar = g * pairs * h * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(3 * products / TF32_FLOPS, scalar / FP32_FLOPS)
+    cuda_core = max(t_bytes, (products + scalar) / FP32_FLOPS)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
-        else "operations"
+        else "operations", cuda_core * 1e3
 
 
 # (tag, batch, seq, heads, d_state, head_dim, chunk); G = batch * seq / chunk
@@ -547,64 +567,107 @@ SSD_CASES = (SSD_MAIN,
              ("jamba", 1, 1024, 128, 16, 64, 256),
              ("reduced", 2, 64, 16, 16, 32, 32),
              ("H=12 P=16 N=32 T=100", 2, 100, 12, 32, 16, 100))
+# the timed shapes: Mamba2-780M's two prefill shapes, Jamba's at S = 4096
+SSD_TIMED = (SSD_MAIN, SSD_CASES[1],
+             ("jamba B=1 S=4096", 1, 4096, 128, 16, 64, 256))
+
+
+def simt_ssd(C, B, acum, dt, x):
+    """The SIMT ssd_chunk kernel through its C entry, on any shape it takes;
+    bypasses ``ops`` and its launch counter, so it checks and times the
+    SIMT kernel on shapes the wrapper sends to the tensor cores."""
+    from repro_torch.kernels import build
+    g, h, t, p = x.shape
+    y = torch.empty_like(x)
+    rc = build.load("ssd_chunk")(
+        C.data_ptr(), B.data_ptr(), acum.data_ptr(), dt.data_ptr(),
+        x.data_ptr(), y.data_ptr(), g, h, t, C.shape[-1], p, *x.stride()[:3],
+        *y.stride()[:3], torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        fail(f"SIMT ssd_chunk launch failed (cudaError {rc})")
+    return y
 
 
 def check_ssd(dev):
     """ssd_chunk against its plain version at the main path's shapes and
     layout (Mamba2-780M at B=4/S=2048 and B=1/S=16384), a ragged T = 200,
     the Jamba shape, a reduced shape and a last head group of 4 at P = 16,
-    all in the main path's layout, plus the main shape with x contiguous. Limit: 1e-5 * max|y| of the
-    call (both sum in fp32, possibly in another order, and take the
-    exponent of the same fp32 difference). Each check must launch the
-    kernel once."""
+    all in the main path's layout, plus the main shape with x contiguous.
+    Each case runs through ``ops.ssd_chunk``, which must launch the kernel
+    ``ops.ssd_kernel`` picks once, and through the SIMT kernel's C entry.
+    Limit for both: 1e-5 * max|y| of the call (the SIMT kernel sums in
+    fp32; the tensor-core kernel in 3xTF32, ~2^-21 relative per product;
+    both take the exponent of the same fp32 difference). Returns the worst
+    max |error| of each kernel."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    worst, worst_ratio = 0.0, 0.0
+    worst = {"ssd_chunk": 0.0, "ssd_chunk_tc": 0.0}
+    worst_ratio = dict(worst)
     for tag, b, s, h, n, p, chunk in SSD_CASES + (
             ("main contiguous x",) + SSD_MAIN[1:],):
         args = ssd_inputs(gen, b, s, h, n, p, chunk, dev)
         if tag == "main contiguous x":
             args = args[:4] + (args[4].contiguous(),)
-        launched = ops.LAUNCHES["ssd_chunk"]
+        name = ops.ssd_kernel(n, p)
+        before = dict(ops.LAUNCHES)
         got = ops.ssd_chunk(*args)
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in worst}
+        simt = simt_ssd(*args)
         want = ref.ssd_chunk_ref(*args)
         torch.cuda.synchronize()
-        if ops.LAUNCHES["ssd_chunk"] != launched + 1:
-            fail(f"ssd_chunk {tag}: the kernel was not launched")
-        err = float((got - want).abs().max())
+        if launched != {k: int(k == name) for k in worst}:
+            fail(f"ssd_chunk {tag}: launches {launched}, expected one of "
+                 f"{name}")
         lim = 1e-5 * float(want.abs().max())
-        print(f"  check ssd_chunk {tag:24s} [G,H,T,N,P]="
-              f"{[args[4].shape[0], h, args[4].shape[2], n, p]} "
-              f"max|y|={float(want.abs().max()):.3e} max_abs_err={err:.3e} "
-              f"err/limit={err / lim:.3f} "
-              f"min(acum)={float(args[2].min()):.1f}")
-        if got.shape != want.shape or got.dtype != torch.float32 \
-                or not bool(torch.isfinite(got).all()) or not err <= lim:
-            fail(f"ssd_chunk {tag} disagrees with its plain version")
-        worst, worst_ratio = max(worst, err), max(worst_ratio, err / lim)
-    print(f"  ssd_chunk worst err/limit {worst_ratio:.3f}")
+        shape = [args[4].shape[0], h, args[4].shape[2], n, p]
+        for kname, out in ((name, got), ("ssd_chunk", simt)):
+            err = float((out - want).abs().max())
+            print(f"  check {kname:12s} {tag:24s} [G,H,T,N,P]={shape} "
+                  f"max|y|={float(want.abs().max()):.3e} max_abs_err="
+                  f"{err:.3e} err/limit={err / lim:.3f} "
+                  f"min(acum)={float(args[2].min()):.1f}"
+                  + (" (C entry)" if out is simt else ""))
+            if out.shape != want.shape or out.dtype != torch.float32 \
+                    or not bool(torch.isfinite(out).all()) or not err <= lim:
+                fail(f"{kname} {tag} disagrees with its plain version")
+            worst[kname] = max(worst[kname], err)
+            worst_ratio[kname] = max(worst_ratio[kname], err / lim)
+    print(f"  ssd worst err/limit {worst_ratio}")
     return worst
 
 
 def time_ssd(dev):
-    """ssd_chunk, its plain version and its bound at the main path's shape
-    and layout (``SSD_MAIN``: [32, 48, 256, 128, 64]); no single PyTorch
-    call computes this function."""
+    """The tensor-core ssd_chunk (through ``ops``, timed first and last),
+    the SIMT kernel (its C entry) and the plain version, with the bound, at
+    ``SSD_TIMED``'s shapes in the main path's layout; no single PyTorch
+    call computes this function. Returns the rows of the main shape."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
-    _, b, s, h, n, p, chunk = SSD_MAIN
-    args = ssd_inputs(gen, b, s, h, n, p, chunk, dev)
-    g, t = args[4].shape[0], args[4].shape[2]
-    ms = device_ms(lambda: ops.ssd_chunk(*args), 20)
-    plain_ms = device_ms(lambda: ref.ssd_chunk_ref(*args), 5)
-    b_ms, b_by = ssd_bound(g, h, t, n, p)
-    print(f"  time ssd_chunk [{g},{h},{t},{n},{p}] f32 main-path layout "
-          f"kernel={ms * 1e3:.2f}us plain={plain_ms * 1e3:.2f}us library=- "
-          f"bound={b_ms * 1e3:.2f}us ({b_by})")
-    return {"ssd_chunk": {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                          "bound_ms": b_ms, "bound_by": b_by}}
+    out = {}
+    for tag, b, s, h, n, p, chunk in SSD_TIMED:
+        args = ssd_inputs(gen, b, s, h, n, p, chunk, dev)
+        g, t = args[4].shape[0], args[4].shape[2]
+        if ops.ssd_kernel(n, p) != "ssd_chunk_tc":
+            fail(f"ssd_chunk {tag}: not the tensor-core kernel")
+        ms = device_ms(lambda: ops.ssd_chunk(*args), 20)
+        simt_ms = device_ms(lambda: simt_ssd(*args), 20)
+        plain_ms = device_ms(lambda: ref.ssd_chunk_ref(*args), 5)
+        ms_again = device_ms(lambda: ops.ssd_chunk(*args), 20)
+        b_ms, b_by, cc_ms = ssd_bound(g, h, t, n, p)
+        print(f"  time ssd_chunk_tc [{g},{h},{t},{n},{p}] f32 main-path "
+              f"layout ({tag}) kernel={ms * 1e3:.2f}us (again "
+              f"{ms_again * 1e3:.2f}us) simt={simt_ms * 1e3:.2f}us "
+              f"plain={plain_ms * 1e3:.2f}us library=- bound="
+              f"{b_ms * 1e3:.2f}us ({b_by}; fp32 CUDA-core figure "
+              f"{cc_ms * 1e3:.2f}us) simt/tc={simt_ms / ms:.2f} "
+              f"tc/bound={ms / b_ms:.2f}")
+        row = {"plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+               "bound_by": b_by}
+        out.setdefault("ssd_chunk_tc", dict(row, ms=ms))
+        out.setdefault("ssd_chunk", dict(row, ms=simt_ms))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -899,9 +962,10 @@ def serve_mamba2(dev):
     """Mamba2-780M at full width and depth (48 layers, bf16, random
     weights from seed 0): init on the card, prefill at B=4/S=2048 (G = 32)
     and B=1/S=16384 (G = 64), 3 calls each after a warm-up with 48
-    ssd_chunk launches per call and nothing else, then the serve loop at
-    its defaults, which launches no kernel (decode is the plain
-    recurrence). Returns the ssd_chunk launches of the prefill calls."""
+    ssd_chunk_tc launches per call and nothing else (no SIMT ssd_chunk),
+    then the serve loop at its defaults, which launches no kernel (decode
+    is the plain recurrence). Returns both SSD kernels' launches of the
+    prefill calls."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -933,11 +997,11 @@ def serve_mamba2(dev):
     ops.reset_launches()
     for bs in shapes:
         times = prefill_launches(prefill, params, batches[bs],
-                                 cfg.vocab_size, {"ssd_chunk": 48}, 3)
+                                 cfg.vocab_size, {"ssd_chunk_tc": 48}, 3)
         print(f"  prefill B={bs[0]} S={bs[1]}: wall_ms="
               f"{[round(x, 2) for x in times]} launches per call: 48 "
-              f"ssd_chunk")
-    counts = {"ssd_chunk": ops.LAUNCHES["ssd_chunk"]}
+              f"ssd_chunk_tc, 0 SIMT ssd_chunk")
+    counts = {k: ops.LAUNCHES[k] for k in ("ssd_chunk", "ssd_chunk_tc")}
     before = dict(ops.LAUNCHES)
     tokens, st = serve.generate(params, cfg, prompts, 32)
     delta = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
@@ -960,8 +1024,8 @@ def prefill_jamba_period(dev):
     """Jamba at full width cut to one 8-layer period (mamba, mamba_moe,
     mamba, mamba_moe, attn_dense, mamba_moe, mamba, mamba_moe; 13.3B
     parameters, bf16: the whole 32 layers, ~104 GB, do not fit one card):
-    two prefill calls at B=1, S=4096, each with 7 ssd_chunk, 1 flash and 4
-    router launches."""
+    two prefill calls at B=1, S=4096, each with 7 ssd_chunk_tc (0 SIMT
+    ssd_chunk), 1 flash and 4 router launches."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import build_prefill_step
     from repro_torch.models import model
@@ -980,11 +1044,11 @@ def prefill_jamba_period(dev):
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 4096),
                                      generator=gen, device=dev)}
     times = prefill_launches(build_prefill_step(cfg), params, batch,
-                             cfg.vocab_size, {"ssd_chunk": 7,
+                             cfg.vocab_size, {"ssd_chunk_tc": 7,
                                               "flash_attention_tc": 1,
                                               "moe_router": 4}, 2)
     print(f"  prefill B=1 S=4096: wall_ms={[round(x, 2) for x in times]} "
-          f"(the first is a cold call) launches per call: 7 ssd_chunk, 1 "
+          f"(the first is a cold call) launches per call: 7 ssd_chunk_tc, 1 "
           f"tensor-core flash, 4 router; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     del params
@@ -1014,12 +1078,17 @@ def main() -> int:
             if any(w in line.lower() for w in ("registers", "spill",
                                                 "warning")):
                 print(f"  ptxas {name}: {line.strip()}")
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", r["log"])
+        if name == "ssd_chunk_tc" and any(int(a) or int(b)
+                                          for a, b in spills):
+            fail("ssd_chunk_tc spills registers")
 
     print("[2] kernels vs plain versions", flush=True)
     max_err = check_kernels(dev)
     max_err.update(check_flash(dev))
     max_err["moe_router"] = check_router(dev)
-    max_err["ssd_chunk"] = check_ssd(dev)
+    max_err.update(check_ssd(dev))
 
     print("[3] timings", flush=True)
     main_t = time_kernels(dev, "main", 22, 4, 2048)
@@ -1040,7 +1109,11 @@ def main() -> int:
 
     print("[6] serving mamba2-780m end to end", flush=True)
     launches.update(serve_mamba2(dev))
-    serve_reduced_card_vs_cpu(dev, "mamba2-780m", 40, attention=False)
+    reduced = serve_reduced_card_vs_cpu(dev, "mamba2-780m", 40,
+                                        attention=False)
+    if not reduced["ssd_chunk_tc"] or reduced["ssd_chunk"]:
+        fail(f"reduced mamba2 (N = 16, P = 32): SSD launches {reduced}, "
+             f"expected ssd_chunk_tc only")
 
     print("[7] jamba, one period at full width", flush=True)
     prefill_jamba_period(dev)

@@ -1,6 +1,7 @@
 """Wrappers of the port's kernels: the three gossip mixes, flash attention
 (a tensor-core kernel for bf16 at D in {64, 128}, a SIMT kernel for the
-rest), the MoE router and the Mamba2 SSD intra-chunk term.
+rest), the MoE router and the Mamba2 SSD intra-chunk term (a tensor-core
+kernel in 3xTF32 for P in {32, 64}, a SIMT kernel for P = 16).
 
 Each wrapper checks device, dtype, shape and layout, then runs the plain
 PyTorch version (``ref``) when the tensors lie on the CPU and the CUDA
@@ -251,7 +252,16 @@ def moe_router_topk(logits, k: int):
 
 SSD_STATE_DIMS = (16, 32, 64, 128)
 SSD_HEAD_DIMS = (16, 32, 64)
+SSD_TC_HEAD_DIMS = (32, 64)
 SSD_MAX_CHUNK = 256
+
+
+def ssd_kernel(n: int, p: int) -> str:
+    """The kernel ``ssd_chunk`` launches on the card for state dim ``n``
+    and head dim ``p``: ``ssd_chunk_tc`` (tensor cores, 3xTF32) for P in
+    ``SSD_TC_HEAD_DIMS``, else the SIMT ``ssd_chunk``."""
+    return "ssd_chunk_tc" if n in SSD_STATE_DIMS \
+        and p in SSD_TC_HEAD_DIMS else "ssd_chunk"
 
 
 def ssd_chunk(C, B, acum, dt, x):
@@ -259,7 +269,14 @@ def ssd_chunk(C, B, acum, dt, x):
     and acum, dt [G, H, T], contiguous; x [G, H, T, P] with P contiguous
     (the model's [G, T, H, P] chunk view is taken as it is); all fp32, N in
     ``SSD_STATE_DIMS``, P in ``SSD_HEAD_DIMS``, 1 <= T <= 256. Returns y
-    [G, H, T, P] fp32 in x's layout (``empty_like``)."""
+    [G, H, T, P] fp32 in x's layout (``empty_like``).
+
+    On the card the kernel follows from N and P alone (``ssd_kernel``),
+    never from a failure: P in ``SSD_TC_HEAD_DIMS`` launches
+    ``ssd_chunk_tc`` (mma.sync TF32 in three products per product, so
+    fp32-accurate, cp.async loads), P = 16 the SIMT ``ssd_chunk`` (fp32
+    FMAs). Both take the same arguments and are held to the same limit,
+    1e-5 * max|y|."""
     if x.dim() != 4:
         raise ValueError(f"x: expected [G, H, T, P], got {tuple(x.shape)}")
     g, h, t, p = x.shape
@@ -291,7 +308,7 @@ def ssd_chunk(C, B, acum, dt, x):
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    return _launch("ssd_chunk", y, C.data_ptr(), B.data_ptr(),
+    return _launch(ssd_kernel(n, p), y, C.data_ptr(), B.data_ptr(),
                    acum.data_ptr(), dt.data_ptr(), x.data_ptr(),
                    y.data_ptr(), g, h, t, n, p, *x.stride()[:3],
                    *y.stride()[:3])

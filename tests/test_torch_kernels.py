@@ -664,10 +664,11 @@ def test_ssd_chunk_wrapper_checks_and_counts_only_launches():
 
 
 def test_ssd_chunk_card_side_launch_arguments(monkeypatch):
-    """The card-side branch with the launch stubbed: the C entry gets G,
-    H, T, N, P and x's and y's (g, h, t) element strides of the model's
-    [G, T, H, P] view; y keeps x's layout; a misaligned x is refused
-    before any launch."""
+    """The card-side branch with the launch stubbed: the C entry (at
+    P = 64 the tensor-core kernel's, ``ops.ssd_kernel``) gets G, H, T, N,
+    P and x's and y's (g, h, t) element strides of the model's [G, T, H, P]
+    view; y keeps x's layout; a misaligned x is refused before any
+    launch."""
     calls = []
     monkeypatch.setattr(ops, "_on_card", lambda *ts: True)
     monkeypatch.setattr(ops, "_launch",
@@ -680,7 +681,7 @@ def test_ssd_chunk_card_side_launch_arguments(monkeypatch):
     y = ops.ssd_chunk(C, B, acum, dt, x)
     assert y.shape == x.shape and y.stride() == x.stride()
     name, args = calls.pop()
-    assert name == "ssd_chunk"
+    assert name == "ssd_chunk_tc"
     assert args[6:] == (g, h, t, n, p, t * h * p, p, h * p, t * h * p, p,
                         h * p)
     odd = torch.zeros(g * t * h * p + 1)[1:].view(g, t, h, p).transpose(1, 2)
@@ -690,3 +691,173 @@ def test_ssd_chunk_card_side_launch_arguments(monkeypatch):
         ops.ssd_chunk(C, B, acum, dt,
                       torch.zeros(g, t, h, p + 2)[..., :p].transpose(1, 2))
     assert calls == []
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core SSD kernel: dispatch, launch arguments, numerics
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [16, 32, 64, 128])
+@pytest.mark.parametrize("p", [16, 32, 64])
+def test_ssd_kernel_choice_by_state_and_head_dim(monkeypatch, n, p):
+    """On the card the kernel follows from N and P alone: P in {32, 64}
+    launches the tensor-core kernel, P = 16 the SIMT kernel, at every N
+    the wrapper takes; one launch per call, of the kernel ``ssd_kernel``
+    names."""
+    want = "ssd_chunk_tc" if p in (32, 64) else "ssd_chunk"
+    assert ops.ssd_kernel(n, p) == want
+    assert ops.SSD_TC_HEAD_DIMS == (32, 64)
+    calls = stub_launches(monkeypatch)
+    g, h, t = 2, 3, 40
+    y = ops.ssd_chunk(torch.zeros(g, t, n), torch.zeros(g, t, n),
+                      torch.zeros(g, h, t), torch.zeros(g, h, t),
+                      torch.zeros(g, h, t, p))
+    assert y.shape == (g, h, t, p) and [c[0] for c in calls] == [want]
+
+
+@pytest.mark.parametrize("layout", ["model", "contiguous", "model-g1"])
+@pytest.mark.parametrize("n,p", [(128, 64), (16, 64), (16, 32)])
+def test_ssd_chunk_tc_launch_arguments(monkeypatch, layout, n, p):
+    """The tensor-core entry at the main paths' (N, P) gets the six
+    pointers in order (C, B, acum, dt, x, y), G, H, T, N, P and x's and
+    y's (g, h, t) element strides, for the model's [G, T, H, P] view and
+    a contiguous x, both read in place; y keeps x's layout. Misaligned
+    bases and rows that are not whole 16 bytes are refused before any
+    launch."""
+    calls = stub_launches(monkeypatch)
+    g, t, h = (1 if layout == "model-g1" else 3), 200, 5
+    C, B = torch.zeros(g, t, n), torch.zeros(g, t, n)
+    acum, dt = torch.zeros(g, h, t), torch.zeros(g, h, t)
+    x = torch.zeros(g, h, t, p) if layout == "contiguous" \
+        else torch.zeros(g, t, h, p).transpose(1, 2)
+    y = ops.ssd_chunk(C, B, acum, dt, x)
+    assert y.shape == x.shape and y.stride() == x.stride()
+    (name, args), = calls
+    assert name == "ssd_chunk_tc"
+    assert args[:6] == (C.data_ptr(), B.data_ptr(), acum.data_ptr(),
+                        dt.data_ptr(), x.data_ptr(), y.data_ptr())
+    assert args[6:11] == (g, h, t, n, p)
+    assert args[11:] == tuple(x.stride()[:3]) + tuple(y.stride()[:3])
+    calls.clear()
+    odd = torch.zeros(g * t * h * p + 1)[1:].view(g, t, h, p).transpose(1, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.ssd_chunk(C, B, acum, dt, odd)
+    with pytest.raises(ValueError, match="aligned"):        # rows of p + 2
+        ops.ssd_chunk(C, B, acum, dt,
+                      torch.zeros(g, t, h, p + 2)[..., :p].transpose(1, 2))
+    oddC = torch.zeros(g * t * n + 1)[1:].view(g, t, n)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.ssd_chunk(oddC, B, acum, dt, x)
+    assert calls == []
+
+
+def tf32_round(v):
+    """fp32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: on the magnitude bits, which a
+    carry into the exponent handles."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_truncate(v):
+    """The TF32 value the tensor cores read from fp32 bits: the top 19."""
+    return (v.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_product(a, b, passes=3):
+    """a @ b as the kernel's mma.sync products form it: each operand split
+    into hi = tf32_round(v) and lo = v - hi (exact), which the tensor
+    cores read truncated to TF32; lo.hi + hi.lo + hi.hi summed in fp32
+    (``passes=1``: one TF32 product, hi.hi)."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = tf32_truncate(a - ah), tf32_truncate(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def ssd_tc_emulation(C, B, acum, dt, x, *, passes=3, causal_shift=0,
+                     zero_fill=True):
+    """The tensor-core SSD kernel's numerics in plain torch: the chunk
+    padded to whole 64-key tiles as the kernel stages it (C, B and x past T
+    zero-filled; acum and dt past T hold NaN, as unwritten shared memory
+    may), S = C.B^T and Y = W.X in 3xTF32 (``tf32_product``). W = S *
+    exp(acum[q] - acum[k]) * dt[k]: below the diagonal tile as the product
+    of exp(acum[q] - c) and exp(c - acum[k]) * dt[k], with c = acum at the
+    last key of k's tile; on the diagonal tile selected for k <= q (the
+    masked difference is -inf) and 0 elsewhere; key tiles above it are
+    never visited. Rows at or past T are cut off. Faulty variants: one
+    TF32 product (``passes=1``), the mask ``causal_shift`` keys late, x
+    past a ragged T not zero-filled (NaN, as memory past the chunk may
+    hold)."""
+    g, t, n = C.shape
+    tp = -(-t // 64) * 64
+    pad = tp - t
+    nan = float("nan")
+    Cp = torch.nn.functional.pad(C, (0, 0, 0, pad))
+    Bp = torch.nn.functional.pad(B, (0, 0, 0, pad))
+    ap = torch.nn.functional.pad(acum, (0, pad), value=nan)
+    dp = torch.nn.functional.pad(dt, (0, pad), value=nan)
+    xp = torch.nn.functional.pad(x, (0, 0, 0, pad),
+                                 value=0.0 if zero_fill else nan)
+    S = tf32_product(Cp, Bp.transpose(1, 2), passes)[:, None]  # [G,1,TP,TP]
+    q = torch.arange(tp)[:, None]
+    k = torch.arange(tp)[None, :]
+    below = k // 64 < q // 64
+    diag = (k // 64 == q // 64) & (k <= q + causal_shift)
+    last = k[0] | 63                                   # c's key, per k
+    aq, ak = ap[..., :, None], ap[..., None, :]
+    row = torch.exp(aq - ap[..., None, last])
+    key = (torch.exp(ap[..., last] - ap) * dp)[..., None, :]
+    w_below = S * row * key
+    diff = (aq - ak).masked_fill(~diag, float("-inf"))
+    w_diag = S * torch.exp(diff) * dp[..., None, :]
+    zero = torch.zeros(())
+    W = torch.where(below, w_below, torch.where(diag, w_diag, zero))
+    return tf32_product(W, xp, passes)[:, :, :t]
+
+
+def ssd_limit_ratio(got, want):
+    """max |got - want| / (1e-5 * max|want|): chip_smoke's limit (NaN, as a
+    fault may give, compares as a failure)."""
+    err = float((got - want).abs().max())
+    return err / (1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("t", [40, 100, 200, 256])
+@pytest.mark.parametrize("n,p", [(128, 64), (16, 64), (16, 32)])
+@pytest.mark.parametrize("steep", [False, True])
+def test_ssd_tc_numerics_stay_inside_the_limit(t, n, p, steep):
+    """The tensor-core kernel's numerics (``ssd_tc_emulation``) stay inside
+    1e-5 * max|y| against the port's plain version and against the JAX
+    package's Pallas kernel in interpret mode, at the main paths' (N, P),
+    ragged T and the real model's steep decays."""
+    args = ssd_case(2, 3, t, n, p, 7 * t + n + p, steep)
+    got = ssd_tc_emulation(*map(torch.tensor, args))
+    assert torch.isfinite(got).all()
+    want = ref.ssd_chunk_ref(*map(torch.tensor, args))
+    assert ssd_limit_ratio(got, want) <= 1.0
+    jax_want = torch.tensor(np.asarray(jops.ssd_chunk(*map(jnp.asarray,
+                                                           args))))
+    assert ssd_limit_ratio(got, jax_want) <= 1.0
+
+
+SSD_TC_FAULTS = [(fault, t) for fault in ({"passes": 1}, {"causal_shift": 1})
+                 for t in (40, 100, 200, 256)] + \
+    [({"zero_fill": False}, t) for t in (40, 100, 200)]   # ragged T only
+
+
+@pytest.mark.parametrize("fault,t", SSD_TC_FAULTS)
+@pytest.mark.parametrize("n,p", [(128, 64), (16, 32)])
+def test_ssd_tc_limit_rejects_faulty_numerics(fault, t, n, p):
+    """The limit separates right from wrong: one TF32 product in place of
+    three, the mask one key late, or x past a ragged T left unfilled each
+    move the output by more than 20 times 1e-5 * max|y| (or to NaN), on
+    mild and steep decays alike."""
+    for steep in (False, True):
+        args = map(torch.tensor, ssd_case(2, 3, t, n, p, t + n, steep))
+        C, B, acum, dt, x = args
+        want = ref.ssd_chunk_ref(C, B, acum, dt, x)
+        ratio = ssd_limit_ratio(ssd_tc_emulation(C, B, acum, dt, x, **fault),
+                                want)
+        assert not ratio <= 20.0, (fault, steep, ratio)
