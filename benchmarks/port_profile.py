@@ -15,13 +15,17 @@ B=4, S=2048 and B=1, S=16384; Jamba-v0.1 at full width cut to one 8-layer
 period (the whole model does not fit one card) at B=1, S=4096.
 
 Each window runs under ``torch.profiler`` and prints: the wall ms
-(synchronized; the profiler's own host overhead is in it), the kernels'
-busy ms (the sum of kernel times), the device's idle share (1 - busy /
-wall), the kernel launches, the busy ms by kernel family (the port's own
-kernels, cuBLAS/CUTLASS GEMMs, everything else) and the top kernels; for
-DeFTA also each round stage's host ms (its ``record_function`` range) and
-GPU span. With ``--table PATH`` the profiler's full tables are written to
-PATH. Imports nothing of JAX or of the ``repro`` package.
+(synchronized; the profiler's own host overhead is in it), the kernels' busy ms
+(the sum of kernel times), the device's idle share (1 - busy / wall), the
+kernel launches, the busy ms by kernel family (the port's own kernels,
+cuBLAS/CUTLASS GEMMs, everything else) and the top kernels; for DeFTA also each
+round stage's host ms (its ``record_function`` range) and GPU span; for serving
+also the ms of the kernels that the MoE grouped dispatch ran before the fused
+route-and-slot kernel (``OLD_DISPATCH``: the rank's outer-dim ``cumsum``, the
+sorted ``index_put_``, the combine's ``index_add_``), 0 where the window no
+longer runs them. With ``--table PATH`` the profiler's full tables are written
+to PATH.
+Imports nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
 
@@ -49,10 +53,15 @@ STAGES = ("split_draws", "scenario_view", "peer_sample", "transport",
           "finalize")
 FAMILIES = (("gossip_mix", ("mix_kernel",)),
             ("flash_attention", ("flash_kernel", "flash_tc_kernel")),
-            ("moe_router", ("router_kernel",)),
+            ("moe_router", ("router_kernel", "route_slots_kernel")),
             ("ssd_chunk", ("ssd_chunk_kernel", "ssd_tc_kernel")),
             ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas",
                       "sm90_")))
+# the MoE grouped dispatch's scans and sorted scatters before the fused
+# route-and-slot kernel: the rank's int64 cumsum over the outer dim, the
+# sort behind index_put_(accumulate=True), the combine's index_add_
+OLD_DISPATCH = ("scan_outer_dim", "indexing_backward_kernel", "radixsort",
+                "indexfunclargeindex", "indexfuncsmallindex")
 # (arch, prefill (batch, seq) shapes, layers kept: None for all)
 SERVE_MODELS = (("deepseek-moe-16b", ((4, 512), (1, 4096)), None),
                 ("mamba2-780m", ((4, 2048), (1, 16384)), None),
@@ -100,6 +109,13 @@ def profile_window(label, fn, units, unit, out, stages=()):
     print("  by family: " + ", ".join(
         f"{f} {ms:.3f} ms ({ms / busy_ms:.1%})"
         for f, ms in sorted(fams.items(), key=lambda x: -x[1])))
+    old = [e for e in kernels if any(k in e.key.lower()
+                                     for k in OLD_DISPATCH)]
+    if not stages:
+        print(f"  MoE dispatch scans and sorted scatters (cumsum, sorted "
+              f"index_put_, index_add_): "
+              f"{sum(per[e.key] for e in old):.3f} ms/{unit} in "
+              f"{sum(e.count for e in old) // units} launches/{unit}")
     for s in stages:
         h = host[s].cpu_time_total / 1e3 / units if s in host else 0.0
         g = span[s].device_time_total / 1e3 / units if s in span else 0.0

@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-1. Build: compile the eight kernels (three gossip mixes, the SIMT and
-   the tensor-core flash attention, the MoE router, the SIMT and the
-   tensor-core SSD intra-chunk term) from ``src/repro_torch/kernels/csrc``
+1. Build: compile the nine kernels (three gossip mixes, the SIMT and
+   the tensor-core flash attention, the MoE router alone and fused with
+   the grouped dispatch's slots, the SIMT and the tensor-core SSD
+   intra-chunk term) from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel) and print ptxas's register and
    spill report and warnings; a spill in ``ssd_chunk_tc`` fails.
 2. Kernels: hold each kernel against its plain PyTorch version on the card.
@@ -19,10 +20,16 @@
    layout (bf16 views of [B, S, H, D] tensors), each call checked to
    launch the kernel its dtype and D select; the router at T in {4, 1000,
    2048, 4096}, (E, k) in {(64, 6), (16, 2)}, with rows of exact ties;
-   both in f32 and bf16. ssd_chunk in the main path's layout (x a view of
-   the model's [G, T, H, P] chunks) with the model's decays (A_log =
-   log(1..H), dt = softplus): Mamba2-780M's [G, H, T, N, P] = [32, 48, 256,
-   128, 64] and [64, 48, 256, 128, 64], a ragged T = 200, the Jamba shape
+   both in f32 and bf16; the fused route-and-slot kernel on the same
+   cases plus T = 32768 (1024 tiles) and routers skewed to overflow the
+   capacity: gates and indices as the router's, slots and the inverse
+   map exact against the plain rank of the kernel's own indices, equal
+   across two calls and in a CUDA graph replay, and one grouped MoE layer
+   captured in a CUDA graph (no host synchronisation). ssd_chunk in the
+   main path's layout (x a view of the model's [G, T, H, P] chunks) with
+   the model's decays (A_log = log(1..H), dt = softplus): Mamba2-780M's
+   [G, H, T, N, P] = [32, 48, 256, 128, 64] and [64, 48, 256, 128, 64],
+   a ragged T = 200, the Jamba shape
    (N = 16, H = 128), a reduced shape (N = 16, P = 32, T = 32), H = 12
    at P = 16, and the main shape with x contiguous, each through the
    kernel ``ops.ssd_kernel`` picks (the tensor-core ``ssd_chunk_tc`` at
@@ -36,7 +43,9 @@
    at the same bf16 shapes, the plain version and SDPA; ssd_chunk as the
    tensor-core kernel, the SIMT kernel through its C entry and the plain
    version at Mamba2-780M's two prefill shapes and Jamba's [16, 128, 256,
-   16, 64]).
+   16, 64]; the fused route-and-slot kernel, its plain version and the
+   route it replaced, the router and a one-hot ``cumsum`` rank, at T in
+   {2048, 4096, 4}, E = 64, k = 6 and T = 4096, E = 16, k = 2).
 4. DeFTA end to end: the port's ``run_defta`` on the card in the Table 2
    world (20 workers + 2 noise attackers, MLP, 20 epochs) on the fp32 wire
    with ``auto`` (sparse kernel), the int8 + EF21 wire (quant kernel) and
@@ -50,13 +59,13 @@
    initialised on the card; ``build_prefill_step`` at B=4, S=512 and at
    B=1, S=4096 (finite logits, wall ms), then the port's serve loop at its
    defaults (batch 4, prompt 32, 32 new tokens, greedy). Launch counts:
-   28 tensor-core flash (0 SIMT flash) and 27 router launches per
-   prefill call, 27 router launches per decode step, none of the gossip
-   kernels nor ssd_chunk. A reduced DeepSeekMoE (f32) is also served on
-   the card and on the CPU from the same parameters (logits within 1e-4,
-   equal greedy tokens), and its teacher-forced decode on the card must
-   match its prefill within 2e-3; its card runs must launch the SIMT
-   flash kernel and not the tensor-core one.
+   28 tensor-core flash (0 SIMT flash) and 27 route-and-slot launches (0
+   router) per prefill call, 27 router launches per decode step, none of
+   the gossip kernels nor ssd_chunk. A reduced DeepSeekMoE (f32) is also
+   served on the card and on the CPU from the same parameters (logits
+   within 1e-4, equal greedy tokens), and its teacher-forced decode on the
+   card must match its prefill within 2e-3; its card runs must launch the
+   SIMT flash kernel and not the tensor-core one.
 6. Mamba2-780M at full width and depth (48 layers, bf16, 780,148,992
    parameters, random weights from a seed) initialised on the card;
    prefill at B=4, S=2048 and B=1, S=16384 with exactly 48 ssd_chunk_tc
@@ -67,8 +76,8 @@
    runs on the card; its card runs must launch ssd_chunk_tc.
 7. Jamba at full width cut to one 8-layer period (13,267,656,416
    parameters, bf16): two prefill calls at B=1, S=4096 with 7
-   ssd_chunk_tc, 1 tensor-core flash and 4 router launches each (0 SIMT
-   ssd_chunk) and finite logits.
+   ssd_chunk_tc, 1 tensor-core flash and 4 route-and-slot launches each
+   (0 SIMT ssd_chunk, 0 router) and finite logits.
 
 Exits non-zero, before the last line, on any failure or without a card.
 The last lines are the card's name and power limit, one JSON object with
@@ -101,11 +110,12 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:87",
     "flash_attention_tc": "src/repro/kernels/flash_attention.py:87",
     "moe_router": "src/repro/kernels/moe_router.py:45",
+    "moe_route_slots": "src/repro/kernels/moe_router.py:45",
     "ssd_chunk": "src/repro/kernels/ssd_chunk.py:44",
     "ssd_chunk_tc": "src/repro/kernels/ssd_chunk.py:44",
 }
 GOSSIP = ("gossip_mix", "gossip_mix_sparse", "gossip_mix_quant")
-SERVING = ("flash_attention_tc", "moe_router")
+SERVING = ("flash_attention_tc", "moe_router", "moe_route_slots")
 MAMBA2_PARAMS = 780_148_992             # repro.models.model.abstract_params
 JAMBA_PERIOD_PARAMS = 13_267_656_416    # the same, jamba at num_layers=8
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
@@ -430,6 +440,114 @@ def check_router(dev):
     return worst
 
 
+def graph_outputs(fn):
+    """``fn``'s outputs from an eager call and from two replays of a CUDA
+    graph that captured it (after warm-up calls on a side stream)."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        eager = [t.clone() for t in fn()]
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    replays = []
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        replays.append([t.clone() for t in out])
+    return eager, replays
+
+
+def check_route_slots(dev):
+    """The fused route-and-slot kernel against its plain version on
+    ``check_router``'s cases, on T = 32768 (1024 tiles of 32 rows, many
+    look-back windows) and on routers skewed to overflow the capacity
+    (expert 3 raised by 4 on 80 % of the rows), f32 and bf16, at
+    ``moe_grouped``'s capacity. Gates and indices as ``check_router``
+    holds the router (gates within 1e-6; at most 2 rows with swapped
+    near-equal indices over all cases, none on a tie row) and bit-equal
+    to the router kernel's on the same logits (the same per-row code);
+    slot and the inverse map src exactly ``ref.route_slots_ref`` of the
+    kernel's own indices; a second call and two CUDA graph replays equal
+    to the first. Returns the worst gate error."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.moe import grouped_capacity
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    worst, swaps = 0.0, 0
+    cases = [(t, e, k, kind) for t in (4, 1000, 2048, 4096, 32768)
+             for e, k in ((64, 6), (16, 2)) for kind in ("ties", "skewed")]
+    for t, e, k, kind in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, ties = router_rows(gen, t, e, dev, torch.float32)
+            if kind == "skewed":
+                x[torch.rand(t, generator=gen, device=dev) < 0.8, 3] += 4.0
+            x = x.to(dtype)
+            cap = grouped_capacity(t, e, k)
+            got = ops.moe_route_slots(x, k, cap)
+            again = ops.moe_route_slots(x, k, cap)
+            gates, idx, slot, src = got
+            rgates, ridx = ops.moe_router_topk(x, k)
+            wgates, widx = ref.moe_router_topk_ref(x, k)
+            wslot, wsrc = ref.route_slots_ref(idx, e, cap)
+            torch.cuda.synchronize()
+            err = float((gates - wgates).abs().max())
+            bad = (idx != widx).any(dim=1)
+            dropped = int((slot == cap).sum())
+            print(f"  check moe_route_slots T={t:5d} E={e:2d} k={k} "
+                  f"cap={cap:5d} {kind:6s} {str(dtype)[6:]:8s} "
+                  f"gate_max_abs_err={err:.3e} tol=1.0e-06 "
+                  f"idx_rows_differ={int(bad.sum())} dropped={dropped}")
+            if not (err <= 1e-6 and not bool((bad & ties).any())):
+                fail("moe_route_slots: gates or indices disagree with the "
+                     "plain version")
+            if not (torch.equal(gates, rgates) and torch.equal(idx, ridx)):
+                fail("moe_route_slots: gates or indices differ from the "
+                     "router kernel's")
+            if not (torch.equal(slot, wslot) and torch.equal(src, wsrc)):
+                fail("moe_route_slots: slots disagree with the plain rank "
+                     "of the kernel's own indices")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail("moe_route_slots: two calls differ")
+            if kind == "skewed" and t >= 1000 and not dropped:
+                fail("moe_route_slots: the skewed case does not overflow")
+            swaps += int(bad.sum())
+            worst = max(worst, err)
+    if swaps > 2:
+        fail(f"moe_route_slots: {swaps} rows with swapped indices")
+    x, _ = router_rows(gen, 4096, 64, dev, torch.float32)
+    eager, replays = graph_outputs(
+        lambda: ops.moe_route_slots(x, 6, grouped_capacity(4096, 64, 6)))
+    if not all(torch.equal(a, b) for r in replays for a, b in zip(eager, r)):
+        fail("moe_route_slots: a CUDA graph replay differs from the eager "
+             "call")
+    print("  check moe_route_slots T=4096 E=64 k=6 in a CUDA graph: two "
+          "replays equal to the eager call")
+    return worst
+
+
+def check_grouped_capture(dev):
+    """One grouped MoE layer (``moe_grouped`` at the reduced DeepSeekMoE's
+    shapes, f32, T = 96) captured in a CUDA graph, which fails on any
+    host synchronisation; two replays equal to the eager call."""
+    from repro_torch.config import reduced
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, moe
+    cfg = reduced(get_config("deepseek-moe-16b"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    b = layers.Builder(gen, torch.float32, dev)
+    moe.init_moe(b, cfg)
+    x = torch.randn(96, cfg.d_model, generator=gen, device=dev)
+    eager, replays = graph_outputs(lambda: moe.moe_grouped(b.params, cfg, x))
+    if not all(torch.equal(a, b) for r in replays for a, b in zip(eager, r)):
+        fail("moe_grouped: a CUDA graph replay differs from the eager call")
+    print(f"  check moe_grouped captured in a CUDA graph (E="
+          f"{cfg.moe.num_experts}, k={cfg.moe.top_k}, T=96): two replays "
+          f"equal to the eager call")
+
+
 def flash_bound(b, h, s, d, itemsize, causal=True):
     """(bound_ms, bound_by): q, k, v read and out written once, against
     4*D flops per visible (q, k) pair at the bf16 tensor-core peak (bf16
@@ -515,6 +633,59 @@ def time_serving_kernels(dev):
               f"{ms * 1e3:.2f}us plain={plain_ms * 1e3:.2f}us library=- "
               f"bound={b_ms * 1e3:.3f}us ({b_by})")
         out.setdefault("moe_router", {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by})
+    return out
+
+
+def route_slots_bound(t, e, k, cap, itemsize):
+    """Logits read once; gates, indices, slots and the inverse map written
+    once; against ``router_bound``'s operations."""
+    nbytes = t * e * itemsize + t * k * 12 + e * cap * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, t * e * (3 + k) / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def replaced_route(x, k, cap):
+    """What ``moe_grouped`` ran before the fused kernel, up to the slots:
+    the router kernel, then the rank by a ``cumsum`` over the [T*k, E]
+    int64 one-hot along its outer axis, its gather and the capacity."""
+    from repro_torch.kernels import ops
+    gates, idx = ops.moe_router_topk(x, k)
+    flat = idx.reshape(-1).long()
+    rank = torch.cumsum(torch.nn.functional.one_hot(flat, x.shape[1]),
+                        dim=0) - 1
+    rank = rank.gather(1, flat[:, None])[:, 0]
+    return gates, idx, torch.where(rank < cap, rank,
+                                   torch.full_like(rank, cap))
+
+
+def time_route_slots(dev):
+    """The fused route-and-slot kernel (timed first and last), its plain
+    version and the route it replaced (``replaced_route``) at T = 2048
+    (prefill B=4 x S=512), 4096 and 4, E = 64, k = 6, and at T = 4096,
+    E = 16, k = 2 (Jamba), f32 logits, ``moe_grouped``'s capacity.
+    Returns the row of the first shape."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.moe import grouped_capacity
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    out = {}
+    for t, e, k in ((2048, 64, 6), (4096, 64, 6), (4, 64, 6), (4096, 16, 2)):
+        x = torch.randn(t, e, generator=gen, device=dev)
+        cap = grouped_capacity(t, e, k)
+        ms = device_ms(lambda: ops.moe_route_slots(x, k, cap))
+        plain_ms = device_ms(lambda: ref.moe_route_slots_ref(x, k, cap), 10)
+        old_ms = device_ms(lambda: replaced_route(x, k, cap), 10)
+        ms_again = device_ms(lambda: ops.moe_route_slots(x, k, cap))
+        b_ms, b_by = route_slots_bound(t, e, k, cap, 4)
+        print(f"  time moe_route_slots T={t:4d} E={e:2d} k={k} cap={cap} f32 "
+              f"kernel={ms * 1e3:.2f}us (again {ms_again * 1e3:.2f}us) "
+              f"plain={plain_ms * 1e3:.2f}us replaced route (router + "
+              f"one-hot cumsum)={old_ms * 1e3:.2f}us library=- "
+              f"bound={b_ms * 1e3:.3f}us ({b_by})")
+        out.setdefault("moe_route_slots", {
             "ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by})
     return out
@@ -874,10 +1045,11 @@ def serve_full(dev):
     for bs in shapes:
         times = prefill_launches(prefill, params, batches[bs],
                                  cfg.vocab_size, {"flash_attention_tc": 28,
-                                                  "moe_router": 27}, 3)
+                                                  "moe_route_slots": 27}, 3)
         print(f"  prefill B={bs[0]} S={bs[1]}: wall_ms="
               f"{[round(x, 2) for x in times]} launches per call: 28 "
-              f"tensor-core flash, 0 SIMT flash, 27 router")
+              f"tensor-core flash, 0 SIMT flash, 27 route-and-slot, 0 "
+              f"router")
     before = dict(ops.LAUNCHES)
     tokens, st = serve.generate(params, cfg, prompts, 32)
     delta = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
@@ -1025,7 +1197,7 @@ def prefill_jamba_period(dev):
     mamba, mamba_moe, attn_dense, mamba_moe, mamba, mamba_moe; 13.3B
     parameters, bf16: the whole 32 layers, ~104 GB, do not fit one card):
     two prefill calls at B=1, S=4096, each with 7 ssd_chunk_tc (0 SIMT
-    ssd_chunk), 1 flash and 4 router launches."""
+    ssd_chunk), 1 flash and 4 route-and-slot launches (0 router)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import build_prefill_step
     from repro_torch.models import model
@@ -1046,10 +1218,10 @@ def prefill_jamba_period(dev):
     times = prefill_launches(build_prefill_step(cfg), params, batch,
                              cfg.vocab_size, {"ssd_chunk_tc": 7,
                                               "flash_attention_tc": 1,
-                                              "moe_router": 4}, 2)
+                                              "moe_route_slots": 4}, 2)
     print(f"  prefill B=1 S=4096: wall_ms={[round(x, 2) for x in times]} "
           f"(the first is a cold call) launches per call: 7 ssd_chunk_tc, 1 "
-          f"tensor-core flash, 4 router; peak memory "
+          f"tensor-core flash, 4 route-and-slot; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     del params
     torch.cuda.empty_cache()
@@ -1088,12 +1260,15 @@ def main() -> int:
     max_err = check_kernels(dev)
     max_err.update(check_flash(dev))
     max_err["moe_router"] = check_router(dev)
+    max_err["moe_route_slots"] = check_route_slots(dev)
+    check_grouped_capture(dev)
     max_err.update(check_ssd(dev))
 
     print("[3] timings", flush=True)
     main_t = time_kernels(dev, "main", 22, 4, 2048)
     time_kernels(dev, "w500", 500, 24, 4096)
     main_t.update(time_serving_kernels(dev))
+    main_t.update(time_route_slots(dev))
     main_t.update(time_ssd(dev))
 
     print("[4] DeFTA end to end", flush=True)

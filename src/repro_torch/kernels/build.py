@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 KERNELS = ("gossip_mix", "gossip_mix_sparse", "gossip_mix_quant",
            "flash_attention", "flash_attention_tc", "moe_router",
-           "ssd_chunk", "ssd_chunk_tc")
+           "moe_route_slots", "ssd_chunk", "ssd_chunk_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600
@@ -44,6 +44,9 @@ SIGNATURES = {
                            (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
                             _L, _L, _I, _I, _P)),
     "moe_router": ("moe_router_launch", (_P, _P, _P, _I, _I, _I, _I, _P)),
+    "moe_route_slots": ("moe_route_slots_launch",
+                        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I,
+                         _P)),
     "ssd_chunk": ("ssd_chunk_launch",
                   (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
                    _L, _L, _L, _P)),

@@ -4,7 +4,10 @@
 // moe_router_pallas: logits [T, E] (f32 or bf16) -> the fp32 softmax
 // exp(x - max) / sum, then k rounds of "take the max, mask it to -1" in
 // which the lower expert index wins a tie, then gates / (sum + 1e-9);
-// gates [T, k] f32 and idx [T, k] int32.
+// gates [T, k] f32 and idx [T, k] int32. The grouped MoE dispatch uses
+// moe_route_slots.cu, which routes each row with the same code
+// (router_row.cuh) and also assigns each pair its slot; this kernel serves
+// the callers that want only the routing (moe_dense, every decode step).
 //
 // Bound on an H100: T*E*sizeof(logits) + T*k*8 bytes over 3.35 TB/s, under
 // 1 MB and a fraction of a microsecond at the serving path's T <= 4096,
@@ -12,32 +15,13 @@
 // row out of device memory between the softmax and the top-k (the TPU
 // kernel's point) and every lane busy.
 //
-// Design: one warp per row, 8 rows per 256-thread block. Lane l holds the
-// logits of experts l + 32i (i < EPL = ceil(E / 32), E <= 512) in
-// registers, so the loads are coalesced. The max and the sum are butterfly
-// reductions over __shfl_xor; each of the k rounds is a lane-local arg-max
-// (ascending index, strict >, so the lane's lower index wins) and a
-// butterfly arg-max on (value, index) pairs in which the lower index wins
-// an equal value, so every lane agrees on the winner; the owner masks it to
-// -1, below every probability. Round r's winner is kept by lane r (k <= 32),
-// which then writes its gate and index: one coalesced store each.
-#include "common.cuh"
-
-#include <climits>
-#include <math.h>
+// Design: one warp per row (router_row.cuh), 8 rows per 256-thread block;
+// lane r < k writes round r's gate and index: one coalesced store each.
+#include "router_row.cuh"
 
 namespace router {
 
-using gossip::to_f32;
-
 constexpr int THREADS = 256, ROWS = THREADS / 32;
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 template <typename T, int EPL>
 __global__ void __launch_bounds__(THREADS)
@@ -46,63 +30,14 @@ router_kernel(const T* __restrict__ logits, float* __restrict__ gates,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * ROWS + threadIdx.x / 32;
   if (row >= Tn) return;  // the whole warp leaves together
-  const T* x = logits + static_cast<int64_t>(row) * E;
-
-  float p[EPL];
-  float mx = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) {
-    const int e = lane + 32 * i;
-    p[i] = e < E ? to_f32(x[e]) : -INFINITY;
-    mx = fmaxf(mx, p[i]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  float sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) {
-    p[i] = lane + 32 * i < E ? expf(p[i] - mx) : 0.f;
-    sum += p[i];
-  }
-  sum = warp_sum(sum);
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) p[i] = lane + 32 * i < E ? p[i] / sum : -1.f;
-
-  float my_val = 0.f;
-  int my_idx = 0;
-  for (int r = 0; r < k; ++r) {
-    float bv = -2.f;
-    int bi = INT_MAX;
-#pragma unroll
-    for (int i = 0; i < EPL; ++i)
-      if (p[i] > bv) {
-        bv = p[i];
-        bi = lane + 32 * i;
-      }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (ov > bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (lane == r) {
-      my_val = bv;
-      my_idx = bi;
-    }
-#pragma unroll
-    for (int i = 0; i < EPL; ++i)
-      if (lane + 32 * i == bi) p[i] = -1.f;
-  }
-
-  const float total = warp_sum(lane < k ? my_val : 0.f);
+  float gate;
+  int expert;
+  route_row<T, EPL>(logits + static_cast<int64_t>(row) * E, E, k, lane, gate,
+                    expert);
   if (lane < k) {
     const int64_t out = static_cast<int64_t>(row) * k + lane;
-    gates[out] = my_val / (total + 1e-9f);
-    idx[out] = my_idx;
+    gates[out] = gate;
+    idx[out] = expert;
   }
 }
 

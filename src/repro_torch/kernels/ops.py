@@ -1,7 +1,8 @@
 """Wrappers of the port's kernels: the three gossip mixes, flash attention
 (a tensor-core kernel for bf16 at D in {64, 128}, a SIMT kernel for the
-rest), the MoE router and the Mamba2 SSD intra-chunk term (a tensor-core
-kernel in 3xTF32 for P in {32, 64}, a SIMT kernel for P = 16).
+rest), the MoE router (alone, and fused with the grouped dispatch's slot
+assignment) and the Mamba2 SSD intra-chunk term (a tensor-core kernel in
+3xTF32 for P in {32, 64}, a SIMT kernel for P = 16).
 
 Each wrapper checks device, dtype, shape and layout, then runs the plain
 PyTorch version (``ref``) when the tensors lie on the CPU and the CUDA
@@ -224,21 +225,27 @@ def _flash_attention_tc(q, k, v, causal, window):
                    *out.stride()[:3], int(causal), int(window))
 
 
-def moe_router_topk(logits, k: int):
-    """Fused softmax + top-k routing: logits [T, E] f32 or bf16 ->
-    (gates [T, k] f32, idx [T, k] int32). The k largest softmax
-    probabilities in descending order, the lower expert index first on a
-    tie, renormalized by their sum + 1e-9. E <= 512, 1 <= k <= min(E,
-    32)."""
+def _check_router(name, logits, k):
+    """The router kernels' limits on logits [T, E] and k; returns (T, E)."""
     if logits.dim() != 2:
         raise ValueError(f"logits: expected [T, E], got "
                          f"{tuple(logits.shape)}")
     t, e = logits.shape
     _check("logits", logits, (torch.float32, torch.bfloat16), (t, e))
     if e > ROUTER_MAX_EXPERTS or not 1 <= k <= min(e, ROUTER_MAX_K):
-        raise ValueError(f"moe_router_topk: E = {e}, k = {k}; need E <= "
+        raise ValueError(f"{name}: E = {e}, k = {k}; need E <= "
                          f"{ROUTER_MAX_EXPERTS} and 1 <= k <= "
                          f"min(E, {ROUTER_MAX_K})")
+    return t, e
+
+
+def moe_router_topk(logits, k: int):
+    """Fused softmax + top-k routing: logits [T, E] f32 or bf16 ->
+    (gates [T, k] f32, idx [T, k] int32). The k largest softmax
+    probabilities in descending order, the lower expert index first on a
+    tie, renormalized by their sum + 1e-9. E <= 512, 1 <= k <= min(E,
+    32)."""
+    t, e = _check_router("moe_router_topk", logits, k)
     if not _on_card(logits):
         return ref.moe_router_topk_ref(logits, k)
     gates = torch.empty((t, k), dtype=torch.float32, device=logits.device)
@@ -248,6 +255,72 @@ def moe_router_topk(logits, k: int):
     _launch("moe_router", gates, logits.data_ptr(), gates.data_ptr(),
             idx.data_ptr(), t, e, k, _DTYPE_CODE[logits.dtype])
     return gates, idx
+
+
+ROUTE_TILE = 32           # rows per CTA of moe_route_slots
+# device -> (state int32 [4]: the 64-bit epoch | ticket word and the count
+# of finished CTAs, used once in 2**30 calls; look-back words int64)
+_ROUTE_SCRATCH: dict = {}
+_ROUTE_RETIRED: list = []
+
+
+def _route_scratch(device, words: int):
+    """moe_route_slots' persistent scratch on ``device``, with room for at
+    least ``words`` look-back words. Zeroed once when made and never
+    between calls: the kernel tells this call's words from stale ones by
+    an epoch that it advances itself. It grows to the next power of two
+    (at least 2**15 words); an outgrown buffer is kept, since a captured
+    CUDA graph may still point at it."""
+    have = _ROUTE_SCRATCH.get(device)
+    if have is not None and have[1].numel() >= words:
+        return have
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("moe_route_slots: its scratch cannot grow during "
+                           "CUDA graph capture; call it once at this size "
+                           "before capturing")
+    if have is not None:
+        _ROUTE_RETIRED.append(have)
+    have = (torch.zeros(4, dtype=torch.int32, device=device),
+            torch.zeros(1 << max(15, (words - 1).bit_length()),
+                        dtype=torch.int64, device=device))
+    _ROUTE_SCRATCH[device] = have
+    return have
+
+
+def moe_route_slots(logits, k: int, cap: int):
+    """``moe_router_topk`` fused with the grouped dispatch's slot
+    assignment: logits [T, E] f32 or bf16 -> (gates [T, k] f32 and idx
+    [T, k] int32, as ``moe_router_topk`` gives them; slot [T, k] int32,
+    the pair's rank among all pairs routed to its expert, in flattened
+    order t*k + j, where that rank is below ``cap``, else ``cap``; src
+    [E*cap] int32, the token in slot s of expert e at e*cap + s, or T where
+    that slot stays empty). The limits of ``moe_router_topk``; cap >= 1.
+
+    On the card one launch computes all four, with no host
+    synchronisation, so a CUDA graph may capture it. The kernel keeps a
+    persistent scratch per device (``_route_scratch``): calls on one
+    device must not overlap in time, and a call at the largest T must
+    run once before a graph captures one."""
+    t, e = _check_router("moe_route_slots", logits, k)
+    if cap < 1 or e * cap >= 2 ** 31 or t * k >= 2 ** 31:
+        raise ValueError(f"moe_route_slots: cap = {cap}, T*k = {t * k}; "
+                         f"need cap >= 1 and E*cap, T*k below 2**31")
+    if not _on_card(logits):
+        return ref.moe_route_slots_ref(logits, k, cap)
+    dev = logits.device
+    gates = torch.empty((t, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((t, k), dtype=torch.int32, device=dev)
+    slot = torch.empty((t, k), dtype=torch.int32, device=dev)
+    if t == 0:                                 # every slot empty: src = T
+        return gates, idx, slot, torch.zeros(e * cap, dtype=torch.int32,
+                                              device=dev)
+    src = torch.empty(e * cap, dtype=torch.int32, device=dev)
+    state, words = _route_scratch(dev, -(-t // ROUTE_TILE) * e)
+    _launch("moe_route_slots", gates, logits.data_ptr(), gates.data_ptr(),
+            idx.data_ptr(), slot.data_ptr(), src.data_ptr(),
+            words.data_ptr(), state.data_ptr(), t, e, k, cap, words.numel(),
+            _DTYPE_CODE[logits.dtype])
+    return gates, idx, slot, src
 
 
 SSD_STATE_DIMS = (16, 32, 64, 128)

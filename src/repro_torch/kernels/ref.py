@@ -10,6 +10,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def gossip_mix_ref(P, w):
@@ -135,6 +136,35 @@ def moe_router_topk_ref(logits, k: int):
     vals, idx = vals[:, :k], idx[:, :k]
     gates = vals / (vals.sum(dim=-1, keepdim=True) + 1e-9)
     return gates, idx.to(torch.int32)
+
+
+def route_slots_ref(idx, num_experts: int, cap: int):
+    """The grouped dispatch's slots for the experts idx [T, k] that each
+    token chose, by the reference's one-hot cumsum (repro/models/moe.py
+    :94-100): slot [T, k] int32, the pair's rank among the pairs routed to
+    its expert in flattened order t*k + j where that rank is below
+    ``cap``, else ``cap``; and the inverse map src [E*cap] int32, the token
+    in slot s of expert e at e*cap + s, or T where that slot stays empty."""
+    t, k = idx.shape
+    flat = idx.reshape(-1).long()
+    rank = torch.cumsum(F.one_hot(flat, num_experts), dim=0) - 1
+    rank = rank.gather(1, flat[:, None])[:, 0]
+    keep = rank < cap
+    slot = torch.where(keep, rank, torch.full_like(rank, cap))
+    # the dropped pairs all land in one extra bin, cut off at the end
+    src = torch.full((num_experts * cap + 1,), t, dtype=torch.int64,
+                     device=idx.device)
+    src[torch.where(keep, flat * cap + rank, num_experts * cap)] = \
+        torch.arange(t, device=idx.device).repeat_interleave(k)
+    return slot.to(torch.int32).reshape(t, k), \
+        src[:-1].to(torch.int32)
+
+
+def moe_route_slots_ref(logits, k: int, cap: int):
+    """logits [T, E] -> (gates, idx) of ``moe_router_topk_ref`` and (slot,
+    src) of ``route_slots_ref`` on those indices."""
+    gates, idx = moe_router_topk_ref(logits, k)
+    return (gates, idx, *route_slots_ref(idx, logits.shape[1], cap))
 
 
 def ssd_chunk_ref(C, B, acum, dt, x):

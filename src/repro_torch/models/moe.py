@@ -2,17 +2,22 @@
 load-balance auxiliary loss (the port of ``repro.models.moe``).
 
 The router's gates and expert indices come from the fused router kernel
-(``kernels.ops.moe_router_topk``: fp32 softmax, top-k with the lower index
-first on a tie, renormalisation) on the fp32 router logits; the aux loss
-takes the softmax itself, as the reference does.
+(fp32 softmax, top-k with the lower index first on a tie, renormalisation)
+on the fp32 router logits; the aux loss takes the softmax itself, as the
+reference does.
 
 Two dispatch strategies, as in the reference:
 
 * ``dense``   — every token through every expert (exact; decode default).
-* ``grouped`` — capacity dispatch: tokens are scatter-packed into an
-                [E, C, D] buffer by (expert, rank within expert), batch-
-                multiplied against the expert stack and gathered back.
-                Overflow tokens are dropped, empty slots are zero.
+                Routed by ``kernels.ops.moe_router_topk``.
+* ``grouped`` — capacity dispatch: tokens are packed into an [E, C, D]
+                buffer by (expert, rank within expert), batch-multiplied
+                against the expert stack and gathered back. Overflow
+                tokens are dropped, empty slots are zero. Routed by
+                ``kernels.ops.moe_route_slots``, which also gives each
+                (token, choice) its slot and each slot its token, so the
+                pack is one gather and the combine another, with no host
+                synchronisation.
 
 ``eplocal`` (expert parallelism across devices) is not ported yet.
 """
@@ -60,14 +65,21 @@ def load_balance_loss(probs, expert_index, num_experts):
     return num_experts * torch.sum(f * p)
 
 
-def _route(params, cfg: ModelConfig, x):
-    """(gates [T, k] fp32, expert indices [T, k] int64, aux loss)."""
+def _route(params, cfg: ModelConfig, x, cap=None):
+    """(gates [T, k] fp32, expert indices [T, k] int64, aux loss, slots):
+    without ``cap`` by ``ops.moe_router_topk`` and slots None; with it by
+    ``ops.moe_route_slots``, and slots are its (slot [T, k], src [E*cap])
+    int32."""
     logits = router_logits(params, x)
-    gates, idx = ops.moe_router_topk(logits, cfg.moe.top_k)
+    if cap is None:
+        gates, idx = ops.moe_router_topk(logits, cfg.moe.top_k)
+        slots = None
+    else:
+        gates, idx, *slots = ops.moe_route_slots(logits, cfg.moe.top_k, cap)
     idx = idx.long()
     aux = load_balance_loss(torch.softmax(logits, dim=-1), idx,
                             cfg.moe.num_experts)
-    return gates, idx, aux
+    return gates, idx, aux, slots
 
 
 def _shared(params, x):
@@ -78,7 +90,7 @@ def _shared(params, x):
 
 def moe_dense(params, cfg: ModelConfig, x):
     """Exact all-experts formulation. x: [T, D] -> ([T, D], aux_loss)."""
-    gates, idx, aux = _route(params, cfg, x)
+    gates, idx, aux, _ = _route(params, cfg, x)
     xe = x[None].expand(cfg.moe.num_experts, *x.shape)     # [E, T, D]
     h = torch.bmm(xe, params["wi"])                          # [E, T, F]
     g = torch.bmm(xe, params["wg"])
@@ -92,39 +104,39 @@ def moe_dense(params, cfg: ModelConfig, x):
     return y, aux
 
 
+def grouped_capacity(t: int, e: int, k: int,
+                     capacity_factor: float = 1.25) -> int:
+    """Slots per expert of the grouped dispatch for T tokens, E experts and
+    top-k: capacity_factor * k * T / E, at least 1, rounded up to the
+    reference's multiple of 8."""
+    cap = max(int(capacity_factor * k * t / e), 1)
+    return (cap + 7) // 8 * 8
+
+
 def moe_grouped(params, cfg: ModelConfig, x, capacity_factor: float = 1.25):
     """Capacity-packed dispatch. x: [T, D] -> ([T, D], aux_loss)."""
     m = cfg.moe
     t, d = x.shape
     e, k = m.num_experts, m.top_k
-    cap = max(int(capacity_factor * k * t / e), 1)
-    cap = (cap + 7) // 8 * 8          # the reference's multiple of 8
+    cap = grouped_capacity(t, e, k, capacity_factor)
 
-    gates, idx, aux = _route(params, cfg, x)
+    gates, idx, aux, (slot, src) = _route(params, cfg, x, cap)
 
-    # rank of each (token, k) within its expert
-    flat_e = idx.reshape(-1)                                     # [T*k]
-    rank = torch.cumsum(F.one_hot(flat_e, e), dim=0) - 1         # [T*k, E]
-    rank = rank.gather(1, flat_e[:, None])[:, 0]
-    keep = rank < cap
-    slot = torch.where(keep, rank, torch.full_like(rank, cap))   # drop -> pad
-
-    # scatter-pack into [E, cap+1, D]; the last slot is the trash bin, the
-    # only place two rows collide, so the accumulate is exact on kept slots
-    tok = torch.arange(t, device=x.device).repeat_interleave(k)
-    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((flat_e, slot), x[tok], accumulate=True)
-    buf = buf[:, :cap]
+    # pack: buf[e, s] = x[src[e*cap + s]]; an empty slot reads the zero row
+    # appended at T
+    buf = F.pad(x, (0, 0, 0, 1)).index_select(0, src).view(e, cap, d)
 
     h = torch.bmm(buf, params["wi"])
     g = torch.bmm(buf, params["wg"])
     y_buf = torch.bmm(F.silu(g) * h, params["wo"])               # [E, cap, D]
 
-    # gather back and combine with gate weights (dropped tokens get 0)
-    y_tok = y_buf[flat_e, slot.clamp(max=cap - 1)]               # [T*k, D]
-    w = (gates.reshape(-1) * keep).to(x.dtype)
-    y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
-    y.index_add_(0, tok, y_tok * w[:, None])
+    # gather each pair's row back and combine with its gate (a dropped
+    # pair, slot = cap, reads a kept row and weighs it 0)
+    keep = slot < cap
+    at = idx * cap + slot.clamp(max=cap - 1)                     # [T, k]
+    y_tok = y_buf.view(e * cap, d).index_select(0, at.view(-1))
+    w = (gates * keep).to(x.dtype)
+    y = (y_tok.view(t, k, d) * w[..., None]).sum(dim=1)
     if m.num_shared_experts:
         y = y + _shared(params, x)
     return y, aux
@@ -135,7 +147,7 @@ def moe_ffn(params, cfg: ModelConfig, x, strategy: str = "grouped"):
     if strategy.startswith("eplocal"):
         raise NotImplementedError(
             "moe_strategy='eplocal*' (expert parallelism) is not ported yet: "
-            "ROADMAP.md queue 1, item 17")
+            "ROADMAP.md queue 1a, item 9")
     b_, s, d = x.shape
     flat = x.reshape(b_ * s, d)
     if strategy == "dense":

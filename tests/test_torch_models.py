@@ -220,6 +220,28 @@ def test_moe_matches_jax(moe_replace, strategy, capacity):
     close(aux, jaux)
 
 
+@pytest.mark.parametrize("moe_replace", MOE_CASES)
+def test_moe_grouped_overflowing_router_matches_jax(moe_replace):
+    """A router skewed towards expert 0 (inputs offset by 1, its column
+    raised by 4/D), so nearly every token picks it and it overflows the
+    capacity of factor 1.25: the dropped pairs, the empty slots of the
+    other experts and the combine all against live JAX."""
+    jcfg, cfg = moe_configs(moe_replace)
+    tree = jax_init(jmoe.init_moe, jcfg, 11)
+    tree["router"][:, 0] += 4.0 / cfg.d_model
+    jp, tp = both(tree)
+    x = (np.random.default_rng(12).normal(size=(96, cfg.d_model))
+         + 1.0).astype(np.float32)
+    _, idx = jax.lax.top_k(jmoe.router_probs(jp, x)[0], jcfg.moe.top_k)
+    cap = (int(1.25 * jcfg.moe.top_k * 96 / jcfg.moe.num_experts) + 7) \
+        // 8 * 8
+    assert (np.asarray(idx) == 0).sum() > cap
+    want, jaux = jmoe.moe_grouped(jp, jcfg, x)
+    got, aux = moe.moe_grouped(tp, cfg, torch.tensor(x))
+    close(got, want)
+    close(aux, jaux)
+
+
 def test_moe_ffn_strategies_and_guard():
     jcfg, cfg = moe_configs({})
     jp, tp = both(jax_init(jmoe.init_moe, jcfg, 9))
@@ -338,9 +360,11 @@ def test_greedy_serving_matches_jax(arch):
 
 def test_serving_goes_through_the_kernel_wrappers(monkeypatch):
     """Per prefill call every layer runs flash attention once and every MoE
-    layer the router once; a decode step runs the router once per MoE
-    layer and no flash attention."""
-    calls = {"flash_attention": 0, "moe_router_topk": 0}
+    layer the fused route-and-slot kernel once (the grouped dispatch); a
+    decode step runs the router once per MoE layer (the dense dispatch)
+    and no flash attention."""
+    calls = {"flash_attention": 0, "moe_router_topk": 0,
+             "moe_route_slots": 0}
     for name in calls:
         real = getattr(ops, name)
 
@@ -355,18 +379,21 @@ def test_serving_goes_through_the_kernel_wrappers(monkeypatch):
     params = model.init_params(gen, cfg)
     tokens = torch.randint(0, cfg.vocab_size, (2, 5), generator=gen)
     build_prefill_step(cfg)(params, {"tokens": tokens})
-    assert calls == {"flash_attention": 4, "moe_router_topk": 3}
+    assert calls == {"flash_attention": 4, "moe_router_topk": 0,
+                     "moe_route_slots": 3}
     cache = model.init_cache(cfg, 2, 5, device="cpu")
     build_decode_step(cfg)(params, tokens[:, :1], cache, 0)
-    assert calls == {"flash_attention": 4, "moe_router_topk": 6}
+    assert calls == {"flash_attention": 4, "moe_router_topk": 3,
+                     "moe_route_slots": 3}
 
 
 def test_ssm_serving_goes_through_the_kernel_wrappers(monkeypatch):
     """Jamba at 4 layers (mamba, mamba_moe, mamba, attn_moe): a prefill
     call runs ssd_chunk once per mamba layer, flash once per attention
-    layer and the router once per MoE layer; a decode step runs only the
-    router (the SSD recurrence is plain torch)."""
-    calls = {"ssd_chunk": 0, "flash_attention": 0, "moe_router_topk": 0}
+    layer and the fused route-and-slot kernel once per MoE layer; a decode
+    step runs only the router (the SSD recurrence is plain torch)."""
+    calls = {"ssd_chunk": 0, "flash_attention": 0, "moe_router_topk": 0,
+             "moe_route_slots": 0}
     for name in calls:
         real = getattr(ops, name)
 
@@ -383,11 +410,11 @@ def test_ssm_serving_goes_through_the_kernel_wrappers(monkeypatch):
     tokens = torch.randint(0, cfg.vocab_size, (2, 37), generator=gen)
     build_prefill_step(cfg)(params, {"tokens": tokens})
     assert calls == {"ssd_chunk": 3, "flash_attention": 1,
-                     "moe_router_topk": 2}
+                     "moe_router_topk": 0, "moe_route_slots": 2}
     cache = model.init_cache(cfg, 2, 37, device="cpu")
     build_decode_step(cfg)(params, tokens[:, :1], cache, 0)
     assert calls == {"ssd_chunk": 3, "flash_attention": 1,
-                     "moe_router_topk": 4}
+                     "moe_router_topk": 2, "moe_route_slots": 2}
 
 
 # ---------------------------------------------------------------------------
