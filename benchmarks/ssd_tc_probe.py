@@ -141,8 +141,8 @@ def main() -> int:
                 raise RuntimeError(f"{name}: {old!r} not in {SOURCE.name}")
             text = text.replace(old, new)
         (OUT / f"{name}.cu").write_text(text)
-        jobs[name] = nvcc([*build.NVCC_FLAGS, "-o", str(OUT / f"lib{name}.so"),
-                           str(OUT / f"{name}.cu")])
+        jobs[name] = nvcc([*build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+                           str(OUT / f"lib{name}.so"), str(OUT / f"{name}.cu")])
     for name, proc in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:

@@ -8,10 +8,15 @@
    the grouped dispatch's slots, the SIMT and the tensor-core SSD
    intra-chunk term) from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel) and print ptxas's register and
-   spill report and warnings; a spill in ``ssd_chunk_tc`` fails.
+   spill report and warnings; a spill in ``ssd_chunk_tc`` or in the dense
+   gossip mix's tile regime fails.
 2. Kernels: hold each kernel against its plain PyTorch version on the card.
-   Gossip mixes at the main path's leaf shapes, at W=500 / density 0.05 /
-   F=4096 and at a ragged F, for every payload type; flash attention at
+   Gossip mixes at the main path's leaf shapes (W = 22), at a ragged F, at
+   W in {48, 49, 64, 65, 128, 129, 200} (both sides of the dense mix's
+   regime boundary at 48), at W=500 / density 0.05 / F in {4096, 4099}, for every
+   payload type, and the int8 mix at W = 12,000 (its gather branch), each
+   call checked to launch once in the regime or branch it should
+   (``ops.REGIMES``); flash attention at
    S in {17, 64, 200, 256, 512, 1000, 4096}, D in {64, 128}, causal,
    window 128 and non-causal, f32 (the SIMT kernel, one-ulp limit) and
    bf16 (the tensor-core kernel, ``ref.flash_tc_limit``), bf16 at D = 32
@@ -38,7 +43,10 @@
 3. Timings: device time per call (CUDA graphs of back-to-back calls, timed
    with CUDA events) of the kernel, its plain version and, where one
    exists, one PyTorch library call computing the same function, at the
-   main paths' shapes (flash and ssd_chunk in the main path's layout;
+   main paths' shapes (the gossip mixes at W = 22 and W = 500, with the
+   dense mix's bound both on the CUDA cores and in 3xTF32 on the tensor
+   cores and ``torch.matmul`` beside it; flash and ssd_chunk in the main
+   path's layout;
    flash as the tensor-core kernel, the SIMT kernel through its C entry
    at the same bf16 shapes, the plain version and SDPA; ssd_chunk as the
    tensor-core kernel, the SIMT kernel through its C entry and the plain
@@ -168,7 +176,8 @@ def payload(gen, w: int, f: int, dtype):
 # ---------------------------------------------------------------------------
 
 def kernel_calls(ops, ref, P, idx, val, w_in, scale):
-    """(kernel call, plain call) per kernel for one payload."""
+    """(kernel call, plain call) per kernel for one payload; P None: the
+    quant mix alone (the gather branch's W, where no dense P is made)."""
     calls = {}
     if scale is None:
         calls["gossip_mix"] = (lambda: ops.gossip_mix(P, w_in),
@@ -178,16 +187,56 @@ def kernel_calls(ops, ref, P, idx, val, w_in, scale):
                 lambda: ops.gossip_mix_sparse(idx, val, w_in),
                 lambda: ref.gossip_mix_sparse_ref(idx, val, w_in))
     else:
-        Pw = (P * scale[None, :]).contiguous()   # the pallas backend's fold
-        calls["gossip_mix"] = (lambda: ops.gossip_mix(Pw, w_in),
-                               lambda: ref.gossip_mix_ref(Pw, w_in))
+        if P is not None:
+            Pw = (P * scale[None, :]).contiguous()  # the pallas backend's fold
+            calls["gossip_mix"] = (lambda: ops.gossip_mix(Pw, w_in),
+                                   lambda: ref.gossip_mix_ref(Pw, w_in))
         calls["gossip_mix_quant"] = (
             lambda: ops.gossip_mix_quant(idx, val, scale, w_in),
             lambda: ref.gossip_mix_quant_ref(idx, val, scale, w_in))
     return calls
 
 
+def gather_world(w: int, k: int, seed: int, dev):
+    """idx [W, K] int32, val [W, K] for a large W without a dense P: slot 0
+    the row itself, K - 2 random peers, the last slot a pad (val 0)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, w, size=(w, k)).astype(np.int32)
+    idx[:, 0] = np.arange(w)
+    idx[:, -1] = np.arange(w)
+    val = rng.uniform(0.5, 1.5, size=(w, k))
+    val[:, -1] = 0.0
+    val /= val.sum(1, keepdims=True)
+    return (torch.tensor(idx, device=dev),
+            torch.tensor(val, dtype=torch.float32, device=dev))
+
+
+# the int8 mix takes its gather branch at K = 5 past W = 11,617
+# (ops.gossip_mix_quant_plan)
+GATHER_W = 12000
+
+
+def expected_regime(ops, name, w, tag):
+    """The regime or branch a gossip call must launch (ops.REGIMES key)."""
+    if name == "gossip_mix":
+        return "gossip_mix/" + ("stream" if w <= ops.GOSSIP_STREAM_MAX_W
+                                else "tile")
+    if name == "gossip_mix_quant":
+        return "gossip_mix_quant/" + ("gather" if tag.startswith("gather")
+                                      else "slices")
+    return None
+
+
 def check_kernels(dev):
+    """Every gossip mix against its plain version on every payload type:
+    the main path's leaves (W = 22), a ragged F, W in {48, 49} (both sides
+    of the dense mix's regime boundary), W in {64, 65, 128, 129, 200} (both
+    sides of the tile regime's 32-deep k step and 128-row tile; W = 49, 65
+    and 129 leave P's rows unaligned), W =
+    500 at F = 4096 and 4099, and the int8 mix at W = 12,000 (its gather
+    branch) at F = 4096 and 1001. Each call must launch once, in the regime
+    or branch it should (``expected_regime``). Limit 1e-5 (1 + max|plain|)
+    for every kernel and payload."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -195,27 +244,56 @@ def check_kernels(dev):
     # the main path's leaves: MLP(32, 10, hidden 64) and CNN(10, 1, 10, 8)
     for f in (2048, 64, 640, 10, 72, 1152):
         cases.append(("main", 22, 4, f))
-    cases += [("ragged", 22, 4, 1001), ("w500", 500, 24, 4096),
-              ("w500-ragged", 500, 24, 4099)]
+    cases += [("ragged", 22, 4, 1001), ("W48", 48, 16, 2048),
+              ("W49", 49, 16, 1001), ("W64", 64, 21, 2048),
+              ("W65", 65, 21, 1001), ("W128", 128, 42, 4096),
+              ("W129", 129, 43, 2048), ("W200", 200, 66, 4099),
+              ("w500", 500, 24, 4096), ("w500-ragged", 500, 24, 4099),
+              ("gather", GATHER_W, 5, 4096),
+              ("gather-ragged", GATHER_W, 5, 1001)]
     max_err = {k: 0.0 for k in GOSSIP}
+    seen = set()
     for tag, w, kp, f in cases:
-        P, idx, val, _ = world_csr(w, kp, seed=w + f, dev=dev)
-        for dtype in ("float32", "bfloat16", "int8"):
+        if tag.startswith("gather"):
+            P = None
+            idx, val = gather_world(w, kp, seed=f, dev=dev)
+            dtypes = ("int8",)
+        else:
+            P, idx, val, _ = world_csr(w, kp, seed=w + f, dev=dev)
+            dtypes = ("float32", "bfloat16", "int8")
+        for dtype in dtypes:
             w_in, scale = payload(gen, w, f, dtype)
             for name, (kern, plain) in kernel_calls(
                     ops, ref, P, idx, val, w_in, scale).items():
-                got, want = kern(), plain()
+                before, regimes = ops.LAUNCHES[name], dict(ops.REGIMES)
+                got = kern()
                 torch.cuda.synchronize()
+                want = plain()
+                regime = expected_regime(ops, name, w, tag)
+                launched = {k: v - regimes.get(k, 0)
+                            for k, v in ops.REGIMES.items()
+                            if v != regimes.get(k, 0)}
+                if ops.LAUNCHES[name] - before != 1 or (
+                        regime is not None and launched != {regime: 1}):
+                    fail(f"{name} {tag} {dtype}: launches {launched}, "
+                         f"expected one in {regime}")
+                seen.add(regime)
                 if got.shape != want.shape or got.dtype != torch.float32:
                     fail(f"{name} {tag} {dtype}: shape/dtype {got.shape} "
                          f"{got.dtype}")
                 err = float((got - want).abs().max())
                 tol = 1e-5 * (1.0 + float(want.abs().max()))
-                print(f"  check {name:18s} {tag:11s} W={w:3d} F={f:5d} "
-                      f"{dtype:8s} max_abs_err={err:.3e} tol={tol:.1e}")
+                print(f"  check {name:18s} {tag:13s} W={w:5d} F={f:5d} "
+                      f"{dtype:8s} max_abs_err={err:.3e} tol={tol:.1e}"
+                      f"{'' if regime is None else ' ' + regime}")
                 if not err <= tol:
                     fail(f"{name} disagrees with its plain version")
                 max_err[name] = max(max_err[name], err)
+    want_seen = {"gossip_mix/stream", "gossip_mix/tile",
+                 "gossip_mix_quant/slices", "gossip_mix_quant/gather"}
+    if not want_seen <= seen:
+        fail(f"gossip regimes launched {sorted(seen - {None})}, expected "
+             f"{sorted(want_seen)}")
     return max_err
 
 
@@ -252,10 +330,13 @@ def device_ms(fn, calls: int = 50, repeats: int = 7) -> float:
     return statistics.median(times)
 
 
-def bound(name, w, k_nnz, k_slots, f, in_bytes):
-    """(bound_ms, bound_by): bytes over the card's memory rate vs fp32
-    operations over its CUDA-core rate, each input read once and the
-    output written once."""
+def bound(name, w, k_nnz, k_slots, f, in_bytes, tensor_cores=False):
+    """(bound_ms, bound_by): bytes over the card's memory rate vs the
+    operations over their peak rate, each input read once and the output
+    written once. The operations are fp32 FMAs on the CUDA cores, or, for
+    the dense mix's tile regime (``tensor_cores``), its TF32 products on
+    the tensor cores: three per product for an f32 payload, two for bf16
+    and int8."""
     if name == "gossip_mix":
         nbytes = w * f * in_bytes + w * f * 4 + w * w * 4
         flops = 2 * w * w * f
@@ -264,6 +345,8 @@ def bound(name, w, k_nnz, k_slots, f, in_bytes):
         nbytes += w * 4 if name == "gossip_mix_quant" else 0
         flops = 2 * k_nnz * f
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    if tensor_cores:
+        t_ops = (3 if in_bytes == 4 else 2) * flops / TF32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
         else "operations"
 
@@ -295,13 +378,22 @@ def time_kernels(dev, tag, w, kp, f):
     for name, (kern, plain, lib, in_bytes) in rows.items():
         ms, plain_ms = device_ms(kern), device_ms(plain)
         lib_ms = device_ms(lib) if lib is not None else None
-        b_ms, b_by = bound(name, w, nnz, idx.shape[1], f, in_bytes)
+        tile = name == "gossip_mix" and \
+            ops.gossip_mix_plan(w, f, w32.dtype)[0] == "tile"
+        b_ms, b_by = bound(name, w, nnz, idx.shape[1], f, in_bytes, tile)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                      "bound_ms": b_ms, "bound_by": b_by}
+        both = ""
+        if name == "gossip_mix":    # the bound both ways
+            cc = bound(name, w, nnz, idx.shape[1], f, in_bytes)
+            tc = bound(name, w, nnz, idx.shape[1], f, in_bytes, True)
+            both = (f" [fp32 CUDA cores {cc[0] * 1e3:.2f}us ({cc[1]}), "
+                    f"3xTF32 tensor cores {tc[0] * 1e3:.2f}us ({tc[1]}); "
+                    f"{'tile' if tile else 'stream'} regime]")
         print(f"  time {name:18s} {tag:5s} W={w:3d} K={idx.shape[1]:2d} "
               f"F={f:5d} kernel={ms * 1e3:9.2f}us plain={plain_ms * 1e3:9.2f}"
               f"us library={'-' if lib_ms is None else f'{lib_ms * 1e3:.2f}'}"
-              f"us bound={b_ms * 1e3:.2f}us ({b_by})")
+              f"us bound={b_ms * 1e3:.2f}us ({b_by}){both}")
     return out
 
 
@@ -1227,6 +1319,20 @@ def prefill_jamba_period(dev):
     torch.cuda.empty_cache()
 
 
+def spills(log: str) -> dict:
+    """{entry function: spilled bytes (stores + loads)} from ptxas -v."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry is not None:
+            out[entry] = int(m.group(1)) + int(m.group(2))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1250,11 +1356,10 @@ def main() -> int:
             if any(w in line.lower() for w in ("registers", "spill",
                                                 "warning")):
                 print(f"  ptxas {name}: {line.strip()}")
-        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                            r"loads", r["log"])
-        if name == "ssd_chunk_tc" and any(int(a) or int(b)
-                                          for a, b in spills):
-            fail("ssd_chunk_tc spills registers")
+        for entry, spilled in spills(r["log"]).items():
+            if spilled and (name == "ssd_chunk_tc" or (
+                    name == "gossip_mix" and "tile_mix_kernel" in entry)):
+                fail(f"{name} spills registers in {entry}")
 
     print("[2] kernels vs plain versions", flush=True)
     max_err = check_kernels(dev)

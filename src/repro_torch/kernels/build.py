@@ -32,11 +32,13 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point and argument types of each library; every entry returns
 # cudaGetLastError() after its launch (0 = success)
 SIGNATURES = {
-    "gossip_mix": ("gossip_mix_launch", (_P, _P, _P, _I, _L, _I, _P)),
+    "gossip_mix": ("gossip_mix_launch",
+                   (_P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _P)),
     "gossip_mix_sparse": ("gossip_mix_sparse_launch",
                           (_P, _P, _P, _P, _I, _I, _L, _I, _P)),
     "gossip_mix_quant": ("gossip_mix_quant_launch",
-                         (_P, _P, _P, _P, _P, _I, _I, _L, _P)),
+                         (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I,
+                          _I, _P)),
     "flash_attention": ("flash_attention_launch",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L,
                          _L, _I, _I, _I, _P)),
@@ -84,14 +86,17 @@ def build(names=KERNELS) -> dict:
     ``nvcc`` per source, all at once. Returns ``{name: {"seconds",
     "cached", "log"}}`` where ``log`` is ptxas's register and spill report.
     Raises ``RuntimeError`` with the compiler's output if any build
-    fails."""
+    fails. The report is kept beside each library (``.log``), so a cached
+    library reports it too."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     report, jobs = {}, {}
     nvcc = None
     for name in names:
         out = library_path(name)
         if out.exists():
-            report[name] = {"seconds": 0.0, "cached": True, "log": ""}
+            log = out.with_suffix(".log")
+            report[name] = {"seconds": 0.0, "cached": True,
+                            "log": log.read_text() if log.exists() else ""}
             continue
         nvcc = nvcc or nvcc_path()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -108,6 +113,7 @@ def build(names=KERNELS) -> dict:
                 failed.append(f"--- {name} (nvcc exit {proc.returncode}):"
                               f"\n{log}")
                 continue
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
             report[name] = {"seconds": secs, "cached": False, "log": log}
     finally:                       # a timeout or an interrupt: stop them all

@@ -105,6 +105,8 @@
 
 #include <cstdlib>
 
+#include "common.cuh"
+
 namespace ssd_tc {
 
 constexpr int BQ = 64, BK = 64;   // query rows per tile, keys per tile
@@ -136,50 +138,19 @@ __host__ __device__ inline size_t smem_bytes(int T) {
                           2 * Cfg<NC, P>::STAGE + 5 * n_qt * BQ);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, zero-filled when !valid
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
-                                     bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
+// the asynchronous copies, the 3xTF32 split and the mma.sync product are
+// common.cuh's, shared with the dense gossip mix
+using gossip::cp16;
+using gossip::cp_commit;
+using gossip::mma_tf32;
+using gossip::smem_u32;
+using gossip::split;
 // 4 bytes from global to shared memory
 __device__ __forceinline__ void cp4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
+  gossip::cp4(dst, src, true);
 }
 // all but the newest group complete
-__device__ __forceinline__ void cp_wait_prev() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-
-// v = hi + lo: hi is v rounded to TF32 (to nearest, ties away from zero,
-// as cvt.rna.tf32.f32 rounds, in two integer operations: the carry of the
-// rounding add runs into the exponent as it should), lo = v - hi exactly;
-// lo goes to the tensor cores as it is, which read its top 19 bits (its
-// TF32 truncation)
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-// d += a . b on the tensor cores (not volatile: the compiler may
-// interleave independent products)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+__device__ __forceinline__ void cp_wait_prev() { gossip::cp_wait<1>(); }
 
 // e^x as 2^(x log2 e) on the SFU (ex2.approx: relative error ~2^-22; the
 // rounding of x log2 e adds |x| 2^-24 relative, below 1e-6 for |x| < 16,

@@ -22,6 +22,10 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {name: 0 for name in build.KERNELS}
+# launches of the gossip mixes by regime or branch ("gossip_mix/stream",
+# "gossip_mix/tile", "gossip_mix_quant/slices", "gossip_mix_quant/gather"):
+# each also counts once under its kernel in LAUNCHES
+REGIMES: dict = {}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -29,6 +33,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    REGIMES.clear()
+
+
+def _count_regime(name: str, out):
+    REGIMES[name] = REGIMES.get(name, 0) + 1
+    return out
 
 
 def _check(name, t, dtypes, shape):
@@ -67,18 +77,95 @@ def _launch(name, out, *args):
     return out
 
 
+GOSSIP_SMS = 132            # the H100 SXM's SMs: slices are cut to cover them
+GOSSIP_SMEM_MAX = 232448    # dynamic shared memory a CTA may opt in to
+GOSSIP_GRID_MAX = 2 ** 31 - 1
+# The dense mix's regimes (csrc/gossip_mix.cu): "stream" (P resident in
+# shared memory, a column slice of all W rows per CTA, fp32 FMAs) up to
+# this W, "tile" (3xTF32 mma.sync tiles) above it. Set from device us per
+# call, stream / tile, f32 payload at F = 2048 and 4096
+# (benchmarks/gossip_probe.py; NVIDIA H100 80GB HBM3, 700 W):
+#   W = 22: 2.48 / 3.68, 2.48 / 3.80;   W = 32: 2.70 / 3.36, 2.98 / 3.53;
+#   W = 48: 3.47 / 4.55, 4.28 / 4.71;   W = 64: 4.52 / 4.56, 5.34 / 4.69;
+#   W = 96: 6.63 / 5.88, 7.03 / 5.97;   W = 128: 8.00 / 7.69, 8.55 / 7.87;
+#   W = 200: 13.23 / 11.69, 19.63 / 11.76
+# (int8 payloads: the regimes tie at W = 48, the tile regime wins from 64).
+GOSSIP_STREAM_MAX_W = 48
+GOSSIP_TILE = (128, 64)     # the tile regime's CTA tile of out (rows, cols)
+# the tile regime's 3-stage ring: P tiles 128 x 36 floats and w tiles of
+# 32 rows of 72 (f32, bf16) or 80 (int8) elements
+_TILE_SMEM = {torch.float32: 3 * (128 * 36 * 4 + 32 * 72 * 4),
+              torch.bfloat16: 3 * (128 * 36 * 4 + 32 * 72 * 2),
+              torch.int8: 3 * (128 * 36 * 4 + 32 * 80)}
+# alignment flags of the dense mix's launch
+W_ROWS16, OUT_ROWS16, P_ROWS16 = 1, 2, 4
+
+
+def _slice_cols(f: int, widest: int) -> int:
+    """Columns per CTA of a column-slice kernel: the narrowest power of two
+    from 16 to ``widest`` at which ceil(f / cols) CTAs stay within
+    ``GOSSIP_SMS``, so the grid covers the SMs where F allows it."""
+    cols = 16
+    while cols < widest and -(-f // cols) > GOSSIP_SMS:
+        cols *= 2
+    return cols
+
+
+def stream_p_stride(n: int) -> int:
+    """P's row stride (floats) in the stream regime's shared memory: W
+    rounded up to 4, plus 4 where that is a multiple of 8, so that eight
+    consecutive rows start in eight different bank groups."""
+    ps = -(-n // 4) * 4
+    return ps + 4 if ps % 8 == 0 else ps
+
+
+def gossip_mix_plan(n: int, f: int, dtype):
+    """(regime, cols, smem) of the dense mix at W = n, F = f for a payload
+    of ``dtype``: "stream" with its slice width and shared-memory bytes
+    (P with rows padded as ``stream_p_stride`` pads them, the slice in its
+    own type) for n <= ``GOSSIP_STREAM_MAX_W`` where that fits, else
+    "tile" (cols 0)."""
+    if n <= GOSSIP_STREAM_MAX_W:
+        size = torch.empty((), dtype=dtype).element_size()
+        cols = _slice_cols(f, 128)
+        ptw = n * stream_p_stride(n) * 4
+        while cols > 16 and ptw + n * cols * size > GOSSIP_SMEM_MAX:
+            cols //= 2
+        if ptw + n * cols * size <= GOSSIP_SMEM_MAX:
+            return "stream", cols, ptw + n * cols * size
+    return "tile", 0, _TILE_SMEM[dtype]
+
+
 def gossip_mix(P, w):
-    """Dense mix ``P @ w``: P [W, W] f32; w [W, F] f32, bf16 or int8."""
+    """Dense mix ``P @ w``: P [W, W] f32; w [W, F] f32, bf16 or int8.
+
+    On the card the regime follows from W alone (``gossip_mix_plan``):
+    the stream regime at W <= ``GOSSIP_STREAM_MAX_W`` (fp32 FMAs), the
+    tile regime above it (tensor cores in 3xTF32, two products for a bf16
+    or int8 payload, fp32-accurate either way); one launch and one count
+    under ``gossip_mix`` each."""
     n, f = w.shape
     _check("P", P, (torch.float32,), (n, n))
     _check("w", w, tuple(_DTYPE_CODE), (n, f))
     if not _on_card(P, w):
         return ref.gossip_mix_ref(P, w)
+    regime, cols, smem = gossip_mix_plan(n, f, w.dtype)
+    grid = -(-f // cols) if regime == "stream" else \
+        -(-n // GOSSIP_TILE[0]) * -(-f // GOSSIP_TILE[1])
+    if grid > GOSSIP_GRID_MAX:
+        raise ValueError(f"gossip_mix: W = {n}, F = {f} needs {grid} CTAs, "
+                         f"more than a grid holds")
     out = torch.empty((n, f), dtype=torch.float32, device=w.device)
     if out.numel() == 0:
         return out
-    return _launch("gossip_mix", out, P.data_ptr(), w.data_ptr(),
-                   out.data_ptr(), n, f, _DTYPE_CODE[w.dtype])
+    flags = (W_ROWS16 * (f * w.element_size() % 16 == 0
+                         and w.data_ptr() % 16 == 0)
+             | OUT_ROWS16 * (f % 4 == 0 and out.data_ptr() % 16 == 0)
+             | P_ROWS16 * (n % 4 == 0 and P.data_ptr() % 16 == 0))
+    _launch("gossip_mix", out, P.data_ptr(), w.data_ptr(), out.data_ptr(),
+            n, f, _DTYPE_CODE[w.dtype], int(regime == "tile"), cols, flags,
+            smem)
+    return _count_regime(f"gossip_mix/{regime}", out)
 
 
 def gossip_mix_sparse(idx, val, w):
@@ -99,10 +186,39 @@ def gossip_mix_sparse(idx, val, w):
                    _DTYPE_CODE[w.dtype])
 
 
+def _quant_slice_bytes(n: int, k: int, cols: int, rows: int) -> int:
+    """Shared-memory bytes of the int8 mix's slice branch: q's slice (int8),
+    scale (both rounded up to 16 bytes) and ``rows`` rows of slots (a
+    folded weight and a row offset each)."""
+    r16 = lambda x: -(-x // 16) * 16               # noqa: E731
+    return r16(n * cols) + 4 * r16(n) + 8 * rows * k
+
+
+def gossip_mix_quant_plan(n: int, k: int, f: int):
+    """(branch, cols, rows, smem) of the int8 mix at W = n, K = k, F = f:
+    branch 1, column slices (``cols`` int8 columns of all W rows per CTA,
+    slots staged ``rows`` rows at a time, all W where they fit), while one
+    16-column slice and one row of slots fit in ``GOSSIP_SMEM_MAX``; else
+    branch 2, the per-row gather (0, 0, 0)."""
+    cols = _slice_cols(f, 256)
+    while cols > 16 and _quant_slice_bytes(n, k, cols, 1) > GOSSIP_SMEM_MAX:
+        cols //= 2
+    if _quant_slice_bytes(n, k, cols, 1) > GOSSIP_SMEM_MAX:
+        return 2, 0, 0, 0
+    room = GOSSIP_SMEM_MAX - _quant_slice_bytes(n, k, cols, 0)
+    rows = min(n, room // (8 * k)) if k else n
+    return 1, cols, rows, _quant_slice_bytes(n, k, cols, rows)
+
+
 def gossip_mix_quant(idx, val, scale, q):
     """Fused int8 dequantize -> padded-CSR mix: idx [W, K] int32; val
     [W, K] f32; scale [W] f32; q [W, F] int8.
-    out[i] = sum_k val[i, k] * scale[idx[i, k]] * q[idx[i, k]]."""
+    out[i] = sum_k val[i, k] * scale[idx[i, k]] * q[idx[i, k]].
+
+    On the card the branch follows from the shapes alone
+    (``gossip_mix_quant_plan``): column slices of q in shared memory, or
+    the per-row gather at W too large for one slice; one launch and one
+    count under ``gossip_mix_quant`` each."""
     n, f = q.shape
     k = idx.shape[1]
     _check("idx", idx, (torch.int32,), (n, k))
@@ -111,11 +227,23 @@ def gossip_mix_quant(idx, val, scale, q):
     _check("q", q, (torch.int8,), (n, f))
     if not _on_card(idx, val, scale, q):
         return ref.gossip_mix_quant_ref(idx, val, scale, q)
+    branch, cols, rows, smem = gossip_mix_quant_plan(n, k, f)
+    grid = -(-f // cols) if branch == 1 else n * -(-f // 4096)
+    if grid > GOSSIP_GRID_MAX or n * k > GOSSIP_GRID_MAX:
+        raise ValueError(f"gossip_mix_quant: W = {n}, K = {k}, F = {f} "
+                         f"needs {grid} CTAs and {n * k} slots; both must "
+                         f"stay below 2**31")
     out = torch.empty((n, f), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
-    return _launch("gossip_mix_quant", out, idx.data_ptr(), val.data_ptr(),
-                   scale.data_ptr(), q.data_ptr(), out.data_ptr(), n, k, f)
+    ptr = q.data_ptr()
+    align = 16 if f % 16 == 0 and ptr % 16 == 0 else \
+        4 if branch == 1 and f % 4 == 0 and ptr % 4 == 0 else 1
+    _launch("gossip_mix_quant", out, idx.data_ptr(), val.data_ptr(),
+            scale.data_ptr(), ptr, out.data_ptr(), n, k, f, branch, cols,
+            rows, align, smem)
+    return _count_regime("gossip_mix_quant/" +
+                         ("slices" if branch == 1 else "gather"), out)
 
 
 FLASH_HEAD_DIMS = (32, 64, 128)
