@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's dense and int8 gossip mixes on one CUDA card.
+"""Time the port's gossip mixes on one CUDA card.
 
     python3 benchmarks/gossip_probe.py [--src DIR] [--out PATH]
 
@@ -12,12 +12,19 @@ a CUDA graph of 50 back-to-back calls, median of 7 replays).
 1. At the main path's shape (W = 22, K = 5, F = 2048) and at W = 500,
    K = 25, F = 4096: the dense mix on an f32, a bf16 and an int8 payload
    (P with the int8 row scales folded into its columns, as the pallas
-   backend feeds it), ``torch.matmul`` on the f32 payload, and the int8
-   mix.
+   backend feeds it), ``torch.matmul`` on the f32 payload, the sparse mix
+   on an f32 and a bf16 payload (each checked against the plain version,
+   limit 1e-5 (1 + max|plain|), with its byte bound), ``torch.sparse.mm``
+   (CSR) on the f32 payload, and the int8 mix.
 2. Where the tree has the two dense regimes (``ops.GOSSIP_STREAM_MAX_W``):
    both regimes, forced through that constant, at W in {22, 32, 48, 64,
    96, 128, 200} and F in {2048, 4096}, f32 and int8 payloads, each checked
    against the plain version (limit 1e-5 (1 + max|plain|)).
+3. Where the tree has the sparse mix's two branches
+   (``ops.gossip_mix_sparse_plan``): both, through the C entry, at large
+   W and K (``BRANCH_CASES``, f32), the slice branch as
+   ``ops.sparse_slices_plan`` sizes it, each checked against the plain
+   version.
 
 Prints one line per timing and, with ``--out``, writes them as JSON.
 """
@@ -32,6 +39,10 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+# (W, K, F) where the sparse mix's two branches are timed side by side
+BRANCH_CASES = ((1000, 100, 2048), (1000, 25, 4096), (2000, 25, 4096),
+                (3000, 25, 4096), (1000, 5, 4096), (2000, 5, 4096),
+                (3000, 5, 4096), (3119, 5, 4096), (3120, 5, 4096))
 
 
 def main() -> int:
@@ -52,7 +63,7 @@ def main() -> int:
                           text=True, timeout=60).stdout.strip()
     print(f"card: {card}; kernels from {Path(ops.__file__).parent}",
           flush=True)
-    build.build(("gossip_mix", "gossip_mix_quant"))
+    build.build(("gossip_mix", "gossip_mix_sparse", "gossip_mix_quant"))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -65,20 +76,41 @@ def main() -> int:
               flush=True)
 
     for tag, w, kp, f in (("main", 22, 4, 2048), ("w500", 500, 24, 4096)):
-        P, idx, val, _ = cs.world_csr(w, kp, seed=7, dev=dev)
+        P, idx, val, nnz = cs.world_csr(w, kp, seed=7, dev=dev)
+        k = idx.shape[1]
         x32, _ = cs.payload(gen, w, f, "float32")
         x16, _ = cs.payload(gen, w, f, "bfloat16")
         q, scale = cs.payload(gen, w, f, "int8")
         Pw = (P * scale[None, :]).contiguous()
+        csr = torch.sparse_coo_tensor(
+            torch.stack([torch.arange(w, device=dev).repeat_interleave(k),
+                         idx.reshape(-1).long()]), val.reshape(-1),
+            (w, w)).coalesce().to_sparse_csr()
         for name, fn in (
                 ("gossip_mix f32", lambda: ops.gossip_mix(P, x32)),
                 ("gossip_mix bf16", lambda: ops.gossip_mix(P, x16)),
                 ("gossip_mix int8", lambda: ops.gossip_mix(Pw, q)),
                 ("torch.matmul f32", lambda: torch.matmul(P, x32)),
+                ("gossip_mix_sparse f32",
+                 lambda: ops.gossip_mix_sparse(idx, val, x32)),
+                ("gossip_mix_sparse bf16",
+                 lambda: ops.gossip_mix_sparse(idx, val, x16)),
+                ("torch.sparse.mm f32", lambda: torch.sparse.mm(csr, x32)),
                 ("gossip_mix_quant", lambda: ops.gossip_mix_quant(
                     idx, val, scale, q))):
-            record(tag=tag, W=w, K=idx.shape[1], F=f, call=name,
-                   us=cs.device_ms(fn) * 1e3)
+            extra = {}
+            if name.startswith("gossip_mix_sparse"):
+                x = x32 if name.endswith("f32") else x16
+                got = fn()
+                torch.cuda.synchronize()
+                want = ref.gossip_mix_sparse_ref(idx, val, x)
+                err = float((got - want).abs().max())
+                tol = 1e-5 * (1 + float(want.abs().max()))
+                b_us = cs.bound("gossip_mix_sparse", w, nnz, k, f,
+                                x.element_size())[0] * 1e3
+                extra = dict(err=err, tol=tol, ok=err <= tol, bound_us=b_us)
+            record(tag=tag, W=w, K=k, F=f, call=name,
+                   us=cs.device_ms(fn) * 1e3, **extra)
 
     if hasattr(ops, "GOSSIP_STREAM_MAX_W"):
         keep = ops.GOSSIP_STREAM_MAX_W
@@ -108,6 +140,35 @@ def main() -> int:
                                    ok=err <= tol)
         finally:
             ops.GOSSIP_STREAM_MAX_W = keep
+    if hasattr(ops, "sparse_slices_plan"):
+        entry = build.load("gossip_mix_sparse")
+        gather = ops.SparsePlan(2, 0, 1, 0, ops.SPARSE_GATHER_THREADS, 16, 0)
+        for w, k, f in BRANCH_CASES:
+            idx, val = cs.gather_world(w, k, seed=w, dev=dev)
+            x, _ = cs.payload(gen, w, f, "float32")
+            want = ref.gossip_mix_sparse_ref(idx, val, x)
+            tol = 1e-5 * (1 + float(want.abs().max()))
+            out = torch.empty(w, f, device=dev)
+            chosen = ops.gossip_mix_sparse_plan(w, k, f, x.dtype)
+            slices = ops.sparse_slices_plan(w, k, f, 4, x.data_ptr())
+            for name, plan in (("slices", slices), ("gather", gather)):
+                if plan is None:
+                    continue
+                def call():
+                    rc = entry(idx.data_ptr(), val.data_ptr(), x.data_ptr(),
+                               out.data_ptr(), w, k, f, 0, *plan,
+                               torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"{name}: launch failed ({rc})")
+
+                call()
+                torch.cuda.synchronize()
+                err = float((out - want).abs().max())
+                record(tag="branch", W=w, K=k, F=f,
+                       call=f"gossip_mix_sparse {name}", rows=plan.rows,
+                       chosen=plan.branch == chosen.branch,
+                       us=cs.device_ms(call) * 1e3, err=err, tol=tol,
+                       ok=err <= tol)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": card, "rows": rows},

@@ -1,12 +1,12 @@
-"""What holds the redesigned dense and int8 gossip mixes back, on one CUDA
-card.
+"""What holds the redesigned gossip mixes back, on one CUDA card.
 
-    PYTHONPATH=src python benchmarks/gossip_variants.py
+    PYTHONPATH=src python benchmarks/gossip_variants.py [KERNEL ...]
 
-Variants of ``csrc/gossip_mix.cu`` (its tile regime) and
-``csrc/gossip_mix_quant.cu`` (its slice branch), each built from the
-kernel's source with one piece changed or taken out, timed through the C
-entry at the shapes that matter:
+Variants of ``csrc/gossip_mix.cu`` (its tile regime),
+``csrc/gossip_mix_sparse.cu`` and ``csrc/gossip_mix_quant.cu`` (their
+slice branches), each built from the kernel's source with one piece
+changed or taken out, timed through the C entry at the shapes that
+matter:
 
 - dense, W = 500 and 1000 at F = 4096 (f32 and an int8 payload) and W =
   200: ``base`` (the kernel as it is); ``wide`` (128 x 128 CTA tiles, 2 x
@@ -17,9 +17,22 @@ entry at the shapes that matter:
   4); ``threads256``, ``threads1024`` (one CTA size at every W);
   ``no_widen`` (the int8 bytes fed to the FMAs as raw bits: what widening
   costs); ``staging_only`` (the gather-and-FMA loop taken out: the copies,
-  the slot fold and the launch).
+  the slot fold and the launch);
+- sparse, W = 22 (K = 5, F = 2048) and W = 500 (K = 25, F = 4096), f32
+  and bf16 payloads: ``base`` at the plan's launch and, through the C
+  entry's arguments, at other slice widths, row splits and CTA sizes;
+  ``stage_only`` (the gather-and-FMA loop taken out: the slice copy, the
+  slot copies and the launch); ``copy_only`` (the slot copies taken out
+  too: the slice copy and the launch); ``no_slots`` (no slot copies and
+  no slot reads: each row folds rows (r + k) mod 16 with weight 1);
+  ``no_w`` (no read of w's slice: the slot's row number is folded as the
+  value); ``no_widen`` (one 8-byte load of two payload words, fed to the
+  FMAs as they are: for bf16, what widening costs; meaningless for f32);
+  ``unroll8`` (the slot loop unrolled 8 times, not 4).
 
-The variants' outputs are wrong by construction (``base`` is checked
+KERNEL (``gossip_mix``, ``gossip_mix_sparse``, ``gossip_mix_quant``)
+picks the kernels whose variants run; all three by default. The
+variants' outputs are wrong by construction (``base`` is checked
 against the plain version): only their times mean anything. Each variant
 runs in a process of its own (their libraries share symbol names). Device
 us per call as ``chip_smoke.device_ms`` takes them. Builds into
@@ -40,6 +53,12 @@ sys.path.insert(0, str(ROOT))
 from repro_torch.kernels import build  # noqa: E402
 
 OUT = ROOT / "build" / "gossip_variants"
+# the sparse mix's loop over a slot group's rows and its slot copies
+_SPARSE_ROWS = "for (int r = tid / n_cg; r < nr; r += n_rg) {"
+_SPARSE_NO_ROWS = "for (int r = nr; r < nr; r += n_rg) {"
+_SPARSE_SLOTS = "for (int e = threadIdx.x; e < n; e += blockDim.x) {"
+_SPARSE_NO_SLOTS = "for (int e = threadIdx.x; e < 0; e += blockDim.x) {"
+_SPARSE_LOAD = "          lds4(swc + sl.x * cols, x);"
 # kernel -> variant -> (text in the kernel's source, its replacement)
 VARIANTS = {
     "gossip_mix": {
@@ -52,6 +71,26 @@ VARIANTS = {
                          ""),
                         ("          if constexpr (WIDE) mma_tf32(acc[mt][nt], "
                          "ah[mt], bl);\n", "")],
+    },
+    "gossip_mix_sparse": {
+        "base": [],
+        "stage_only": [(_SPARSE_ROWS, _SPARSE_NO_ROWS)],
+        "copy_only": [(_SPARSE_ROWS, _SPARSE_NO_ROWS),
+                      (_SPARSE_SLOTS, _SPARSE_NO_SLOTS)],
+        "no_slots": [(_SPARSE_SLOTS, _SPARSE_NO_SLOTS),
+                     ("          const int2 sl = slot[k];",
+                      "          const int2 sl = make_int2((r + k) & 15, "
+                      "0x3f800000);")],
+        "no_w": [(_SPARSE_LOAD, "          x[0] = x[1] = x[2] = x[3] = "
+                  "__int_as_float(sl.x);")],
+        "no_widen": [(_SPARSE_LOAD, "          {\n"
+                      "            const uint2 q = *reinterpret_cast<const "
+                      "uint2*>(swc + sl.x * cols);\n"
+                      "            x[0] = x[2] = __uint_as_float(q.x);\n"
+                      "            x[1] = x[3] = __uint_as_float(q.y);\n"
+                      "          }")],
+        "unroll8": [("#pragma unroll 4\n        for (int k = 0; k < K; ++k)",
+                     "#pragma unroll 8\n        for (int k = 0; k < K; ++k)")],
     },
     "gossip_mix_quant": {
         "base": [],
@@ -154,14 +193,68 @@ def time_quant(variant: str) -> None:
               flush=True)
 
 
+def time_sparse(variant: str) -> None:
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import ops, ref
+    fn = load("gossip_mix_sparse", variant)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    # launches (cols, split, threads) tried beside the plan's, base only
+    others = {(22, "float32"): [(16, 1, 256), (32, 1, 256), (64, 4, 256)],
+              (22, "bfloat16"): [(32, 1, 256), (32, 2, 256), (64, 4, 256)],
+              (500, "float32"): [(64, 2, 1024), (32, 2, 1024),
+                                 (16, 1, 1024)],
+              (500, "bfloat16"): [(32, 1, 1024), (128, 4, 1024),
+                                  (32, 2, 1024)]}
+    for w, kp, f in ((22, 4, 2048), (500, 24, 4096)):
+        _, idx, val, _ = cs.world_csr(w, kp, seed=7, dev=dev)
+        k = idx.shape[1]
+        for dtype in ("float32", "bfloat16"):
+            x, _ = cs.payload(gen, w, f, dtype)
+            size = x.element_size()
+            plan = ops.gossip_mix_sparse_plan(w, k, f, x.dtype, x.data_ptr())
+            launches = [(plan.cols, plan.split, plan.threads)]
+            if variant == "base":
+                launches += others[w, dtype]
+            out = torch.empty(w, f, device=dev)
+            for cols, split, threads in launches:
+                rows = ops._sparse_rows(w, k, cols, split, size)
+                smem = ops._sparse_slice_bytes(w, k, cols, split, rows, size)
+
+                def call():
+                    rc = fn(idx.data_ptr(), val.data_ptr(), x.data_ptr(),
+                            out.data_ptr(), w, k, f, ops._DTYPE_CODE[x.dtype],
+                            1, cols, split, rows, threads, plan.align, smem,
+                            torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"{variant}: launch failed ({rc})")
+
+                call()
+                torch.cuda.synchronize()
+                note = ""
+                if variant == "base":
+                    want = ref.gossip_mix_sparse_ref(idx, val, x)
+                    note = f" (max err {float((out - want).abs().max()):.2e})"
+                tag = " (plan)" if (cols, split, threads) == launches[0] \
+                    else ""
+                print(f"  gossip_mix_sparse {variant:10s} W={w:3d} K={k:2d} "
+                      f"F={f} {dtype:8s} cols={cols:3d} split={split} "
+                      f"threads={threads:4d}{tag}: "
+                      f"{cs.device_ms(call) * 1e3:.2f} us{note}", flush=True)
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--variant":
         kernel, variant = sys.argv[2], sys.argv[3]
-        (time_dense if kernel == "gossip_mix" else time_quant)(variant)
+        {"gossip_mix": time_dense, "gossip_mix_sparse": time_sparse,
+         "gossip_mix_quant": time_quant}[kernel](variant)
         return 0
     OUT.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for kernel, variants in VARIANTS.items():
+    for kernel in sys.argv[1:] or VARIANTS:
+        variants = VARIANTS[kernel]
         src = (build.CSRC / f"{kernel}.cu").read_text()
         for variant, subs in variants.items():
             text = src

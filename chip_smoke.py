@@ -13,10 +13,13 @@
 2. Kernels: hold each kernel against its plain PyTorch version on the card.
    Gossip mixes at the main path's leaf shapes (W = 22), at a ragged F, at
    W in {48, 49, 64, 65, 128, 129, 200} (both sides of the dense mix's
-   regime boundary at 48), at W=500 / density 0.05 / F in {4096, 4099}, for every
-   payload type, and the int8 mix at W = 12,000 (its gather branch), each
-   call checked to launch once in the regime or branch it should
-   (``ops.REGIMES``); flash attention at
+   regime boundary at 48), at W=500 / density 0.05 / F in {4096, 4099}, at
+   W = 1,000 / K = 100 (the sparse mix's slot groups), for every
+   payload type, and the sparse and int8 mixes at W = 12,000 (their gather
+   branches), each call checked to launch once in the regime or branch it
+   should (``ops.REGIMES``); a zero-weight slot of the sparse mix that
+   names a row holding inf, whose NaN and inf masks must equal the plain
+   version's, in both branches; flash attention at
    S in {17, 64, 200, 256, 512, 1000, 4096}, D in {64, 128}, causal,
    window 128 and non-causal, f32 (the SIMT kernel, one-ulp limit) and
    bf16 (the tensor-core kernel, ``ref.flash_tc_limit``), bf16 at D = 32
@@ -45,7 +48,8 @@
    exists, one PyTorch library call computing the same function, at the
    main paths' shapes (the gossip mixes at W = 22 and W = 500, with the
    dense mix's bound both on the CUDA cores and in 3xTF32 on the tensor
-   cores and ``torch.matmul`` beside it; flash and ssd_chunk in the main
+   cores and ``torch.matmul`` beside it, the sparse mix also on a bf16
+   payload; flash and ssd_chunk in the main
    path's layout;
    flash as the tensor-core kernel, the SIMT kernel through its C entry
    at the same bf16 shapes, the plain version and SDPA; ssd_chunk as the
@@ -177,11 +181,13 @@ def payload(gen, w: int, f: int, dtype):
 
 def kernel_calls(ops, ref, P, idx, val, w_in, scale):
     """(kernel call, plain call) per kernel for one payload; P None: the
-    quant mix alone (the gather branch's W, where no dense P is made)."""
+    padded-CSR mixes alone (the gather branches' W, where no dense P is
+    made)."""
     calls = {}
     if scale is None:
-        calls["gossip_mix"] = (lambda: ops.gossip_mix(P, w_in),
-                               lambda: ref.gossip_mix_ref(P, w_in))
+        if P is not None:
+            calls["gossip_mix"] = (lambda: ops.gossip_mix(P, w_in),
+                                   lambda: ref.gossip_mix_ref(P, w_in))
         if w_in.dtype != torch.int8:
             calls["gossip_mix_sparse"] = (
                 lambda: ops.gossip_mix_sparse(idx, val, w_in),
@@ -211,8 +217,9 @@ def gather_world(w: int, k: int, seed: int, dev):
             torch.tensor(val, dtype=torch.float32, device=dev))
 
 
-# the int8 mix takes its gather branch at K = 5 past W = 11,617
-# (ops.gossip_mix_quant_plan)
+# the padded-CSR mixes take their gather branches at K = 5 past W = 11,617
+# (int8, ops.gossip_mix_quant_plan), 3,119 (f32) and 6,239 (bf16,
+# ops.gossip_mix_sparse_plan)
 GATHER_W = 12000
 
 
@@ -221,9 +228,8 @@ def expected_regime(ops, name, w, tag):
     if name == "gossip_mix":
         return "gossip_mix/" + ("stream" if w <= ops.GOSSIP_STREAM_MAX_W
                                 else "tile")
-    if name == "gossip_mix_quant":
-        return "gossip_mix_quant/" + ("gather" if tag.startswith("gather")
-                                      else "slices")
+    if name in ("gossip_mix_sparse", "gossip_mix_quant"):
+        return name + ("/gather" if tag.startswith("gather") else "/slices")
     return None
 
 
@@ -233,10 +239,12 @@ def check_kernels(dev):
     of the dense mix's regime boundary), W in {64, 65, 128, 129, 200} (both
     sides of the tile regime's 32-deep k step and 128-row tile; W = 49, 65
     and 129 leave P's rows unaligned), W =
-    500 at F = 4096 and 4099, and the int8 mix at W = 12,000 (its gather
-    branch) at F = 4096 and 1001. Each call must launch once, in the regime
-    or branch it should (``expected_regime``). Limit 1e-5 (1 + max|plain|)
-    for every kernel and payload."""
+    500 at F = 4096 and 4099, W = 1,000 at K = 100 (the sparse mix's slots
+    no longer fit beside its slice: double-buffered slot groups) at F =
+    2048 and 1001, and the sparse (f32, bf16) and int8 mixes at W = 12,000
+    (their gather branches) at F = 4096 and 1001. Each call must
+    launch once, in the regime or branch it should (``expected_regime``).
+    Limit 1e-5 (1 + max|plain|) for every kernel and payload."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -249,6 +257,7 @@ def check_kernels(dev):
               ("W65", 65, 21, 1001), ("W128", 128, 42, 4096),
               ("W129", 129, 43, 2048), ("W200", 200, 66, 4099),
               ("w500", 500, 24, 4096), ("w500-ragged", 500, 24, 4099),
+              ("groups", 1000, 99, 2048), ("groups-ragged", 1000, 99, 1001),
               ("gather", GATHER_W, 5, 4096),
               ("gather-ragged", GATHER_W, 5, 1001)]
     max_err = {k: 0.0 for k in GOSSIP}
@@ -257,11 +266,9 @@ def check_kernels(dev):
         if tag.startswith("gather"):
             P = None
             idx, val = gather_world(w, kp, seed=f, dev=dev)
-            dtypes = ("int8",)
         else:
             P, idx, val, _ = world_csr(w, kp, seed=w + f, dev=dev)
-            dtypes = ("float32", "bfloat16", "int8")
-        for dtype in dtypes:
+        for dtype in ("float32", "bfloat16", "int8"):
             w_in, scale = payload(gen, w, f, dtype)
             for name, (kern, plain) in kernel_calls(
                     ops, ref, P, idx, val, w_in, scale).items():
@@ -290,11 +297,59 @@ def check_kernels(dev):
                     fail(f"{name} disagrees with its plain version")
                 max_err[name] = max(max_err[name], err)
     want_seen = {"gossip_mix/stream", "gossip_mix/tile",
+                 "gossip_mix_sparse/slices", "gossip_mix_sparse/gather",
                  "gossip_mix_quant/slices", "gossip_mix_quant/gather"}
     if not want_seen <= seen:
         fail(f"gossip regimes launched {sorted(seen - {None})}, expected "
              f"{sorted(want_seen)}")
     return max_err
+
+
+def check_sparse_nonfinite(dev):
+    """The sparse mix folds every slot, weight 0 included, as the TPU kernel
+    does: a zero-weight slot that names a row holding inf adds 0 * inf =
+    NaN. At W = 22 and 500 (slices: an unsampled peer's slot) and at
+    ``GATHER_W`` (gather: the pad slot, which names the row itself), f32
+    and bf16, the kernel's NaN and inf masks must equal the plain
+    version's, with NaN where the slot points, and the finite values agree
+    within the usual limit."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    for tag, w, kp, f in (("slices", 22, 4, 72), ("slices", 500, 24, 4099),
+                          ("gather", GATHER_W, 5, 1001)):
+        if tag == "gather":
+            idx, val = gather_world(w, kp, seed=f, dev=dev)
+            i, kk = 0, kp - 1                 # the pad slot: row 0 itself
+        else:
+            _, idx, val, _ = world_csr(w, kp, seed=w + f, dev=dev)
+            zero = (val == 0) & (idx != torch.arange(w, device=dev)[:, None])
+            i, kk = (int(t) for t in zero.nonzero()[0])
+        j = int(idx[i, kk])
+        for dtype in ("float32", "bfloat16"):
+            x, _ = payload(gen, w, f, dtype)
+            x[j, 3:9] = float("inf")
+            before = dict(ops.REGIMES)
+            got = ops.gossip_mix_sparse(idx, val, x)
+            torch.cuda.synchronize()
+            want = ref.gossip_mix_sparse_ref(idx, val, x)
+            fin = want.isfinite()
+            err = float((got[fin] - want[fin]).abs().max())
+            tol = 1e-5 * (1.0 + float(want[fin].abs().max()))
+            n_nan = int(want.isnan().sum())
+            print(f"  check gossip_mix_sparse inf row W={w:5d} F={f:4d} "
+                  f"{dtype:8s} slot ({i}, {kk}) -> row {j} weight "
+                  f"{float(val[i, kk]):.1f}: NaN {n_nan} (plain), finite "
+                  f"max_abs_err={err:.3e} tol={tol:.1e}")
+            if ops.REGIMES.get(f"gossip_mix_sparse/{tag}", 0) - \
+                    before.get(f"gossip_mix_sparse/{tag}", 0) != 1:
+                fail(f"gossip_mix_sparse inf row W={w}: not in its {tag} "
+                     f"branch")
+            if not (torch.equal(got.isnan(), want.isnan())
+                    and torch.equal(got.isinf(), want.isinf())
+                    and bool(want[i, 3:9].isnan().all()) and err <= tol):
+                fail("gossip_mix_sparse: a zero-weight slot on an inf row "
+                     "gives another result than the plain version")
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +412,7 @@ def time_kernels(dev, tag, w, kp, f):
     gen.manual_seed(1)
     P, idx, val, nnz = world_csr(w, kp, seed=7, dev=dev)
     w32, _ = payload(gen, w, f, "float32")
+    w16, _ = payload(gen, w, f, "bfloat16")
     q, scale = payload(gen, w, f, "int8")
     csr = torch.sparse_coo_tensor(
         torch.stack([torch.arange(w, device=dev).repeat_interleave(
@@ -394,6 +450,13 @@ def time_kernels(dev, tag, w, kp, f):
               f"F={f:5d} kernel={ms * 1e3:9.2f}us plain={plain_ms * 1e3:9.2f}"
               f"us library={'-' if lib_ms is None else f'{lib_ms * 1e3:.2f}'}"
               f"us bound={b_ms * 1e3:.2f}us ({b_by}){both}")
+    ms = device_ms(lambda: ops.gossip_mix_sparse(idx, val, w16))
+    plain_ms = device_ms(lambda: ref.gossip_mix_sparse_ref(idx, val, w16))
+    b_ms, b_by = bound("gossip_mix_sparse", w, nnz, idx.shape[1], f, 2)
+    print(f"  time {'gossip_mix_sparse':18s} {tag:5s} W={w:3d} "
+          f"K={idx.shape[1]:2d} F={f:5d} kernel={ms * 1e3:9.2f}us plain="
+          f"{plain_ms * 1e3:9.2f}us bound={b_ms * 1e3:.2f}us ({b_by}) "
+          f"[bf16 payload]")
     return out
 
 
@@ -1363,6 +1426,7 @@ def main() -> int:
 
     print("[2] kernels vs plain versions", flush=True)
     max_err = check_kernels(dev)
+    check_sparse_nonfinite(dev)
     max_err.update(check_flash(dev))
     max_err["moe_router"] = check_router(dev)
     max_err["moe_route_slots"] = check_route_slots(dev)

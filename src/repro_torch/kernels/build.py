@@ -35,7 +35,8 @@ SIGNATURES = {
     "gossip_mix": ("gossip_mix_launch",
                    (_P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _P)),
     "gossip_mix_sparse": ("gossip_mix_sparse_launch",
-                          (_P, _P, _P, _P, _I, _I, _L, _I, _P)),
+                          (_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _P)),
     "gossip_mix_quant": ("gossip_mix_quant_launch",
                          (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I,
                           _I, _P)),

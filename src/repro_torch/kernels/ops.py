@@ -17,14 +17,17 @@ device synchronize per call.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {name: 0 for name in build.KERNELS}
 # launches of the gossip mixes by regime or branch ("gossip_mix/stream",
-# "gossip_mix/tile", "gossip_mix_quant/slices", "gossip_mix_quant/gather"):
-# each also counts once under its kernel in LAUNCHES
+# "gossip_mix/tile", "gossip_mix_sparse/slices", "gossip_mix_sparse/gather",
+# "gossip_mix_quant/slices", "gossip_mix_quant/gather"): each also counts
+# once under its kernel in LAUNCHES
 REGIMES: dict = {}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -168,9 +171,111 @@ def gossip_mix(P, w):
     return _count_regime(f"gossip_mix/{regime}", out)
 
 
+SPARSE_GATHER_THREADS = 256    # the sparse mix's per-row gather branch
+SPARSE_SPLIT_MIN_ROWS = 8      # rows per part, at least, of a row split
+# slots per slot group, at least, in the slice branch: a shorter group
+# cannot hide its copies (W = 3,592, K = 5: groups of 32 rows took 195 us
+# against the per-row gather's 80; groups of 505 rows at W = 3,000 took
+# 54 against 65; benchmarks/gossip_probe.py on an NVIDIA H100 80GB HBM3)
+SPARSE_MIN_GROUP_SLOTS = 2048
+
+
+class SparsePlan(NamedTuple):
+    """Launch arguments of the sparse mix (``gossip_mix_sparse_plan``)."""
+    branch: int       # 1: column slices; 2: per-row gather
+    cols: int         # branch 1: columns per CTA (else 0)
+    split: int        # branch 1: parts the rows are split into (grid.y)
+    rows: int         # branch 1: rows per slot group (else 0)
+    threads: int      # per CTA
+    align: int        # bytes per copy of w's rows: 16, 4 or the element size
+    smem: int         # dynamic shared-memory bytes (0 for branch 2)
+
+
+def _sparse_slice_bytes(n: int, k: int, cols: int, split: int, rows: int,
+                        size: int) -> int:
+    """Shared-memory bytes of the sparse mix's slice branch: w's slice of
+    all ``n`` rows in its own type (rounded up to 16 bytes), then one
+    buffer of ``rows`` rows of slots (a source row and a weight each)
+    where that holds all of a CTA's rows, else two."""
+    part = -(-n // split)
+    return -(-n * cols * size // 16) * 16 + \
+        8 * rows * k * (2 if rows < part else 1)
+
+
+def _sparse_rows(n: int, k: int, cols: int, split: int, size: int) -> int:
+    """Rows per slot group of the slice branch: all of a CTA's rows where
+    their slots fit beside the slice (one group, no barrier between its
+    rows), else as many as fit twice (double-buffered groups)."""
+    part = -(-n // split)
+    room = GOSSIP_SMEM_MAX - _sparse_slice_bytes(n, k, cols, 1, 0, size)
+    if k == 0 or 8 * part * k <= room:
+        return part
+    return room // (16 * k)
+
+
+def sparse_slices_plan(n: int, k: int, f: int, size: int, ptr: int = 0):
+    """The slice branch's launch at W = n, K = k, F = f for payload
+    elements of ``size`` bytes at base address ``ptr``, or None where one
+    16-column slice of all W rows and two slot groups of
+    ``SPARSE_MIN_GROUP_SLOTS`` slots (one group of all W rows, if fewer)
+    do not fit in ``GOSSIP_SMEM_MAX``:
+    - slices of at least 128 bytes a row (32 f32 or 64 bf16 columns, so
+      the gather's loads are free of bank conflicts), as narrow as keeps
+      ceil(F / cols) within ``GOSSIP_SMS``;
+    - where those slices are fewer than the SMs, the rows split into
+      parts of at least ``SPARSE_SPLIT_MIN_ROWS`` to fill them;
+    - a thread per 4 columns of a row: 256 threads a CTA, or 1024 where
+      its rows need more;
+    - the slots staged all at once where they fit, else in
+      double-buffered groups (``_sparse_rows``);
+    - 16-byte copies of w's rows where F and ``ptr`` allow them, else
+      4-byte copies, else element loads."""
+    group = min(n, max(1, -(-SPARSE_MIN_GROUP_SLOTS // max(k, 1))))
+
+    def fits(c):
+        return _sparse_slice_bytes(n, k, c, 1, group, size) <= \
+            GOSSIP_SMEM_MAX
+
+    cols = max(128 // size, _slice_cols(f, 256))
+    while cols > 16 and not fits(cols):
+        cols //= 2
+    if not fits(cols):
+        return None
+    split = max(1, min(GOSSIP_SMS // -(-f // cols),
+                       n // SPARSE_SPLIT_MIN_ROWS))
+    threads = 256 if -(-n // split) * (cols // 4) <= 256 else 1024
+    rows = _sparse_rows(n, k, cols, split, size)
+    align = 16 if f * size % 16 == 0 and ptr % 16 == 0 else \
+        4 if f * size % 4 == 0 and ptr % 4 == 0 else size
+    return SparsePlan(1, cols, split, rows, threads, align,
+                      _sparse_slice_bytes(n, k, cols, split, rows, size))
+
+
+def gossip_mix_sparse_plan(n: int, k: int, f: int, dtype,
+                           ptr: int = 0) -> SparsePlan:
+    """The sparse mix's launch at W = n, K = k, F = f on a payload of
+    ``dtype`` whose base address is ``ptr``: branch 1, column slices
+    (``sparse_slices_plan``), where they fit; else branch 2, the per-row
+    gather, with 16-byte loads where F and ``ptr`` allow them, else
+    element loads."""
+    size = torch.empty((), dtype=dtype).element_size()
+    slices = sparse_slices_plan(n, k, f, size, ptr)
+    if slices is not None:
+        return slices
+    return SparsePlan(2, 0, 1, 0, SPARSE_GATHER_THREADS,
+                      16 if f * size % 16 == 0 and ptr % 16 == 0 else size,
+                      0)
+
+
 def gossip_mix_sparse(idx, val, w):
     """Padded-CSR mix: idx [W, K] int32; val [W, K] f32 (0 on pad slots);
-    w [W, F] f32 or bf16. out[i] = sum_k val[i, k] * w[idx[i, k]]."""
+    w [W, F] f32 or bf16. out[i] = sum_k val[i, k] * w[idx[i, k]], every
+    slot folded in k order, weight 0 included.
+
+    On the card the branch follows from the shapes alone
+    (``gossip_mix_sparse_plan``): column slices of w in shared memory, or
+    the per-row gather at W too large for one slice; one launch and one
+    count under ``gossip_mix_sparse`` each."""
     n, f = w.shape
     k = idx.shape[1]
     _check("idx", idx, (torch.int32,), (n, k))
@@ -178,12 +283,21 @@ def gossip_mix_sparse(idx, val, w):
     _check("w", w, (torch.float32, torch.bfloat16), (n, f))
     if not _on_card(idx, val, w):
         return ref.gossip_mix_sparse_ref(idx, val, w)
+    plan = gossip_mix_sparse_plan(n, k, f, w.dtype, w.data_ptr())
+    grid = -(-f // plan.cols) if plan.branch == 1 else \
+        n * -(-f // (SPARSE_GATHER_THREADS * 16 // w.element_size()))
+    if grid > GOSSIP_GRID_MAX or n * k > GOSSIP_GRID_MAX:
+        raise ValueError(f"gossip_mix_sparse: W = {n}, K = {k}, F = {f} "
+                         f"needs {grid} CTAs and {n * k} slots; both must "
+                         f"stay below 2**31")
     out = torch.empty((n, f), dtype=torch.float32, device=w.device)
     if out.numel() == 0:
         return out
-    return _launch("gossip_mix_sparse", out, idx.data_ptr(), val.data_ptr(),
-                   w.data_ptr(), out.data_ptr(), n, k, f,
-                   _DTYPE_CODE[w.dtype])
+    _launch("gossip_mix_sparse", out, idx.data_ptr(), val.data_ptr(),
+            w.data_ptr(), out.data_ptr(), n, k, f, _DTYPE_CODE[w.dtype],
+            *plan)
+    return _count_regime("gossip_mix_sparse/" +
+                         ("slices" if plan.branch == 1 else "gather"), out)
 
 
 def _quant_slice_bytes(n: int, k: int, cols: int, rows: int) -> int:
