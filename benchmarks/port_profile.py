@@ -6,7 +6,9 @@
 ``defta`` (the default) runs the Table 2 worlds of ``chip_smoke.py`` (MLP
 fp32 ``auto``, MLP int8 + EF21 ``auto``, CNN fp32 ``auto``; 20 workers + 2
 noise attackers) through ``repro_torch.core.defta.run_defta`` after a
-warm-up epoch, per epoch. ``serve`` draws each served model at full size
+warm-up epoch, per epoch; then the MLP world through ``run_fedavg`` (CFL-F
+and FedAdam, per epoch) and ``run_async_defta`` (fp32 ``auto``, per
+tick). ``serve`` draws each served model at full size
 on the card in turn (random weights, seed 0) and runs, after a warm-up,
 two ``build_prefill_step`` calls at each of its two prefill shapes and 8
 decode steps of the serve loop (batch 4, after a 32-token prompt), per call
@@ -19,7 +21,8 @@ Each window runs under ``torch.profiler`` and prints: the wall ms
 (the sum of kernel times), the device's idle share (1 - busy / wall), the
 kernel launches, the busy ms by kernel family (the port's own kernels,
 cuBLAS/CUTLASS GEMMs, everything else) and the top kernels; for DeFTA also each
-round stage's host ms (its ``record_function`` range) and GPU span; for serving
+round stage's host ms (its ``record_function`` range) and GPU span (FedAvg's
+six stages; a tick's are the DeFTA round's); for serving
 also the ms of the kernels that the MoE grouped dispatch ran before the fused
 route-and-slot kernel (``OLD_DISPATCH``: the rank's outer-dim ``cumsum``, the
 sorted ``index_put_``, the combine's ``index_add_``), 0 where the window no
@@ -44,13 +47,17 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.config import DeFTAConfig, TrainConfig  # noqa: E402
+from repro_torch.core.async_defta import run_async_defta  # noqa: E402
 from repro_torch.core.defta import run_defta  # noqa: E402
+from repro_torch.core.fedavg import run_fedavg  # noqa: E402
 from repro_torch.core.tasks import cnn_task, mlp_task  # noqa: E402
 from repro_torch.data import federated_dataset  # noqa: E402
 
 STAGES = ("split_draws", "scenario_view", "peer_sample", "transport",
           "damage_check", "local_train", "attack_inject", "trust_update",
           "finalize")
+FEDAVG_STAGES = ("split_draws", "star_broadcast", "local_train",
+                 "attack_inject", "star_aggregate", "server_update")
 FAMILIES = (("gossip_mix", ("mix_kernel",)),
             ("flash_attention", ("flash_kernel", "flash_tc_kernel")),
             ("moe_router", ("router_kernel", "route_slots_kernel")),
@@ -155,6 +162,19 @@ def profile_defta(epochs, out):
         run(1)                                     # warm-up (cuDNN, cuBLAS)
         profile_window(label, lambda: run(epochs), epochs, "epoch", out,
                        stages=STAGES)
+    task, cfg, train, data = world("mlp", "float32")
+    for label, opt in (("mlp cfl-f", "none"), ("mlp fedadam", "fedadam")):
+        run = lambda n: run_fedavg(0, task, cfg, train, data,  # noqa: E731
+                                   epochs=n, num_malicious=2,
+                                   server_opt=opt)
+        run(1)
+        profile_window(label, lambda: run(epochs), epochs, "epoch", out,
+                       stages=FEDAVG_STAGES)
+    run = lambda n: run_async_defta(0, task, cfg, train, data,  # noqa: E731
+                                    ticks=n, num_malicious=2)
+    run(1)
+    profile_window("mlp async fp32 auto", lambda: run(epochs), epochs,
+                   "tick", out, stages=STAGES)
 
 
 def repeat(fn, n):
@@ -206,7 +226,7 @@ def main() -> int:
     ap.add_argument("path", nargs="?", choices=("defta", "serve"),
                     default="defta")
     ap.add_argument("--epochs", type=int, default=3,
-                    help="DeFTA epochs to profile")
+                    help="DeFTA and FedAvg epochs (async ticks) to profile")
     ap.add_argument("--table", help="write the full profiler tables here")
     args = ap.parse_args()
     if not torch.cuda.is_available():

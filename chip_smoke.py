@@ -58,14 +58,23 @@
    16, 64]; the fused route-and-slot kernel, its plain version and the
    route it replaced, the router and a one-hot ``cumsum`` rank, at T in
    {2048, 4096, 4}, E = 64, k = 6 and T = 4096, E = 16, k = 2).
-4. DeFTA end to end: the port's ``run_defta`` on the card in the Table 2
-   world (20 workers + 2 noise attackers, MLP, 20 epochs) on the fp32 wire
-   with ``auto`` (sparse kernel), the int8 + EF21 wire (quant kernel) and
-   ``backend="pallas"`` (dense kernel), and the CNN world on ``auto``;
-   every run's launch counts must equal leaves x epochs (0 for the serving
-   kernels). A small world is also run on the card and on the CPU (plain
-   versions) from the same initial state and draws, and the two must
-   agree.
+4. DeFTA, FedAvg and AsyncDeFTA end to end, all in the Table 2 world (20
+   workers + 2 noise attackers, MLP, ``local_epochs=5``). The port's
+   ``run_defta`` (20 epochs) on the fp32 wire with ``auto`` (sparse
+   kernel), the int8 + EF21 wire (quant kernel) and ``backend="pallas"``
+   (dense kernel), and the CNN world on ``auto``; every run's launch counts
+   must equal leaves x epochs (0 for the serving kernels). ``run_fedavg``
+   as CFL-F, CFL-S and FedAdam (20 epochs each): no kernel launch and a
+   finite server loss; CFL-F's accuracy > 0.3 in the world without the
+   attackers, which drag the undefended server down (paper Table 3).
+   ``run_async_defta`` for 20
+   ticks on the same three wires, and once with a target (``check_every=4``)
+   that stops it early: each must launch its wire's kernel exactly leaves
+   x ticks run times and nothing else, and its workers' epochs must spread.
+   Small worlds (DeFTA, FedAdam with an attacker on CFL-S, async on each of
+   the three kernels) also run on the card and on the CPU (plain versions)
+   from the same initial state and draws, and the two must agree, with
+   equal epoch counters.
 5. Serving end to end: DeepSeekMoE-16B at full width and depth (28 layers,
    64 routed experts top-6 + 2 shared, bf16, random weights from a seed)
    initialised on the card; ``build_prefill_step`` at B=4, S=512 and at
@@ -1002,20 +1011,44 @@ def time_ssd(dev):
 
 class MovedDraws:
     """CPU-generated draws handed to a run on any device, so a card run and
-    a CPU run consume the same random numbers."""
+    a CPU run consume the same random numbers. ``provider`` is one of
+    ``repro_torch.rng``'s default providers (``TorchDraws`` by default);
+    its result, a tensor or a dataclass of tensors and dicts of them, is
+    moved whole."""
 
-    def __init__(self, seed, dev):
+    def __init__(self, seed, dev, provider=None):
         from repro_torch.rng import TorchDraws
         gen = torch.Generator()
         gen.manual_seed(seed)
-        self.inner, self.dev = TorchDraws(gen), dev
+        self.inner, self.dev = (provider or TorchDraws)(gen), dev
+
+    def move(self, v):
+        if isinstance(v, dict):
+            return {k: x.to(self.dev) for k, x in v.items()}
+        return v.to(self.dev) if isinstance(v, torch.Tensor) else v
 
     def __call__(self, *args):
         d = self.inner(*args)
-        d.gumbel, d.perm = d.gumbel.to(self.dev), d.perm.to(self.dev)
-        if d.noise is not None:
-            d.noise = {k: v.to(self.dev) for k, v in d.noise.items()}
+        if isinstance(d, torch.Tensor):
+            return d.to(self.dev)
+        for f in dataclasses.fields(d):
+            setattr(d, f.name, self.move(getattr(d, f.name)))
         return d
+
+
+def states_agree(a: dict, b: dict, wire: str) -> bool:
+    """A card run's DeFTA state fields against the CPU run's: fp32 at
+    rtol 1e-3 (summation order; SGD's drift over 4 rounds), params
+    included; int8 at rtol 2e-2 (a flipped round-half tie moves a loss
+    further), losses and conf only."""
+    rtol = 1e-3 if wire == "float32" else 2e-2
+    ok = np.allclose(a["last_loss"], b["last_loss"], rtol=rtol) \
+        and np.allclose(a["conf"], b["conf"], rtol=rtol, atol=1e-4)
+    if wire == "float32":
+        ok = ok and all(np.allclose(a["params"][k], b["params"][k],
+                                    rtol=rtol, atol=1e-4)
+                        for k in a["params"])
+    return ok
 
 
 def card_vs_cpu():
@@ -1048,27 +1081,107 @@ def card_vs_cpu():
                                draws=MovedDraws(5, dev))
             res[dev] = state_to_numpy(st)
         a, b = res["cuda"], res["cpu"]
-        # fp32: summation order only (rtol 1e-3 covers SGD's drift over 4
-        # rounds); int8: a flipped round-half tie moves a loss further
-        rtol = 1e-3 if wire == "float32" else 2e-2
         loss_err = float(np.abs(a["last_loss"] - b["last_loss"]).max())
-        ok = np.allclose(a["last_loss"], b["last_loss"], rtol=rtol) \
-            and np.allclose(a["conf"], b["conf"], rtol=rtol, atol=1e-4)
-        if wire == "float32":
-            ok = ok and all(np.allclose(a["params"][k], b["params"][k],
-                                        rtol=rtol, atol=1e-4)
-                            for k in a["params"])
+        ok = states_agree(a, b, wire)
         print(f"  card-vs-cpu {kernel:18s} wire={wire:7s} "
               f"max|last_loss diff|={loss_err:.3e} agree={ok}")
         if not ok:
             fail(f"card run of {kernel} disagrees with the CPU run")
+    card_vs_cpu_fedavg(data, task, train)
+    card_vs_cpu_async(data, task, train)
+
+
+def card_vs_cpu_fedavg(data, task, train):
+    """FedAdam on a CFL-S cohort of 2 with one attacker, 4 epochs, on the
+    card and on the CPU from one server and one draw stream."""
+    from repro_torch.config import DeFTAConfig
+    from repro_torch.convert import (fedavg_state_from_jax,
+                                     fedavg_state_to_numpy)
+    from repro_torch.core.fedavg import init_state, run_fedavg
+    from repro_torch.rng import TorchFedAvgDraws
+    cfg = DeFTAConfig(num_workers=12, local_epochs=2)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    init = fedavg_state_to_numpy(init_state(gen, task, "fedadam"))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        st, _ = run_fedavg(0, task, cfg, train, data, epochs=4,
+                           num_malicious=1, sample_workers=2,
+                           server_opt="fedadam", device=dev,
+                           init=fedavg_state_from_jax(init, dev),
+                           draws=MovedDraws(5, dev, TorchFedAvgDraws))
+        res[dev] = fedavg_state_to_numpy(st)
+    a, b = res["cuda"], res["cpu"]
+    trees = [(a["server"], b["server"]), (a["opt"]["m"], b["opt"]["m"]),
+             (a["opt"]["v"], b["opt"]["v"])]
+    err = max(float(np.abs(x[k] - y[k]).max()) for x, y in trees for k in x)
+    ok = all(np.allclose(x[k], y[k], rtol=1e-3, atol=1e-4)
+             for x, y in trees for k in x)
+    print(f"  card-vs-cpu fedavg (fedadam, cfl-s 2, 1 attacker) "
+          f"max|server, m, v diff|={err:.3e} agree={ok}")
+    if not ok:
+        fail("card run of FedAdam disagrees with the CPU run")
+
+
+def card_vs_cpu_async(data, task, train):
+    """AsyncDeFTA on each gossip kernel, 6 ticks, on the card and on the
+    CPU from one initial state, one round draw stream and one tick draw
+    stream: the same workers fire, so the epoch counters must be equal."""
+    from repro_torch.config import DeFTAConfig
+    from repro_torch.convert import state_from_jax, state_to_numpy
+    from repro_torch.core.async_defta import run_async_defta
+    from repro_torch.core.engine import init_state
+    from repro_torch.rng import TorchTickDraws
+    for wire, backend, kernel in (("float32", "auto", "gossip_mix_sparse"),
+                                  ("int8", "auto", "gossip_mix_quant"),
+                                  ("float32", "pallas", "gossip_mix")):
+        cfg = DeFTAConfig(num_workers=12, avg_peers=2, num_sampled=1,
+                          local_epochs=2, gossip_dtype=wire)
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        init = state_to_numpy(init_state(gen, task, 13,
+                                         wire_error=wire == "int8"))
+        res = {}
+        for dev in ("cuda", "cpu"):
+            st, *_ = run_async_defta(
+                0, task, cfg, train, data, ticks=6, num_malicious=1,
+                gossip_backend=backend, device=dev,
+                init=state_from_jax(init, dev), draws=MovedDraws(5, dev),
+                tick_draws=MovedDraws(6, dev, TorchTickDraws))
+            res[dev] = state_to_numpy(st)
+        a, b = res["cuda"], res["cpu"]
+        loss_err = float(np.abs(a["last_loss"] - b["last_loss"]).max())
+        same_epochs = np.array_equal(a["epoch"], b["epoch"])
+        ok = same_epochs and states_agree(a, b, wire)
+        print(f"  card-vs-cpu async {kernel:18s} wire={wire:7s} "
+              f"epochs={a['epoch'].tolist()} "
+              f"max|last_loss diff|={loss_err:.3e} agree={ok}")
+        if not ok:
+            fail(f"async card run of {kernel} disagrees with the CPU run "
+                 f"(epochs equal: {same_epochs})")
+
+
+def table2_world(kind="vector", wire="float32"):
+    """The Table 2 world (``benchmarks/common.make_setup``: 20 vanilla
+    workers, MLP on vectors or CNN on images; the runs append 2 noise
+    attackers)."""
+    from repro_torch.config import DeFTAConfig, TrainConfig
+    from repro_torch.core.tasks import cnn_task, mlp_task
+    from repro_torch.data import federated_dataset
+    rng = np.random.default_rng(0)
+    if kind == "image":
+        data = federated_dataset("image", 20, rng, hw=10, n_per_worker=100)
+        task = cnn_task(10, 1, 10, width=8)
+    else:
+        data = federated_dataset("vector", 20, rng, n_per_worker=150)
+        task = mlp_task(32, 10)
+    cfg = DeFTAConfig(num_workers=20, avg_peers=4, num_sampled=2,
+                      local_epochs=5, seed=0, gossip_dtype=wire)
+    return data, task, cfg, TrainConfig(learning_rate=0.05, batch_size=32)
 
 
 def end_to_end():
-    from repro_torch.config import DeFTAConfig, TrainConfig
     from repro_torch.core.defta import run_defta
-    from repro_torch.core.tasks import cnn_task, mlp_task
-    from repro_torch.data import federated_dataset
     from repro_torch.kernels import ops
     from repro_torch.telemetry import RunLedger
 
@@ -1081,17 +1194,7 @@ def end_to_end():
     )
     launches = {}
     for label, kind, wire, backend, kernel in runs:
-        rng = np.random.default_rng(0)     # benchmarks/common.make_setup
-        if kind == "image":
-            data = federated_dataset("image", 20, rng, hw=10,
-                                     n_per_worker=100)
-            task = cnn_task(10, 1, 10, width=8)
-        else:
-            data = federated_dataset("vector", 20, rng, n_per_worker=150)
-            task = mlp_task(32, 10)
-        cfg = DeFTAConfig(num_workers=20, avg_peers=4, num_sampled=2,
-                          local_epochs=5, seed=0, gossip_dtype=wire)
-        train = TrainConfig(learning_rate=0.05, batch_size=32)
+        data, task, cfg, train = table2_world(kind, wire)
         led = RunLedger()
         ops.reset_launches()
         t0 = time.perf_counter()
@@ -1118,6 +1221,102 @@ def end_to_end():
             fail(f"{label}: vanilla accuracy {acc} <= 0.3")
         launches.setdefault(kernel, counts[kernel])
     return launches
+
+
+def fedavg_end_to_end():
+    """CFL-F, CFL-S and FedAdam on the card, 20 epochs each: no kernel may
+    launch (FedAvg's aggregate is a plain product, as in the reference)."""
+    from repro_torch.core.fedavg import run_fedavg
+    from repro_torch.kernels import ops
+    from repro_torch.telemetry import RunLedger
+
+    epochs = 20
+    data, task, cfg, train = table2_world()
+    for label, kw in (("cfl-f", {}), ("cfl-s", {"sample_workers": 2}),
+                      ("fedadam", {"server_opt": "fedadam"})):
+        led = RunLedger()
+        ops.reset_launches()
+        st, hist = run_fedavg(0, task, cfg, train, data, epochs=epochs,
+                              num_malicious=2, eval_every=5,
+                              test_x=data["test_x"], test_y=data["test_y"],
+                              ledger=led, **kw)
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        dev = st.server["w1"].device
+        x = torch.as_tensor(data["test_x"]).to(dev)[None]
+        y = torch.as_tensor(data["test_y"]).to(dev)[None]
+        with torch.no_grad():
+            loss = float(task.loss({k: v[None] for k, v in
+                                    st.server.items()}, x, y,
+                                   torch.ones(1, x.shape[1], device=dev))[0])
+        per_epoch = [1e3 * s / 5 for s in led.superstep_s]  # 5-epoch chunks
+        print(f"  fedavg {label:8s} epochs={epochs} per_epoch_ms="
+              f"{[round(v, 2) for v in per_epoch]} server_acc="
+              f"{[round(h[1], 4) for h in hist]} server_test_loss="
+              f"{loss:.4f} launches={counts}")
+        if any(counts.values()):
+            fail(f"fedavg {label}: launch counts {counts}, expected none")
+        if not np.isfinite(loss):
+            fail(f"fedavg {label}: non-finite server loss {loss}")
+    # the attackers' noise (scale 200) drags the undefended server down
+    # (paper Table 3), so accuracy is checked without them
+    led = RunLedger()
+    st, hist = run_fedavg(0, task, cfg, train, data, epochs=epochs,
+                          eval_every=epochs, test_x=data["test_x"],
+                          test_y=data["test_y"], ledger=led)
+    print(f"  fedavg cfl-f, no attacker: per_epoch_ms="
+          f"{1e3 * led.wall_s / epochs:.2f} server_acc={hist[-1][1]:.4f}")
+    if not hist[-1][1] > 0.3:
+        fail(f"fedavg cfl-f: server accuracy {hist[-1][1]} <= 0.3")
+
+
+def async_end_to_end(launches):
+    """AsyncDeFTA on the card: 20 ticks on each gossip wire, then one
+    targeted run that stops early. Each run must launch its wire's kernel
+    exactly leaves x ticks run times (the round runs on every tick, fired
+    or not) and no other kernel; the async launches are added to
+    ``launches``."""
+    from repro_torch.core.async_defta import run_async_defta
+    from repro_torch.core.defta import evaluate
+    from repro_torch.kernels import ops
+    from repro_torch.telemetry import RunLedger
+
+    runs = (("fp32 auto", "float32", "auto", "gossip_mix_sparse", {}),
+            ("int8+ef auto", "int8", "auto", "gossip_mix_quant", {}),
+            ("fp32 pallas", "float32", "pallas", "gossip_mix", {}),
+            ("fp32 auto target 3", "float32", "auto", "gossip_mix_sparse",
+             {"ticks": 40, "target_epochs": 3, "check_every": 4}))
+    for label, wire, backend, kernel, kw in runs:
+        data, task, cfg, train = table2_world("vector", wire)
+        kw = {"ticks": 20, **kw}
+        led = RunLedger()
+        ops.reset_launches()
+        st, _, mal, _ = run_async_defta(0, task, cfg, train, data,
+                                        num_malicious=2,
+                                        gossip_backend=backend, ledger=led,
+                                        **kw)
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        ran = led.rounds_done
+        leaves = len(st.params)
+        eps = st.epoch.cpu().numpy()[~mal]
+        acc, _, _ = evaluate(task, st, data["test_x"], data["test_y"], mal)
+        print(f"  async {label:18s} ticks_run={ran}/{kw['ticks']} "
+              f"per_tick_ms={1e3 * led.wall_s / ran:.2f} "
+              f"epochs={eps.min()}-{eps.max()} vanilla_acc={acc:.4f} "
+              f"launches={counts}")
+        want = {k: leaves * ran if k == kernel else 0 for k in counts}
+        if counts != want:
+            fail(f"async {label}: launch counts {counts}, expected {want}")
+        if not eps.max() > eps.min():
+            fail(f"async {label}: no spread in worker epochs {eps}")
+        if not bool(torch.isfinite(st.last_loss).all()):
+            fail(f"async {label}: non-finite loss")
+        if "target_epochs" in kw and not (
+                ran < kw["ticks"] and (eps >= kw["target_epochs"]).all()):
+            fail(f"async {label}: ran {ran} ticks, epochs {eps}: expected "
+                 f"an early exit at the target")
+        launches[kernel] += counts[kernel]
 
 
 # ---------------------------------------------------------------------------
@@ -1440,9 +1639,11 @@ def main() -> int:
     main_t.update(time_route_slots(dev))
     main_t.update(time_ssd(dev))
 
-    print("[4] DeFTA end to end", flush=True)
+    print("[4] DeFTA, FedAvg and AsyncDeFTA end to end", flush=True)
     card_vs_cpu()
     launches = end_to_end()
+    fedavg_end_to_end()
+    async_end_to_end(launches)
 
     print("[5] serving end to end", flush=True)
     launches.update(serve_full(dev))

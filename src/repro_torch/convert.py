@@ -7,15 +7,17 @@ a dtype-preserving copy. The model zoo's parameter trees
 ``model_params_from_jax`` is a leaf-by-leaf copy too. The reference's
 ``DeFTAState`` fields arrive as numpy arrays (``{field:
 np.asarray(...)}``); its PRNG ``key`` has no
-counterpart here (the port's randomness comes from an ``rng.Draws``
-provider) and its DTS v3 ``sketch`` is a later item of the port.
+counterpart here (the port's randomness comes from an ``rng`` draw
+provider) and its DTS v3 ``sketch`` is a later item of the port. The
+reference's ``FedAvgState`` arrives the same way: ``server`` a dict of
+arrays, ``opt`` None or ``{"m": ..., "v": ...}``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.engine import DeFTAState
+from repro_torch.core.engine import DeFTAState, FedAvgState
 from repro_torch.device import resolve_device, to_numpy, to_torch
 
 STATE_FIELDS = ("params", "backup", "conf", "best_loss", "last_loss",
@@ -37,7 +39,7 @@ def state_from_jax(fields: dict, device=None) -> DeFTAState:
     field name) -> the port's ``DeFTAState``."""
     if fields.get("sketch") is not None:
         raise NotImplementedError("the DTS v3 sketch state is not ported "
-                                  "yet (ROADMAP.md, queue 1, item 9)")
+                                  "yet (ROADMAP.md, queue 1a, item 3)")
     dev = resolve_device(device)
     return DeFTAState(**{f: to_torch(fields.get(f), dev)
                          for f in STATE_FIELDS})
@@ -47,6 +49,20 @@ def state_to_numpy(state: DeFTAState) -> dict:
     """The port's state -> ``{field: numpy tree}`` (the inverse of
     ``state_from_jax``, without the reference's key)."""
     return {f: to_numpy(getattr(state, f)) for f in STATE_FIELDS}
+
+
+def fedavg_state_from_jax(fields: dict, device=None) -> FedAvgState:
+    """The reference's ``FedAvgState`` fields as numpy (``{"server": {...},
+    "opt": None | {"m": {...}, "v": {...}}}``) -> the port's
+    ``FedAvgState``."""
+    dev = resolve_device(device)
+    return FedAvgState(server=to_torch(fields["server"], dev),
+                       opt=to_torch(fields.get("opt"), dev))
+
+
+def fedavg_state_to_numpy(state: FedAvgState) -> dict:
+    """The inverse of ``fedavg_state_from_jax``."""
+    return {"server": to_numpy(state.server), "opt": to_numpy(state.opt)}
 
 
 def model_params_from_jax(tree, device=None, dtype=None) -> dict:

@@ -55,6 +55,48 @@ def _pad_workers(data, sizes, extra: int):
     return data, sizes
 
 
+def attacker_world(cfg: DeFTAConfig, data, num_malicious: int):
+    """The world's W, its malicious mask (attackers appended after the
+    vanilla workers: paper §4.3, normal workers fixed, attackers newly
+    joined) and the data and sizes padded with their slots."""
+    w = cfg.num_workers + num_malicious
+    malicious = np.zeros(w, bool)
+    malicious[cfg.num_workers:] = True
+    data, sizes = _pad_workers(data, data["sizes"], num_malicious)
+    return w, malicious, data, sizes
+
+
+def to_device_data(data, dev) -> dict:
+    """The padded per-worker ``x``, ``y``, ``mask`` as tensors on dev."""
+    return {k: torch.as_tensor(np.asarray(data[k])).to(dev)
+            for k in ("x", "y", "mask")}
+
+
+def check_world(scenario, shards) -> None:
+    """Refuse the parts of a DeFTA world this port does not carry yet."""
+    if scenario is not None:
+        raise NotImplementedError("scenario is not ported yet (ROADMAP.md, "
+                                  "queue 1a, item 2: scenarios)")
+    if shards is not None and shards > 1:
+        raise NotImplementedError("sharded workers are not ported yet "
+                                  "(ROADMAP.md, queue 1a, item 7: "
+                                  "multi-device transports)")
+
+
+def initial_state(gen: torch.Generator, task: Task, cfg: DeFTAConfig,
+                  w: int, init: Optional[DeFTAState]) -> DeFTAState:
+    """``init`` checked against the world, or a fresh state drawn from
+    ``gen``."""
+    wire_error = uses_error_feedback(cfg)
+    if init is None:
+        return init_state(gen, task, w, wire_error=wire_error)
+    if tuple(init.conf.shape) != (w, w) or \
+            (init.wire_err is not None) != wire_error:
+        raise ValueError(f"init state does not fit W={w} "
+                         f"(wire_error={wire_error})")
+    return init
+
+
 def run_defta(seed: int, task: Task, cfg: DeFTAConfig, train: TrainConfig,
               data, *, epochs: int, num_malicious: int = 0, scenario=None,
               gossip_backend: str = "auto", eval_every: int = 0,
@@ -82,34 +124,16 @@ def run_defta(seed: int, task: Task, cfg: DeFTAConfig, train: TrainConfig,
     Returns ``(state, adj, malicious, history)``.
     """
     dev = resolve_device(device)
-    if scenario is not None:
-        raise NotImplementedError("scenario is not ported yet (ROADMAP.md, "
-                                  "queue 1, item 8: scenarios)")
-    if shards is not None and shards > 1:
-        raise NotImplementedError("sharded workers are not ported yet "
-                                  "(ROADMAP.md, queue 1, item 13)")
-    w = cfg.num_workers + num_malicious
-    malicious = np.zeros(w, bool)
-    malicious[cfg.num_workers:] = True
+    check_world(scenario, shards)
+    w, malicious, data, sizes = attacker_world(cfg, data, num_malicious)
     adj = make_topology(cfg.topology, w, cfg.avg_peers, cfg.seed)
-    data, sizes = _pad_workers(data, data["sizes"], w - cfg.num_workers)
-
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    wire_error = uses_error_feedback(cfg)
-    if init is None:
-        state = init_state(gen, task, w, wire_error=wire_error)
-    else:
-        if tuple(init.conf.shape) != (w, w) or \
-                (init.wire_err is not None) != wire_error:
-            raise ValueError(f"init state does not fit W={w} "
-                             f"(wire_error={wire_error})")
-        state = init
+    state = initial_state(gen, task, cfg, w, init)
     rnd_fn = build_defta_round(task, cfg, train, adj, sizes, malicious,
                                draws=draws or TorchDraws(gen), device=dev,
                                gossip_backend=gossip_backend)
-    tdata = {k: torch.as_tensor(np.asarray(data[k])).to(dev)
-             for k in ("x", "y", "mask")}
+    tdata = to_device_data(data, dev)
 
     eval_fn = None
     if test_x is not None:

@@ -1,19 +1,26 @@
-"""The sync DeFTA round program (port of ``repro.core.engine``, static
-form).
+"""The round programs and their drivers (port of ``repro.core.engine``,
+static form).
 
 A round is an ordered tuple of named stages over a round context, as in
-the reference:
+the reference. Sync DeFTA:
 
     split_draws -> scenario_view -> peer_sample -> transport
         -> damage_check -> local_train -> attack_inject -> trust_update
         -> finalize
 
-``split_draws`` takes the round's random numbers from a ``rng.Draws``
-provider where the reference splits its PRNG key; ``scenario_view`` is the
-static topology. The transport is the in-process ``gossip.mix_pytree``
-(einsum / pallas / sparse / auto backends, fp32, bf16 or int8 + EF21
-wire). ``drive_epochs`` runs rounds in a Python loop with eval chunks and
-per-chunk wall time.
+FedAvg (CFL-F, CFL-S, FedAdam), a stage selection over the same pipeline:
+
+    split_draws -> star_broadcast -> local_train -> attack_inject
+        -> star_aggregate -> server_update
+
+``split_draws`` takes the round's random numbers from a ``rng`` provider
+where the reference splits its PRNG key; ``scenario_view`` is the static
+topology. The transport is the in-process ``gossip.mix_pytree`` (einsum /
+pallas / sparse / auto backends, fp32, bf16 or int8 + EF21 wire); FedAvg's
+star aggregate is a plain size-weighted mean, as in the reference (no
+kernel). ``build_fire_gated_tick`` wraps the DeFTA round in AsyncDeFTA's
+tick merge. ``drive_epochs`` runs rounds and ``drive_ticks`` runs ticks in
+a Python loop, with per-chunk wall time.
 
 What the slice does not carry raises ``NotImplementedError`` when the
 round is built (``check_supported``): scenarios, trust signals other than
@@ -42,7 +49,7 @@ ROBUST_RULES = ("trimmed_mean", "median", "krum")
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1, {item})")
+        f"{what} is not ported yet (ROADMAP.md, queue 1a, {item})")
 
 
 def check_supported(cfg: DeFTAConfig, *, scenario=None, telemetry=None,
@@ -51,29 +58,29 @@ def check_supported(cfg: DeFTAConfig, *, scenario=None, telemetry=None,
     does not carry, naming the ROADMAP item that ports it. A config is
     never silently ignored."""
     if scenario is not None:
-        _not_ported("scenario", "item 8: scenarios")
+        _not_ported("scenario", "item 2: scenarios")
     if cfg.use_dts and cfg.dts_signal != "loss":
         _not_ported(f"dts_signal={cfg.dts_signal!r}",
-                    "item 9: DTS v2 and v3 channels")
+                    "item 3: DTS v2 and v3 channels")
     if cfg.aggregation in ROBUST_RULES:
-        _not_ported(f"aggregation={cfg.aggregation!r}", "item 8: scenarios")
+        _not_ported(f"aggregation={cfg.aggregation!r}", "item 2: scenarios")
     if cfg.aggregation not in ("defta", "defl", "uniform"):
         raise ValueError(f"unknown aggregation {cfg.aggregation!r}")
     if cfg.dp_clip > 0:
-        _not_ported("DP-SGD (dp_clip > 0)", "item 11: privacy wire")
+        _not_ported("DP-SGD (dp_clip > 0)", "item 5: privacy wire")
     if cfg.dp_sigma > 0:
-        _not_ported("update DP (dp_sigma > 0)", "item 11: privacy wire")
+        _not_ported("update DP (dp_sigma > 0)", "item 5: privacy wire")
     if cfg.secagg is not None:
-        _not_ported("secagg", "item 11: privacy wire")
+        _not_ported("secagg", "item 5: privacy wire")
     if cfg.max_staleness:
-        _not_ported("max_staleness", "item 8: scenarios")
+        _not_ported("max_staleness", "item 2: scenarios")
     if normalize_wire(cfg.gossip_dtype) == "int8" \
             and cfg.gossip_wire_round == "stochastic":
-        _not_ported("gossip_wire_round='stochastic'", "item 8: scenarios")
+        _not_ported("gossip_wire_round='stochastic'", "item 2: scenarios")
     if telemetry is not None:
-        _not_ported("telemetry", "item 12: telemetry")
+        _not_ported("telemetry", "item 6: telemetry")
     if shard is not None:
-        _not_ported("sharded workers", "item 13: multi-device transports")
+        _not_ported("sharded workers", "item 7: multi-device transports")
 
 
 # ---------------------------------------------------------------------------
@@ -91,6 +98,13 @@ class DeFTAState:
     wire_err: Optional[dict] = None   # EF21 residuals (stacked like params;
                                       # None when the wire is lossless or
                                       # error feedback is off)
+
+
+@dataclass
+class FedAvgState:
+    server: dict                 # one model, no worker axis
+    opt: Optional[dict] = None   # FedAdam moments {"m": ..., "v": ...}
+                                 # (trees like server), or None
 
 
 def init_state(generator: torch.Generator, task: Task, num_workers: int, *,
@@ -351,14 +365,170 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
     return round
 
 
+def build_fedavg_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
+                       sizes: np.ndarray, malicious: np.ndarray, *, draws,
+                       device, sample_workers: int = 0,
+                       server_opt: str = "none", server_lr: float = 1.0,
+                       noise_scale: float = 200.0):
+    """FedAvg as a stage selection over the same pipeline: the transport is
+    a STAR topology (server broadcast down, size-weighted mean up), there
+    is no peer sampling / DTS / time machine, and the server optimizer is
+    the last stage. ``sample_workers=0`` -> CFL-F; >0 -> CFL-S over that
+    many workers drawn without replacement each round; ``server_opt=
+    "fedadam"`` -> FedAdam (any other value: plain replacement). Of ``cfg``
+    only ``local_epochs`` is read. ``draws`` is the round's
+    ``rng.FedAvgDraws`` provider (one call per round).
+
+    Returns round(state, data, epoch=None) -> ``FedAvgState``."""
+    dev = torch.device(device)
+    w = len(sizes)
+    sizes_t = torch.as_tensor(np.asarray(sizes, np.float32)).to(dev)
+    malicious_np = np.asarray(malicious, bool)
+    malicious_t = torch.as_tensor(malicious_np).to(dev)
+    attack_scale = torch.full((w,), noise_scale, dtype=torch.float32,
+                              device=dev)
+    ltrain = local_train_fn(task, train, cfg.local_epochs)
+
+    def stage_split_draws(c):
+        """writes draws: this round's permutations, (with attackers) the
+        attack noise over the broadcast's shapes and (CFL-S) the cohort,
+        in one provider call."""
+        shapes = {k: (w,) + tuple(v.shape)
+                  for k, v in c["state"].server.items()} \
+            if malicious_np.any() else None
+        c["draws"] = draws(w, cfg.local_epochs, c["data"]["x"].shape[1],
+                           shapes, sample_workers)
+
+    def stage_star_broadcast(c):
+        """reads state.server; writes bcast [W, ...]: every worker starts
+        from the server model (a materialised copy, not a stride-0 view:
+        local training hands it to autograd)."""
+        c["bcast"] = {k: v.expand(w, *v.shape).contiguous()
+                      for k, v in c["state"].server.items()}
+
+    def stage_local_train(c):
+        """reads bcast, data, draws.perm; writes trained."""
+        data = c["data"]
+        c["trained"], _ = ltrain(c["draws"].perm, c["bcast"], data["x"],
+                                 data["y"], data["mask"])
+
+    def stage_attack_inject(c):
+        """reads trained, bcast, draws.noise; writes trained (attacker
+        slots replaced by server + noise_scale·N(0, 1): the undefended
+        baseline's one attack)."""
+        if malicious_np.any():
+            poisoned = noise(c["draws"].noise, c["bcast"], c["trained"],
+                             attack_scale)
+            c["trained"] = tree_select(malicious_t, poisoned, c["trained"])
+
+    def stage_star_aggregate(c):
+        """reads trained, draws.cohort; writes new_server: the
+        size-weighted mean over the cohort (all workers, or CFL-S's)."""
+        if sample_workers:
+            wmask = torch.zeros(w, device=dev)
+            wmask[c["draws"].cohort.to(dev)] = 1.0
+        else:
+            wmask = torch.ones(w, device=dev)
+        aw = wmask * sizes_t
+        aw = aw / aw.sum()
+        c["new_server"] = {
+            k: torch.einsum("i,i...->...", aw.to(x.dtype), x)
+            for k, x in c["trained"].items()}
+
+    def stage_server_update(c):
+        """reads new_server, state.{server, opt}; writes next: plain
+        replacement, or FedAdam on the server delta."""
+        state, new = c["state"], c["new_server"]
+        if server_opt != "fedadam":
+            c["next"] = FedAvgState(server=new, opt=state.opt)
+            return
+        b1, b2, eps = 0.9, 0.99, 1e-3
+        delta = {k: new[k] - s for k, s in state.server.items()}
+        m = {k: b1 * state.opt["m"][k] + (1 - b1) * d
+             for k, d in delta.items()}
+        v = {k: b2 * state.opt["v"][k] + (1 - b2) * d * d
+             for k, d in delta.items()}
+        c["next"] = FedAvgState(
+            server={k: s + server_lr * m[k] / (v[k].sqrt() + eps)
+                    for k, s in state.server.items()},
+            opt={"m": m, "v": v})
+
+    stages = (
+        ("split_draws", stage_split_draws),
+        ("star_broadcast", stage_star_broadcast),
+        ("local_train", stage_local_train),
+        ("attack_inject", stage_attack_inject),
+        ("star_aggregate", stage_star_aggregate),
+        ("server_update", stage_server_update),
+    )
+
+    def round(state: FedAvgState, data, epoch=None):
+        c = {"state": state, "data": data, "epoch": epoch}
+        run_pipeline(stages, c)
+        return c["next"]
+
+    round.stages = stages
+    return round
+
+
 # ---------------------------------------------------------------------------
-# Driver
+# Async: fire-gated tick wrapper
 # ---------------------------------------------------------------------------
+
+def build_fire_gated_tick(rnd_fn, data, speeds: torch.Tensor, w: int, *,
+                          draws):
+    """Wrap a DeFTA round in the AsyncDeFTA tick merge: on each tick,
+    worker i completes a round when its uniform (``draws(w)``, one
+    ``rng.TickDraws`` call) is below ``speeds[i]`` (float32 [W] on the
+    data's device). The round runs for all W workers on every tick, fired
+    or not, so the round's draw stream stays aligned with the reference;
+    fired workers take its params, backup, conf rows, losses, epoch and
+    EF21 residual, the rest keep theirs (a worker that did not fire did
+    not send, so its residual must not advance).
+
+    The reference pads its last chunk with dead ticks that run and draw
+    nothing; here the driver never calls a tick past the budget or after
+    the early exit, so there are none.
+
+    Returns tick(state, t) -> state."""
+
+    def tick(state: DeFTAState, t: int) -> DeFTAState:
+        fired = draws(w) < speeds
+        nxt = rnd_fn(state, data, t)
+        return DeFTAState(
+            params=tree_select(fired, nxt.params, state.params),
+            backup=tree_select(fired, nxt.backup, state.backup),
+            conf=torch.where(fired[:, None], nxt.conf, state.conf),
+            best_loss=torch.where(fired, nxt.best_loss, state.best_loss),
+            last_loss=torch.where(fired, nxt.last_loss, state.last_loss),
+            epoch=torch.where(fired, nxt.epoch, state.epoch),
+            wire_err=None if state.wire_err is None else
+            tree_select(fired, nxt.wire_err, state.wire_err))
+
+    return tick
+
+
+# ---------------------------------------------------------------------------
+# Drivers
+# ---------------------------------------------------------------------------
+
+def _synchronize(state) -> None:
+    """Wait for the card that holds the state's tensors (a no-op on the
+    CPU). Serves every state: the first field that holds a tensor, or a
+    dict of them, names the device."""
+    for v in vars(state).values():
+        t = next(iter(v.values()), None) if isinstance(v, dict) else v
+        if isinstance(t, torch.Tensor):
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            return
+
 
 def drive_epochs(rnd_fn, state, data, epochs: int, *, eval_every: int = 0,
                  eval_fn=None, ledger: Optional[RunLedger] = None):
     """Run ``epochs`` rounds in a Python loop, in chunks bounded by eval
-    points. Each chunk ends in a device synchronize and is recorded in
+    points (the DeFTA and the FedAvg round alike). Each chunk ends in a
+    device synchronize and is recorded in
     the ``RunLedger`` with its wall-clock seconds (``ledger.superstep_s``;
     ``ledger.as_stats()`` gives ``{"dispatches": chunks, "epochs": e}``).
     ``eval_fn(state, done_epochs)`` runs at eval boundaries; its results
@@ -372,11 +542,51 @@ def drive_epochs(rnd_fn, state, data, epochs: int, *, eval_every: int = 0,
         t0 = time.perf_counter()
         for e in range(done, done + n):
             state = rnd_fn(state, data, e)
-        if state.conf.is_cuda:
-            torch.cuda.synchronize(state.conf.device)
+        _synchronize(state)
         led.record_dispatch(n, time.perf_counter() - t0)
         done += n
         if eval_every and done % eval_every == 0 and eval_fn is not None:
             history.append(eval_fn(state, done))
     led.finish("epochs", epochs)
     return state, history
+
+
+def drive_ticks(tick_fn, state: DeFTAState, ticks: int, *, check_every: int,
+                required: np.ndarray, target_epochs: int = 0,
+                ledger: Optional[RunLedger] = None) -> DeFTAState:
+    """Run AsyncDeFTA ticks ``tick_fn(state, t)`` in a Python loop.
+
+    With no target every tick runs, as one chunk. With ``target_epochs``
+    the ticks run in chunks of ``check_every`` and the run stops before the
+    next chunk once ``all(epoch[required] >= target_epochs)``: the
+    predicate is read exactly where the reference's ``lax.while_loop``
+    reads it (before every chunk), so a run stops on the same tick as the
+    reference, overshoot included. Each check is one host read of
+    ``epoch``; the reference's device-side exit, with no host round trip,
+    has no counterpart here worth building before a tick can be captured
+    in a CUDA graph.
+
+    Each chunk ends in a device synchronize and is recorded in the
+    ``RunLedger`` (``rounds_done`` counts the ticks run); the ledger counts
+    chunks, so ``as_stats()["dispatches"]`` is not the reference's XLA
+    dispatch count. Returns the final state."""
+    led = ledger if ledger is not None else RunLedger()
+    chunk = check_every if target_epochs else max(ticks, 1)
+    req = None
+    if target_epochs:
+        req = torch.as_tensor(np.asarray(required, bool)).to(
+            state.epoch.device)
+    done = 0
+    while done < ticks:
+        if req is not None and bool((state.epoch[req]
+                                     >= target_epochs).all()):
+            break
+        n = min(chunk, ticks - done)
+        t0 = time.perf_counter()
+        for t in range(done, done + n):
+            state = tick_fn(state, t)
+        _synchronize(state)
+        led.record_dispatch(n, time.perf_counter() - t0)
+        done += n
+    led.finish("ticks", ticks)
+    return state

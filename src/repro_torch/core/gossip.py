@@ -57,7 +57,7 @@ def uses_error_feedback(cfg) -> bool:
 
 def _not_ported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1, item 8: "
+        f"{what} is not ported yet (ROADMAP.md, queue 1a, item 2: "
         f"scenarios, with the stochastic-rounding draw)")
 
 
@@ -132,7 +132,7 @@ def dynamic_mixing_matrix(sampled, eff_adj, sizes, scheme: str = "defta"):
     """Per-epoch mixing matrix under a dynamic adjacency (scenario runs)."""
     raise NotImplementedError(
         "dynamic_mixing_matrix belongs to the scenario engine (ROADMAP.md, "
-        "queue 1, item 8: scenarios)")
+        "queue 1a, item 2: scenarios)")
 
 
 def _resolve_backend(backend, adjacency, w):
@@ -185,7 +185,7 @@ def mix_pytree(P, stacked: dict, backend: str = "einsum", *, adjacency=None,
     if secagg is not None:
         raise NotImplementedError(
             "the secure-aggregation wire is not ported yet (ROADMAP.md, "
-            "queue 1, item 11: privacy wire)")
+            "queue 1a, item 5: privacy wire)")
     if backend not in ("einsum", "pallas", "sparse"):
         raise ValueError(f"unknown gossip backend {backend!r}")
     if backend == "sparse":

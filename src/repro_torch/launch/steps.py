@@ -1,7 +1,7 @@
 """Serving step builders (the port of ``repro.launch.steps``'
 ``build_prefill_step`` and ``build_decode_step``). The reference's train,
-gossip and sharding builders are not ported yet (ROADMAP.md queue 1,
-items 13 and 18)."""
+gossip and sharding builders are not ported yet (ROADMAP.md queue 1a,
+items 7 and 11)."""
 from __future__ import annotations
 
 import torch

@@ -29,11 +29,11 @@ def check_supported(cfg: ModelConfig):
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder (cross and bidirectional "
-            f"attention) is not ported yet: ROADMAP.md queue 1, item 16")
+            f"attention) is not ported yet: ROADMAP.md queue 1a, item 8")
     if cfg.family == "vlm":
         raise NotImplementedError(
             f"{cfg.name}: the vlm prefix is not ported yet: ROADMAP.md "
-            f"queue 1, item 16")
+            f"queue 1a, item 8")
 
 
 # ---------------------------------------------------------------------------
@@ -81,7 +81,7 @@ def forward(params, cfg: ModelConfig, batch, *, moe_strategy="grouped"):
 
 def loss_fn(*args, **kwargs):
     raise NotImplementedError("training (loss_fn, train step, optim) is not "
-                              "ported yet: ROADMAP.md queue 1, item 18")
+                              "ported yet: ROADMAP.md queue 1a, item 11")
 
 
 # ---------------------------------------------------------------------------

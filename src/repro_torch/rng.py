@@ -1,10 +1,15 @@
-"""The draw seam: every random number a round consumes, as tensors.
+"""The draw seams: every random number a round or a tick consumes, as
+tensors.
 
-The round asks its ``Draws`` provider once per round for a ``RoundDraws``.
-The default provider, ``TorchDraws``, draws from an explicit seeded
-``torch.Generator``. A test can plug in a provider that re-derives the
-reference's ``jax.random`` draws from its frozen key layout, so that the
-port and the JAX package consume identical randomness.
+A DeFTA round asks its ``Draws`` provider once per round for a
+``RoundDraws``; a FedAvg round asks its ``FedAvgDraws`` provider once per
+round for a ``FedAvgRoundDraws``; an async tick asks its ``TickDraws``
+provider once per live tick for one ``[W]`` uniform. The default
+providers (``TorchDraws``, ``TorchFedAvgDraws``, ``TorchTickDraws``) draw
+from an explicit seeded ``torch.Generator``. A test can plug in providers
+that re-derive the reference's ``jax.random`` draws from its frozen key
+layouts, so that the port and the JAX package consume identical
+randomness.
 """
 from __future__ import annotations
 
@@ -33,6 +38,18 @@ class Draws(Protocol):
         ``noise_shapes`` (name -> shape), or none if it is None."""
 
 
+def _perm(g: torch.Generator, w, local_epochs, n) -> torch.Tensor:
+    return torch.rand(w, local_epochs, n, generator=g,
+                      device=g.device).argsort(dim=-1)
+
+
+def _noise(g: torch.Generator, noise_shapes) -> Optional[dict]:
+    if noise_shapes is None:
+        return None
+    return {name: torch.randn(shape, generator=g, device=g.device)
+            for name, shape in sorted(noise_shapes.items())}
+
+
 class TorchDraws:
     """The default provider: draws on the generator's device."""
 
@@ -40,13 +57,58 @@ class TorchDraws:
         self.gen = generator
 
     def __call__(self, w, local_epochs, n, noise_shapes):
-        g, dev = self.gen, self.gen.device
+        g = self.gen
         # Gumbel(0, 1) = -log(E) with E ~ Exp(1)
-        gumbel = -torch.empty(w, w, device=dev).exponential_(generator=g).log()
-        perm = torch.rand(w, local_epochs, n, generator=g,
-                          device=dev).argsort(dim=-1)
-        noise = None
-        if noise_shapes is not None:
-            noise = {name: torch.randn(shape, generator=g, device=dev)
-                     for name, shape in sorted(noise_shapes.items())}
-        return RoundDraws(gumbel=gumbel, perm=perm, noise=noise)
+        gumbel = -torch.empty(w, w, device=g.device).exponential_(
+            generator=g).log()
+        return RoundDraws(gumbel=gumbel, perm=_perm(g, w, local_epochs, n),
+                          noise=_noise(g, noise_shapes))
+
+
+@dataclass
+class FedAvgRoundDraws:
+    perm: torch.Tensor        # [W, local_epochs, n] int64, as RoundDraws
+    noise: Optional[dict]     # leaf name -> [W, ...] N(0, 1) (the broadcast
+                              # server's leaves); None without attackers
+    cohort: Optional[torch.Tensor]   # [sample_workers] int64 distinct
+                                     # worker indices (CFL-S); None for
+                                     # CFL-F (sample_workers=0)
+
+
+class FedAvgDraws(Protocol):
+    def __call__(self, w: int, local_epochs: int, n: int,
+                 noise_shapes: Optional[dict],
+                 sample_workers: int) -> FedAvgRoundDraws:
+        """Draws for one FedAvg round: the permutations and the noise as
+        ``Draws`` gives them, and ``sample_workers`` distinct indices of
+        ``range(w)`` drawn without replacement (none when 0)."""
+
+
+class TorchFedAvgDraws:
+    """The default FedAvg provider: draws on the generator's device."""
+
+    def __init__(self, generator: torch.Generator):
+        self.gen = generator
+
+    def __call__(self, w, local_epochs, n, noise_shapes, sample_workers):
+        g = self.gen
+        cohort = torch.randperm(w, generator=g, device=g.device)[
+            :sample_workers] if sample_workers else None
+        return FedAvgRoundDraws(perm=_perm(g, w, local_epochs, n),
+                                noise=_noise(g, noise_shapes), cohort=cohort)
+
+
+class TickDraws(Protocol):
+    def __call__(self, w: int) -> torch.Tensor:
+        """One live tick's [W] float32 uniforms in [0, 1): worker i fires
+        where its uniform is below its speed."""
+
+
+class TorchTickDraws:
+    """The default tick provider: draws on the generator's device."""
+
+    def __init__(self, generator: torch.Generator):
+        self.gen = generator
+
+    def __call__(self, w):
+        return torch.rand(w, generator=self.gen, device=self.gen.device)

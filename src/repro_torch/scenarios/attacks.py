@@ -1,7 +1,7 @@
 """What malicious workers send (port of the part of
 ``repro.scenarios.attacks`` the static sync round runs): ``tree_select``
 and the paper's ``noise`` attack. The rest of the zoo is a later item of
-the port (ROADMAP.md, queue 1, item 8)."""
+the port (ROADMAP.md, queue 1a, item 2)."""
 from __future__ import annotations
 
 import torch

@@ -18,13 +18,14 @@ import torch
 
 import repro.config as jconfig
 import repro.configs as jconfigs
+from repro.core import aggregation as jaggregation
 from repro.core import topology as jtopology
 from repro.data import partition as jpartition
 from repro.data import synthetic as jsynthetic
 from repro.telemetry.ledger import RunLedger as JRunLedger
 
 from repro_torch import config, configs, device as tdevice
-from repro_torch.core import topology
+from repro_torch.core import aggregation, topology
 from repro_torch.data import partition, synthetic
 from repro_torch.telemetry import RunLedger
 
@@ -42,6 +43,37 @@ def test_topology_copy_equal(kind, n, peers, seed):
                                   jtopology.outdegrees(b))
     assert topology.is_strongly_connected(a) == \
         jtopology.is_strongly_connected(b)
+
+
+def test_aggregation_copy_is_verbatim():
+    ours = (ROOT / "src" / "repro_torch" / "core" / "aggregation.py")
+    theirs = (ROOT / "src" / "repro" / "core" / "aggregation.py")
+    assert ours.read_text() == theirs.read_text()
+
+
+@pytest.mark.parametrize("kind,n,peers", [("ring", 5, 2),
+                                          ("random_kout", 8, 3),
+                                          ("random_kout", 22, 4),
+                                          ("erdos", 12, 4)])
+@pytest.mark.parametrize("scheme", ["defta", "defl", "uniform"])
+def test_aggregation_copy_equal(kind, n, peers, scheme):
+    rng = np.random.default_rng(n)
+    adj = topology.make_topology(kind, n, peers, 0)
+    sizes = rng.integers(20, 200, n)
+    sampled = rng.random((n, n)) < 0.5
+    for name, args in (("mixing_matrix", (adj, sizes, scheme)),
+                       ("sampled_mixing_matrix",
+                        (adj, sizes, sampled, scheme)),
+                       ("aggregation_bias", (adj, sizes, scheme)),
+                       ("theorem_3_3_residual", (adj, sizes, scheme))):
+        np.testing.assert_array_equal(getattr(aggregation, name)(*args),
+                                      getattr(jaggregation, name)(*args),
+                                      err_msg=name)
+    P = aggregation.mixing_matrix(adj, sizes, scheme)
+    np.testing.assert_array_equal(aggregation.stationary(P),
+                                  jaggregation.stationary(P))
+    np.testing.assert_array_equal(aggregation.fedavg_pi(sizes),
+                                  jaggregation.fedavg_pi(sizes))
 
 
 @pytest.mark.parametrize("kind,kw", [("vector", {}), ("image", {"hw": 10}),
@@ -144,6 +176,15 @@ cfg = DeFTAConfig(num_workers=4, avg_peers=2, num_sampled=1,
 st, *_ = run_defta(0, mlp_task(32, 10), cfg, TrainConfig(batch_size=16),
                    data, epochs=2, num_malicious=1, device="cpu")
 assert st.epoch.tolist() == [2] * 5
+from repro_torch.core import run_async_defta, run_fedavg
+st, _ = run_fedavg(0, mlp_task(32, 10), cfg, TrainConfig(batch_size=16),
+                   data, epochs=2, num_malicious=1, sample_workers=2,
+                   server_opt="fedadam", device="cpu")
+assert st.server["w1"].shape == (32, 64)
+st, *_ = run_async_defta(0, mlp_task(32, 10), cfg,
+                         TrainConfig(batch_size=16), data, ticks=3,
+                         num_malicious=1, device="cpu")
+assert int(st.epoch.max()) <= 3
 from repro_torch.launch import serve
 tokens, _ = serve.main(["--arch", "deepseek-moe-16b", "--smoke", "--device",
                         "cpu", "--batch", "2", "--prompt-len", "4",
@@ -162,12 +203,13 @@ print("LOADED", bad)
 
 def test_port_sources_import_no_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py", ROOT / "benchmarks" / "port_profile.py"]
+        + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "benchmarks").glob("port_*.py"))
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)"
                          r"|from\s+(jax|repro)(\.|\s))", re.M)
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}" for f in files
             for m in pattern.finditer(f.read_text())]
-    assert len(files) > 15
+    assert len(files) > 15 and ROOT / "benchmarks" / "port_table4.py" in files
     assert hits == []
 
 
@@ -185,6 +227,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         run_defta(0, mlp_task(32, 10), config.DeFTAConfig(num_workers=4),
                   config.TrainConfig(), data, epochs=1)
+    from repro_torch.core import run_async_defta, run_fedavg
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_fedavg(0, mlp_task(32, 10), config.DeFTAConfig(num_workers=4),
+                   config.TrainConfig(), data, epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_async_defta(0, mlp_task(32, 10),
+                        config.DeFTAConfig(num_workers=4),
+                        config.TrainConfig(), data, ticks=1)
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="device='cpu'"):

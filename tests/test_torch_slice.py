@@ -35,37 +35,48 @@ from repro_torch.core.tasks import mlp_task
 from repro_torch.rng import RoundDraws
 
 
+def replay_perm(k_train, w, local_epochs, n):
+    """The reference's minibatch permutations [W, local_epochs, n]:
+    ``split(k_train, W)`` -> ``split(., local_epochs)`` ->
+    ``split(ekey)[0]``."""
+    def perms(k):
+        ekeys = jax.random.split(k, local_epochs)
+        return jax.vmap(lambda ek: jax.random.permutation(
+            jax.random.split(ek)[0], n))(ekeys)
+    perm = jax.vmap(perms)(jax.random.split(k_train, w))
+    return torch.tensor(np.asarray(perm)).long()
+
+
+def replay_noise(k_noise, noise_shapes):
+    """The reference's noise attack draws: ``split(k_noise, n_leaves)`` in
+    sorted leaf order, one N(0, 1) per leaf; None without attackers."""
+    if noise_shapes is None:
+        return None
+    names = sorted(noise_shapes)
+    keys = jax.random.split(k_noise, len(names))
+    return {nm: torch.tensor(np.asarray(jax.random.normal(
+        k, noise_shapes[nm], jnp.float32))) for nm, k in zip(names, keys)}
+
+
 class JaxDraws:
     """Replays the reference's per-round draws: ``split_round_keys``
     (key, k_sample, k_train, k_noise), ``split(k_sample, W)`` for the
-    Gumbel rows, ``split(k_train, W)`` -> ``split(., local_epochs)`` ->
-    ``split(ekey)[0]`` for the permutations, ``split(k_noise, n_leaves)``
-    in sorted leaf order for the noise."""
+    Gumbel rows, then ``replay_perm`` and ``replay_noise``."""
 
     def __init__(self, key):
         self.key = key
+        self.calls = 0
 
     def __call__(self, w, local_epochs, n, noise_shapes):
+        self.calls += 1
         ks = jengine.split_round_keys(self.key, False, False)
         self.key = ks["key"]
         gumbel = jax.vmap(lambda k: jax.random.gumbel(k, (w,)))(
             jax.random.split(ks["k_sample"], w))
-
-        def perms(k):
-            ekeys = jax.random.split(k, local_epochs)
-            return jax.vmap(lambda ek: jax.random.permutation(
-                jax.random.split(ek)[0], n))(ekeys)
-        perm = jax.vmap(perms)(jax.random.split(ks["k_train"], w))
-        noise = None
-        if noise_shapes is not None:
-            names = sorted(noise_shapes)
-            keys = jax.random.split(ks["k_noise"], len(names))
-            noise = {nm: torch.tensor(np.asarray(jax.random.normal(
-                k, noise_shapes[nm], jnp.float32)))
-                for nm, k in zip(names, keys)}
         return RoundDraws(gumbel=torch.tensor(np.asarray(gumbel)),
-                          perm=torch.tensor(np.asarray(perm)).long(),
-                          noise=noise)
+                          perm=replay_perm(ks["k_train"], w, local_epochs,
+                                           n),
+                          noise=replay_noise(ks["k_noise"], noise_shapes))
 
 
 def run_both(data, cfg_kw, train_kw, *, epochs, num_malicious, backend):
