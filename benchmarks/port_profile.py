@@ -8,9 +8,13 @@ fp32 ``auto``, MLP int8 + EF21 ``auto``, CNN fp32 ``auto``; 20 workers + 2
 noise attackers) through ``repro_torch.core.defta.run_defta`` after a
 warm-up epoch, per epoch; then the MLP world through ``run_fedavg`` (CFL-F
 and FedAdam, per epoch) and ``run_async_defta`` (fp32 ``auto``, per
-tick). ``serve`` draws each served model at full size
-on the card in turn (random weights, seed 0) and runs, after a warm-up,
-two ``build_prefill_step`` calls at each of its two prefill shapes and 8
+tick); then the Table 3 world (the MLP world with 40 noise attackers, W =
+60) under the ``paper_noise@40`` scenario with DTS and with each robust
+rule (trimmed_mean, median, krum; no DTS, no time machine), per epoch: a
+robust rule's ``transport`` stage is the rule itself (no mix runs).
+``serve`` draws each served model at full size on the card in turn
+(random weights, seed 0) and runs, after a warm-up, two
+``build_prefill_step`` calls at each of its two prefill shapes and 8
 decode steps of the serve loop (batch 4, after a 32-token prompt), per call
 or step: DeepSeekMoE-16B at B=4, S=512 and B=1, S=4096; Mamba2-780M at
 B=4, S=2048 and B=1, S=16384; Jamba-v0.1 at full width cut to one 8-layer
@@ -56,6 +60,7 @@ from repro_torch.data import federated_dataset  # noqa: E402
 STAGES = ("split_draws", "scenario_view", "peer_sample", "transport",
           "damage_check", "local_train", "attack_inject", "trust_update",
           "finalize")
+SCENARIO_STAGES = STAGES[:-1] + ("fire_merge",)
 FEDAVG_STAGES = ("split_draws", "star_broadcast", "local_train",
                  "attack_inject", "star_aggregate", "server_update")
 FAMILIES = (("gossip_mix", ("mix_kernel",)),
@@ -175,6 +180,18 @@ def profile_defta(epochs, out):
     run(1)
     profile_window("mlp async fp32 auto", lambda: run(epochs), epochs,
                    "tick", out, stages=STAGES)
+    for label, change in (("table3 paper_noise@40 dts", {}),
+                          ("table3 trimmed_mean", {"aggregation":
+                                                   "trimmed_mean"}),
+                          ("table3 median", {"aggregation": "median"}),
+                          ("table3 krum", {"aggregation": "krum"})):
+        c = cfg if not change else dataclasses.replace(
+            cfg, use_dts=False, time_machine=False, **change)
+        run = lambda n: run_defta(0, task, c, train, data,  # noqa: E731
+                                  epochs=n, scenario="paper_noise@40")
+        run(1)
+        profile_window(label, lambda: run(epochs), epochs, "epoch", out,
+                       stages=SCENARIO_STAGES)
 
 
 def repeat(fn, n):

@@ -75,6 +75,22 @@
    the three kernels) also run on the card and on the CPU (plain versions)
    from the same initial state and draws, and the two must agree, with
    equal epoch counters.
+4s. Scenarios end to end. The paper's Table 3 world (20 vanilla workers +
+   40 noise attackers, W = 60, DTS and the time machine) as the scenario
+   ``paper_noise@40`` and as ``num_malicious=40`` on ``auto``, 20 epochs:
+   4 leaves x 20 = 80 ``gossip_mix_sparse`` launches in its slice branch
+   each, vanilla accuracy > 0.3; the same world on ``pallas``: the dense
+   mix's tile regime only. ``storm`` (W = 23) on the fp32 wire (sparse
+   mix), the int8 + EF21 wire with stochastic rounding (quant mix) and
+   ``pallas`` (dense mix, stream regime): leaves x epochs launches each.
+   Time-varying topologies at W = 60 (re-drawn every 5 and every 2
+   epochs): each support union's density and the kernel ``auto`` picks
+   for it. trimmed_mean, median and krum at W = 60
+   with noise@40: no mix launch. AsyncDeFTA under ``storm`` with a target
+   (an early exit). Card vs CPU: a reduced ``storm`` on each kernel and a
+   ``krum`` world, from one initial state and draw stream: states within
+   the phase-4 limits, equal epoch counters, Krum's picks equal round by
+   round.
 5. Serving end to end: DeepSeekMoE-16B at full width and depth (28 layers,
    64 routed experts top-6 + 2 shared, bf16, random weights from a seed)
    initialised on the card; ``build_prefill_step`` at B=4, S=512 and at
@@ -244,7 +260,9 @@ def expected_regime(ops, name, w, tag):
 
 def check_kernels(dev):
     """Every gossip mix against its plain version on every payload type:
-    the main path's leaves (W = 22), a ragged F, W in {48, 49} (both sides
+    the main path's leaves (W = 22), the MLP's leaves in the scenario
+    worlds (Table 3 at W = 60, K = 5; storm at W = 23), a ragged F, W in
+    {48, 49} (both sides
     of the dense mix's regime boundary), W in {64, 65, 128, 129, 200} (both
     sides of the tile regime's 32-deep k step and 128-row tile; W = 49, 65
     and 129 leave P's rows unaligned), W =
@@ -261,6 +279,11 @@ def check_kernels(dev):
     # the main path's leaves: MLP(32, 10, hidden 64) and CNN(10, 1, 10, 8)
     for f in (2048, 64, 640, 10, 72, 1152):
         cases.append(("main", 22, 4, f))
+    # the MLP's leaves in the Table 3 world (W = 60, K = 5: the dense mix's
+    # tile regime, mostly ragged tiles at F = 640, 64 and 10) and in the
+    # storm world (W = 23)
+    for f in (2048, 640, 64, 10):
+        cases += [("table3", 60, 4, f), ("storm", 23, 4, f)]
     cases += [("ragged", 22, 4, 1001), ("W48", 48, 16, 2048),
               ("W49", 49, 16, 1001), ("W64", 64, 21, 2048),
               ("W65", 65, 21, 1001), ("W128", 128, 42, 4096),
@@ -1024,11 +1047,11 @@ class MovedDraws:
 
     def move(self, v):
         if isinstance(v, dict):
-            return {k: x.to(self.dev) for k, x in v.items()}
+            return {k: self.move(x) for k, x in v.items()}
         return v.to(self.dev) if isinstance(v, torch.Tensor) else v
 
-    def __call__(self, *args):
-        d = self.inner(*args)
+    def __call__(self, *args, **kw):
+        d = self.inner(*args, **kw)
         if isinstance(d, torch.Tensor):
             return d.to(self.dev)
         for f in dataclasses.fields(d):
@@ -1317,6 +1340,227 @@ def async_end_to_end(launches):
             fail(f"async {label}: ran {ran} ticks, epochs {eps}: expected "
                  f"an early exit at the target")
         launches[kernel] += counts[kernel]
+
+
+# ---------------------------------------------------------------------------
+# Phase 4s: scenarios end to end
+# ---------------------------------------------------------------------------
+
+# vanilla accuracy after 20 epochs of the Table 3 world under
+# paper_noise@40 must pass this guard; the reference reaches 0.629 in that
+# world (benchmarks/table3_robustness.py, run(epochs=20, ks=(40,)), its
+# k = 40 row, JAX on the CPU)
+TABLE3_ACC_GUARD = 0.3
+
+
+def run_counted(label, kernel, runs, fn, want_regime=None):
+    """Run ``fn()`` (a run_defta or run_async_defta call returning its state
+    first and a ledger last) with the counters at 0; check that ``kernel``
+    (None: no kernel) launched leaves x ``runs(out)`` times and nothing
+    else, and, with ``want_regime``, only in that regime. Returns (out,
+    counts)."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts, regimes = dict(ops.LAUNCHES), dict(ops.REGIMES)
+    st, led = out[0], out[-1]
+    n = len(st.params) * runs(led)
+    want = {k: n if k == kernel else 0 for k in counts}
+    if counts != want:
+        fail(f"{label}: launch counts {counts}, expected {want}")
+    if want_regime is not None and regimes != {want_regime: n}:
+        fail(f"{label}: regimes {regimes}, expected {{{want_regime}: {n}}}")
+    if not bool(torch.isfinite(st.last_loss).all()):
+        fail(f"{label}: non-finite loss")
+    return out, counts
+
+
+def scenario_end_to_end(launches):
+    """Phase 4s on the card; the phase's launches are added to
+    ``launches``."""
+    from repro_torch.core.async_defta import run_async_defta
+    from repro_torch.core.defta import evaluate, run_defta
+    from repro_torch.core.gossip import SPARSE_DENSITY_THRESHOLD
+    from repro_torch.scenarios import (AttackSpec, ScenarioSpec,
+                                       TopologySpec, compile_scenario)
+    from repro_torch.telemetry import RunLedger
+
+    data, task, cfg, train = table2_world()
+    tx, ty = data["test_x"], data["test_y"]
+
+    def defta(label, kernel, epochs, regime=None, c=cfg, **kw):
+        def go():
+            led = RunLedger()
+            st, _, mal, hist = run_defta(0, task, c, train, data,
+                                         epochs=epochs, eval_every=epochs,
+                                         test_x=tx, test_y=ty, ledger=led,
+                                         **kw)
+            return st, mal, hist, led
+        (st, mal, hist, led), counts = run_counted(
+            label, kernel, lambda led: led.rounds_done, go, regime)
+        ms = 1e3 * led.wall_s / epochs
+        print(f"  4s {label:28s} W={st.conf.shape[0]} epochs={epochs} "
+              f"per_epoch_ms={ms:.2f} vanilla_acc={hist[-1][1]:.4f} "
+              f"launches={ {k: v for k, v in counts.items() if v} }",
+              flush=True)
+        for k, v in counts.items():
+            if v:
+                launches[k] += v
+        return st, hist[-1][1], ms
+
+    # the Table 3 world, scenario and legacy paths, on auto
+    for label, kw in (("table3 paper_noise@40 auto",
+                       {"scenario": "paper_noise@40"}),
+                      ("table3 num_malicious=40 auto",
+                       {"num_malicious": 40})):
+        _, acc, _ = defta(label, "gossip_mix_sparse", 20,
+                          "gossip_mix_sparse/slices", **kw)
+        if not acc > TABLE3_ACC_GUARD:
+            fail(f"{label}: vanilla accuracy {acc} <= {TABLE3_ACC_GUARD}")
+    # W = 60 > GOSSIP_STREAM_MAX_W: the dense mix's tile regime
+    defta("table3 paper_noise@40 pallas", "gossip_mix", 10,
+          "gossip_mix/tile", scenario="paper_noise@40",
+          gossip_backend="pallas")
+    # storm on the three wires
+    stoch = dataclasses.replace(cfg, gossip_dtype="int8",
+                                gossip_wire_round="stochastic")
+    for label, kernel, c, be in (
+            ("storm fp32 auto", "gossip_mix_sparse", cfg, "auto"),
+            ("storm int8+ef stochastic auto", "gossip_mix_quant", stoch,
+             "auto"),
+            ("storm fp32 pallas", "gossip_mix", cfg, "pallas")):
+        st, _, _ = defta(label, kernel, 12, c=c, scenario="storm",
+                         gossip_backend=be)
+        eps = st.epoch.cpu().numpy()
+        if not eps.min() < 12 == eps.max():
+            fail(f"{label}: epochs {eps}: the churned worker and the "
+                 f"straggler must fall behind")
+    # time-varying topologies at W = 60: auto picks by the union's density
+    # (two segments stay sparse, five go dense)
+    for every in (5, 2):
+        spec = ScenarioSpec(attacks=tuple(AttackSpec("noise")
+                                          for _ in range(40)),
+                            topology=TopologySpec("random_kout", 4,
+                                                  every=every))
+        sc = compile_scenario(spec, 20, 10)
+        union = sc.adj_union | np.eye(sc.num_workers, dtype=bool)
+        density = float(union.mean())
+        pick, regime = ("gossip_mix_sparse", "slices") \
+            if density <= SPARSE_DENSITY_THRESHOLD else ("gossip_mix", "tile")
+        print(f"  4s topology every={every}: {sc.num_segments} segments, "
+              f"union density {density:.4f} -> auto picks {pick}")
+        defta(f"topology every={every} auto", pick, 10,
+              f"{pick}/{regime}", scenario=sc)
+    # the robust rules: no mix launches
+    for rule in ("trimmed_mean", "median", "krum"):
+        c = dataclasses.replace(cfg, aggregation=rule, use_dts=False,
+                                time_machine=False)
+        defta(f"robust {rule}", None, 10, c=c, scenario="paper_noise@40")
+    # AsyncDeFTA under storm, with a target that stops it early
+
+    def go():
+        led = RunLedger()
+        st, _, mal, _ = run_async_defta(0, task, cfg, train, data, ticks=40,
+                                        target_epochs=4, check_every=4,
+                                        scenario="storm", ledger=led)
+        return st, mal, led
+    (st, mal, led), counts = run_counted(
+        "async storm target 4", "gossip_mix_sparse",
+        lambda led: led.rounds_done, go)
+    ran = led.rounds_done
+    eps = st.epoch.cpu().numpy()[~mal]
+    acc, _, _ = evaluate(task, st, tx, ty, mal)
+    print(f"  4s async storm target 4       ticks_run={ran}/40 per_tick_ms="
+          f"{1e3 * led.wall_s / ran:.2f} epochs={eps.tolist()} "
+          f"vanilla_acc={acc:.4f} launches="
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if not ran < 40:
+        fail(f"async storm: ran {ran} ticks, expected an early exit")
+    launches["gossip_mix_sparse"] += counts["gossip_mix_sparse"]
+    scenario_card_vs_cpu()
+
+
+def scenario_card_vs_cpu():
+    """A reduced storm world (10 vanilla workers, W = 13) on each gossip
+    kernel, a krum world (3 noise attackers), and the Table 3 world
+    (paper_noise@40, W = 60) on ``pallas``, whose card run must launch the
+    dense mix's tile regime only, on the card and on the CPU from one
+    initial state and one draw stream."""
+    from repro_torch.config import DeFTAConfig, TrainConfig
+    from repro_torch.convert import state_from_jax, state_to_numpy
+    from repro_torch.core.defta import run_defta
+    from repro_torch.core.engine import init_state
+    from repro_torch.core.tasks import mlp_task
+    from repro_torch.data import federated_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.scenarios import robust_agg
+    task = mlp_task(32, 10)
+    train = TrainConfig(learning_rate=0.05, batch_size=16)
+    # (scenario, vanilla workers, kernel, config change, backend)
+    worlds = (
+        ("storm", 10, "gossip_mix_sparse", dict(), "auto"),
+        ("storm", 10, "gossip_mix_quant",
+         dict(gossip_dtype="int8", gossip_wire_round="stochastic"), "auto"),
+        ("storm", 10, "gossip_mix", dict(), "pallas"),
+        ("paper_noise@3", 10, "krum", dict(aggregation="krum",
+                                           use_dts=False,
+                                           time_machine=False), "auto"),
+        ("paper_noise@40", 20, "gossip_mix", dict(), "pallas"))
+    picks = []
+    select = robust_agg.krum_select
+
+    def recording(mask, stacked, trim):
+        sel = select(mask, stacked, trim)
+        picks[-1].append(sel.cpu().numpy())
+        return sel
+    robust_agg.krum_select = recording
+    try:
+        for sc, nv, kernel, change, backend in worlds:
+            data = federated_dataset("vector", nv, np.random.default_rng(1),
+                                     n_per_worker=48)
+            cfg = DeFTAConfig(num_workers=nv, avg_peers=2, num_sampled=1,
+                              local_epochs=2, **change)
+            w = nv + int(sc.split("@")[1]) if "@" in sc else 13
+            gen = torch.Generator()
+            gen.manual_seed(0)
+            init = state_to_numpy(init_state(
+                gen, task, w, wire_error=cfg.gossip_dtype == "int8"))
+            res = {}
+            for dev in ("cuda", "cpu"):
+                picks.append([])
+                regimes = dict(ops.REGIMES)
+                st, *_ = run_defta(0, task, cfg, train, data, epochs=6,
+                                   scenario=sc, gossip_backend=backend,
+                                   device=dev, init=state_from_jax(init, dev),
+                                   draws=MovedDraws(5, dev))
+                res[dev] = state_to_numpy(st)
+                if dev == "cuda":
+                    ran = {k: v - regimes.get(k, 0)
+                           for k, v in ops.REGIMES.items()
+                           if v != regimes.get(k, 0)}
+            if w > ops.GOSSIP_STREAM_MAX_W and (
+                    set(ran) != {"gossip_mix/tile"}):
+                fail(f"scenario card run ({sc}, {kernel}, W = {w}): "
+                     f"regimes {ran}, expected the dense tile regime only")
+            a, b = res["cuda"], res["cpu"]
+            wire = "int8" if cfg.gossip_dtype == "int8" else "float32"
+            loss_err = float(np.abs(a["last_loss"] - b["last_loss"]).max())
+            same_epochs = np.array_equal(a["epoch"], b["epoch"])
+            ok = same_epochs and states_agree(a, b, wire)
+            if kernel == "krum":
+                card_picks, cpu_picks = picks[-2], picks[-1]
+                ok = ok and len(card_picks) == 6 and all(
+                    np.array_equal(x, y)
+                    for x, y in zip(card_picks, cpu_picks))
+            print(f"  4s card-vs-cpu {sc:14s} W={w:2d} {kernel:18s} "
+                  f"wire={wire:7s} epochs={a['epoch'].tolist()} "
+                  f"max|last_loss diff|={loss_err:.3e} agree={ok}")
+            if not ok:
+                fail(f"scenario card run ({sc}, {kernel}) disagrees with "
+                     f"the CPU run (epochs equal: {same_epochs})")
+    finally:
+        robust_agg.krum_select = select
 
 
 # ---------------------------------------------------------------------------
@@ -1634,6 +1878,7 @@ def main() -> int:
 
     print("[3] timings", flush=True)
     main_t = time_kernels(dev, "main", 22, 4, 2048)
+    time_kernels(dev, "T3", 60, 4, 2048)    # the dense mix's tile regime
     time_kernels(dev, "w500", 500, 24, 4096)
     main_t.update(time_serving_kernels(dev))
     main_t.update(time_route_slots(dev))
@@ -1644,6 +1889,9 @@ def main() -> int:
     launches = end_to_end()
     fedavg_end_to_end()
     async_end_to_end(launches)
+
+    print("[4s] scenarios end to end", flush=True)
+    scenario_end_to_end(launches)
 
     print("[5] serving end to end", flush=True)
     launches.update(serve_full(dev))

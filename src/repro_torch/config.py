@@ -202,8 +202,8 @@ class DeFTAConfig:
     avg_peers: int = 4               # average outdegree (paper: 4)
     num_sampled: int = 2             # |S_i| sampled peers per round (paper: 2)
     topology: str = "random_kout"    # ring | random_kout | erdos | dense
-    aggregation: str = "defta"       # defta | defl | uniform (robust rules
-                                     # trimmed_mean | median | krum: later)
+    aggregation: str = "defta"       # defta | defl | uniform | the robust
+                                     # rules trimmed_mean | median | krum
     robust_trim: float = 0.25
     use_dts: bool = True
     dts_signal: str = "loss"         # only "loss" in this slice
@@ -220,7 +220,7 @@ class DeFTAConfig:
     gossip_every: int = 1
     gossip_dtype: str = "float32"    # wire: "float32" | "bfloat16" | "int8"
     gossip_error_feedback: bool = True   # EF21 residuals on a lossy wire
-    gossip_wire_round: str = "nearest"   # int8 rounding ("stochastic": later)
+    gossip_wire_round: str = "nearest"   # int8 rounding: nearest | stochastic
     dp_clip: float = 0.0
     dp_sigma: float = 0.0
     dp_update_clip: float = 1.0

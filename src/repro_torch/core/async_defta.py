@@ -14,6 +14,10 @@ every tick), wrapped in the fire-gated tick merge
 Paper Table 4's observation, that fast workers finish with immature peer
 models, shows in the per-worker epochs at a fixed tick budget against an
 extended one (AsyncDeFTA-L).
+
+A ``scenario`` replays its timeline over the tick axis: the tick index is
+the scenario epoch, so scenario stragglers compose with the speed model (a
+worker advances only when it fires and the scenario lets it).
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ import torch
 
 from repro_torch.config import DeFTAConfig, TrainConfig
 from repro_torch.core.defta import (attacker_world, check_world,
-                                    initial_state, to_device_data)
+                                    initial_state, scenario_world,
+                                    to_device_data)
 from repro_torch.core.engine import (DeFTAState, build_defta_round,
                                      build_fire_gated_tick, drive_ticks)
 from repro_torch.core.tasks import Task
@@ -61,13 +66,22 @@ def run_async_defta(seed: int, task: Task, cfg: DeFTAConfig,
     ``draws`` and ``tick_draws`` replace them. ``gossip_backend`` defaults
     to ``"auto"`` (the sparse kernel on DeFTA topologies; the reference's
     default einsum computes the same mix). ``device=None`` runs on the card
-    and raises without one. ``scenario`` and ``shards`` are later items of
-    the port and raise ``NotImplementedError``.
+    and raises without one.
+
+    ``scenario`` (``ScenarioSpec``, ``CompiledScenario`` or preset name) is
+    compiled over ``max(ticks, 1)`` ticks and replayed with the tick index
+    as its epoch. With a target, only the vanilla workers whose scenario
+    fire opportunities reach it are waited for (all vanilla workers if none
+    can). ``shards`` is a later item of the port and raises
+    ``NotImplementedError``.
     """
     del host_exit
     dev = resolve_device(device)
-    check_world(scenario, shards)
-    w, malicious, data, sizes = attacker_world(cfg, data, num_malicious)
+    check_world(shards)
+    scenario, num_classes = scenario_world(scenario, num_malicious, cfg,
+                                           data, max(ticks, 1), dev)
+    w, malicious, data, sizes = attacker_world(cfg, data, num_malicious,
+                                               scenario)
     adj = make_topology(cfg.topology, w, cfg.avg_peers, cfg.seed)
     speeds = np.random.default_rng(cfg.seed + 17).uniform(
         *speed_range, size=w).astype(np.float32)
@@ -77,13 +91,23 @@ def run_async_defta(seed: int, task: Task, cfg: DeFTAConfig,
     state = initial_state(gen, task, cfg, w, init)
     rnd_fn = build_defta_round(task, cfg, train, adj, sizes, malicious,
                                draws=draws or TorchDraws(gen), device=dev,
-                               gossip_backend=gossip_backend)
+                               gossip_backend=gossip_backend,
+                               scenario=scenario, num_classes=num_classes)
     tick = build_fire_gated_tick(rnd_fn, to_device_data(data, dev),
                                  torch.as_tensor(speeds).to(dev), w,
                                  draws=tick_draws or TorchTickDraws(gen))
     if not check_every:
         check_every = min(8, ticks) if target_epochs else ticks
+    # the early exit waits only on workers that can reach the target: a
+    # churned-out or heavily straggled worker would otherwise hold it
+    required = ~malicious
+    if scenario is not None and target_epochs:
+        opportunities = scenario.fire[:max(ticks, 1)].sum(0).cpu().numpy()
+        required = required & (opportunities >= target_epochs)
+        if not required.any():
+            # unreachable for everyone: run the whole budget
+            required = ~malicious
     state = drive_ticks(tick, state, ticks, check_every=max(1, check_every),
-                        required=~malicious, target_epochs=target_epochs,
+                        required=required, target_epochs=target_epochs,
                         ledger=ledger)
     return state, adj, malicious, speeds

@@ -4,8 +4,11 @@
 All W workers are carried as worker-stacked tensors and advanced one
 round per global epoch by the engine's stage pipeline
 (``engine.build_defta_round``) under the Python-loop driver
-(``engine.drive_epochs``). Malicious workers are appended after the
-vanilla ones and send ``aggregate + noise`` (the paper's attack model).
+(``engine.drive_epochs``). By default malicious workers are appended after
+the vanilla ones and send ``aggregate + noise`` (the paper's attack
+model); a ``scenario`` (``repro_torch.scenarios``) replays a whole event
+timeline instead: churn, link failures, partitions, stragglers,
+time-varying topologies and any mix of the attack zoo.
 """
 from __future__ import annotations
 
@@ -22,8 +25,12 @@ from repro_torch.core.tasks import Task
 from repro_torch.core.topology import make_topology
 from repro_torch.device import resolve_device
 from repro_torch.rng import TorchDraws
+from repro_torch.scenarios.compile import (CompiledScenario,
+                                           compile_scenario, to_device)
+from repro_torch.scenarios.spec import ScenarioSpec, get_scenario
 
-__all__ = ["DeFTAState", "evaluate", "global_model", "run_defta"]
+__all__ = ["DeFTAState", "evaluate", "global_model", "resolve_scenario",
+           "run_defta"]
 
 
 def evaluate(task: Task, state: DeFTAState, test_x, test_y,
@@ -55,14 +62,20 @@ def _pad_workers(data, sizes, extra: int):
     return data, sizes
 
 
-def attacker_world(cfg: DeFTAConfig, data, num_malicious: int):
+def attacker_world(cfg: DeFTAConfig, data, num_malicious: int,
+                   scenario=None):
     """The world's W, its malicious mask (attackers appended after the
     vanilla workers: paper §4.3, normal workers fixed, attackers newly
-    joined) and the data and sizes padded with their slots."""
-    w = cfg.num_workers + num_malicious
-    malicious = np.zeros(w, bool)
-    malicious[cfg.num_workers:] = True
-    data, sizes = _pad_workers(data, data["sizes"], num_malicious)
+    joined) and the data and sizes padded with their slots. With a
+    compiled ``scenario`` the attackers and W are the scenario's."""
+    if scenario is not None:
+        w = scenario.num_workers
+        malicious = scenario.malicious.copy()
+    else:
+        w = cfg.num_workers + num_malicious
+        malicious = np.zeros(w, bool)
+        malicious[cfg.num_workers:] = True
+    data, sizes = _pad_workers(data, data["sizes"], w - cfg.num_workers)
     return w, malicious, data, sizes
 
 
@@ -72,11 +85,47 @@ def to_device_data(data, dev) -> dict:
             for k in ("x", "y", "mask")}
 
 
-def check_world(scenario, shards) -> None:
+def resolve_scenario(scenario, cfg: DeFTAConfig, epochs: int, device):
+    """Accept a ScenarioSpec (compiled here over ``epochs``), an
+    already-compiled CompiledScenario or a preset name; its tensors end on
+    ``device``."""
+    if isinstance(scenario, str):
+        scenario = get_scenario(scenario, cfg.num_workers)
+    if isinstance(scenario, ScenarioSpec):
+        scenario = compile_scenario(scenario, cfg.num_workers, epochs,
+                                    device)
+    if not isinstance(scenario, CompiledScenario):
+        raise TypeError(f"scenario must be a ScenarioSpec, "
+                        f"CompiledScenario or preset name, got "
+                        f"{type(scenario).__name__}")
+    if scenario.num_vanilla != cfg.num_workers:
+        raise ValueError(f"scenario compiled for {scenario.num_vanilla} "
+                         f"vanilla workers, cfg has {cfg.num_workers}")
+    if scenario.epochs < epochs:
+        # the per-epoch fire/attack_on schedules would freeze at the last
+        # epoch's draw past the horizon: a precompiled scenario must cover
+        # the run
+        raise ValueError(f"scenario horizon {scenario.epochs} is shorter "
+                         f"than the run ({epochs} epochs) — recompile "
+                         f"with compile_scenario(spec, W, {epochs})")
+    return to_device(scenario, device)
+
+
+def scenario_world(scenario, num_malicious: int, cfg: DeFTAConfig, data,
+                   horizon: int, device):
+    """The compiled scenario (or None) and the label count a label_flip
+    needs (``max(y) + 1``; 0 without a scenario)."""
+    if scenario is None:
+        return None, 0
+    if num_malicious:
+        raise ValueError("pass attackers via the scenario, not "
+                         "num_malicious, when a scenario is given")
+    return (resolve_scenario(scenario, cfg, horizon, device),
+            int(np.max(data["y"])) + 1)
+
+
+def check_world(shards) -> None:
     """Refuse the parts of a DeFTA world this port does not carry yet."""
-    if scenario is not None:
-        raise NotImplementedError("scenario is not ported yet (ROADMAP.md, "
-                                  "queue 1a, item 2: scenarios)")
     if shards is not None and shards > 1:
         raise NotImplementedError("sharded workers are not ported yet "
                                   "(ROADMAP.md, queue 1a, item 7: "
@@ -118,21 +167,29 @@ def run_defta(seed: int, task: Task, cfg: DeFTAConfig, train: TrainConfig,
     epochs into the returned history as ``(done, mean, std)``. ``ledger``
     (a ``telemetry.RunLedger``) receives the per-chunk round counts and wall
     seconds (the reference's ``stats`` dict is ``ledger.as_stats()``).
-    ``scenario`` and ``shards`` are later items of the port and raise
-    ``NotImplementedError``.
+    ``scenario`` (a ``ScenarioSpec``, a ``CompiledScenario`` or a preset
+    name: ``paper_noise@K``, ``churn_signflip``, ``storm``) replaces
+    ``num_malicious`` with a full event timeline: its attackers are
+    appended the same way, and churn, link, partition and straggler events
+    replay round by round. ``shards`` is a later item of the port and
+    raises ``NotImplementedError``.
 
     Returns ``(state, adj, malicious, history)``.
     """
     dev = resolve_device(device)
-    check_world(scenario, shards)
-    w, malicious, data, sizes = attacker_world(cfg, data, num_malicious)
+    check_world(shards)
+    scenario, num_classes = scenario_world(scenario, num_malicious, cfg,
+                                           data, epochs, dev)
+    w, malicious, data, sizes = attacker_world(cfg, data, num_malicious,
+                                               scenario)
     adj = make_topology(cfg.topology, w, cfg.avg_peers, cfg.seed)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     state = initial_state(gen, task, cfg, w, init)
     rnd_fn = build_defta_round(task, cfg, train, adj, sizes, malicious,
                                draws=draws or TorchDraws(gen), device=dev,
-                               gossip_backend=gossip_backend)
+                               gossip_backend=gossip_backend,
+                               scenario=scenario, num_classes=num_classes)
     tdata = to_device_data(data, dev)
 
     eval_fn = None

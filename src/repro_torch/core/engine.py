@@ -1,12 +1,11 @@
-"""The round programs and their drivers (port of ``repro.core.engine``,
-static form).
+"""The round programs and their drivers (port of ``repro.core.engine``).
 
 A round is an ordered tuple of named stages over a round context, as in
 the reference. Sync DeFTA:
 
     split_draws -> scenario_view -> peer_sample -> transport
         -> damage_check -> local_train -> attack_inject -> trust_update
-        -> finalize
+        -> finalize (fire_merge under a scenario)
 
 FedAvg (CFL-F, CFL-S, FedAdam), a stage selection over the same pipeline:
 
@@ -14,18 +13,22 @@ FedAvg (CFL-F, CFL-S, FedAdam), a stage selection over the same pipeline:
         -> star_aggregate -> server_update
 
 ``split_draws`` takes the round's random numbers from a ``rng`` provider
-where the reference splits its PRNG key; ``scenario_view`` is the static
-topology. The transport is the in-process ``gossip.mix_pytree`` (einsum /
-pallas / sparse / auto backends, fp32, bf16 or int8 + EF21 wire); FedAvg's
-star aggregate is a plain size-weighted mean, as in the reference (no
-kernel). ``build_fire_gated_tick`` wraps the DeFTA round in AsyncDeFTA's
-tick merge. ``drive_epochs`` runs rounds and ``drive_ticks`` runs ticks in
-a Python loop, with per-chunk wall time.
+where the reference splits its PRNG key. ``scenario_view`` is the static
+topology, or a compiled scenario's epoch (churn, links, partitions,
+stragglers, a time-varying topology), with ``max_staleness`` dropping
+stale peers. The transport is the in-process ``gossip.mix_pytree`` (einsum
+/ pallas / sparse / auto backends, fp32, bf16 or int8 + EF21 wire, int8
+rounded to nearest or stochastically), or a classical robust rule
+(``scenarios.robust_agg``) that replaces the mix. The attack zoo
+(``scenarios.attacks``) poisons what attackers send. FedAvg's star
+aggregate is a plain size-weighted mean, as in the reference (no kernel).
+``build_fire_gated_tick`` wraps the DeFTA round in AsyncDeFTA's tick
+merge. ``drive_epochs`` runs rounds and ``drive_ticks`` runs ticks in a
+Python loop, with per-chunk wall time.
 
-What the slice does not carry raises ``NotImplementedError`` when the
-round is built (``check_supported``): scenarios, trust signals other than
-"loss", robust aggregation, DP, secure aggregation, ``max_staleness``,
-stochastic int8 rounding, telemetry and sharded workers.
+What the port does not carry yet raises ``NotImplementedError`` when the
+round is built (``check_supported``): trust signals other than "loss", DP,
+secure aggregation, telemetry and sharded workers.
 """
 from __future__ import annotations
 
@@ -38,13 +41,15 @@ import torch
 
 from repro_torch.config import DeFTAConfig, TrainConfig
 from repro_torch.core import dts as dts_mod
-from repro_torch.core.gossip import (mix_pytree, normalize_wire,
-                                     uses_error_feedback)
+from repro_torch.core.gossip import (dynamic_mixing_matrix, mix_pytree,
+                                     normalize_wire, uses_error_feedback)
 from repro_torch.core.tasks import Task
-from repro_torch.scenarios.attacks import noise, tree_select
+from repro_torch.scenarios.attacks import (LABEL_FLIP_CODE, RANDOM_ATTACKS,
+                                           flip_labels, noise, poison_sends,
+                                           tree_select)
+from repro_torch.scenarios.compile import epoch_view
+from repro_torch.scenarios.robust_agg import ROBUST_RULES, robust_mix
 from repro_torch.telemetry.ledger import RunLedger
-
-ROBUST_RULES = ("trimmed_mean", "median", "krum")
 
 
 def _not_ported(what: str, item: str):
@@ -52,19 +57,15 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported yet (ROADMAP.md, queue 1a, {item})")
 
 
-def check_supported(cfg: DeFTAConfig, *, scenario=None, telemetry=None,
+def check_supported(cfg: DeFTAConfig, *, telemetry=None,
                     shard=None) -> None:
-    """Raise ``NotImplementedError`` for any part of the config this slice
-    does not carry, naming the ROADMAP item that ports it. A config is
+    """Raise ``NotImplementedError`` for any part of the config the port
+    does not carry yet, naming the ROADMAP item that ports it. A config is
     never silently ignored."""
-    if scenario is not None:
-        _not_ported("scenario", "item 2: scenarios")
     if cfg.use_dts and cfg.dts_signal != "loss":
         _not_ported(f"dts_signal={cfg.dts_signal!r}",
                     "item 3: DTS v2 and v3 channels")
-    if cfg.aggregation in ROBUST_RULES:
-        _not_ported(f"aggregation={cfg.aggregation!r}", "item 2: scenarios")
-    if cfg.aggregation not in ("defta", "defl", "uniform"):
+    if cfg.aggregation not in ("defta", "defl", "uniform") + ROBUST_RULES:
         raise ValueError(f"unknown aggregation {cfg.aggregation!r}")
     if cfg.dp_clip > 0:
         _not_ported("DP-SGD (dp_clip > 0)", "item 5: privacy wire")
@@ -72,11 +73,6 @@ def check_supported(cfg: DeFTAConfig, *, scenario=None, telemetry=None,
         _not_ported("update DP (dp_sigma > 0)", "item 5: privacy wire")
     if cfg.secagg is not None:
         _not_ported("secagg", "item 5: privacy wire")
-    if cfg.max_staleness:
-        _not_ported("max_staleness", "item 2: scenarios")
-    if normalize_wire(cfg.gossip_dtype) == "int8" \
-            and cfg.gossip_wire_round == "stochastic":
-        _not_ported("gossip_wire_round='stochastic'", "item 2: scenarios")
     if telemetry is not None:
         _not_ported("telemetry", "item 6: telemetry")
     if shard is not None:
@@ -165,26 +161,42 @@ def local_train_fn(task: Task, train: TrainConfig, local_epochs: int):
 
 @dataclass
 class Transport:
-    """How a round's mixing moves bytes. ``mix(P, stacked, residual=None)``
-    follows ``gossip.mix_pytree``: the mixed dict, or ``(mixed,
-    new_residual)`` when an EF21 residual dict is passed."""
+    """How a round's mixing moves bytes. ``mix(P, stacked, residual=None,
+    wire_u=None)`` follows ``gossip.mix_pytree``: the mixed dict, or
+    ``(mixed, new_residual)`` when an EF21 residual dict is passed;
+    ``wire_u`` carries the stochastic wire's uniforms."""
     kind: str                    # "in_process"
     wire: Optional[str]          # None | "bf16" | "int8"
     use_ef: bool
+    stochastic: bool             # int8 stochastic rounding
     mix: Callable
 
 
 def make_transport(cfg: DeFTAConfig, *, backend: str = "auto",
-                   adjacency=None) -> Transport:
-    """The in-process transport over the ``mix_pytree`` backends. The
-    cross-pod ring and the sharded transport are later items."""
+                   adjacency=None, robust: bool = False) -> Transport:
+    """The in-process transport over the ``mix_pytree`` backends.
+    ``adjacency`` is the static support of every P the round builds (the
+    scenario's support union under a time-varying topology). Stochastic
+    int8 rounding exists on the int8 wire only (elsewhere the knob is
+    inert, as in the reference). A robust rule never runs the lossy wire.
+    The cross-pod ring and the sharded transport are later items."""
     wire = normalize_wire(cfg.gossip_dtype)
     use_ef = uses_error_feedback(cfg)
+    stochastic = wire == "int8" and cfg.gossip_wire_round == "stochastic"
+    wire_round = "stochastic" if stochastic else "nearest"
+    if robust and wire is not None:
+        raise ValueError(
+            f"robust aggregation ({cfg.aggregation!r}) simulates lossless "
+            f"model exchange — it never runs the quantized wire, so "
+            f"comparing it against a lossy-wire DeFTA run would be "
+            f"apples-to-oranges; set gossip_dtype='float32'")
 
-    def mix(P, stacked, residual=None):
+    def mix(P, stacked, residual=None, wire_u=None):
         return mix_pytree(P, stacked, backend=backend, adjacency=adjacency,
-                          wire=wire, residual=residual)
-    return Transport(kind="in_process", wire=wire, use_ef=use_ef, mix=mix)
+                          wire=wire, residual=residual,
+                          wire_round=wire_round, wire_u=wire_u)
+    return Transport(kind="in_process", wire=wire, use_ef=use_ef,
+                     stochastic=stochastic, mix=mix)
 
 
 # ---------------------------------------------------------------------------
@@ -209,12 +221,20 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
                       malicious: np.ndarray, *, draws,
                       device, gossip_backend: str = "auto",
                       noise_scale: float = 200.0, scenario=None,
-                      telemetry=None, shard=None):
-    """The static DeFTA round: returns round(state, data, epoch=None) ->
-    state. ``draws`` is the round's ``rng.Draws`` provider (one call per
-    round); ``data`` holds the padded per-worker ``x``, ``y``, ``mask``
-    tensors on ``device``."""
-    check_supported(cfg, scenario=scenario, telemetry=telemetry, shard=shard)
+                      num_classes: int = 0, telemetry=None, shard=None):
+    """The DeFTA round: returns round(state, data, epoch=None) -> state.
+    ``draws`` is the round's ``rng.Draws`` provider (one call per round);
+    ``data`` holds the padded per-worker ``x``, ``y``, ``mask`` tensors on
+    ``device``.
+
+    ``scenario``: a ``scenarios.CompiledScenario`` on ``device``. The round
+    then looks up its epoch's alive/link/fire/attack state (and, for a
+    time-varying topology, the segment's adjacency), poisons sends with the
+    attack zoo and merges by ``fire``; ``epoch`` must be given. Without it
+    the round is the static one, with the paper's noise attack on
+    ``malicious`` workers. ``num_classes`` is needed by a ``label_flip``
+    scenario (the flip is ``y -> C-1-y``)."""
+    check_supported(cfg, telemetry=telemetry, shard=shard)
     dev = torch.device(device)
     w = adj.shape[0]
     adj_t = torch.as_tensor(np.asarray(adj, bool)).to(dev)
@@ -227,34 +247,78 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
     attack_scale = torch.full((w,), noise_scale, dtype=torch.float32,
                               device=dev)
     ltrain = local_train_fn(task, train, cfg.local_epochs)
+    max_staleness = int(cfg.max_staleness)
+    robust = cfg.aggregation in ROBUST_RULES
     if cfg.aggregation == "defta":
         col_w = sizes_t / outdeg
     elif cfg.aggregation == "defl":
         col_w = sizes_t
-    else:                                          # uniform gossip
+    else:                                # uniform gossip (unused by robust)
         col_w = torch.ones_like(sizes_t)
-    transport = make_transport(cfg, backend=gossip_backend, adjacency=adj)
+
+    noise_kinds = ()
+    if scenario is not None:
+        if scenario.num_workers != w:
+            raise ValueError(f"scenario compiled for W="
+                             f"{scenario.num_workers}, topology has {w}")
+        if "label_flip" in scenario.kinds_present and num_classes <= 0:
+            raise ValueError("label_flip scenario needs num_classes > 0")
+        noise_kinds = tuple(k for k in scenario.kinds_present
+                            if k in RANDOM_ATTACKS)
+    # a time-varying topology: the padded-CSR support must cover every
+    # segment's adjacency (the support union), one static entry
+    support = adj
+    if scenario is not None and scenario.adj_union is not None:
+        support = scenario.adj_union
+    transport = make_transport(cfg, backend=gossip_backend,
+                               adjacency=support, robust=robust)
     use_ef = transport.use_ef
+    regen = scenario is not None and scenario.adj_seg is not None
 
     # ---- stages -----------------------------------------------------------
 
     def stage_split_draws(c):
-        """writes draws: this round's Gumbel rows, minibatch permutations
-        and (with attackers) the attack noise, in one provider call."""
+        """writes draws: this round's Gumbel rows, minibatch permutations,
+        (static path, with attackers) the noise attack's draws, and, gated
+        at build time, the scenario's per-kind attack noise and the
+        stochastic wire's uniforms, in one provider call."""
         params = c["state"].params
-        shapes = {k: tuple(v.shape) for k, v in params.items()} \
-            if malicious_np.any() else None
+        shapes = {k: tuple(v.shape) for k, v in params.items()}
+        extra = {}
+        if noise_kinds:
+            extra["kind_noise"] = {k: shapes for k in noise_kinds}
+        if transport.stochastic:
+            extra["wire_shapes"] = {k: (w, v[0].numel())
+                                    for k, v in params.items()}
+        legacy = scenario is None and malicious_np.any()
         c["draws"] = draws(w, cfg.local_epochs, c["data"]["x"].shape[1],
-                           shapes)
+                           shapes if legacy else None, **extra)
 
     def stage_scenario_view(c):
-        """writes eff_adj: the static topology."""
-        c["eff_adj"] = adj_t
+        """reads epoch, state.epoch; writes eff_adj (and alive, fire,
+        att_on under a scenario): the round's topology = (segment or
+        static) adjacency ∧ link_ok ∧ alive on both ends; with
+        ``max_staleness`` S > 0, minus the edges from peers whose epoch
+        lags the receiver's by more than S."""
+        if scenario is not None:
+            view = epoch_view(scenario, c["epoch"])
+            alive = view["alive"]
+            c["alive"], c["fire"], c["att_on"] = \
+                alive, view["fire"], view["attack_on"]
+            base = view["adj"] if regen else adj_t
+            c["eff_adj"] = base & view["link_ok"] & alive[None, :] \
+                & alive[:, None]
+        else:
+            c["eff_adj"] = adj_t
+        if max_staleness:
+            ep = c["state"].epoch
+            fresh = (ep[:, None] - ep[None, :]) <= max_staleness
+            c["eff_adj"] = c["eff_adj"] & fresh
 
     def stage_peer_sample(c):
         """reads eff_adj, state.conf, draws.gumbel; writes theta [W, W]
-        (DTS sampling weights) and sampled [W, W] (Gumbel top-k, ≤
-        num_sampled per row)."""
+        (DTS sampling weights, observed by theta_aware) and sampled [W, W]
+        (Gumbel top-k, ≤ num_sampled per row)."""
         if cfg.use_dts:
             theta = dts_mod.sample_weights(c["state"].conf, c["eff_adj"],
                                            cfg.crelu_slope)
@@ -266,13 +330,27 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
                                             cfg.num_sampled)
 
     def stage_transport(c):
-        """reads sampled, eff_adj, state.params, state.wire_err; writes P
-        (mixing matrix), agg (the mixed models) and wire_err."""
+        """reads sampled, eff_adj, state.params, state.wire_err,
+        draws.wire_u; writes P (mixing matrix), agg (the mixed models) and
+        wire_err. A robust rule replaces the mix (no kernel launch), with P
+        the uniform bookkeeping weights the trust update needs."""
         state = c["state"]
         mask = (c["sampled"] & c["eff_adj"]) | eye
-        P = mask * col_w[None, :]
-        P = P / P.sum(dim=1, keepdim=True)
+        if robust:
+            c["agg"] = robust_mix(cfg.aggregation, mask, state.params,
+                                  trim=cfg.robust_trim)
+            c["P"] = mask.float() / mask.sum(dim=1, keepdim=True)
+            c["wire_err"] = state.wire_err
+            return
+        if scenario is not None:
+            # per-epoch outdegrees under the dynamic adjacency
+            P = dynamic_mixing_matrix(c["sampled"], c["eff_adj"], sizes_t,
+                                      cfg.aggregation)
+        else:
+            P = mask * col_w[None, :]
+            P = P / P.sum(dim=1, keepdim=True)
         c["P"] = P
+        wire_u = c["draws"].wire_u
         if use_ef:
             if state.wire_err is None:
                 raise ValueError(
@@ -280,17 +358,23 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
                     "but the state carries no residual buffers — build "
                     "it with init_state(..., wire_error=True)")
             c["agg"], c["wire_err"] = transport.mix(
-                P, state.params, residual=state.wire_err)
+                P, state.params, residual=state.wire_err, wire_u=wire_u)
         else:
-            c["agg"] = transport.mix(P, state.params)
+            c["agg"] = transport.mix(P, state.params, wire_u=wire_u)
             c["wire_err"] = state.wire_err
 
     def stage_damage_check(c):
-        """reads agg, state.{backup,best_loss}, data; writes loss_agg (each
+        """reads agg, state.{backup,best_loss}, data, att_on; writes y_data
+        (the labels, flipped for active label-flippers), loss_agg (each
         worker's self-evaluation of the aggregate), damaged [W] and start
         (the backup on damaged rounds: the §3.3 time machine)."""
         state, data = c["state"], c["data"]
-        c["loss_agg"] = task.loss(c["agg"], data["x"], data["y"],
+        y_data = data["y"]
+        if scenario is not None and "label_flip" in scenario.kinds_present:
+            lf = (scenario.attack_kind == LABEL_FLIP_CODE) & c["att_on"]
+            y_data = flip_labels(y_data, lf, num_classes)
+        c["y_data"] = y_data
+        c["loss_agg"] = task.loss(c["agg"], data["x"], y_data,
                                   data["mask"]).detach()
         if cfg.time_machine:
             c["damaged"] = dts_mod.is_damaged(c["loss_agg"],
@@ -301,15 +385,25 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
             c["start"] = c["agg"]
 
     def stage_local_train(c):
-        """reads start, data, draws.perm; writes trained and train_loss."""
+        """reads start, y_data, data, draws.perm; writes trained and
+        train_loss."""
         data = c["data"]
         c["trained"], c["train_loss"] = ltrain(
-            c["draws"].perm, c["start"], data["x"], data["y"], data["mask"])
+            c["draws"].perm, c["start"], data["x"], c["y_data"],
+            data["mask"])
 
     def stage_attack_inject(c):
-        """reads trained, agg, draws.noise; writes trained (attacker slots
-        replaced by agg + noise_scale·N(0, 1), the paper's attack)."""
-        if malicious_np.any():
+        """reads trained, agg, theta, att_on, draws.{noise, kind_noise};
+        writes trained: attacker slots replaced by their poisoned sends
+        (the scenario's zoo, or on the static path agg + noise_scale·N(0,
+        1), the paper's attack)."""
+        if scenario is not None:
+            c["trained"] = poison_sends(
+                c["draws"].kind_noise, scenario.kinds_present,
+                scenario.attack_kind, scenario.attack_scale, c["att_on"],
+                c["agg"], c["trained"],
+                theta=c["theta"] if cfg.use_dts else None)
+        elif malicious_np.any():
             poisoned = noise(c["draws"].noise, c["agg"], c["trained"],
                              attack_scale)
             c["trained"] = tree_select(malicious_t, poisoned, c["trained"])
@@ -344,6 +438,22 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
             best_loss=c["best_loss"], last_loss=c["last_loss"],
             epoch=state.epoch + 1, wire_err=c["wire_err"])
 
+    def stage_fire_merge(c):
+        """reads fire + everything finalize reads; writes next: workers
+        that do not fire (dead, or a straggler's idle epoch) keep params,
+        backup, conf rows, losses and EF21 residual; epoch advances by
+        fire."""
+        state, fire = c["state"], c["fire"]
+        c["next"] = DeFTAState(
+            params=tree_select(fire, c["trained"], state.params),
+            backup=tree_select(fire, c["backup"], state.backup),
+            conf=torch.where(fire[:, None], c["conf"], state.conf),
+            best_loss=torch.where(fire, c["best_loss"], state.best_loss),
+            last_loss=torch.where(fire, c["last_loss"], state.last_loss),
+            epoch=state.epoch + fire.to(state.epoch.dtype),
+            wire_err=tree_select(fire, c["wire_err"], state.wire_err)
+            if use_ef else state.wire_err)
+
     stages = (
         ("split_draws", stage_split_draws),
         ("scenario_view", stage_scenario_view),
@@ -353,7 +463,8 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         ("local_train", stage_local_train),
         ("attack_inject", stage_attack_inject),
         ("trust_update", stage_trust_update),
-        ("finalize", stage_finalize),
+        ("finalize", stage_finalize) if scenario is None
+        else ("fire_merge", stage_fire_merge),
     )
 
     def round(state: DeFTAState, data, epoch=None):

@@ -13,7 +13,9 @@ Backends, as in the reference:
   density at most ``SPARSE_DENSITY_THRESHOLD``, else ``pallas``.
 
 Wires: ``None`` (fp32), ``"bf16"`` or ``"int8"`` (one symmetric fp32 scale
-per (worker, leaf) row, round to nearest). With a ``residual`` the encode
+per (worker, leaf) row, rounded to nearest or, with ``wire_round=
+"stochastic"``, up with probability equal to the fraction, from uniforms
+the caller draws through the ``rng`` seam). With a ``residual`` the encode
 is EF21: each worker sends ``row + residual`` and keeps what the decode
 lost for the next round. The mix stays leaf by leaf because the int8 scale
 is per (worker, leaf) row: packing the leaves into one row would change
@@ -55,28 +57,31 @@ def uses_error_feedback(cfg) -> bool:
         and normalize_wire(cfg.gossip_dtype) is not None
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1a, item 2: "
-        f"scenarios, with the stochastic-rounding draw)")
-
-
-def quantize_rows_int8(flat, *, rounding: str = "nearest"):
+def quantize_rows_int8(flat, *, rounding: str = "nearest", u=None):
     """Per-row symmetric int8 quantization of a [W, F] stack. Returns
     (q [W, F] int8, scale [W] f32) with q = round(flat / scale) clipped to
     ±127 and scale = max|row| / 127 (never zero). ``torch.round`` rounds
     half to even, as ``jnp.round`` does, so q and scale are bit-equal to
-    the reference's for equal fp32 input."""
-    if rounding == "stochastic":
-        _not_ported("wire_round='stochastic'")
-    if rounding != "nearest":
-        raise ValueError(f"unknown wire rounding {rounding!r} "
-                         f"(expected 'nearest' | 'stochastic')")
+    the reference's for equal fp32 input.
+
+    ``rounding="stochastic"`` takes ``u``, [W, F] uniforms in [0, 1), and
+    sets q = floor(s) + (u < s − floor(s)) for s = flat / scale: the
+    encode is unbiased. Equal uniforms give the reference's q."""
     flat = flat.float()
     amax = flat.abs().amax(dim=1)
     scale = amax.clamp_min(1e-12) / 127.0
-    q = torch.round(flat / scale[:, None]).clamp(-127, 127)
-    return q.to(torch.int8), scale
+    scaled = flat / scale[:, None]
+    if rounding == "stochastic":
+        if u is None:
+            raise ValueError("stochastic rounding needs uniforms (u=)")
+        lo = torch.floor(scaled)
+        q = lo + (u < (scaled - lo)).float()
+    elif rounding == "nearest":
+        q = torch.round(scaled)
+    else:
+        raise ValueError(f"unknown wire rounding {rounding!r} "
+                         f"(expected 'nearest' | 'stochastic')")
+    return q.clamp(-127, 127).to(torch.int8), scale
 
 
 def dequantize_rows_int8(q, scale):
@@ -129,10 +134,30 @@ def sparse_weights(P, adjacency):
 
 
 def dynamic_mixing_matrix(sampled, eff_adj, sizes, scheme: str = "defta"):
-    """Per-epoch mixing matrix under a dynamic adjacency (scenario runs)."""
-    raise NotImplementedError(
-        "dynamic_mixing_matrix belongs to the scenario engine (ROADMAP.md, "
-        "queue 1a, item 2: scenarios)")
+    """Per-epoch mixing matrix under a dynamic adjacency (scenario runs):
+    the outdegrees of Theorem 3.3's |D_j|/d_j correction are recomputed
+    from the epoch's effective topology.
+
+    sampled: [W, W] bool, this round's sampled peers; eff_adj: [W, W]
+    bool, the epoch's effective topology (adjacency ∧ link_ok ∧ alive on
+    both ends); sizes: [W] f32. Returns row-stochastic P [W, W]; every row
+    keeps its self-loop, so a dead or isolated worker's row is the
+    identity. P's support lies in the static adjacency (or the scenario's
+    support union) plus self-loops, so the sparse backend keeps one static
+    padded-CSR support and masked entries ride as zero-weight slots."""
+    w = eff_adj.shape[0]
+    eye = torch.eye(w, dtype=torch.bool, device=eff_adj.device)
+    outdeg = (eff_adj | eye).sum(dim=0).float()
+    sizes = sizes.float()
+    if scheme == "defta":
+        col_w = sizes / outdeg
+    elif scheme == "defl":
+        col_w = sizes
+    else:                                   # uniform gossip
+        col_w = torch.ones_like(sizes)
+    mask = (sampled & eff_adj) | eye
+    P = mask * col_w[None, :]
+    return P / P.sum(dim=1, keepdim=True).clamp_min(1e-12)
 
 
 def _resolve_backend(backend, adjacency, w):
@@ -144,7 +169,7 @@ def _resolve_backend(backend, adjacency, w):
     return "sparse" if a.mean() <= SPARSE_DENSITY_THRESHOLD else "pallas"
 
 
-def _encode_rows(flat, r_flat, wire, *, rounding: str = "nearest"):
+def _encode_rows(flat, r_flat, wire, *, rounding: str = "nearest", u=None):
     """Encode one worker-stacked [W, F] leaf for the wire. Returns
     (payload, scale_or_None, new_residual_or_None): with ``r_flat`` (EF21)
     the encoded row is ``flat + r_flat`` and the residual is what the
@@ -156,7 +181,7 @@ def _encode_rows(flat, r_flat, wire, *, rounding: str = "nearest"):
         payload, scale = send.to(torch.bfloat16), None
         deq = payload.float()
     else:                                         # int8
-        payload, scale = quantize_rows_int8(send, rounding=rounding)
+        payload, scale = quantize_rows_int8(send, rounding=rounding, u=u)
         deq = dequantize_rows_int8(payload, scale)
     new_r = (send - deq) if r_flat is not None else None
     return payload, scale, new_r
@@ -164,15 +189,16 @@ def _encode_rows(flat, r_flat, wire, *, rounding: str = "nearest"):
 
 def mix_pytree(P, stacked: dict, backend: str = "einsum", *, adjacency=None,
                wire=None, residual=None, wire_round: str = "nearest",
-               secagg=None):
+               wire_u=None, secagg=None):
     """P: [W, W] row-stochastic f32; stacked: dict of [W, ...] leaves.
 
     ``adjacency``: static bool [W, W] numpy support of P (required by the
     ``sparse`` backend, enables it under ``auto``). ``wire``: None | "bf16"
     | "int8". ``residual``: EF21 buffers (dict like ``stacked``); when
-    given the return value is ``(mixed, new_residual)``. Stochastic
-    rounding and the secure-aggregation wire are later items of the port
-    and raise ``NotImplementedError``.
+    given the return value is ``(mixed, new_residual)``. ``wire_round=
+    "stochastic"`` (int8 only) takes ``wire_u``, one [W, F] U[0, 1) tensor
+    per leaf name (``rng.RoundDraws.wire_u``). The secure-aggregation wire
+    is a later item of the port and raises ``NotImplementedError``.
     """
     w = P.shape[0]
     backend = _resolve_backend(backend, adjacency, w)
@@ -180,8 +206,9 @@ def mix_pytree(P, stacked: dict, backend: str = "einsum", *, adjacency=None,
     if residual is not None and wire is None:
         raise ValueError("error-feedback residual needs a lossy wire "
                          "(wire='bf16'|'int8')")
-    if wire_round == "stochastic":
-        _not_ported("wire_round='stochastic'")
+    if wire_round == "stochastic" and wire != "int8":
+        raise ValueError("wire_round='stochastic' is an int8-wire option "
+                         f"(wire={wire!r})")
     if secagg is not None:
         raise NotImplementedError(
             "the secure-aggregation wire is not ported yet (ROADMAP.md, "
@@ -216,8 +243,9 @@ def mix_pytree(P, stacked: dict, backend: str = "einsum", *, adjacency=None,
         else:
             r = residual[name] if residual is not None else None
             r_flat = r.reshape(w, -1) if r is not None else None
+            u = wire_u[name] if wire_u is not None else None
             payload, scale, nr = _encode_rows(flat, r_flat, wire,
-                                              rounding=wire_round)
+                                              rounding=wire_round, u=u)
             out = mix_flat(payload.contiguous(), scale)
             if nr is not None:
                 new_res[name] = nr.reshape(x.shape)

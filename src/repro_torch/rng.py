@@ -2,9 +2,13 @@
 tensors.
 
 A DeFTA round asks its ``Draws`` provider once per round for a
-``RoundDraws``; a FedAvg round asks its ``FedAvgDraws`` provider once per
-round for a ``FedAvgRoundDraws``; an async tick asks its ``TickDraws``
-provider once per live tick for one ``[W]`` uniform. The default
+``RoundDraws`` (with two build-time-gated extras: the scenario attacks'
+per-kind noise and the stochastic int8 wire's uniforms, asked for by
+keyword only when the round needs them, so a provider that knows neither
+serves every other world unchanged); a FedAvg round asks its
+``FedAvgDraws`` provider once per round for a ``FedAvgRoundDraws``; an
+async tick asks its ``TickDraws`` provider once per live tick for one
+``[W]`` uniform. The default
 providers (``TorchDraws``, ``TorchFedAvgDraws``, ``TorchTickDraws``) draw
 from an explicit seeded ``torch.Generator``. A test can plug in providers
 that re-derive the reference's ``jax.random`` draws from its frozen key
@@ -28,14 +32,26 @@ class RoundDraws:
                               # (padded) samples, per local epoch
     noise: Optional[dict]     # leaf name -> [W, ...] N(0, 1) for the noise
                               # attack; None when the world has no attacker
+                              # (or runs a scenario)
+    kind_noise: Optional[dict] = None
+                              # scenario attacks: kind -> {leaf name ->
+                              # [W, ...] N(0, 1)} for each kind present that
+                              # consumes randomness (noise, alie_decor)
+    wire_u: Optional[dict] = None
+                              # stochastic int8 wire: leaf name -> [W, F]
+                              # U[0, 1), the rounding uniforms
 
 
 class Draws(Protocol):
     def __call__(self, w: int, local_epochs: int, n: int,
-                 noise_shapes: Optional[dict]) -> RoundDraws:
+                 noise_shapes: Optional[dict], *,
+                 kind_noise: Optional[dict] = None,
+                 wire_shapes: Optional[dict] = None) -> RoundDraws:
         """Draws for one round: W workers, ``local_epochs`` permutations of
         ``n`` samples each, and one normal draw per leaf of
-        ``noise_shapes`` (name -> shape), or none if it is None."""
+        ``noise_shapes`` (name -> shape), or none if it is None. The round
+        passes ``kind_noise`` (attack kind -> {leaf name -> shape}) and
+        ``wire_shapes`` (leaf name -> [W, F]) only when it needs them."""
 
 
 def _perm(g: torch.Generator, w, local_epochs, n) -> torch.Tensor:
@@ -50,19 +66,34 @@ def _noise(g: torch.Generator, noise_shapes) -> Optional[dict]:
             for name, shape in sorted(noise_shapes.items())}
 
 
+def _uniform(g: torch.Generator, shapes) -> Optional[dict]:
+    if shapes is None:
+        return None
+    return {name: torch.rand(shape, generator=g, device=g.device)
+            for name, shape in sorted(shapes.items())}
+
+
 class TorchDraws:
     """The default provider: draws on the generator's device."""
 
     def __init__(self, generator: torch.Generator):
         self.gen = generator
 
-    def __call__(self, w, local_epochs, n, noise_shapes):
+    def __call__(self, w, local_epochs, n, noise_shapes, *,
+                 kind_noise=None, wire_shapes=None):
         g = self.gen
         # Gumbel(0, 1) = -log(E) with E ~ Exp(1)
         gumbel = -torch.empty(w, w, device=g.device).exponential_(
             generator=g).log()
-        return RoundDraws(gumbel=gumbel, perm=_perm(g, w, local_epochs, n),
-                          noise=_noise(g, noise_shapes))
+        d = RoundDraws(gumbel=gumbel, perm=_perm(g, w, local_epochs, n),
+                       noise=_noise(g, noise_shapes))
+        # the extras draw after everything else, and nothing when not asked
+        # for: every other world's stream stays as it was
+        if kind_noise is not None:
+            d.kind_noise = {k: _noise(g, shapes)
+                            for k, shapes in kind_noise.items()}
+        d.wire_u = _uniform(g, wire_shapes)
+        return d
 
 
 @dataclass

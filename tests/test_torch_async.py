@@ -277,11 +277,14 @@ def test_tick_merge_gates_every_field_on_fired():
 
 
 def test_refusals():
+    """Shards still raise (item 7); a scenario runs (test_torch_scenario_
+    async.py), but attackers come from it or from num_malicious, not
+    both."""
     data, cfg_kw, train_kw = async_setup_world()
     args = (0, mlp_task(32, 10), DeFTAConfig(**cfg_kw),
             TrainConfig(**train_kw), data)
-    with pytest.raises(NotImplementedError, match="queue 1a, item 2"):
+    with pytest.raises(ValueError, match="not num_malicious"):
         run_async_defta(*args, ticks=2, scenario="churn_signflip",
-                        device="cpu")
+                        num_malicious=1, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1a, item 7"):
         run_async_defta(*args, ticks=2, shards=2, device="cpu")

@@ -51,6 +51,29 @@ def test_aggregation_copy_is_verbatim():
     assert ours.read_text() == theirs.read_text()
 
 
+@pytest.mark.parametrize("path", ["scenarios/spec.py",
+                                  "core/peer_selection.py"])
+def test_numpy_module_copy_is_verbatim(path):
+    ours = ROOT / "src" / "repro_torch" / path
+    theirs = ROOT / "src" / "repro" / path
+    assert ours.read_text() == theirs.read_text()
+
+
+@pytest.mark.parametrize("k,explore", [(2, 0.0), (3, 0.5)])
+def test_peer_selection_copy_equal(k, explore):
+    from repro.core import peer_selection as jps
+
+    from repro_torch.core import peer_selection as ps
+    rng = np.random.default_rng(k)
+    y = rng.integers(0, 10, (9, 40))
+    mask = (rng.random((9, 40)) < 0.8).astype(np.float32)
+    a = ps.label_histograms(y, mask, 10)
+    np.testing.assert_array_equal(a, jps.label_histograms(y, mask, 10))
+    np.testing.assert_array_equal(
+        ps.similarity_topology(a, k, np.random.default_rng(1), explore),
+        jps.similarity_topology(a, k, np.random.default_rng(1), explore))
+
+
 @pytest.mark.parametrize("kind,n,peers", [("ring", 5, 2),
                                           ("random_kout", 8, 3),
                                           ("random_kout", 22, 4),
@@ -185,6 +208,19 @@ st, *_ = run_async_defta(0, mlp_task(32, 10), cfg,
                          TrainConfig(batch_size=16), data, ticks=3,
                          num_malicious=1, device="cpu")
 assert int(st.epoch.max()) <= 3
+import dataclasses
+from repro_torch.scenarios import attacks, robust_agg, compile
+st, *_ = run_defta(0, mlp_task(32, 10), cfg, TrainConfig(batch_size=16),
+                   data, epochs=3, scenario="storm", device="cpu")
+assert st.epoch.tolist()[2:] == [3] * 5
+st, *_ = run_defta(0, mlp_task(32, 10), dataclasses.replace(
+                       cfg, gossip_dtype="float32", aggregation="krum"),
+                   TrainConfig(batch_size=16), data, epochs=2,
+                   scenario="paper_noise@2", device="cpu")
+import importlib.util
+spec = importlib.util.spec_from_file_location(
+    "port_table3", "benchmarks/port_table3.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from repro_torch.launch import serve
 tokens, _ = serve.main(["--arch", "deepseek-moe-16b", "--smoke", "--device",
                         "cpu", "--batch", "2", "--prompt-len", "4",
@@ -210,6 +246,10 @@ def test_port_sources_import_no_jax_or_repro():
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}" for f in files
             for m in pattern.finditer(f.read_text())]
     assert len(files) > 15 and ROOT / "benchmarks" / "port_table4.py" in files
+    for f in ("benchmarks/port_table3.py", "src/repro_torch/scenarios/"
+              "compile.py", "src/repro_torch/scenarios/attacks.py",
+              "src/repro_torch/scenarios/robust_agg.py"):
+        assert ROOT / f in files, f
     assert hits == []
 
 

@@ -111,13 +111,10 @@ def test_noise_attack_and_tree_select_match_jax():
 
 @pytest.mark.parametrize("change,match", [
     (dict(dts_signal="geom"), "dts_signal"),
-    (dict(aggregation="krum"), "aggregation"),
+    (dict(dts_signal="all"), "item 3"),
     (dict(dp_clip=1.0), "DP-SGD"),
     (dict(dp_sigma=0.5), "update DP"),
     (dict(secagg="pairwise"), "secagg"),
-    (dict(max_staleness=2), "max_staleness"),
-    (dict(gossip_dtype="int8", gossip_wire_round="stochastic"),
-     "stochastic"),
 ])
 def test_configs_the_slice_does_not_carry_raise(change, match):
     cfg = dataclasses.replace(DeFTAConfig(num_workers=4), **change)
@@ -128,23 +125,45 @@ def test_configs_the_slice_does_not_carry_raise(change, match):
                   device="cpu")
 
 
+@pytest.mark.parametrize("change", [
+    dict(aggregation="krum", use_dts=False, time_machine=False),
+    dict(aggregation="trimmed_mean"),
+    dict(max_staleness=2),
+    dict(gossip_dtype="int8", gossip_wire_round="stochastic"),
+])
+def test_configs_the_scenario_slice_lifted_run(change):
+    """The robust rules, max_staleness and the stochastic int8 wire no
+    longer raise: each runs a round."""
+    cfg = dataclasses.replace(DeFTAConfig(num_workers=4, avg_peers=2,
+                                          local_epochs=1), **change)
+    data = federated_dataset("vector", 4, np.random.default_rng(0),
+                             n_per_worker=16)
+    st, *_ = run_defta(0, mlp_task(32, 10), cfg, TrainConfig(batch_size=8),
+                       data, epochs=2, num_malicious=1, device="cpu")
+    assert st.epoch.tolist() == [2] * 5
+    assert bool(torch.isfinite(st.last_loss).all())
+
+
 def test_scenario_shards_telemetry_and_later_gossip_parts_raise():
+    """Shards, telemetry and the secure-aggregation wire still raise and
+    name their items; a scenario runs, but not beside num_malicious; the
+    stochastic rounding asks for its uniforms."""
     data = federated_dataset("vector", 4, np.random.default_rng(0),
                              n_per_worker=16)
     cfg = DeFTAConfig(num_workers=4)
-    for kw in (dict(scenario="churn_signflip"), dict(shards=2)):
-        with pytest.raises(NotImplementedError):
-            run_defta(0, mlp_task(32, 10), cfg, TrainConfig(), data,
-                      epochs=1, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="telemetry"):
+    with pytest.raises(NotImplementedError, match="item 7"):
+        run_defta(0, mlp_task(32, 10), cfg, TrainConfig(), data, epochs=1,
+                  device="cpu", shards=2)
+    with pytest.raises(ValueError, match="not num_malicious"):
+        run_defta(0, mlp_task(32, 10), cfg, TrainConfig(), data, epochs=1,
+                  device="cpu", scenario="churn_signflip", num_malicious=1)
+    with pytest.raises(NotImplementedError, match="item 6: telemetry"):
         engine.check_supported(cfg, telemetry=object())
     x = torch.zeros(3, 4)
-    with pytest.raises(NotImplementedError, match="stochastic"):
+    with pytest.raises(ValueError, match="uniforms"):
         gossip.quantize_rows_int8(x, rounding="stochastic")
-    with pytest.raises(NotImplementedError, match="privacy wire"):
+    with pytest.raises(NotImplementedError, match="item 5: privacy wire"):
         gossip.mix_pytree(torch.eye(3), {"a": x}, secagg=b"k")
-    with pytest.raises(NotImplementedError, match="scenarios"):
-        gossip.dynamic_mixing_matrix(None, None, None)
 
 
 def test_round_stage_names_follow_the_reference_pipeline():
@@ -158,3 +177,19 @@ def test_round_stage_names_follow_the_reference_pipeline():
         "split_draws", "scenario_view", "peer_sample", "transport",
         "damage_check", "local_train", "attack_inject", "trust_update",
         "finalize")
+
+
+def test_scenario_round_ends_in_the_fire_merge():
+    from repro_torch.scenarios.compile import compile_scenario
+    from repro_torch.scenarios.spec import get_scenario
+    cfg = DeFTAConfig(num_workers=4, avg_peers=2, num_sampled=1,
+                      local_epochs=1)
+    sc = compile_scenario(get_scenario("storm", 4), 4, 3, device="cpu")
+    w = sc.num_workers
+    rnd = engine.build_defta_round(
+        mlp_task(32, 10), cfg, TrainConfig(), np.zeros((w, w), bool),
+        np.ones(w), sc.malicious, draws=None, device="cpu", scenario=sc)
+    assert engine.stage_names(rnd)[-1] == "fire_merge"
+    assert engine.stage_names(rnd)[:-1] == (
+        "split_draws", "scenario_view", "peer_sample", "transport",
+        "damage_check", "local_train", "attack_inject", "trust_update")
