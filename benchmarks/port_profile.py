@@ -1,6 +1,6 @@
 """Where the PyTorch port's time goes, on one CUDA card.
 
-    PYTHONPATH=src python benchmarks/port_profile.py [defta|serve] \
+    PYTHONPATH=src python benchmarks/port_profile.py [defta|trust|serve] \
         [--epochs 3] [--table PATH]
 
 ``defta`` (the default) runs the Table 2 worlds of ``chip_smoke.py`` (MLP
@@ -12,6 +12,10 @@ tick); then the Table 3 world (the MLP world with 40 noise attackers, W =
 60) under the ``paper_noise@40`` scenario with DTS and with each robust
 rule (trimmed_mean, median, krum; no DTS, no time machine), per epoch: a
 robust rule's ``transport`` stage is the rule itself (no mix runs).
+``trust`` runs the Table 3 world with 40 ``alie`` colluders (the
+scenario of ``chip_smoke.py`` [4t]) under ``dts_signal`` loss, geom, corr
+and all, per epoch: the ``trust_update`` stage carries the geometry
+scores, the sketch ring buffer and the correlation scores.
 ``serve`` draws each served model at full size on the card in turn
 (random weights, seed 0) and runs, after a warm-up, two
 ``build_prefill_step`` calls at each of its two prefill shapes and 8
@@ -194,6 +198,19 @@ def profile_defta(epochs, out):
                        stages=SCENARIO_STAGES)
 
 
+def profile_trust(epochs, out):
+    from repro_torch.scenarios import AttackSpec, ScenarioSpec
+    task, cfg, train, data = world("mlp", "float32")
+    spec = ScenarioSpec(attacks=tuple(AttackSpec("alie") for _ in range(40)))
+    for signal in ("loss", "geom", "corr", "all"):
+        c = dataclasses.replace(cfg, dts_signal=signal)
+        run = lambda n: run_defta(0, task, c, train, data,  # noqa: E731
+                                  epochs=n, scenario=spec)
+        run(1)
+        profile_window(f"table3 alie@40 {signal}", lambda: run(epochs),
+                       epochs, "epoch", out, stages=SCENARIO_STAGES)
+
+
 def repeat(fn, n):
     for _ in range(n):
         fn()
@@ -240,7 +257,7 @@ def profile_serve(out):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("path", nargs="?", choices=("defta", "serve"),
+    ap.add_argument("path", nargs="?", choices=("defta", "trust", "serve"),
                     default="defta")
     ap.add_argument("--epochs", type=int, default=3,
                     help="DeFTA and FedAvg epochs (async ticks) to profile")
@@ -257,6 +274,8 @@ def main() -> int:
     try:
         if args.path == "serve":
             profile_serve(out)
+        elif args.path == "trust":
+            profile_trust(args.epochs, out)
         else:
             profile_defta(args.epochs, out)
     finally:

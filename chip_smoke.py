@@ -91,6 +91,25 @@
    ``krum`` world, from one initial state and draw stream: states within
    the phase-4 limits, equal epoch counters, Krum's picks equal round by
    round.
+4t. DTS v2 and v3 trust channels end to end (update geometry, the
+   sign-sketch ring buffer, cross-round correlation). The trust grid's
+   world (``benchmarks/table_trust.py``: 20 vanilla workers + 8 attackers,
+   W = 28, non-iid α = 0.5, 3 local epochs): ``alie`` and ``label_flip``
+   × ``dts_signal`` ∈ loss, geom, both, corr, all on ``auto`` (sparse
+   mix, slice branch), 10 epochs each: leaves x epochs launches, a finite
+   ``conf`` and, under corr / all, every fired worker's ring buffer
+   filled. The Table 3 world at full width (20 vanilla + 40 ``alie``
+   colluders, W = 60) under ``loss`` and ``all`` on ``auto`` (sparse),
+   and under ``all`` on ``pallas`` (the dense mix's tile regime only), 10
+   epochs each. AsyncDeFTA under
+   ``storm`` with ``all``, 20 ticks, a ring buffer deeper than the run:
+   each worker's filled slots equal its epoch (rows of ticks it did not
+   fire stay put). Card vs CPU: ``port_robustness_demo``'s world (12
+   vanilla + 4 alie colluders, a straggler, ``all``), 6 epochs from one
+   initial state and draw stream: equal epochs, ``conf`` and losses within
+   1e-4, sketches equal outside buckets whose projection is within 1e-5
+   of its row's norm of 0. The trust functions at W = 60, D = 2,762 make
+   no host synchronisation (``torch.cuda.set_sync_debug_mode``).
 5. Serving end to end: DeepSeekMoE-16B at full width and depth (28 layers,
    64 routed experts top-6 + 2 shared, bf16, random weights from a seed)
    initialised on the card; ``build_prefill_step`` at B=4, S=512 and at
@@ -1564,6 +1583,234 @@ def scenario_card_vs_cpu():
 
 
 # ---------------------------------------------------------------------------
+# Phase 4t: DTS v2 and v3 trust channels end to end
+# ---------------------------------------------------------------------------
+
+TRUST_SIGNALS = ("loss", "geom", "both", "corr", "all")
+
+
+def filled_slots(sketch) -> np.ndarray:
+    """Per worker, the ring-buffer slots that hold a sketch."""
+    return (sketch.abs().amax(dim=2) > 0).sum(dim=1).cpu().numpy()
+
+
+def trust_end_to_end(launches):
+    """Phase 4t on the card; the phase's launches are added to
+    ``launches``."""
+    from repro_torch.config import DeFTAConfig
+    from repro_torch.core.async_defta import run_async_defta
+    from repro_torch.core.defta import evaluate, run_defta
+    from repro_torch.data import federated_dataset
+    from repro_torch.scenarios import AttackSpec, ScenarioSpec
+    from repro_torch.telemetry import RunLedger
+
+    def defta(label, kernel, regime, epochs, cfg, data, task, train, spec,
+              **kw):
+        def go():
+            led = RunLedger()
+            st, adj, mal, hist = run_defta(
+                0, task, cfg, train, data, epochs=epochs, scenario=spec,
+                eval_every=epochs, test_x=data["test_x"],
+                test_y=data["test_y"], ledger=led, **kw)
+            return st, adj, mal, hist, led
+        (st, adj, mal, hist, led), counts = run_counted(
+            label, kernel, lambda led: led.rounds_done, go, regime)
+        if not bool(torch.isfinite(st.conf).all()):
+            fail(f"{label}: non-finite conf")
+        corr = cfg.dts_signal in ("corr", "all")
+        if corr != (st.sketch is not None):
+            fail(f"{label}: sketch {st.sketch is not None}, expected {corr}")
+        if corr:
+            want = np.minimum(st.epoch.cpu().numpy(), cfg.dts_sketch_rounds)
+            if not np.array_equal(filled_slots(st.sketch), want):
+                fail(f"{label}: ring-buffer slots filled "
+                     f"{filled_slots(st.sketch)}, expected {want}")
+        n = sum(counts.values())
+        print(f"  4t {label:28s} W={st.conf.shape[0]} epochs={epochs} "
+              f"per_epoch_ms={1e3 * led.wall_s / epochs:.2f} "
+              f"launches_per_epoch={n / epochs:g} "
+              f"vanilla_acc={hist[-1][1]:.4f} attacker_theta="
+              f"{theta_share(st, adj, mal):.3f}", flush=True)
+        for k, v in counts.items():
+            if v:
+                launches[k] += v
+        return st
+
+    # the trust grid's world (table_trust.py: k = 8 on 20 vanilla workers)
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.tasks import mlp_task
+    task = mlp_task(32, 10)
+    train = TrainConfig(learning_rate=0.05, batch_size=32)
+    data = federated_dataset("vector", 20, np.random.default_rng(0),
+                             n_per_worker=120, alpha=0.5)
+    for attack in ("alie", "label_flip"):
+        spec = ScenarioSpec(attacks=tuple(AttackSpec(attack)
+                                          for _ in range(8)))
+        for signal in TRUST_SIGNALS:
+            cfg = DeFTAConfig(num_workers=20, avg_peers=4, num_sampled=2,
+                              local_epochs=3, dts_signal=signal, seed=0)
+            defta(f"grid {attack} {signal}", "gossip_mix_sparse",
+                  "gossip_mix_sparse/slices", 10, cfg, data, task, train,
+                  spec)
+    # the Table 3 world at full width under alie colluders (loss beside
+    # all, in one call, for the trust stage's cost)
+    t3_data, t3_task, t3_cfg, t3_train = table2_world()
+    t3_cfg = dataclasses.replace(t3_cfg, dts_signal="all")
+    spec = ScenarioSpec(attacks=tuple(AttackSpec("alie") for _ in range(40)))
+    for label, kernel, regime, backend, signal in (
+            ("table3 alie@40 loss auto", "gossip_mix_sparse",
+             "gossip_mix_sparse/slices", "auto", "loss"),
+            ("table3 alie@40 all auto", "gossip_mix_sparse",
+             "gossip_mix_sparse/slices", "auto", "all"),
+            ("table3 alie@40 all pallas", "gossip_mix", "gossip_mix/tile",
+             "pallas", "all")):
+        defta(label, kernel, regime, 10,
+              dataclasses.replace(t3_cfg, dts_signal=signal), t3_data,
+              t3_task, t3_train, spec, gossip_backend=backend)
+
+    # async storm: a ring buffer deeper than the run, so a worker's filled
+    # slots must equal the rounds it completed
+
+    def go():
+        led = RunLedger()
+        st, _, mal, _ = run_async_defta(
+            0, t3_task, dataclasses.replace(t3_cfg, dts_sketch_rounds=24),
+            t3_train, t3_data, ticks=20, scenario="storm", ledger=led)
+        return st, mal, led
+    (st, mal, led), counts = run_counted(
+        "async storm all", "gossip_mix_sparse", lambda led: led.rounds_done,
+        go)
+    eps = st.epoch.cpu().numpy()
+    filled = filled_slots(st.sketch)
+    acc, _, _ = evaluate(t3_task, st, t3_data["test_x"], t3_data["test_y"],
+                         mal)
+    print(f"  4t async storm all            ticks_run={led.rounds_done}/20 "
+          f"per_tick_ms={1e3 * led.wall_s / led.rounds_done:.2f} "
+          f"epochs={eps.tolist()} filled={filled.tolist()} "
+          f"vanilla_acc={acc:.4f}", flush=True)
+    if not np.array_equal(filled, eps) or not eps.min() < eps.max():
+        fail(f"async storm all: ring-buffer slots {filled.tolist()} must "
+             f"equal the epochs {eps.tolist()}, which must spread")
+    launches["gossip_mix_sparse"] += counts["gossip_mix_sparse"]
+    trust_card_vs_cpu()
+    trust_stage_no_sync()
+
+
+def trust_stage_no_sync():
+    """The trust functions at the Table 3 world's shapes (W = 60, D =
+    2,762, R = 8, S = 64) make no host synchronisation (a later CUDA
+    graph of the round needs none): one warm call, then one under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from repro_torch.core import dts
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    w, d = 60, 2762
+    deltas = torch.randn(w, d, device="cuda", generator=gen)
+    mask = torch.rand(w, w, device="cuda", generator=gen) < 0.1
+    theta = dts.sample_weights(torch.zeros(w, w, device="cuda"), mask)
+    hist = torch.zeros(w, 8, 64, device="cuda")
+    conf = torch.zeros(w, w, device="cuda")
+    damaged = torch.zeros(w, dtype=torch.bool, device="cuda")
+
+    def stage():
+        sk = dts.update_sketch(hist, deltas)
+        return dts.geom_confidence_update(
+            "all", 1.0, conf, mask, theta, conf[0], damaged, deltas, mask,
+            theta, sketch=sk, lam_corr=4.0), sk
+    stage()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, sk = stage()
+    except RuntimeError as e:
+        fail(f"the trust stage synchronises with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()) or not bool(sk[:, -1].any()):
+        fail("the trust stage's check gave a non-finite conf or no sketch")
+    print("  4t trust stage (all, W=60, D=2762): no host synchronisation",
+          flush=True)
+
+
+def theta_share(st, adj, malicious) -> float:
+    """Mean sampling-weight mass the honest workers place on attackers."""
+    from repro_torch.core import dts
+    theta = dts.sample_weights(
+        st.conf, torch.as_tensor(adj).to(st.conf.device)).cpu().numpy()
+    return float(theta[~malicious][:, malicious].sum(axis=1).mean())
+
+
+def trust_card_vs_cpu():
+    """``port_robustness_demo``'s world with ``all``, 6 epochs, on the card
+    and on the CPU from one initial state and one draw stream. The CPU
+    run's sketch projections are recorded to count the buckets whose sign
+    may differ (|projection| < 1e-5 of its row's norm)."""
+    from repro_torch.config import DeFTAConfig, TrainConfig
+    from repro_torch.convert import state_from_jax, state_to_numpy
+    from repro_torch.core import dts
+    from repro_torch.core.defta import run_defta
+    from repro_torch.core.engine import init_state, sketch_shape
+    from repro_torch.core.tasks import mlp_task
+    from repro_torch.data import federated_dataset
+    from repro_torch.scenarios import (AttackSpec, ScenarioSpec,
+                                       StragglerSpec)
+    spec = ScenarioSpec(attacks=tuple(AttackSpec("alie") for _ in range(4)),
+                        stragglers=(StragglerSpec(worker=5, speed=0.5),))
+    data = federated_dataset("vector", 12, np.random.default_rng(0),
+                             n_per_worker=120, alpha=0.5)
+    task = mlp_task(32, 10)
+    cfg = DeFTAConfig(num_workers=12, avg_peers=4, num_sampled=2,
+                      local_epochs=3, dts_signal="all")
+    train = TrainConfig(learning_rate=0.05, batch_size=32)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    init = state_to_numpy(init_state(gen, task, 16,
+                                     sketch=sketch_shape(cfg)))
+    near_zero = {"cuda": 0, "cpu": 0}
+    sketch_deltas = dts.sketch_deltas
+
+    def recording(deltas, sketch_dim, *, seed=0):
+        m = dts._sketch_matrix(seed, deltas.shape[1], sketch_dim,
+                               deltas.device)
+        proj = deltas @ m
+        near = proj.abs() < 1e-5 * deltas.norm(dim=1, keepdim=True)
+        near_zero[deltas.device.type] += int(near.sum())
+        return sketch_deltas(deltas, sketch_dim, seed=seed)
+    dts.sketch_deltas = recording
+    res = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            st, *_ = run_defta(0, task, cfg, train, data, epochs=6,
+                               scenario=spec, device=dev,
+                               init=state_from_jax(init, dev),
+                               draws=MovedDraws(5, dev))
+            res[dev] = state_to_numpy(st)
+    finally:
+        dts.sketch_deltas = sketch_deltas
+    a, b = res["cuda"], res["cpu"]
+    errs = {f: float(np.abs(a[f] - b[f]).max())
+            for f in ("conf", "last_loss", "best_loss")}
+    errs["params"] = max(float(np.abs(a["params"][k] - b["params"][k]).max())
+                         for k in a["params"])
+    differ = int((a["sketch"] != b["sketch"]).sum())
+    same_epochs = np.array_equal(a["epoch"], b["epoch"])
+    ok = same_epochs and max(errs["conf"], errs["last_loss"],
+                             errs["best_loss"]) <= 1e-4 \
+        and differ <= max(near_zero.values())
+    print(f"  4t card-vs-cpu demo world all W=16 epochs="
+          f"{a['epoch'].tolist()} max|diff| "
+          + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+          + f" sketch entries differing={differ} (near-zero buckets: card "
+          f"{near_zero['cuda']}, cpu {near_zero['cpu']}) agree={ok}",
+          flush=True)
+    if not ok:
+        fail(f"trust card run disagrees with the CPU run (epochs equal: "
+             f"{same_epochs}, errors {errs}, sketch entries differing "
+             f"{differ})")
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: serving end to end
 # ---------------------------------------------------------------------------
 
@@ -1892,6 +2139,9 @@ def main() -> int:
 
     print("[4s] scenarios end to end", flush=True)
     scenario_end_to_end(launches)
+
+    print("[4t] DTS v2 and v3 trust channels end to end", flush=True)
+    trust_end_to_end(launches)
 
     print("[5] serving end to end", flush=True)
     launches.update(serve_full(dev))

@@ -206,7 +206,7 @@ class DeFTAConfig:
                                      # rules trimmed_mean | median | krum
     robust_trim: float = 0.25
     use_dts: bool = True
-    dts_signal: str = "loss"         # only "loss" in this slice
+    dts_signal: str = "loss"         # loss | geom | both | corr | all
     dts_geom_weight: float = 1.0
     dts_corr_weight: float = 4.0
     dts_sketch_rounds: int = 8

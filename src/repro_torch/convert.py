@@ -6,9 +6,9 @@ a dtype-preserving copy. The model zoo's parameter trees
 (``models.model``) also keep the reference's names and layouts, so
 ``model_params_from_jax`` is a leaf-by-leaf copy too. The reference's
 ``DeFTAState`` fields arrive as numpy arrays (``{field:
-np.asarray(...)}``); its PRNG ``key`` has no
-counterpart here (the port's randomness comes from an ``rng`` draw
-provider) and its DTS v3 ``sketch`` is a later item of the port. The
+np.asarray(...)}``), the DTS v3 ``sketch`` ring buffer among them; its
+PRNG ``key`` has no counterpart here (the port's randomness comes from an
+``rng`` draw provider). The
 reference's ``FedAvgState`` arrives the same way: ``server`` a dict of
 arrays, ``opt`` None or ``{"m": ..., "v": ...}``.
 """
@@ -21,7 +21,7 @@ from repro_torch.core.engine import DeFTAState, FedAvgState
 from repro_torch.device import resolve_device, to_numpy, to_torch
 
 STATE_FIELDS = ("params", "backup", "conf", "best_loss", "last_loss",
-                "epoch", "wire_err")
+                "epoch", "wire_err", "sketch")
 
 
 def params_from_jax(tree, device=None) -> dict:
@@ -37,9 +37,6 @@ def params_to_numpy(params: dict) -> dict:
 def state_from_jax(fields: dict, device=None) -> DeFTAState:
     """The reference's ``DeFTAState`` fields as numpy (a dict keyed by
     field name) -> the port's ``DeFTAState``."""
-    if fields.get("sketch") is not None:
-        raise NotImplementedError("the DTS v3 sketch state is not ported "
-                                  "yet (ROADMAP.md, queue 1a, item 3)")
     dev = resolve_device(device)
     return DeFTAState(**{f: to_torch(fields.get(f), dev)
                          for f in STATE_FIELDS})

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.config import DeFTAConfig, TrainConfig
 from repro_torch.core.engine import (DeFTAState, build_defta_round,
-                                     drive_epochs, init_state)
+                                     drive_epochs, init_state, sketch_shape)
 from repro_torch.core.gossip import uses_error_feedback
 from repro_torch.core.tasks import Task
 from repro_torch.core.topology import make_topology
@@ -134,15 +134,20 @@ def check_world(shards) -> None:
 
 def initial_state(gen: torch.Generator, task: Task, cfg: DeFTAConfig,
                   w: int, init: Optional[DeFTAState]) -> DeFTAState:
-    """``init`` checked against the world, or a fresh state drawn from
-    ``gen``."""
+    """``init`` checked against the world (W, the EF21 residuals and the
+    sketch ring buffer ``sketch_shape(cfg)`` asks for), or a fresh state
+    drawn from ``gen``."""
     wire_error = uses_error_feedback(cfg)
+    sketch = sketch_shape(cfg)
     if init is None:
-        return init_state(gen, task, w, wire_error=wire_error)
+        return init_state(gen, task, w, wire_error=wire_error, sketch=sketch)
+    want = None if sketch is None else (w,) + tuple(sketch)
+    got = None if init.sketch is None else tuple(init.sketch.shape)
     if tuple(init.conf.shape) != (w, w) or \
-            (init.wire_err is not None) != wire_error:
+            (init.wire_err is not None) != wire_error or got != want:
         raise ValueError(f"init state does not fit W={w} "
-                         f"(wire_error={wire_error})")
+                         f"(wire_error={wire_error}, sketch={want}; "
+                         f"got sketch={got})")
     return init
 
 

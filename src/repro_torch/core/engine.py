@@ -26,9 +26,14 @@ aggregate is a plain size-weighted mean, as in the reference (no kernel).
 merge. ``drive_epochs`` runs rounds and ``drive_ticks`` runs ticks in a
 Python loop, with per-chunk wall time.
 
-What the port does not carry yet raises ``NotImplementedError`` when the
-round is built (``check_supported``): trust signals other than "loss", DP,
-secure aggregation, telemetry and sharded workers.
+The trust update carries every DTS signal: the paper's loss delta, update
+geometry (v2) and the cross-round sketch correlation (v3), whose ring
+buffer rides in ``DeFTAState.sketch`` and is merged by ``fire`` and by the
+tick like every other per-worker row.
+
+``check_supported`` raises the reference's ``ValueError`` for a config the
+reference rejects, then ``NotImplementedError`` for what the port does not
+carry yet: DP, secure aggregation, telemetry and sharded workers.
 """
 from __future__ import annotations
 
@@ -57,16 +62,54 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported yet (ROADMAP.md, queue 1a, {item})")
 
 
+_DTS_CHANNELS = {"loss": (), "geom": ("geom",), "both": ("geom",),
+                 "corr": ("corr",), "all": ("geom", "corr")}
+
+
+def resolve_dts_signal(cfg: DeFTAConfig) -> frozenset:
+    """Validate ``cfg.dts_signal`` (whether DTS is on or not) and return
+    the extra trust channels the round runs: ``{"geom"}``, ``{"corr"}``,
+    both for ``"all"``; empty for ``"loss"`` or with DTS off, where the
+    trust update is the paper's loss-delta one."""
+    if cfg.dts_signal not in _DTS_CHANNELS:
+        raise ValueError(f"unknown dts_signal {cfg.dts_signal!r} "
+                         f"(one of: {', '.join(_DTS_CHANNELS)})")
+    if not cfg.use_dts:
+        return frozenset()
+    return frozenset(_DTS_CHANNELS[cfg.dts_signal])
+
+
+def sketch_shape(cfg: DeFTAConfig):
+    """The (R, S) sketch ring-buffer dims the state needs under this
+    config, or None when the correlation channel is off: pass it to
+    ``init_state(..., sketch=sketch_shape(cfg))``."""
+    if "corr" in resolve_dts_signal(cfg):
+        return (cfg.dts_sketch_rounds, cfg.dts_sketch_dim)
+    return None
+
+
 def check_supported(cfg: DeFTAConfig, *, telemetry=None,
                     shard=None) -> None:
-    """Raise ``NotImplementedError`` for any part of the config the port
-    does not carry yet, naming the ROADMAP item that ports it. A config is
-    never silently ignored."""
-    if cfg.use_dts and cfg.dts_signal != "loss":
-        _not_ported(f"dts_signal={cfg.dts_signal!r}",
-                    "item 3: DTS v2 and v3 channels")
+    """Raise the reference's ``ValueError`` for a config it rejects (an
+    unknown trust signal, secure-aggregation scheme or mode, secure
+    aggregation under a robust rule), then ``NotImplementedError`` for any
+    part the port does not carry yet, naming the ROADMAP item that ports
+    it. A config is never silently ignored. An unknown ``aggregation`` is
+    a ``ValueError`` here, where the reference builds a uniform mix."""
+    resolve_dts_signal(cfg)
     if cfg.aggregation not in ("defta", "defl", "uniform") + ROBUST_RULES:
         raise ValueError(f"unknown aggregation {cfg.aggregation!r}")
+    if cfg.secagg not in (None, "pairwise"):
+        raise ValueError(f"unknown secagg scheme {cfg.secagg!r} "
+                         f"(None | 'pairwise')")
+    if cfg.secagg_mode not in ("edge", "masked_geom"):
+        raise ValueError(f"unknown secagg_mode {cfg.secagg_mode!r} "
+                         f"('edge' | 'masked_geom')")
+    if cfg.secagg is not None and cfg.aggregation in ROBUST_RULES:
+        raise ValueError(
+            f"secagg composes with the weighted gossip mix only — robust "
+            f"rules ({cfg.aggregation!r}) inspect individual plaintext "
+            f"models, which is exactly what the masked wire denies them")
     if cfg.dp_clip > 0:
         _not_ported("DP-SGD (dp_clip > 0)", "item 5: privacy wire")
     if cfg.dp_sigma > 0:
@@ -94,6 +137,9 @@ class DeFTAState:
     wire_err: Optional[dict] = None   # EF21 residuals (stacked like params;
                                       # None when the wire is lossless or
                                       # error feedback is off)
+    sketch: Optional[torch.Tensor] = None  # [W, R, S] sign-sketch ring
+                                      # buffer of the DTS v3 correlation
+                                      # channel (None unless it is on)
 
 
 @dataclass
@@ -104,8 +150,11 @@ class FedAvgState:
 
 
 def init_state(generator: torch.Generator, task: Task, num_workers: int, *,
-               wire_error: bool = False) -> DeFTAState:
-    """Fresh state on the generator's device, parameters drawn from it."""
+               wire_error: bool = False, sketch=None) -> DeFTAState:
+    """Fresh state on the generator's device, parameters drawn from it.
+    ``sketch``: the (R, S) ring-buffer dims from ``sketch_shape(cfg)`` when
+    the correlation channel is on (zeros: an empty history scores no
+    suspicion), else None."""
     dev = generator.device
     params = task.init(generator, num_workers)
     return DeFTAState(
@@ -117,6 +166,8 @@ def init_state(generator: torch.Generator, task: Task, num_workers: int, *,
         epoch=torch.zeros(num_workers, dtype=torch.int32, device=dev),
         wire_err={k: torch.zeros_like(v, dtype=torch.float32)
                   for k, v in params.items()} if wire_error else None,
+        sketch=torch.zeros((num_workers,) + tuple(sketch), device=dev)
+        if sketch else None,
     )
 
 
@@ -235,6 +286,8 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
     ``malicious`` workers. ``num_classes`` is needed by a ``label_flip``
     scenario (the flip is ``y -> C-1-y``)."""
     check_supported(cfg, telemetry=telemetry, shard=shard)
+    channels = resolve_dts_signal(cfg)
+    corr = "corr" in channels
     dev = torch.device(device)
     w = adj.shape[0]
     adj_t = torch.as_tensor(np.asarray(adj, bool)).to(dev)
@@ -409,16 +462,45 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
             c["trained"] = tree_select(malicious_t, poisoned, c["trained"])
 
     def stage_trust_update(c):
-        """reads loss_agg, damaged, sampled, P, state.{conf, backup,
-        best_loss, last_loss}; writes conf (c ← c − m ∘ p · loss_trust),
-        backup (the ratcheting time machine), best_loss, last_loss."""
+        """reads loss_agg, damaged, sampled, P, theta, state.{conf, backup,
+        best_loss, last_loss} (+ trained, start, eff_adj, fire on the
+        geometry and correlation paths, + state.sketch on "corr" / "all");
+        writes conf, backup (the ratcheting time machine), best_loss,
+        last_loss and sketch (rotated, this round's sign-sketch appended,
+        on "corr" / "all"). The confidence update is c ← c − m ∘ p ·
+        signal, the signal being the loss delta ("loss", Algorithm 3) or
+        its fusion with the geometry and correlation scores of each peer's
+        local-update delta ``trained − start`` (after attack injection, so
+        the poison is what gets scored)."""
         state = c["state"]
         loss_trust = torch.where(c["damaged"],
                                  torch.full_like(c["loss_agg"],
                                                  dts_mod.DAMAGE_PENALTY),
                                  c["loss_agg"] - state.last_loss)
-        c["conf"] = state.conf - c["sampled"] * c["P"] \
-            * loss_trust[:, None]
+        c["sketch"] = state.sketch
+        if channels:
+            # non-firing peers (stragglers) are left out: the fire merge
+            # drops their delta, so no peer consumes it
+            deltas = dts_mod.flatten_stacked(c["trained"]) \
+                - dts_mod.flatten_stacked(c["start"])
+            gmask = c["eff_adj"] & c["fire"][None, :] \
+                if scenario is not None else c["eff_adj"]
+            if corr:
+                if state.sketch is None:
+                    raise ValueError(
+                        f"dts_signal={cfg.dts_signal!r} needs the sketch "
+                        f"ring buffer — build the state with "
+                        f"init_state(..., sketch=sketch_shape(cfg))")
+                c["sketch"] = dts_mod.update_sketch(state.sketch, deltas,
+                                                    seed=cfg.seed)
+            c["conf"] = dts_mod.geom_confidence_update(
+                cfg.dts_signal, cfg.dts_geom_weight, state.conf,
+                c["sampled"], c["P"], loss_trust, c["damaged"], deltas,
+                gmask, c["theta"], sketch=c["sketch"],
+                lam_corr=cfg.dts_corr_weight)
+        else:
+            c["conf"] = state.conf - c["sampled"] * c["P"] \
+                * loss_trust[:, None]
         improved = (c["loss_agg"] < state.best_loss) & ~c["damaged"]
         # the time machine RATCHETS: a damaged round trained from the
         # backup, so its result is clean by induction and becomes the new
@@ -436,13 +518,15 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         c["next"] = DeFTAState(
             params=c["trained"], backup=c["backup"], conf=c["conf"],
             best_loss=c["best_loss"], last_loss=c["last_loss"],
-            epoch=state.epoch + 1, wire_err=c["wire_err"])
+            epoch=state.epoch + 1, wire_err=c["wire_err"],
+            sketch=c["sketch"])
 
     def stage_fire_merge(c):
         """reads fire + everything finalize reads; writes next: workers
         that do not fire (dead, or a straggler's idle epoch) keep params,
-        backup, conf rows, losses and EF21 residual; epoch advances by
-        fire."""
+        backup, conf rows, losses, EF21 residual and sketch row (a ring
+        buffer must not rotate on a round whose delta no peer consumed);
+        epoch advances by fire."""
         state, fire = c["state"], c["fire"]
         c["next"] = DeFTAState(
             params=tree_select(fire, c["trained"], state.params),
@@ -452,7 +536,9 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
             last_loss=torch.where(fire, c["last_loss"], state.last_loss),
             epoch=state.epoch + fire.to(state.epoch.dtype),
             wire_err=tree_select(fire, c["wire_err"], state.wire_err)
-            if use_ef else state.wire_err)
+            if use_ef else state.wire_err,
+            sketch=torch.where(fire[:, None, None], c["sketch"],
+                               state.sketch) if corr else state.sketch)
 
     stages = (
         ("split_draws", stage_split_draws),
@@ -593,9 +679,10 @@ def build_fire_gated_tick(rnd_fn, data, speeds: torch.Tensor, w: int, *,
     ``rng.TickDraws`` call) is below ``speeds[i]`` (float32 [W] on the
     data's device). The round runs for all W workers on every tick, fired
     or not, so the round's draw stream stays aligned with the reference;
-    fired workers take its params, backup, conf rows, losses, epoch and
-    EF21 residual, the rest keep theirs (a worker that did not fire did
-    not send, so its residual must not advance).
+    fired workers take its params, backup, conf rows, losses, epoch, EF21
+    residual and sketch row, the rest keep theirs (a worker that did not
+    fire did not send, so neither its residual nor its sketch history may
+    advance).
 
     The reference pads its last chunk with dead ticks that run and draw
     nothing; here the driver never calls a tick past the budget or after
@@ -614,7 +701,9 @@ def build_fire_gated_tick(rnd_fn, data, speeds: torch.Tensor, w: int, *,
             last_loss=torch.where(fired, nxt.last_loss, state.last_loss),
             epoch=torch.where(fired, nxt.epoch, state.epoch),
             wire_err=None if state.wire_err is None else
-            tree_select(fired, nxt.wire_err, state.wire_err))
+            tree_select(fired, nxt.wire_err, state.wire_err),
+            sketch=None if state.sketch is None else
+            torch.where(fired[:, None, None], nxt.sketch, state.sketch))
 
     return tick
 

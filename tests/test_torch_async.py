@@ -109,7 +109,7 @@ def jax_run(world, kw):
             JDeFTAConfig(**cfg_kw), JTrainConfig(**train_kw), data, **kw)
         fields = {f.name: jax.tree.map(np.asarray, getattr(st, f.name))
                   for f in dataclasses.fields(st)
-                  if f.name not in ("key", "sketch")}
+                  if f.name != "key"}
         _JAX_RUNS[name] = fields, np.asarray(st.key), mal, np.asarray(speeds)
     return _JAX_RUNS[name]
 
@@ -125,7 +125,7 @@ def port_run(world, kw, backend):
                               wire_error=juses_ef(jcfg))
     fields = {f.name: jax.tree.map(np.asarray, getattr(init, f.name))
               for f in dataclasses.fields(init)
-              if f.name not in ("key", "sketch")}
+              if f.name != "key"}
     draws = slice_helpers.JaxDraws(init.key)
     tick_draws = JaxTickDraws(key, kw["ticks"])
     led = RunLedger()

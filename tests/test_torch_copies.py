@@ -240,7 +240,8 @@ print("LOADED", bad)
 def test_port_sources_import_no_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
         + [ROOT / "chip_smoke.py"] \
-        + sorted((ROOT / "benchmarks").glob("port_*.py"))
+        + sorted((ROOT / "benchmarks").glob("port_*.py")) \
+        + sorted((ROOT / "examples").glob("port_*.py"))
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)"
                          r"|from\s+(jax|repro)(\.|\s))", re.M)
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}" for f in files
@@ -248,7 +249,11 @@ def test_port_sources_import_no_jax_or_repro():
     assert len(files) > 15 and ROOT / "benchmarks" / "port_table4.py" in files
     for f in ("benchmarks/port_table3.py", "src/repro_torch/scenarios/"
               "compile.py", "src/repro_torch/scenarios/attacks.py",
-              "src/repro_torch/scenarios/robust_agg.py"):
+              "src/repro_torch/scenarios/robust_agg.py",
+              "benchmarks/port_table_trust.py",
+              "benchmarks/port_bias_analysis.py",
+              "examples/port_quickstart.py", "examples/port_serve_decode.py",
+              "examples/port_robustness_demo.py"):
         assert ROOT / f in files, f
     assert hits == []
 

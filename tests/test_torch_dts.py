@@ -1,6 +1,6 @@
 """The port's loss-channel trust (``core.dts``), attack injection
-(``scenarios.attacks``) and the guards of what the slice does not carry,
-against the reference. The random draws are the reference's own
+(``scenarios.attacks``), the config validation and the guards of what the
+port does not carry yet, against the reference. The random draws are the reference's own
 (``jax.random``), handed to the port as tensors."""
 from __future__ import annotations
 
@@ -110,8 +110,6 @@ def test_noise_attack_and_tree_select_match_jax():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(dts_signal="geom"), "dts_signal"),
-    (dict(dts_signal="all"), "item 3"),
     (dict(dp_clip=1.0), "DP-SGD"),
     (dict(dp_sigma=0.5), "update DP"),
     (dict(secagg="pairwise"), "secagg"),
@@ -130,10 +128,12 @@ def test_configs_the_slice_does_not_carry_raise(change, match):
     dict(aggregation="trimmed_mean"),
     dict(max_staleness=2),
     dict(gossip_dtype="int8", gossip_wire_round="stochastic"),
+    dict(dts_signal="geom"),
+    dict(dts_signal="all"),
 ])
 def test_configs_the_scenario_slice_lifted_run(change):
-    """The robust rules, max_staleness and the stochastic int8 wire no
-    longer raise: each runs a round."""
+    """The robust rules, max_staleness, the stochastic int8 wire and the
+    DTS v2/v3 trust signals no longer raise: each runs a round."""
     cfg = dataclasses.replace(DeFTAConfig(num_workers=4, avg_peers=2,
                                           local_epochs=1), **change)
     data = federated_dataset("vector", 4, np.random.default_rng(0),
@@ -142,6 +142,51 @@ def test_configs_the_scenario_slice_lifted_run(change):
                        data, epochs=2, num_malicious=1, device="cpu")
     assert st.epoch.tolist() == [2] * 5
     assert bool(torch.isfinite(st.last_loss).all())
+
+
+def build_both(change):
+    """Build the reference's and the port's round for one config change;
+    returns the exception class each raised (None: it built)."""
+    from repro.config import DeFTAConfig as JDeFTAConfig
+    from repro.config import TrainConfig as JTrainConfig
+    from repro.core import engine as jengine
+    from repro.core.tasks import mlp_task as jmlp_task
+    adj = np.ones((4, 4), bool) & ~np.eye(4, dtype=bool)
+    raised = []
+    for eng, cfg_cls, train_cls, task, kw in (
+            (jengine, JDeFTAConfig, JTrainConfig, jmlp_task(32, 10), {}),
+            (engine, DeFTAConfig, TrainConfig, mlp_task(32, 10),
+             dict(draws=None, device="cpu"))):
+        cfg = dataclasses.replace(cfg_cls(num_workers=4), **change)
+        try:
+            eng.build_defta_round(task, cfg, train_cls(), adj, np.ones(4),
+                                  np.zeros(4, bool), **kw)
+            raised.append(None)
+        except Exception as e:          # the class is what is compared
+            raised.append(type(e))
+    return raised
+
+
+@pytest.mark.parametrize("change", [
+    dict(dts_signal="bogus", use_dts=False),
+    dict(dts_signal="bogus"),
+    dict(secagg="bogus"),
+    dict(secagg_mode="bogus"),
+    dict(secagg="pairwise", aggregation="krum", use_dts=False),
+], ids=["dts_signal_dts_off", "dts_signal_dts_on", "secagg", "secagg_mode",
+        "secagg_under_krum"])
+def test_config_validation_raises_the_references_exception(change):
+    """A config the reference rejects is rejected by the port with the
+    same exception class (``ValueError``), before any not-ported refusal
+    (``secagg="pairwise"`` alone is item 5's ``NotImplementedError``)."""
+    want, got = build_both(change)
+    assert want is ValueError and got is ValueError
+
+
+def test_unknown_aggregation_is_stricter_than_the_reference():
+    """The reference builds a uniform mix for an unknown ``aggregation``;
+    the port refuses it (a config is never silently ignored)."""
+    assert build_both(dict(aggregation="bogus")) == [None, ValueError]
 
 
 def test_scenario_shards_telemetry_and_later_gossip_parts_raise():

@@ -60,7 +60,7 @@ def test_scenario_async_matches_jax(setting):
     init = jengine.init_state(key, jmlp_task(32, 10), len(jmal))
     fields = {f.name: jax.tree.map(np.asarray, getattr(init, f.name))
               for f in dataclasses.fields(init)
-              if f.name not in ("key", "sketch")}
+              if f.name != "key"}
     draws = JaxScenarioDraws(init.key, False)
     tick_draws = JaxTickDraws(key, kw["ticks"])
     led = RunLedger()
@@ -81,7 +81,7 @@ def test_scenario_async_matches_jax(setting):
         assert ep[0] < kw["target_epochs"] <= ep[1:10].min(), ep
     want = {f.name: jax.tree.map(np.asarray, getattr(jst, f.name))
             for f in dataclasses.fields(jst)
-            if f.name not in ("key", "sketch")}
+            if f.name != "key"}
     got = state_to_numpy(st)
     np.testing.assert_array_equal(got["epoch"], want["epoch"])
     slice_helpers.assert_fields_close(want, got, rtol=1e-4, atol=1e-4)

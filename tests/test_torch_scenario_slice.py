@@ -108,10 +108,11 @@ def run_both(scenario, *, cfg=None, jbackend="einsum", backend="auto",
         epochs=epochs, scenario=scenario_for(scenario, jspec),
         gossip_backend=jbackend)
     init = jengine.init_state(key, jmlp_task(32, 10), len(jmal),
-                              wire_error=juses_ef(jcfg))
+                              wire_error=juses_ef(jcfg),
+                              sketch=jengine.sketch_shape(jcfg))
     fields = {f.name: jax.tree.map(np.asarray, getattr(init, f.name))
               for f in dataclasses.fields(init)
-              if f.name not in ("key", "sketch")}
+              if f.name != "key"}
     stochastic = jengine.make_transport(jcfg).stochastic
     draws = JaxScenarioDraws(init.key, stochastic)
     st, _, mal, _ = run_defta(
@@ -124,7 +125,7 @@ def run_both(scenario, *, cfg=None, jbackend="einsum", backend="auto",
     np.testing.assert_array_equal(np.asarray(draws.key), np.asarray(jst.key))
     want = {f.name: jax.tree.map(np.asarray, getattr(jst, f.name))
             for f in dataclasses.fields(jst)
-            if f.name not in ("key", "sketch")}
+            if f.name != "key"}
     return want, state_to_numpy(st), mal
 
 
