@@ -1,6 +1,7 @@
 """Where the PyTorch port's time goes, on one CUDA card.
 
-    PYTHONPATH=src python benchmarks/port_profile.py [defta|trust|serve] \
+    PYTHONPATH=src python benchmarks/port_profile.py \
+        [defta|trust|cross_device|serve] \
         [--epochs 3] [--table PATH]
 
 ``defta`` (the default) runs the Table 2 worlds of ``chip_smoke.py`` (MLP
@@ -16,6 +17,14 @@ robust rule's ``transport`` stage is the rule itself (no mix runs).
 scenario of ``chip_smoke.py`` [4t]) under ``dts_signal`` loss, geom, corr
 and all, per epoch: the ``trust_update`` stage carries the geometry
 scores, the sketch ring buffer and the correlation scores.
+``cross_device`` runs the reference launcher's ``--cross-device`` world
+at full width (10,000 enrolled users, k = 64, ``label_flip`` 0.15 +
+``alie`` 0.14; ``port_cross_device.full_world``) under ``all`` on
+``auto``, per round, after 3 warm-up rounds; then one more round stage by
+stage, each stage under ``torch.cuda.set_sync_debug_mode("error")`` (a
+stage that reads back to the host is reported, and exits 1 if it is
+``participation``, ``trust_update`` or ``scatter_merge``) and each under
+its own profiler to count its launches.
 ``serve`` draws each served model at full size on the card in turn
 (random weights, seed 0) and runs, after a warm-up, two
 ``build_prefill_step`` calls at each of its two prefill shapes and 8
@@ -65,6 +74,10 @@ STAGES = ("split_draws", "scenario_view", "peer_sample", "transport",
           "damage_check", "local_train", "attack_inject", "trust_update",
           "finalize")
 SCENARIO_STAGES = STAGES[:-1] + ("fire_merge",)
+CROSS_DEVICE_STAGES = ("participation", "split_draws", "peer_sample",
+                       "transport", "damage_check", "local_train",
+                       "attack_inject", "trust_update", "scatter_merge")
+NO_SYNC_STAGES = ("participation", "trust_update", "scatter_merge")
 FEDAVG_STAGES = ("split_draws", "star_broadcast", "local_train",
                  "attack_inject", "star_aggregate", "server_update")
 FAMILIES = (("gossip_mix", ("mix_kernel",)),
@@ -211,6 +224,73 @@ def profile_trust(epochs, out):
                        epochs, "epoch", out, stages=SCENARIO_STAGES)
 
 
+def profile_cross_device(rounds, out) -> bool:
+    """The full-width cross-device window; returns False when a stage of
+    ``NO_SYNC_STAGES`` reads back to the host."""
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    from port_cross_device import full_world
+    from repro_torch.core.cross_device import initial_population
+    from repro_torch.core.defta import to_device_data
+    from repro_torch.core.engine import build_cross_device_round
+    from repro_torch.kernels import ops
+    from repro_torch.rng import TorchDraws
+    from repro_torch.scenarios import compile_world
+
+    task, cfg, train, data, spec = full_world("all")
+    warm = 3
+    world = compile_world(spec, warm + rounds + 2)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    box = [initial_population(gen, task, cfg, world.enrolled, None)]
+    rnd = build_cross_device_round(
+        task, cfg, train, world, data["sizes"], draws=TorchDraws(gen),
+        device=dev, num_classes=int(np.max(data["y"])) + 1)
+    tdata = to_device_data(data, dev)
+
+    def run(ts):
+        for t in ts:
+            box[0] = rnd(box[0], tdata, t)
+    run(range(warm))
+    ops.reset_launches()
+    profile_window(f"cross-device full world all N={world.enrolled} "
+                   f"k={world.sample_k}", lambda: run(range(warm, warm
+                                                            + rounds)),
+                   rounds, "round", out, stages=CROSS_DEVICE_STAGES)
+    print(f"  gossip launches a round by regime: "
+          f"{ {k: v / rounds for k, v in ops.REGIMES.items()} }")
+    ok = True
+    for t, check in ((warm + rounds, "sync"), (warm + rounds + 1, "count")):
+        c = {"state": box[0], "data": tdata, "epoch": t}
+        for name, fn in rnd.stages:
+            torch.cuda.synchronize()
+            if check == "sync":
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    fn(c)
+                    synced = False
+                except RuntimeError:
+                    synced = True
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                if synced:
+                    fn(c)
+                ok = ok and not (synced and name in NO_SYNC_STAGES)
+                print(f"  stage {name:14s} "
+                      f"{'reads back to the host' if synced else 'no host synchronisation'}")
+            else:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    fn(c)
+                    torch.cuda.synchronize()
+                n = sum(e.count for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and not getattr(e, "is_user_annotation", False)
+                        and e.key != name)
+                print(f"  stage {name:14s} launches {n}")
+        box[0] = c["next"]
+    return ok
+
+
 def repeat(fn, n):
     for _ in range(n):
         fn()
@@ -257,7 +337,8 @@ def profile_serve(out):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("path", nargs="?", choices=("defta", "trust", "serve"),
+    ap.add_argument("path", nargs="?",
+                    choices=("defta", "trust", "cross_device", "serve"),
                     default="defta")
     ap.add_argument("--epochs", type=int, default=3,
                     help="DeFTA and FedAvg epochs (async ticks) to profile")
@@ -276,6 +357,9 @@ def main() -> int:
             profile_serve(out)
         elif args.path == "trust":
             profile_trust(args.epochs, out)
+        elif args.path == "cross_device":
+            if not profile_cross_device(args.epochs, out):
+                return 1
         else:
             profile_defta(args.epochs, out)
     finally:

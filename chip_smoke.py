@@ -11,7 +11,10 @@
    spill report and warnings; a spill in ``ssd_chunk_tc`` or in the dense
    gossip mix's tile regime fails.
 2. Kernels: hold each kernel against its plain PyTorch version on the card.
-   Gossip mixes at the main path's leaf shapes (W = 22), at a ragged F, at
+   Gossip mixes at the main path's leaf shapes (W = 22), at the MLP's
+   leaves in the Table 3 (W = 60), storm (W = 23) and cross-device cohort
+   (k = 64: the dense mix's tile regime) worlds, with identity rows in P
+   at k = 64 (bit-equal on a bf16 payload), at a ragged F, at
    W in {48, 49, 64, 65, 128, 129, 200} (both sides of the dense mix's
    regime boundary at 48), at W=500 / density 0.05 / F in {4096, 4099}, at
    W = 1,000 / K = 100 (the sparse mix's slot groups), for every
@@ -46,7 +49,7 @@
 3. Timings: device time per call (CUDA graphs of back-to-back calls, timed
    with CUDA events) of the kernel, its plain version and, where one
    exists, one PyTorch library call computing the same function, at the
-   main paths' shapes (the gossip mixes at W = 22 and W = 500, with the
+   main paths' shapes (the gossip mixes at W = 22, 60, 64 and 500, with the
    dense mix's bound both on the CUDA cores and in 3xTF32 on the tensor
    cores and ``torch.matmul`` beside it, the sparse mix also on a bf16
    payload; flash and ssd_chunk in the main
@@ -110,6 +113,21 @@
    1e-4, sketches equal outside buckets whose projection is within 1e-5
    of its row's norm of 0. The trust functions at W = 60, D = 2,762 make
    no host synchronisation (``torch.cuda.set_sync_debug_mode``).
+4c. Cross-device participation end to end. The reference launcher's
+   ``--cross-device`` default at full width (10,000 enrolled users, a
+   cohort of k = 64 a round, availability 0.7, dropout 0.05, straggle
+   0.10, 48 examples each, MLP, 3 local epochs, ``dts_conf_decay`` 0.98,
+   ``label_flip`` 0.15 + ``alie`` 0.14), 30 rounds under ``loss`` and
+   ``all`` on fp32 and under ``all`` on int8 + EF21: exactly 4 dense-mix
+   launches a round, all in the tile regime, and no other gossip launch;
+   a finite ``conf``; the rows of users who never fired unchanged; every
+   fired user's stamps its fired rounds in order; the honest probe
+   accuracy above the untrained model's; ms a round and peak memory. The
+   benchmark's attacked world (28 enrolled, k = 14) under ``all``: 4
+   launches a round in the stream regime. Card vs CPU: the full-width
+   world under ``all``, 6 rounds from one population and draw stream:
+   ``conf``, params and losses within 1e-4, counters and stamps equal,
+   sketches equal outside near-zero buckets.
 5. Serving end to end: DeepSeekMoE-16B at full width and depth (28 layers,
    64 routed experts top-6 + 2 shared, bf16, random weights from a seed)
    initialised on the card; ``build_prefill_step`` at B=4, S=512 and at
@@ -303,6 +321,11 @@ def check_kernels(dev):
     # storm world (W = 23)
     for f in (2048, 640, 64, 10):
         cases += [("table3", 60, 4, f), ("storm", 23, 4, f)]
+    # and in the cross-device cohort of the launcher's default (k = 64:
+    # the tile regime, one 128-row tile half masked, F = 10 one ragged
+    # column tile)
+    for f in (2048, 640, 64, 10):
+        cases.append(("cohort", 64, 4, f))
     cases += [("ragged", 22, 4, 1001), ("W48", 48, 16, 2048),
               ("W49", 49, 16, 1001), ("W64", 64, 21, 2048),
               ("W65", 65, 21, 1001), ("W128", 128, 42, 4096),
@@ -354,6 +377,47 @@ def check_kernels(dev):
         fail(f"gossip regimes launched {sorted(seen - {None})}, expected "
              f"{sorted(want_seen)}")
     return max_err
+
+
+def check_identity_rows(dev):
+    """The cohort's identity rows in the dense mix's tile regime (k = 64,
+    the MLP's leaves): rows of P that are e_i (the ``k_min`` fallback, a
+    vacancy pad slot) beside rows that mix, for every payload (int8: P's
+    columns scaled by the row scales, as the pallas backend folds them).
+    Every output is finite, within the usual limit of the plain version,
+    and on a bf16 payload (exact in TF32) an identity row returns its input
+    row bit for bit."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    w, eye_rows = 64, torch.arange(0, 64, 3, device=dev)
+    for f in (2048, 640, 64, 10):
+        P, _, _, _ = world_csr(w, 4, seed=f, dev=dev)
+        P[eye_rows] = 0.0
+        P[eye_rows, eye_rows] = 1.0
+        for dtype in ("float32", "bfloat16", "int8"):
+            x, scale = payload(gen, w, f, dtype)
+            Pw = (P * scale[None, :]).contiguous() if scale is not None \
+                else P
+            before = dict(ops.REGIMES)
+            got = ops.gossip_mix(Pw, x)
+            torch.cuda.synchronize()
+            want = ref.gossip_mix_ref(Pw, x)
+            err = float((got - want).abs().max())
+            tol = 1e-5 * (1.0 + float(want.abs().max()))
+            rows_exact = torch.equal(got[eye_rows], x[eye_rows].float())
+            print(f"  check gossip_mix identity rows W={w} F={f:5d} "
+                  f"{dtype:8s} max_abs_err={err:.3e} tol={tol:.1e} "
+                  f"identity rows bit-equal={rows_exact}")
+            if ops.REGIMES.get("gossip_mix/tile", 0) - \
+                    before.get("gossip_mix/tile", 0) != 1:
+                fail(f"gossip_mix identity rows F={f}: not in the tile "
+                     f"regime")
+            if not (bool(got.isfinite().all()) and err <= tol and (
+                    rows_exact or dtype != "bfloat16")):
+                fail(f"gossip_mix identity rows F={f} {dtype}: finite "
+                     f"{bool(got.isfinite().all())}, error {err} (limit "
+                     f"{tol}), identity rows bit-equal {rows_exact}")
 
 
 def check_sparse_nonfinite(dev):
@@ -1741,6 +1805,30 @@ def theta_share(st, adj, malicious) -> float:
     return float(theta[~malicious][:, malicious].sum(axis=1).mean())
 
 
+class NearZeroBuckets(dict):
+    """While active, counts per device type the sketch buckets whose
+    count-sketch projection lies within 1e-5 of its row's norm of 0: the
+    buckets whose sign a card run and a CPU run may round apart."""
+
+    def __enter__(self):
+        from repro_torch.core import dts
+        self.update(cuda=0, cpu=0)
+        self.dts, self.inner = dts, dts.sketch_deltas
+
+        def recording(deltas, sketch_dim, *, seed=0):
+            m = dts._sketch_matrix(seed, deltas.shape[1], sketch_dim,
+                                   deltas.device)
+            near = (deltas @ m).abs() < 1e-5 * deltas.norm(dim=1,
+                                                           keepdim=True)
+            self[deltas.device.type] += int(near.sum())
+            return self.inner(deltas, sketch_dim, seed=seed)
+        dts.sketch_deltas = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.dts.sketch_deltas = self.inner
+
+
 def trust_card_vs_cpu():
     """``port_robustness_demo``'s world with ``all``, 6 epochs, on the card
     and on the CPU from one initial state and one draw stream. The CPU
@@ -1748,7 +1836,6 @@ def trust_card_vs_cpu():
     may differ (|projection| < 1e-5 of its row's norm)."""
     from repro_torch.config import DeFTAConfig, TrainConfig
     from repro_torch.convert import state_from_jax, state_to_numpy
-    from repro_torch.core import dts
     from repro_torch.core.defta import run_defta
     from repro_torch.core.engine import init_state, sketch_shape
     from repro_torch.core.tasks import mlp_task
@@ -1767,27 +1854,14 @@ def trust_card_vs_cpu():
     gen.manual_seed(0)
     init = state_to_numpy(init_state(gen, task, 16,
                                      sketch=sketch_shape(cfg)))
-    near_zero = {"cuda": 0, "cpu": 0}
-    sketch_deltas = dts.sketch_deltas
-
-    def recording(deltas, sketch_dim, *, seed=0):
-        m = dts._sketch_matrix(seed, deltas.shape[1], sketch_dim,
-                               deltas.device)
-        proj = deltas @ m
-        near = proj.abs() < 1e-5 * deltas.norm(dim=1, keepdim=True)
-        near_zero[deltas.device.type] += int(near.sum())
-        return sketch_deltas(deltas, sketch_dim, seed=seed)
-    dts.sketch_deltas = recording
     res = {}
-    try:
+    with NearZeroBuckets() as near_zero:
         for dev in ("cuda", "cpu"):
             st, *_ = run_defta(0, task, cfg, train, data, epochs=6,
                                scenario=spec, device=dev,
                                init=state_from_jax(init, dev),
                                draws=MovedDraws(5, dev))
             res[dev] = state_to_numpy(st)
-    finally:
-        dts.sketch_deltas = sketch_deltas
     a, b = res["cuda"], res["cpu"]
     errs = {f: float(np.abs(a[f] - b[f]).max())
             for f in ("conf", "last_loss", "best_loss")}
@@ -1808,6 +1882,234 @@ def trust_card_vs_cpu():
         fail(f"trust card run disagrees with the CPU run (epochs equal: "
              f"{same_epochs}, errors {errs}, sketch entries differing "
              f"{differ})")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c: cross-device participation end to end
+# ---------------------------------------------------------------------------
+
+CD_ROUNDS = 30                 # rounds of each full-width run
+CD_LEAVES = 4                  # the MLP's leaves: 4 dense mixes a round
+
+
+def cross_device_world(data_cache):
+    """The reference launcher's ``--cross-device`` default
+    (``launch/train.py``): 10,000 enrolled users, k = 64 (availability
+    0.7, dropout 0.05, straggle 0.10), 48 examples each (non-iid α = 0.5,
+    seed 0), MLP 32 -> 10, 3 local epochs, ``dts_conf_decay`` 0.98,
+    ``label_flip`` 0.15 + ``alie`` 0.14 of the enrolled (its attacked
+    example). Returns (task, cfg, train, data, spec); the data is made
+    once."""
+    from repro_torch.config import DeFTAConfig, TrainConfig
+    from repro_torch.core.tasks import mlp_task
+    from repro_torch.data import federated_dataset
+    from repro_torch.scenarios import CrossDeviceSpec
+    if "data" not in data_cache:
+        data_cache["data"] = federated_dataset(
+            "vector", 10_000, np.random.default_rng(0), n_per_worker=48,
+            alpha=0.5)
+    cfg = DeFTAConfig(num_workers=10_000, avg_peers=4, num_sampled=2,
+                      local_epochs=3, dts_conf_decay=0.98, seed=0)
+    spec = CrossDeviceSpec(attacks=(("label_flip", 0.15), ("alie", 0.14)))
+    return (mlp_task(32, 10), cfg,
+            TrainConfig(learning_rate=0.05, batch_size=32),
+            data_cache["data"], spec)
+
+
+def fired_rounds(world, rounds):
+    """Per enrolled user, the rounds (< ``rounds``) in which it fired."""
+    fire = world.filled & world.survive & world.complete
+    out = [[] for _ in range(world.enrolled)]
+    for t in range(rounds):
+        for u in world.part_ix[t][fire[t]]:
+            out[u].append(t)
+    return out
+
+
+def cross_device_end_to_end(launches):
+    """Phase 4c on the card; the phase's launches are added to
+    ``launches``."""
+    from repro_torch.core.cross_device import (evaluate_probe,
+                                               probe_indices,
+                                               run_cross_device)
+    from repro_torch.core.engine import init_cross_device_state, sketch_shape
+    from repro_torch.core.gossip import uses_error_feedback
+    from repro_torch.kernels import ops
+    from repro_torch.scenarios import compile_world
+    from repro_torch.telemetry import RunLedger
+
+    cache = {}
+    task, cfg0, train, data, spec = cross_device_world(cache)
+    world = compile_world(spec, CD_ROUNDS)
+    fired = fired_rounds(world, CD_ROUNDS)
+    never = torch.tensor([u for u, ts in enumerate(fired) if not ts],
+                         device="cuda")
+    pix = probe_indices(world, 32, seed=0)
+    print(f"  4c world {world.summary()}", flush=True)
+    for signal, wire in (("loss", "float32"), ("all", "float32"),
+                         ("all", "int8")):
+        cfg = dataclasses.replace(cfg0, dts_signal=signal, gossip_dtype=wire)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        init = init_cross_device_state(gen, task, world.enrolled,
+                                       wire_error=uses_error_feedback(cfg),
+                                       sketch=sketch_shape(cfg))
+        before = {f.name: getattr(init, f.name)
+                  for f in dataclasses.fields(init)}
+        absent = {f: ({k: v.index_select(0, never) for k, v in x.items()}
+                      if isinstance(x, dict) else x.index_select(0, never))
+                  for f, x in before.items() if x is not None}
+        acc0, _ = evaluate_probe(task, init, data["test_x"], data["test_y"],
+                                 pix)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        led = RunLedger()
+        st, hist = run_cross_device(
+            0, task, cfg, train, data, world=world, epochs=CD_ROUNDS,
+            eval_every=10, test_x=data["test_x"], test_y=data["test_y"],
+            ledger=led, init=init, draws=None)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts, regimes = dict(ops.LAUNCHES), dict(ops.REGIMES)
+        label = f"full world {signal} {wire}"
+        per_round = [1e3 * x / 10 for x in led.superstep_s]
+        print(f"  4c {label:24s} N={world.enrolled} k={world.sample_k} "
+              f"rounds={CD_ROUNDS} ms_per_round="
+              f"{[round(x, 2) for x in per_round]} peak={peak:.3f}GB "
+              f"probe_acc={[round(h[1], 4) for h in hist]} (untrained "
+              f"{acc0:.4f}) regimes={regimes}", flush=True)
+        n = CD_LEAVES * CD_ROUNDS
+        if counts != {k: n if k == "gossip_mix" else 0 for k in counts} or \
+                regimes != {"gossip_mix/tile": n}:
+            fail(f"{label}: launches {counts}, regimes {regimes}, expected "
+                 f"{n} gossip_mix in the tile regime and nothing else")
+        if not bool(torch.isfinite(st.conf).all()):
+            fail(f"{label}: non-finite conf")
+        for f, x in absent.items():
+            now = getattr(st, f)
+            same = all(torch.equal(now[k].index_select(0, never), v)
+                       for k, v in x.items()) if isinstance(x, dict) \
+                else torch.equal(now.index_select(0, never), x)
+            if not same:
+                fail(f"{label}: {f} rows of users who never fired changed")
+        if st.sketch_round is not None:
+            r = st.sketch_round.shape[1]
+            want = np.array([[-1] * (r - len(ts[-r:])) + ts[-r:]
+                             for ts in fired], np.int32)
+            if not np.array_equal(st.sketch_round.cpu().numpy(), want):
+                fail(f"{label}: stamps are not each fired user's rounds "
+                     f"in order")
+        if not hist[-1][1] > acc0:
+            fail(f"{label}: probe accuracy {hist[-1][1]} not above the "
+                 f"untrained model's {acc0}")
+        launches["gossip_mix"] += counts["gossip_mix"]
+        del st, init, before, absent
+        torch.cuda.empty_cache()
+    cross_device_small_world(launches)
+    cross_device_card_vs_cpu(cache)
+
+
+def cross_device_small_world(launches):
+    """The benchmark's attacked world (28 enrolled, k = 14, label_flip
+    4/28 + alie 4/28, degree 6, sample 3) under ``all`` for 30 rounds: the
+    dense mix's stream regime, 4 launches a round."""
+    from repro_torch.config import DeFTAConfig, TrainConfig
+    from repro_torch.core.cross_device import run_cross_device
+    from repro_torch.core.tasks import mlp_task
+    from repro_torch.data import federated_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.scenarios import CrossDeviceSpec
+    from repro_torch.telemetry import RunLedger
+    data = federated_dataset("vector", 28, np.random.default_rng(0),
+                             n_per_worker=120, alpha=0.5)
+    cfg = DeFTAConfig(num_workers=28, avg_peers=6, num_sampled=3,
+                      local_epochs=3, dts_signal="all", dts_conf_decay=0.98,
+                      seed=0)
+    spec = CrossDeviceSpec(enrolled=28, sample_k=14, avg_peers=6,
+                           attacks=(("label_flip", 4 / 28),
+                                    ("alie", 4 / 28)))
+    ops.reset_launches()
+    led = RunLedger()
+    st, hist = run_cross_device(
+        0, mlp_task(32, 10), cfg,
+        TrainConfig(learning_rate=0.05, batch_size=32), data, world=spec,
+        epochs=CD_ROUNDS, eval_every=CD_ROUNDS, test_x=data["test_x"],
+        test_y=data["test_y"], ledger=led)
+    torch.cuda.synchronize()
+    counts, regimes = dict(ops.LAUNCHES), dict(ops.REGIMES)
+    n = CD_LEAVES * CD_ROUNDS
+    print(f"  4c bench world all N=28 k=14 rounds={CD_ROUNDS} "
+          f"ms_per_round={1e3 * led.wall_s / CD_ROUNDS:.2f} probe_acc="
+          f"{hist[-1][1]:.4f} regimes={regimes}", flush=True)
+    if counts != {k: n if k == "gossip_mix" else 0 for k in counts} or \
+            regimes != {"gossip_mix/stream": n}:
+        fail(f"bench world: launches {counts}, regimes {regimes}, expected "
+             f"{n} gossip_mix in the stream regime")
+    if not bool(torch.isfinite(st.conf).all()):
+        fail("bench world: non-finite conf")
+    launches["gossip_mix"] += counts["gossip_mix"]
+
+
+def cross_device_card_vs_cpu(cache):
+    """The full-width world under ``all`` for 6 rounds on the card (the
+    tile regime) and on the CPU from one population and one draw stream:
+    conf, params and losses within 1e-4, stamps, epoch, obs and last_part
+    exact, sketches equal outside buckets whose projection is within 1e-5
+    of its row's norm of 0."""
+    from repro_torch.convert import (cross_device_state_from_jax,
+                                     cross_device_state_to_numpy)
+    from repro_torch.core.cross_device import run_cross_device
+    from repro_torch.core.engine import init_cross_device_state, sketch_shape
+    from repro_torch.kernels import ops
+    task, cfg, train, data, spec = cross_device_world(cache)
+    cfg = dataclasses.replace(cfg, dts_signal="all")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    init = cross_device_state_to_numpy(init_cross_device_state(
+        gen, task, 10_000, sketch=sketch_shape(cfg)))
+    res = {}
+    t0 = time.perf_counter()
+    with NearZeroBuckets() as near_zero:
+        for dev in ("cuda", "cpu"):
+            regimes = dict(ops.REGIMES)
+            st, _ = run_cross_device(
+                0, task, cfg, train, data, world=spec, epochs=6, device=dev,
+                init=cross_device_state_from_jax(init, dev),
+                draws=MovedDraws(5, dev))
+            res[dev] = cross_device_state_to_numpy(st)
+            if dev == "cuda":
+                ran = {k: v - regimes.get(k, 0)
+                       for k, v in ops.REGIMES.items()
+                       if v != regimes.get(k, 0)}
+            del st
+    a, b = res["cuda"], res["cpu"]
+
+    def gap(x, y):          # best_loss stays inf for users who never fired
+        return float(np.where(x == y, 0.0, np.abs(x - y)).max())
+    errs = {f: gap(a[f], b[f]) for f in ("conf", "best_loss", "last_loss")}
+    errs["params"] = max(gap(a["params"][k], b["params"][k])
+                         for k in a["params"])
+    close = all(np.allclose(a[f], b[f], rtol=1e-4, atol=1e-4)
+                for f in ("conf", "best_loss", "last_loss")) and all(
+        np.allclose(a["params"][k], b["params"][k], rtol=1e-4, atol=1e-4)
+        for k in a["params"])
+    exact = all(np.array_equal(a[f], b[f])
+                for f in ("epoch", "obs", "last_part", "sketch_round"))
+    differ = int((a["sketch"] != b["sketch"]).sum())
+    ok = close and exact and ran == {"gossip_mix/tile": 6 * CD_LEAVES} \
+        and differ <= max(near_zero.values())
+    print(f"  4c card-vs-cpu full world all N=10000 k=64 rounds=6 "
+          f"fired={int(a['epoch'].sum())} card regimes={ran} max|diff| "
+          + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+          + f" counters and stamps equal={exact} sketch entries differing="
+          f"{differ} (near-zero buckets: card {near_zero['cuda']}, cpu "
+          f"{near_zero['cpu']}) agree={ok} ({time.perf_counter() - t0:.1f}s)",
+          flush=True)
+    if not ok:
+        fail(f"cross-device card run disagrees with the CPU run (errors "
+             f"{errs}, counters and stamps equal {exact}, sketch entries "
+             f"differing {differ}, regimes {ran})")
 
 
 # ---------------------------------------------------------------------------
@@ -2116,6 +2418,7 @@ def main() -> int:
 
     print("[2] kernels vs plain versions", flush=True)
     max_err = check_kernels(dev)
+    check_identity_rows(dev)
     check_sparse_nonfinite(dev)
     max_err.update(check_flash(dev))
     max_err["moe_router"] = check_router(dev)
@@ -2126,6 +2429,7 @@ def main() -> int:
     print("[3] timings", flush=True)
     main_t = time_kernels(dev, "main", 22, 4, 2048)
     time_kernels(dev, "T3", 60, 4, 2048)    # the dense mix's tile regime
+    time_kernels(dev, "k64", 64, 4, 2048)   # the cross-device cohort's
     time_kernels(dev, "w500", 500, 24, 4096)
     main_t.update(time_serving_kernels(dev))
     main_t.update(time_route_slots(dev))
@@ -2142,6 +2446,9 @@ def main() -> int:
 
     print("[4t] DTS v2 and v3 trust channels end to end", flush=True)
     trust_end_to_end(launches)
+
+    print("[4c] cross-device participation end to end", flush=True)
+    cross_device_end_to_end(launches)
 
     print("[5] serving end to end", flush=True)
     launches.update(serve_full(dev))

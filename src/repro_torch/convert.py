@@ -10,18 +10,24 @@ np.asarray(...)}``), the DTS v3 ``sketch`` ring buffer among them; its
 PRNG ``key`` has no counterpart here (the port's randomness comes from an
 ``rng`` draw provider). The
 reference's ``FedAvgState`` arrives the same way: ``server`` a dict of
-arrays, ``opt`` None or ``{"m": ..., "v": ...}``.
+arrays, ``opt`` None or ``{"m": ..., "v": ...}``; so does its
+``CrossDeviceState``, with the sketch ring buffer's stamps
+(``sketch_round``) and the participation counters.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.engine import DeFTAState, FedAvgState
+from repro_torch.core.engine import (CrossDeviceState, DeFTAState,
+                                     FedAvgState)
 from repro_torch.device import resolve_device, to_numpy, to_torch
 
 STATE_FIELDS = ("params", "backup", "conf", "best_loss", "last_loss",
                 "epoch", "wire_err", "sketch")
+CROSS_DEVICE_FIELDS = ("params", "backup", "conf", "best_loss",
+                       "last_loss", "epoch", "last_part", "obs", "wire_err",
+                       "sketch", "sketch_round")
 
 
 def params_from_jax(tree, device=None) -> dict:
@@ -60,6 +66,21 @@ def fedavg_state_from_jax(fields: dict, device=None) -> FedAvgState:
 def fedavg_state_to_numpy(state: FedAvgState) -> dict:
     """The inverse of ``fedavg_state_from_jax``."""
     return {"server": to_numpy(state.server), "opt": to_numpy(state.opt)}
+
+
+def cross_device_state_from_jax(fields: dict,
+                                device=None) -> CrossDeviceState:
+    """The reference's ``CrossDeviceState`` fields as numpy (a dict keyed by
+    field name; its ``key`` is not read) -> the port's
+    ``CrossDeviceState``."""
+    dev = resolve_device(device)
+    return CrossDeviceState(**{f: to_torch(fields.get(f), dev)
+                               for f in CROSS_DEVICE_FIELDS})
+
+
+def cross_device_state_to_numpy(state: CrossDeviceState) -> dict:
+    """The inverse of ``cross_device_state_from_jax``."""
+    return {f: to_numpy(getattr(state, f)) for f in CROSS_DEVICE_FIELDS}
 
 
 def model_params_from_jax(tree, device=None, dtype=None) -> dict:

@@ -23,8 +23,15 @@ rounded to nearest or stochastically), or a classical robust rule
 (``scenarios.attacks``) poisons what attackers send. FedAvg's star
 aggregate is a plain size-weighted mean, as in the reference (no kernel).
 ``build_fire_gated_tick`` wraps the DeFTA round in AsyncDeFTA's tick
-merge. ``drive_epochs`` runs rounds and ``drive_ticks`` runs ticks in a
-Python loop, with per-chunk wall time.
+merge. The cross-device round runs the DeFTA stages on a sampled cohort
+of an enrolled population:
+
+    participation -> split_draws -> peer_sample -> transport
+        -> damage_check -> local_train -> attack_inject -> trust_update
+        -> scatter_merge
+
+``drive_epochs`` runs rounds and ``drive_ticks`` runs ticks in a Python
+loop, with per-chunk wall time.
 
 The trust update carries every DTS signal: the paper's loss delta, update
 geometry (v2) and the cross-round sketch correlation (v3), whose ring
@@ -706,6 +713,374 @@ def build_fire_gated_tick(rnd_fn, data, speeds: torch.Tensor, w: int, *,
             torch.where(fired[:, None, None], nxt.sketch, state.sketch))
 
     return tick
+
+
+# ---------------------------------------------------------------------------
+# Cross-device participation: enrolled population, sampled cohorts
+# ---------------------------------------------------------------------------
+
+@dataclass
+class CrossDeviceState:
+    """Population state of the cross-device path: every per-worker buffer
+    of ``DeFTAState``, sized to the ENROLLED population N, plus the
+    participation bookkeeping (when a user last fired, how often it has
+    been observed, which global round each sketch slot came from)."""
+    params: dict                 # stacked [N, ...] per-user models
+    backup: dict                 # stacked [N, ...] time-machine backups
+    conf: torch.Tensor           # [N, N] trust confidences
+    best_loss: torch.Tensor      # [N]
+    last_loss: torch.Tensor      # [N]
+    epoch: torch.Tensor          # [N] int32 completed rounds per user
+    last_part: torch.Tensor      # [N] int32 global round of the user's last
+                                 # completed participation (the anchor of
+                                 # the lazy confidence decay and staleness)
+    obs: torch.Tensor            # [N] int32 completed participations
+    wire_err: Optional[dict] = None        # EF21 residuals [N, ...]
+    sketch: Optional[torch.Tensor] = None  # [N, R, S] sign-sketch ring
+    sketch_round: Optional[torch.Tensor] = None
+                                 # [N, R] int32 global-round stamp of each
+                                 # ring slot (-1: never filled)
+
+
+def init_cross_device_state(generator: torch.Generator, task: Task,
+                            enrolled: int, *, wire_error: bool = False,
+                            sketch=None) -> CrossDeviceState:
+    """Fresh population state on the generator's device, parameters drawn
+    from it as ``init_state`` draws them. ``sketch``: the (R, S) dims from
+    ``sketch_shape(cfg)`` when the correlation channel is on, else None.
+    Stamps start at -1: an empty slot never stamp-matches, so a fresh user
+    carries no correlation evidence."""
+    dev = generator.device
+    params = task.init(generator, enrolled)
+    return CrossDeviceState(
+        params=params,
+        backup={k: v.clone() for k, v in params.items()},
+        conf=torch.zeros(enrolled, enrolled, device=dev),
+        best_loss=torch.full((enrolled,), float("inf"), device=dev),
+        last_loss=torch.zeros(enrolled, device=dev),
+        epoch=torch.zeros(enrolled, dtype=torch.int32, device=dev),
+        last_part=torch.zeros(enrolled, dtype=torch.int32, device=dev),
+        obs=torch.zeros(enrolled, dtype=torch.int32, device=dev),
+        wire_err={k: torch.zeros_like(v, dtype=torch.float32)
+                  for k, v in params.items()} if wire_error else None,
+        sketch=torch.zeros((enrolled,) + tuple(sketch), device=dev)
+        if sketch else None,
+        sketch_round=torch.full((enrolled, sketch[0]), -1,
+                                dtype=torch.int32, device=dev)
+        if sketch else None,
+    )
+
+
+def _gather(tree, ix):
+    """Rows ``ix`` of every leaf (None passes through)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: v.index_select(0, ix) for k, v in tree.items()}
+    return tree.index_select(0, ix)
+
+
+def build_cross_device_round(task: Task, cfg: DeFTAConfig,
+                             train: TrainConfig, world, sizes, *, draws,
+                             device, gossip_backend: str = "auto",
+                             num_classes: int = 0, telemetry=None,
+                             shard=None):
+    """The cross-device round: ``participation`` gathers the round's
+    k-member cohort out of the enrolled population, the dense stages run
+    on the [k, k] block, and ``scatter_merge`` writes the firing members'
+    rows back. Returns round(state, data, epoch) -> state, ``epoch`` the
+    global round t (a Python int). ``world`` is a
+    ``scenarios.cross_device.CompiledWorld``; ``sizes`` the enrolled
+    users' dataset sizes; ``draws`` the ``rng.Draws`` provider, asked once
+    a round for the cohort (W = k).
+
+    As in the reference: a mid-round dropout leaves ``eff_adj`` before the
+    mixing matrix is normalised and does not fire; a straggler trains and
+    is mixed from but does not fire; a row with fewer than
+    ``world.k_min`` surviving sampled peers mixes as the identity; a
+    vacancy pad slot is masked out of everything. Gathered confidence rows
+    decay by ``cfg.dts_conf_decay ** (t - last_part)``, written back only
+    on fire, so an absent user's rows stay bit-unchanged; the correlation
+    channel scores stamp-aligned sketch slots (``dts.stamped_correlation``,
+    ``cfg.dts_min_obs``); ``cfg.max_staleness`` drops peers whose last
+    completed participation is more than S rounds old.
+
+    The population buffers are updated in place (``index_copy_`` on the
+    cohort's rows, which are distinct within a round: no atomics), as the
+    reference's donated scan carry is: the state passed in is consumed.
+    The cohort block has no static support, so ``auto`` runs the dense
+    mix."""
+    channels = resolve_dts_signal(cfg)
+    if world.epochs <= 0:
+        raise ValueError("cross-device world compiled for 0 rounds")
+    if "label_flip" in world.kinds_present and num_classes <= 0:
+        raise ValueError("label_flip cross-device world needs "
+                         "num_classes > 0")
+    if cfg.aggregation in ROBUST_RULES:
+        raise ValueError(
+            f"robust aggregation ({cfg.aggregation!r}) has no "
+            f"cross-device selection yet — use defta/defl/uniform")
+    check_supported(cfg, telemetry=telemetry, shard=shard)
+    corr = "corr" in channels
+    dev = torch.device(device)
+    k = int(world.sample_k)
+    k_min = int(world.k_min)
+    max_staleness = int(cfg.max_staleness)
+    decay = float(cfg.dts_conf_decay)
+    decay_t = torch.tensor(decay, dtype=torch.float32, device=dev)
+    ltrain = local_train_fn(task, train, cfg.local_epochs)
+    transport = make_transport(cfg, backend=gossip_backend, adjacency=None)
+    use_ef = transport.use_ef
+    noise_kinds = tuple(kk for kk in world.kinds_present
+                        if kk in RANDOM_ATTACKS)
+
+    def on_dev(a, dtype=None):
+        t = torch.as_tensor(np.asarray(a))
+        return t.to(device=dev, dtype=dtype or t.dtype)
+    sizes_t = on_dev(np.asarray(sizes, np.float32))
+    part_ix = on_dev(world.part_ix, torch.int64)         # [T, k]
+    filled_t = on_dev(world.filled)                      # [T, k] bool
+    survive_t = on_dev(world.survive)
+    complete_t = on_dev(world.complete)
+    adj_t = on_dev(world.adj)                            # [T, k, k] bool
+    att_kind_u = on_dev(world.attack_kind)               # [N] int32
+    att_scale_u = on_dev(world.attack_scale)             # [N] float32
+    eye_k = torch.eye(k, dtype=torch.bool, device=dev)
+
+    # ---- stages -----------------------------------------------------------
+
+    def stage_participation(c):
+        """reads epoch (the global round t), state.*, data; writes ix (the
+        cohort), active / fire (filled ∧ survive, ∧ complete), eff_adj (the
+        survivor-masked cohort topology, minus stale peers), the gathered
+        g_* k-blocks of every population buffer (confidence rows decayed
+        by the rounds since their user last fired; conf the [k, k] block)
+        and the gathered data shards and attack assignment. t indexes the
+        compiled timeline on the host: nothing is read back."""
+        state, t = c["state"], c["epoch"]
+        ix = part_ix[t]
+        c["ix"] = ix
+        active = filled_t[t] & survive_t[t]
+        c["active"] = active
+        c["fire"] = active & complete_t[t]
+        c["g_params"] = _gather(state.params, ix)
+        c["g_backup"] = _gather(state.backup, ix)
+        c["g_wire_err"] = _gather(state.wire_err, ix) if use_ef else None
+        c["g_epoch"] = _gather(state.epoch, ix)
+        c["g_last_part"] = _gather(state.last_part, ix)
+        c["g_conf_raw"] = _gather(state.conf, ix)             # [k, N]
+        rows = c["g_conf_raw"]
+        if decay < 1.0:
+            gap = (t - c["g_last_part"]).clamp_min(0).float()
+            rows = rows * decay_t.pow(gap)[:, None]
+        c["g_conf_rows"] = rows
+        c["conf"] = rows.index_select(1, ix)                  # [k, k]
+        c["g_best"] = _gather(state.best_loss, ix)
+        c["g_last"] = _gather(state.last_loss, ix)
+        c["g_obs"] = _gather(state.obs, ix)
+        if corr:
+            c["g_sketch"] = _gather(state.sketch, ix)
+            c["g_stamp"] = _gather(state.sketch_round, ix)
+        data = c["data"]
+        c["g_x"] = _gather(data["x"], ix)
+        c["g_y"] = _gather(data["y"], ix)
+        c["g_mask"] = _gather(data["mask"], ix)
+        c["g_sizes"] = _gather(sizes_t, ix)
+        c["att_kind"] = _gather(att_kind_u, ix)
+        c["att_scale"] = _gather(att_scale_u, ix)
+        c["att_on"] = active & (c["att_kind"] > 0)
+        eff = adj_t[t] & active[None, :] & active[:, None]
+        if max_staleness:
+            fresh = (t - c["g_last_part"]) <= max_staleness
+            eff = eff & fresh[None, :]
+        c["eff_adj"] = eff
+
+    def stage_split_draws(c):
+        """reads g_params (the leaves' shapes), g_x (the shard size);
+        writes draws for the cohort (W = k): Gumbel rows, minibatch
+        permutations and, gated at build time, the random attack kinds'
+        noise and the stochastic wire's uniforms, in one provider call."""
+        shapes = {kk: tuple(v.shape) for kk, v in c["g_params"].items()}
+        extra = {}
+        if noise_kinds:
+            extra["kind_noise"] = {kk: shapes for kk in noise_kinds}
+        if transport.stochastic:
+            extra["wire_shapes"] = {kk: (k, v[0].numel())
+                                    for kk, v in c["g_params"].items()}
+        c["draws"] = draws(k, cfg.local_epochs, c["g_x"].shape[1], None,
+                           **extra)
+
+    def stage_peer_sample(c):
+        """reads conf (the decayed k-block), eff_adj, draws.gumbel; writes
+        theta and sampled over the cohort."""
+        if cfg.use_dts:
+            theta = dts_mod.sample_weights(c["conf"], c["eff_adj"],
+                                           cfg.crelu_slope)
+        else:
+            a = c["eff_adj"].float()
+            theta = a / a.sum(1, keepdim=True).clamp_min(1)
+        c["theta"] = theta
+        c["sampled"] = dts_mod.sample_peers(c["draws"].gumbel, theta,
+                                            cfg.num_sampled)
+
+    def stage_transport(c):
+        """reads sampled, eff_adj, g_sizes, g_params, g_wire_err,
+        draws.wire_u; writes P, agg and wire_err. P renormalises over the
+        survivors; a row with fewer than k_min surviving sampled peers is
+        the identity."""
+        P = dynamic_mixing_matrix(c["sampled"], c["eff_adj"], c["g_sizes"],
+                                  cfg.aggregation)
+        if k_min > 1:
+            npeers = (c["sampled"] & c["eff_adj"] & ~eye_k).sum(dim=1)
+            P = torch.where((npeers >= k_min)[:, None], P, eye_k.float())
+        c["P"] = P
+        wire_u = c["draws"].wire_u
+        if use_ef:
+            c["agg"], c["wire_err"] = transport.mix(
+                P, c["g_params"], residual=c["g_wire_err"], wire_u=wire_u)
+        else:
+            c["agg"] = transport.mix(P, c["g_params"], wire_u=wire_u)
+            c["wire_err"] = c["g_wire_err"]
+
+    def stage_damage_check(c):
+        """reads agg, g_x, g_y, g_mask, g_best, g_backup, att_kind,
+        att_on; writes y_data, loss_agg, damaged and start, as the dense
+        round does on the cohort."""
+        y = c["g_y"]
+        if "label_flip" in world.kinds_present:
+            lf = (c["att_kind"] == LABEL_FLIP_CODE) & c["att_on"]
+            y = flip_labels(y, lf, num_classes)
+        c["y_data"] = y
+        c["loss_agg"] = task.loss(c["agg"], c["g_x"], y,
+                                  c["g_mask"]).detach()
+        if cfg.time_machine:
+            c["damaged"] = dts_mod.is_damaged(c["loss_agg"], c["g_best"])
+            c["start"] = tree_select(c["damaged"], c["g_backup"], c["agg"])
+        else:
+            c["damaged"] = torch.zeros_like(c["loss_agg"], dtype=torch.bool)
+            c["start"] = c["agg"]
+
+    def stage_local_train(c):
+        """reads start, g_x, y_data, g_mask, draws.perm; writes trained and
+        train_loss."""
+        c["trained"], c["train_loss"] = ltrain(
+            c["draws"].perm, c["start"], c["g_x"], c["y_data"], c["g_mask"])
+
+    def stage_attack_inject(c):
+        """reads trained, agg, att_kind, att_scale, att_on, theta,
+        draws.kind_noise; writes trained. An attacker attacks whenever it
+        participates."""
+        if world.kinds_present:
+            c["trained"] = poison_sends(
+                c["draws"].kind_noise, world.kinds_present, c["att_kind"],
+                c["att_scale"], c["att_on"], c["agg"], c["trained"],
+                theta=c["theta"] if cfg.use_dts else None)
+
+    def stage_trust_update(c):
+        """reads conf, sampled, P, theta, eff_adj, fire, loss_agg, damaged,
+        g_last, g_best, g_backup, trained, start (+ g_sketch, g_stamp on
+        the correlation channel); writes conf_new, backup, best_loss,
+        last_loss (+ sketch, stamp). The dense trust update on the cohort,
+        its correlation channel swapped for the sparse-observation one:
+        the ring buffer rotates with a stamp column holding t, and pairs
+        with fewer than ``cfg.dts_min_obs`` stamp-matched slots join
+        neither the suspicion nor its median + MAD baseline."""
+        loss_trust = torch.where(c["damaged"],
+                                 torch.full_like(c["loss_agg"],
+                                                 dts_mod.DAMAGE_PENALTY),
+                                 c["loss_agg"] - c["g_last"])
+        if channels:
+            deltas = dts_mod.flatten_stacked(c["trained"]) \
+                - dts_mod.flatten_stacked(c["start"])
+            gmask = c["eff_adj"] & c["fire"][None, :]
+            gs = dts_mod.geom_scores(deltas, gmask, weights=c["theta"]) \
+                if "geom" in channels else None
+            cs = None
+            if corr:
+                c["sketch"] = dts_mod.update_sketch(c["g_sketch"], deltas,
+                                                    seed=cfg.seed)
+                c["stamp"] = torch.cat(
+                    [c["g_stamp"][:, 1:],
+                     torch.full((k, 1), c["epoch"], dtype=torch.int32,
+                                device=dev)], dim=1)
+                cmat, valid = dts_mod.stamped_correlation(
+                    c["sketch"], c["stamp"], min_obs=cfg.dts_min_obs)
+                cs = dts_mod.correlation_suspicion(
+                    cmat, gmask, weights=c["theta"], valid=valid)
+            signal = dts_mod.fused_trust_signal(
+                cfg.dts_signal, loss_trust, gs, c["damaged"],
+                cfg.dts_geom_weight, corr=cs, lam_corr=cfg.dts_corr_weight)
+            c["conf_new"] = c["conf"] - c["sampled"] * c["P"] * signal
+        else:
+            c["conf_new"] = c["conf"] - c["sampled"] * c["P"] \
+                * loss_trust[:, None]
+        improved = (c["loss_agg"] < c["g_best"]) & ~c["damaged"]
+        c["backup"] = tree_select(improved | c["damaged"], c["trained"],
+                                  c["g_backup"])
+        c["best_loss"] = torch.where(improved, c["loss_agg"], c["g_best"])
+        c["last_loss"] = torch.where(c["damaged"], c["g_last"],
+                                     c["loss_agg"])
+
+    def stage_scatter_merge(c):
+        """reads fire and every updated cohort buffer; writes next (the
+        population state, updated in place). Gated on fire: a cohort member
+        that does not fire writes back its original, undecayed rows, so
+        every carried buffer (trust, EF21 residuals, sketch, stamps) is
+        unchanged across a round its user misses."""
+        state, t, ix, fire = c["state"], c["epoch"], c["ix"], c["fire"]
+
+        def scat(full, new_rows, old_rows):
+            if isinstance(full, dict):
+                sel = tree_select(fire, new_rows, old_rows)
+                for name, v in full.items():
+                    v.index_copy_(0, ix, sel[name])
+                return full
+            f = fire.reshape((-1,) + (1,) * (new_rows.ndim - 1))
+            return full.index_copy_(0, ix, torch.where(f, new_rows,
+                                                       old_rows))
+
+        rows_new = c["g_conf_rows"].index_copy(1, ix, c["conf_new"])
+        fire_i = fire.to(torch.int32)
+        c["next"] = CrossDeviceState(
+            params=scat(state.params, c["trained"], c["g_params"]),
+            backup=scat(state.backup, c["backup"], c["g_backup"]),
+            conf=scat(state.conf, rows_new, c["g_conf_raw"]),
+            best_loss=scat(state.best_loss, c["best_loss"], c["g_best"]),
+            last_loss=scat(state.last_loss, c["last_loss"], c["g_last"]),
+            epoch=state.epoch.index_copy_(0, ix, c["g_epoch"] + fire_i),
+            last_part=scat(state.last_part,
+                           torch.full_like(c["g_last_part"], t),
+                           c["g_last_part"]),
+            obs=state.obs.index_copy_(0, ix, c["g_obs"] + fire_i),
+            wire_err=scat(state.wire_err, c["wire_err"], c["g_wire_err"])
+            if use_ef else state.wire_err,
+            sketch=scat(state.sketch, c["sketch"], c["g_sketch"])
+            if corr else state.sketch,
+            sketch_round=scat(state.sketch_round, c["stamp"], c["g_stamp"])
+            if corr else state.sketch_round)
+
+    stages = (
+        ("participation", stage_participation),
+        ("split_draws", stage_split_draws),
+        ("peer_sample", stage_peer_sample),
+        ("transport", stage_transport),
+        ("damage_check", stage_damage_check),
+        ("local_train", stage_local_train),
+        ("attack_inject", stage_attack_inject),
+        ("trust_update", stage_trust_update),
+        ("scatter_merge", stage_scatter_merge),
+    )
+
+    def round(state: CrossDeviceState, data, epoch=None):
+        if epoch is None:
+            raise ValueError("the cross-device round needs the global "
+                             "round t (epoch=)")
+        c = {"state": state, "data": data, "epoch": int(epoch)}
+        run_pipeline(stages, c)
+        return c["next"]
+
+    round.stages = stages
+    return round
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,11 @@ tensors.
                    label_flip what they train on).
 * ``robust_agg`` — the classical robust rules (trimmed_mean, median,
                    krum), selected by ``cfg.aggregation``.
-
-Cross-device participation worlds (the reference's ``cross_device``) are a
-later item of the port (ROADMAP.md, queue 1a, item 4).
+* ``cross_device`` — cross-device participation worlds, a verbatim copy
+                   of the reference's (``CrossDeviceSpec``: an enrolled
+                   population, a cohort of k sampled each round, dropout
+                   and stragglers on by default; ``compile_world`` lays
+                   the whole participation timeline out on the host).
 
 Quick start::
 
@@ -29,6 +31,9 @@ Quick start::
 """
 from repro_torch.scenarios.compile import (ATTACK_CODE, CompiledScenario,
                                            compile_scenario, epoch_view)
+from repro_torch.scenarios.cross_device import (CompiledWorld,
+                                                CrossDeviceSpec,
+                                                compile_world)
 from repro_torch.scenarios.robust_agg import ROBUST_RULES, robust_mix
 from repro_torch.scenarios.spec import (ATTACK_KINDS, AttackSpec, ChurnSpec,
                                         LinkSpec, PartitionSpec,
@@ -37,7 +42,8 @@ from repro_torch.scenarios.spec import (ATTACK_KINDS, AttackSpec, ChurnSpec,
 
 __all__ = [
     "ATTACK_CODE", "ATTACK_KINDS", "AttackSpec", "ChurnSpec",
-    "CompiledScenario", "LinkSpec", "PartitionSpec", "ROBUST_RULES",
-    "ScenarioSpec", "StragglerSpec", "TopologySpec", "compile_scenario",
-    "epoch_view", "get_scenario", "robust_mix",
+    "CompiledScenario", "CompiledWorld", "CrossDeviceSpec", "LinkSpec",
+    "PartitionSpec", "ROBUST_RULES", "ScenarioSpec", "StragglerSpec",
+    "TopologySpec", "compile_scenario", "compile_world", "epoch_view",
+    "get_scenario", "robust_mix",
 ]

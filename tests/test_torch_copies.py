@@ -59,6 +59,35 @@ def test_numpy_module_copy_is_verbatim(path):
     assert ours.read_text() == theirs.read_text()
 
 
+def test_cross_device_world_copy_differs_only_in_imports():
+    """``scenarios/cross_device.py`` is the reference's line for line,
+    except its two import lines, which name the port's modules."""
+    ours = (ROOT / "src" / "repro_torch" / "scenarios" /
+            "cross_device.py").read_text().splitlines()
+    theirs = (ROOT / "src" / "repro" / "scenarios" /
+              "cross_device.py").read_text().splitlines()
+    assert len(ours) == len(theirs)
+    differ = [(a, b) for a, b in zip(ours, theirs) if a != b]
+    assert differ == [
+        ("from repro_torch.scenarios.compile import ATTACK_CODE, "
+         "DEFAULT_SCALE",
+         "from repro.scenarios.compile import ATTACK_CODE, DEFAULT_SCALE"),
+        ("from repro_torch.scenarios.spec import ATTACK_KINDS",
+         "from repro.scenarios.spec import ATTACK_KINDS")]
+
+
+@pytest.mark.parametrize("name", ["resolve_world", "probe_indices"])
+def test_cross_device_runner_helpers_are_verbatim(name):
+    """The runner's numpy helpers are the reference's, source for source."""
+    import inspect
+
+    from repro.core import cross_device as jcd
+
+    from repro_torch.core import cross_device as tcd
+    assert inspect.getsource(getattr(tcd, name)) == \
+        inspect.getsource(getattr(jcd, name))
+
+
 @pytest.mark.parametrize("k,explore", [(2, 0.0), (3, 0.5)])
 def test_peer_selection_copy_equal(k, explore):
     from repro.core import peer_selection as jps
@@ -218,9 +247,19 @@ st, *_ = run_defta(0, mlp_task(32, 10), dataclasses.replace(
                    TrainConfig(batch_size=16), data, epochs=2,
                    scenario="paper_noise@2", device="cpu")
 import importlib.util
-spec = importlib.util.spec_from_file_location(
-    "port_table3", "benchmarks/port_table3.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for name in ("port_table3", "port_cross_device"):
+    spec = importlib.util.spec_from_file_location(
+        name, f"benchmarks/{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+from repro_torch.core import run_cross_device
+from repro_torch.scenarios import CrossDeviceSpec
+st, hist = run_cross_device(
+    0, mlp_task(32, 10), dataclasses.replace(cfg, dts_signal="all"),
+    TrainConfig(batch_size=16), data, world=CrossDeviceSpec(
+        enrolled=4, sample_k=3, attacks=(("alie", 0.25),)), epochs=3,
+    eval_every=3, test_x=data["test_x"], test_y=data["test_y"],
+    device="cpu")
+assert st.sketch_round.shape == (4, 8) and hist[0][0] == 3
 from repro_torch.launch import serve
 tokens, _ = serve.main(["--arch", "deepseek-moe-16b", "--smoke", "--device",
                         "cpu", "--batch", "2", "--prompt-len", "4",
@@ -253,7 +292,10 @@ def test_port_sources_import_no_jax_or_repro():
               "benchmarks/port_table_trust.py",
               "benchmarks/port_bias_analysis.py",
               "examples/port_quickstart.py", "examples/port_serve_decode.py",
-              "examples/port_robustness_demo.py"):
+              "examples/port_robustness_demo.py",
+              "benchmarks/port_cross_device.py",
+              "src/repro_torch/core/cross_device.py",
+              "src/repro_torch/scenarios/cross_device.py"):
         assert ROOT / f in files, f
     assert hits == []
 
