@@ -1,7 +1,7 @@
 """Where the PyTorch port's time goes, on one CUDA card.
 
     PYTHONPATH=src python benchmarks/port_profile.py \
-        [defta|trust|cross_device|serve] \
+        [defta|trust|cross_device|privacy|serve] \
         [--epochs 3] [--table PATH]
 
 ``defta`` (the default) runs the Table 2 worlds of ``chip_smoke.py`` (MLP
@@ -25,6 +25,13 @@ stage, each stage under ``torch.cuda.set_sync_debug_mode("error")`` (a
 stage that reads back to the host is reported, and exits 1 if it is
 ``participation``, ``trust_update`` or ``scatter_merge``) and each under
 its own profiler to count its launches.
+``privacy`` runs the Table 2 world (MLP fp32 ``auto``, 20 workers + 2
+noise attackers) plain, under secagg (fp32 and int8 + EF21), under update
+DP (``dp_sigma`` 1, with and without secagg) and under DP-SGD (``dp_clip``
+1, ``dp_sigma`` 0.5), per epoch, then the full-width cross-device world
+under ``all`` plain and with secagg and update DP, per round; after each
+window one more round stage by stage, each stage under its own profiler,
+for the launches of ``transport``, ``local_train`` and ``dp_noise``.
 ``serve`` draws each served model at full size on the card in turn
 (random weights, seed 0) and runs, after a warm-up, two
 ``build_prefill_step`` calls at each of its two prefill shapes and 8
@@ -77,6 +84,17 @@ SCENARIO_STAGES = STAGES[:-1] + ("fire_merge",)
 CROSS_DEVICE_STAGES = ("participation", "split_draws", "peer_sample",
                        "transport", "damage_check", "local_train",
                        "attack_inject", "trust_update", "scatter_merge")
+PRIVACY_STAGES = STAGES[:6] + ("dp_noise",) + STAGES[6:]
+CROSS_DEVICE_PRIVACY_STAGES = CROSS_DEVICE_STAGES[:6] + ("dp_noise",) \
+    + CROSS_DEVICE_STAGES[6:]
+PRIVACY_WORLDS = (("plain", {}), ("secagg", dict(secagg="pairwise")),
+                  ("secagg int8+ef", dict(secagg="pairwise",
+                                          gossip_dtype="int8")),
+                  ("update dp", dict(dp_sigma=1.0)),
+                  ("secagg + update dp", dict(secagg="pairwise",
+                                              dp_sigma=1.0)),
+                  ("dp-sgd", dict(dp_clip=1.0, dp_sigma=0.5)))
+PRIVACY_COUNTED = ("transport", "local_train", "dp_noise")
 NO_SYNC_STAGES = ("participation", "trust_update", "scatter_merge")
 FEDAVG_STAGES = ("split_draws", "star_broadcast", "local_train",
                  "attack_inject", "star_aggregate", "server_update")
@@ -224,21 +242,39 @@ def profile_trust(epochs, out):
                        epochs, "epoch", out, stages=SCENARIO_STAGES)
 
 
-def profile_cross_device(rounds, out) -> bool:
-    """The full-width cross-device window; returns False when a stage of
-    ``NO_SYNC_STAGES`` reads back to the host."""
+def stage_launches(stages, c) -> dict:
+    """Run one round's stages in order over the context ``c``, each under
+    its own profiler; returns the kernel launches of each stage."""
+    counts = {}
+    for name, fn in stages:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(c)
+            torch.cuda.synchronize()
+        counts[name] = sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.key != name)
+    return counts
+
+
+def cross_device_round(change, rounds):
+    """The full-width cross-device world under ``all`` with the config
+    ``change``, built as a round over a population on the card; returns
+    (round, [state], device data, world, run(ts)) after 3 warm-up rounds,
+    the world compiled for ``rounds`` + 2 more."""
     sys.path.insert(0, str(ROOT / "benchmarks"))
     from port_cross_device import full_world
     from repro_torch.core.cross_device import initial_population
     from repro_torch.core.defta import to_device_data
     from repro_torch.core.engine import build_cross_device_round
-    from repro_torch.kernels import ops
     from repro_torch.rng import TorchDraws
     from repro_torch.scenarios import compile_world
 
     task, cfg, train, data, spec = full_world("all")
-    warm = 3
-    world = compile_world(spec, warm + rounds + 2)
+    cfg = dataclasses.replace(cfg, **change)
+    world = compile_world(spec, 3 + rounds + 2)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -251,7 +287,17 @@ def profile_cross_device(rounds, out) -> bool:
     def run(ts):
         for t in ts:
             box[0] = rnd(box[0], tdata, t)
-    run(range(warm))
+    run(range(3))
+    return rnd, box, tdata, world, run
+
+
+def profile_cross_device(rounds, out) -> bool:
+    """The full-width cross-device window; returns False when a stage of
+    ``NO_SYNC_STAGES`` reads back to the host."""
+    from repro_torch.kernels import ops
+
+    warm = 3
+    rnd, box, tdata, world, run = cross_device_round({}, rounds)
     ops.reset_launches()
     profile_window(f"cross-device full world all N={world.enrolled} "
                    f"k={world.sample_k}", lambda: run(range(warm, warm
@@ -260,35 +306,78 @@ def profile_cross_device(rounds, out) -> bool:
     print(f"  gossip launches a round by regime: "
           f"{ {k: v / rounds for k, v in ops.REGIMES.items()} }")
     ok = True
-    for t, check in ((warm + rounds, "sync"), (warm + rounds + 1, "count")):
-        c = {"state": box[0], "data": tdata, "epoch": t}
-        for name, fn in rnd.stages:
-            torch.cuda.synchronize()
-            if check == "sync":
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    fn(c)
-                    synced = False
-                except RuntimeError:
-                    synced = True
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-                if synced:
-                    fn(c)
-                ok = ok and not (synced and name in NO_SYNC_STAGES)
-                print(f"  stage {name:14s} "
-                      f"{'reads back to the host' if synced else 'no host synchronisation'}")
-            else:
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    fn(c)
-                    torch.cuda.synchronize()
-                n = sum(e.count for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and not getattr(e, "is_user_annotation", False)
-                        and e.key != name)
-                print(f"  stage {name:14s} launches {n}")
-        box[0] = c["next"]
+    c = {"state": box[0], "data": tdata, "epoch": warm + rounds}
+    for name, fn in rnd.stages:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn(c)
+            synced = False
+        except RuntimeError:
+            synced = True
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if synced:
+            fn(c)
+        ok = ok and not (synced and name in NO_SYNC_STAGES)
+        print(f"  stage {name:14s} "
+              f"{'reads back to the host' if synced else 'no host synchronisation'}")
+    c = {"state": c["next"], "data": tdata, "epoch": warm + rounds + 1}
+    for name, n in stage_launches(rnd.stages, c).items():
+        print(f"  stage {name:14s} launches {n}")
     return ok
+
+
+def profile_privacy(epochs, out):
+    """The privacy windows: the Table 2 world per epoch, then the
+    full-width cross-device world per round, with the launches of one more
+    round by stage."""
+    from repro_torch.core.defta import attacker_world, to_device_data
+    from repro_torch.core.engine import (build_defta_round, init_state,
+                                         sketch_shape)
+    from repro_torch.core.gossip import uses_error_feedback
+    from repro_torch.core.topology import make_topology
+    from repro_torch.rng import TorchDraws
+
+    task, cfg0, train, data = world("mlp", "float32")
+    dev = torch.device("cuda")
+    for label, change in PRIVACY_WORLDS:
+        cfg = dataclasses.replace(cfg0, **change)
+        run = lambda n: run_defta(0, task, cfg, train, data,  # noqa: E731
+                                  epochs=n, num_malicious=2)
+        run(1)
+        profile_window(f"privacy table2 {label}", lambda: run(epochs),
+                       epochs, "epoch", out, stages=PRIVACY_STAGES)
+        w, mal, wdata, sizes = attacker_world(cfg, data, 2)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        state = init_state(gen, task, w, wire_error=uses_error_feedback(cfg),
+                           sketch=sketch_shape(cfg))
+        rnd = build_defta_round(task, cfg, train,
+                                make_topology(cfg.topology, w,
+                                              cfg.avg_peers, cfg.seed),
+                                sizes, mal, draws=TorchDraws(gen),
+                                device=dev)
+        tdata = to_device_data(wdata, dev)
+        state = rnd(state, tdata, 0)
+        n = stage_launches(rnd.stages, {"state": state, "data": tdata,
+                                        "epoch": 1})
+        print("  launches a round: " + ", ".join(
+            f"{k} {n.get(k, 0)}" for k in PRIVACY_COUNTED))
+    for label, change in (("all", {}),
+                          ("all secagg + update dp",
+                           dict(secagg="pairwise", dp_sigma=1.0))):
+        rnd, box, tdata, world_, run = cross_device_round(change, epochs)
+        profile_window(f"privacy cross-device {label} N={world_.enrolled} "
+                       f"k={world_.sample_k}",
+                       lambda: run(range(3, 3 + epochs)), epochs, "round",
+                       out, stages=CROSS_DEVICE_PRIVACY_STAGES)
+        n = stage_launches(rnd.stages, {"state": box[0], "data": tdata,
+                                        "epoch": 3 + epochs})
+        print("  launches a round: " + ", ".join(
+            f"{k} {n.get(k, 0)}" for k in PRIVACY_COUNTED))
+        del rnd, box
+        torch.cuda.empty_cache()
 
 
 def repeat(fn, n):
@@ -338,7 +427,8 @@ def profile_serve(out):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("path", nargs="?",
-                    choices=("defta", "trust", "cross_device", "serve"),
+                    choices=("defta", "trust", "cross_device", "privacy",
+                             "serve"),
                     default="defta")
     ap.add_argument("--epochs", type=int, default=3,
                     help="DeFTA and FedAvg epochs (async ticks) to profile")
@@ -360,6 +450,8 @@ def main() -> int:
         elif args.path == "cross_device":
             if not profile_cross_device(args.epochs, out):
                 return 1
+        elif args.path == "privacy":
+            profile_privacy(args.epochs, out)
         else:
             profile_defta(args.epochs, out)
     finally:

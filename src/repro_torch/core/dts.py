@@ -18,6 +18,10 @@ fusion with two more channels scored on each peer's local-update delta:
   power-iteration step, singles out colluders that hide inside the honest
   variance in any one round.
 
+Under an aggregate-only secure-aggregation wire (``secagg_mode=
+"masked_geom"``) a receiver sees no per-peer delta, and ``masked_geom_trust``
+scores the pooled aggregate-minus-own-contribution direction instead.
+
 The reference computes all of it in plain ``jnp`` (no Pallas kernel), so
 the port is plain torch. The count-sketch plan is drawn with numpy
 (``_sketch_plan``, a verbatim copy) and applied as a fixed dense [D, S]
@@ -357,3 +361,25 @@ def geom_confidence_update(dts_signal: str, lam: float, conf, sampled, P,
     signal = fused_trust_signal(dts_signal, loss_trust, gs, damaged, lam,
                                 corr=cs, lam_corr=lam_corr)
     return conf - sampled * P * signal
+
+
+def masked_geom_trust(deltas, P, mask=None, *, eps: float = 1e-12):
+    """The aggregate-only trust signal under ``secagg_mode="masked_geom"``:
+    per RECEIVER i, ``−cos(pooled_i, δ_i)`` with ``pooled_i = Σ_{j≠i} P_ij
+    δ_j / Σ_{j≠i} P_ij``, the aggregate minus its own contribution,
+    renormalized. Negative (trust-raising) when the pooled neighbourhood
+    moves with the receiver, positive when against it; the round
+    broadcasts it over the receiver's sampled row, since the receiver
+    cannot tell which peer moved the pool. ``mask``: [W, W] bool live-peer
+    gate (non-firing peers' deltas were never in the aggregate). Rows with
+    no off-diagonal mass return 0."""
+    w = P.shape[0]
+    off = P.float() * (1.0 - torch.eye(w, device=P.device))
+    if mask is not None:
+        off = off * mask.float()
+    tot = off.sum(dim=1, keepdim=True)
+    pooled = (off / torch.clamp(tot, min=eps)) @ deltas      # [W, D]
+    num = (pooled * deltas).sum(dim=1)
+    den = torch.linalg.norm(pooled, dim=1) \
+        * torch.linalg.norm(deltas, dim=1) + eps
+    return torch.where(tot[:, 0] > 0, -num / den, torch.zeros_like(num))

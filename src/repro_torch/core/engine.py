@@ -13,12 +13,15 @@ FedAvg (CFL-F, CFL-S, FedAdam), a stage selection over the same pipeline:
         -> star_aggregate -> server_update
 
 ``split_draws`` takes the round's random numbers from a ``rng`` provider
-where the reference splits its PRNG key. ``scenario_view`` is the static
-topology, or a compiled scenario's epoch (churn, links, partitions,
-stragglers, a time-varying topology), with ``max_staleness`` dropping
-stale peers. The transport is the in-process ``gossip.mix_pytree`` (einsum
+where the reference splits its PRNG key. With update DP (``dp_sigma > 0``
+and ``dp_clip == 0``) a ``dp_noise`` stage follows ``local_train``;
+DP-SGD (``dp_clip > 0``) lives inside ``local_train``. ``scenario_view``
+is the static topology, or a compiled scenario's epoch (churn, links,
+partitions, stragglers, a time-varying topology), with ``max_staleness``
+dropping stale peers. The transport is the in-process ``gossip.mix_pytree`` (einsum
 / pallas / sparse / auto backends, fp32, bf16 or int8 + EF21 wire, int8
-rounded to nearest or stochastically), or a classical robust rule
+rounded to nearest or stochastically, optionally one-time-padded per
+directed edge by pairwise secure aggregation), or a classical robust rule
 (``scenarios.robust_agg``) that replaces the mix. The attack zoo
 (``scenarios.attacks``) poisons what attackers send. FedAvg's star
 aggregate is a plain size-weighted mean, as in the reference (no kernel).
@@ -36,11 +39,14 @@ loop, with per-chunk wall time.
 The trust update carries every DTS signal: the paper's loss delta, update
 geometry (v2) and the cross-round sketch correlation (v3), whose ring
 buffer rides in ``DeFTAState.sketch`` and is merged by ``fire`` and by the
-tick like every other per-worker row.
+tick like every other per-worker row. Under ``secagg_mode="masked_geom"``
+a receiver sees only its aggregate, so the geometry and correlation
+channels give way to the pooled signal (``dts.masked_geom_trust``) and the
+ring buffer does not rotate.
 
 ``check_supported`` raises the reference's ``ValueError`` for a config the
 reference rejects, then ``NotImplementedError`` for what the port does not
-carry yet: DP, secure aggregation, telemetry and sharded workers.
+carry yet: telemetry and sharded workers.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ from repro_torch.config import DeFTAConfig, TrainConfig
 from repro_torch.core import dts as dts_mod
 from repro_torch.core.gossip import (dynamic_mixing_matrix, mix_pytree,
                                      normalize_wire, uses_error_feedback)
+from repro_torch.core.secagg import secagg_base_key
 from repro_torch.core.tasks import Task
 from repro_torch.scenarios.attacks import (LABEL_FLIP_CODE, RANDOM_ATTACKS,
                                            flip_labels, noise, poison_sends,
@@ -117,12 +124,6 @@ def check_supported(cfg: DeFTAConfig, *, telemetry=None,
             f"secagg composes with the weighted gossip mix only — robust "
             f"rules ({cfg.aggregation!r}) inspect individual plaintext "
             f"models, which is exactly what the masked wire denies them")
-    if cfg.dp_clip > 0:
-        _not_ported("DP-SGD (dp_clip > 0)", "item 5: privacy wire")
-    if cfg.dp_sigma > 0:
-        _not_ported("update DP (dp_sigma > 0)", "item 5: privacy wire")
-    if cfg.secagg is not None:
-        _not_ported("secagg", "item 5: privacy wire")
     if telemetry is not None:
         _not_ported("telemetry", "item 6: telemetry")
     if shard is not None:
@@ -178,16 +179,28 @@ def init_state(generator: torch.Generator, task: Task, num_workers: int, *,
     )
 
 
-def local_train_fn(task: Task, train: TrainConfig, local_epochs: int):
-    """Returns f(perm, params, x, y, mask) -> (params, mean_loss [W])
-    running ``local_epochs`` epochs of minibatch SGD on every worker at
-    once. ``perm`` [W, local_epochs, n] orders each worker's n (padded)
-    samples per epoch; an epoch takes ``max(n // batch_size, 1)`` steps.
-    (The reference's DP-SGD variant is a later item, guarded by
-    ``check_supported``.)"""
+def local_train_fn(task: Task, train: TrainConfig, local_epochs: int,
+                   dp_clip: float = 0.0, dp_sigma: float = 0.0):
+    """Returns f(perm, params, x, y, mask, dp_noise=None) -> (params,
+    mean_loss [W]) running ``local_epochs`` epochs of minibatch SGD on
+    every worker at once. ``perm`` [W, local_epochs, n] orders each
+    worker's n (padded) samples per epoch; an epoch takes ``max(n //
+    batch_size, 1)`` steps. With ``dp_clip > 0`` it runs DP-SGD: each
+    worker's minibatch gradient over the whole model is scaled by
+    ``min(1, clip / sqrt(Σ⟨g, g⟩ + 1e-12))`` and gets ``σ·clip·N / bs``,
+    N from ``dp_noise`` (leaf name -> [W, local_epochs, steps, *leaf]
+    standard normals, ``rng.RoundDraws.dp_sgd``)."""
     bs, lr = train.batch_size, train.learning_rate
 
-    def run(perm, params, x, y, mask):
+    def privatize(grads, names, dp_noise, e, s):
+        w = grads[0].shape[0]
+        sq = sum((g.reshape(w, -1) ** 2).sum(dim=1) for g in grads)
+        scale = torch.clamp(dp_clip / torch.sqrt(sq + 1e-12), max=1.0)
+        return [g * scale.reshape((-1,) + (1,) * (g.ndim - 1))
+                + dp_sigma * dp_clip * dp_noise[k][:, e, s] / bs
+                for k, g in zip(names, grads)]
+
+    def run(perm, params, x, y, mask, dp_noise=None):
         w, n = x.shape[:2]
         steps = max(n // bs, 1)
         rows = torch.arange(w, device=x.device)[:, None]
@@ -204,6 +217,8 @@ def local_train_fn(task: Task, train: TrainConfig, local_epochs: int):
                                      mask[rows, b])
                     grads = torch.autograd.grad(loss.sum(),
                                                 list(ps.values()))
+                    if dp_clip > 0:
+                        grads = privatize(grads, list(ps), dp_noise, e, s)
                     params = {k: (p - lr * g).detach()
                               for (k, p), g in zip(ps.items(), grads)}
                     step_losses.append(loss.detach())
@@ -220,9 +235,11 @@ def local_train_fn(task: Task, train: TrainConfig, local_epochs: int):
 @dataclass
 class Transport:
     """How a round's mixing moves bytes. ``mix(P, stacked, residual=None,
-    wire_u=None)`` follows ``gossip.mix_pytree``: the mixed dict, or
-    ``(mixed, new_residual)`` when an EF21 residual dict is passed;
-    ``wire_u`` carries the stochastic wire's uniforms."""
+    wire_u=None, round_=None)`` follows ``gossip.mix_pytree``: the mixed
+    dict, or ``(mixed, new_residual)`` when an EF21 residual dict is
+    passed; ``wire_u`` carries the stochastic wire's uniforms and
+    ``round_`` is the round the secagg pads are keyed on (inert without
+    secagg)."""
     kind: str                    # "in_process"
     wire: Optional[str]          # None | "bf16" | "int8"
     use_ef: bool
@@ -237,7 +254,10 @@ def make_transport(cfg: DeFTAConfig, *, backend: str = "auto",
     scenario's support union under a time-varying topology). Stochastic
     int8 rounding exists on the int8 wire only (elsewhere the knob is
     inert, as in the reference). A robust rule never runs the lossy wire.
-    The cross-pod ring and the sharded transport are later items."""
+    With ``cfg.secagg`` the pad root comes from ``cfg.seed`` alone
+    (``secagg.secagg_base_key``: no draw moves) and every mix is the
+    masked gather mix. The cross-pod ring and the sharded transport are
+    later items."""
     wire = normalize_wire(cfg.gossip_dtype)
     use_ef = uses_error_feedback(cfg)
     stochastic = wire == "int8" and cfg.gossip_wire_round == "stochastic"
@@ -248,11 +268,14 @@ def make_transport(cfg: DeFTAConfig, *, backend: str = "auto",
             f"model exchange — it never runs the quantized wire, so "
             f"comparing it against a lossy-wire DeFTA run would be "
             f"apples-to-oranges; set gossip_dtype='float32'")
+    sec_base = secagg_base_key(cfg.seed) if cfg.secagg is not None \
+        else None
 
-    def mix(P, stacked, residual=None, wire_u=None):
+    def mix(P, stacked, residual=None, wire_u=None, round_=None):
         return mix_pytree(P, stacked, backend=backend, adjacency=adjacency,
                           wire=wire, residual=residual,
-                          wire_round=wire_round, wire_u=wire_u)
+                          wire_round=wire_round, wire_u=wire_u,
+                          secagg=sec_base, secagg_round=round_)
     return Transport(kind="in_process", wire=wire, use_ef=use_ef,
                      stochastic=stochastic, mix=mix)
 
@@ -272,6 +295,53 @@ def run_pipeline(stages, ctx: dict) -> dict:
 
 def stage_names(round_fn):
     return tuple(n for n, _ in getattr(round_fn, "stages", ()))
+
+
+def uses_update_dp(cfg: DeFTAConfig) -> bool:
+    """The per-round update-DP stage is built iff ``dp_sigma > 0`` with
+    ``dp_clip == 0`` (with ``dp_clip > 0`` the sigma belongs to DP-SGD in
+    ``local_train``, and the stage must not add noise twice)."""
+    return cfg.dp_sigma > 0 and cfg.dp_clip == 0
+
+
+def apply_update_dp(cfg: DeFTAConfig, noise: dict, start: dict,
+                    trained: dict) -> dict:
+    """Clip the local-update delta ``trained − start`` to
+    ``cfg.dp_update_clip`` per worker (L2 over the whole model) and add
+    ``dp_sigma·clip·N``, N from ``noise`` (leaf name -> [W, ...] standard
+    normals, ``rng.RoundDraws.dp_update``). Returns the noised
+    ``trained``."""
+    delta = {k: trained[k] - start[k] for k in trained}
+    nrm = torch.linalg.norm(dts_mod.flatten_stacked(delta), dim=1)
+    clip = float(np.float32(cfg.dp_update_clip))
+    scale = torch.clamp(clip / torch.clamp(nrm, min=1e-12), max=1.0)
+    sigma = float(np.float32(cfg.dp_sigma) * np.float32(clip))
+    return {k: start[k] + (d * scale.reshape((-1,) + (1,) * (d.ndim - 1))
+                           + sigma * noise[k])
+            for k, d in delta.items()}
+
+
+def _draw_shapes(params: dict, cfg: DeFTAConfig, train: TrainConfig,
+                 w: int, n: int, transport: Transport,
+                 noise_kinds: tuple) -> dict:
+    """The build-time-gated extras a round asks its provider for: the
+    random attack kinds' noise, the stochastic wire's uniforms and the two
+    DP draws, each only when the round needs it."""
+    shapes = {k: tuple(v.shape) for k, v in params.items()}
+    extra = {}
+    if noise_kinds:
+        extra["kind_noise"] = {k: shapes for k in noise_kinds}
+    if transport.stochastic:
+        extra["wire_shapes"] = {k: (w, v[0].numel())
+                                for k, v in params.items()}
+    if cfg.dp_clip > 0:
+        steps = max(n // train.batch_size, 1)
+        extra["dp_sgd_shapes"] = {
+            k: (w, cfg.local_epochs, steps) + s[1:]
+            for k, s in shapes.items()}
+    if uses_update_dp(cfg):
+        extra["dp_update_shapes"] = shapes
+    return extra
 
 
 def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
@@ -306,7 +376,13 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
     malicious_t = torch.as_tensor(malicious_np).to(dev)
     attack_scale = torch.full((w,), noise_scale, dtype=torch.float32,
                               device=dev)
-    ltrain = local_train_fn(task, train, cfg.local_epochs)
+    ltrain = local_train_fn(task, train, cfg.local_epochs,
+                            dp_clip=cfg.dp_clip, dp_sigma=cfg.dp_sigma)
+    dp_update = uses_update_dp(cfg)
+    # a receiver of an aggregate-only secagg wire sees no per-peer update:
+    # the geometry and correlation channels give way to the pooled signal
+    masked_geom = cfg.secagg is not None \
+        and cfg.secagg_mode == "masked_geom"
     max_staleness = int(cfg.max_staleness)
     robust = cfg.aggregation in ROBUST_RULES
     if cfg.aggregation == "defta":
@@ -340,19 +416,17 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
     def stage_split_draws(c):
         """writes draws: this round's Gumbel rows, minibatch permutations,
         (static path, with attackers) the noise attack's draws, and, gated
-        at build time, the scenario's per-kind attack noise and the
-        stochastic wire's uniforms, in one provider call."""
+        at build time, the scenario's per-kind attack noise, the stochastic
+        wire's uniforms and the DP-SGD or update-DP normals, in one
+        provider call."""
         params = c["state"].params
-        shapes = {k: tuple(v.shape) for k, v in params.items()}
-        extra = {}
-        if noise_kinds:
-            extra["kind_noise"] = {k: shapes for k in noise_kinds}
-        if transport.stochastic:
-            extra["wire_shapes"] = {k: (w, v[0].numel())
-                                    for k, v in params.items()}
+        n = c["data"]["x"].shape[1]
+        extra = _draw_shapes(params, cfg, train, w, n, transport,
+                             noise_kinds)
         legacy = scenario is None and malicious_np.any()
-        c["draws"] = draws(w, cfg.local_epochs, c["data"]["x"].shape[1],
-                           shapes if legacy else None, **extra)
+        c["draws"] = draws(w, cfg.local_epochs, n,
+                           {k: tuple(v.shape) for k, v in params.items()}
+                           if legacy else None, **extra)
 
     def stage_scenario_view(c):
         """reads epoch, state.epoch; writes eff_adj (and alive, fire,
@@ -411,6 +485,7 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
             P = P / P.sum(dim=1, keepdim=True)
         c["P"] = P
         wire_u = c["draws"].wire_u
+        round_ = 0 if c["epoch"] is None else c["epoch"]
         if use_ef:
             if state.wire_err is None:
                 raise ValueError(
@@ -418,9 +493,11 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
                     "but the state carries no residual buffers — build "
                     "it with init_state(..., wire_error=True)")
             c["agg"], c["wire_err"] = transport.mix(
-                P, state.params, residual=state.wire_err, wire_u=wire_u)
+                P, state.params, residual=state.wire_err, wire_u=wire_u,
+                round_=round_)
         else:
-            c["agg"] = transport.mix(P, state.params, wire_u=wire_u)
+            c["agg"] = transport.mix(P, state.params, wire_u=wire_u,
+                                     round_=round_)
             c["wire_err"] = state.wire_err
 
     def stage_damage_check(c):
@@ -445,12 +522,21 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
             c["start"] = c["agg"]
 
     def stage_local_train(c):
-        """reads start, y_data, data, draws.perm; writes trained and
-        train_loss."""
+        """reads start, y_data, data, draws.perm (+ draws.dp_sgd under
+        DP-SGD); writes trained and train_loss."""
         data = c["data"]
         c["trained"], c["train_loss"] = ltrain(
             c["draws"].perm, c["start"], data["x"], c["y_data"],
-            data["mask"])
+            data["mask"], c["draws"].dp_sgd)
+
+    def stage_dp_noise(c):
+        """reads trained, start, draws.dp_update; writes trained: every
+        worker clips its local-update delta and noises it before it
+        becomes the next round's send, so peers and the trust channels
+        see only the privatized update (``apply_update_dp``). Built only
+        under ``uses_update_dp(cfg)``."""
+        c["trained"] = apply_update_dp(cfg, c["draws"].dp_update,
+                                       c["start"], c["trained"])
 
     def stage_attack_inject(c):
         """reads trained, agg, theta, att_on, draws.{noise, kind_noise};
@@ -478,14 +564,25 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         signal, the signal being the loss delta ("loss", Algorithm 3) or
         its fusion with the geometry and correlation scores of each peer's
         local-update delta ``trained − start`` (after attack injection, so
-        the poison is what gets scored)."""
+        the poison is what gets scored). Under ``masked_geom`` the extra
+        channels are replaced by the pooled aggregate-minus-own signal
+        (``dts.masked_geom_trust``), broadcast over the receiver's sampled
+        row, and the sketch ring buffer is left as it was."""
         state = c["state"]
         loss_trust = torch.where(c["damaged"],
                                  torch.full_like(c["loss_agg"],
                                                  dts_mod.DAMAGE_PENALTY),
                                  c["loss_agg"] - state.last_loss)
         c["sketch"] = state.sketch
-        if channels:
+        if channels and masked_geom:
+            deltas = dts_mod.flatten_stacked(c["trained"]) \
+                - dts_mod.flatten_stacked(c["start"])
+            gmask = c["eff_adj"] & c["fire"][None, :] \
+                if scenario is not None else c["eff_adj"]
+            mg = dts_mod.masked_geom_trust(deltas, c["P"], gmask)
+            c["conf"] = state.conf - c["sampled"] * c["P"] \
+                * (loss_trust + cfg.dts_geom_weight * mg)[:, None]
+        elif channels:
             # non-firing peers (stragglers) are left out: the fire merge
             # drops their delta, so no peer consumes it
             deltas = dts_mod.flatten_stacked(c["trained"]) \
@@ -554,6 +651,7 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         ("transport", stage_transport),
         ("damage_check", stage_damage_check),
         ("local_train", stage_local_train),
+    ) + ((("dp_noise", stage_dp_noise),) if dp_update else ()) + (
         ("attack_inject", stage_attack_inject),
         ("trust_update", stage_trust_update),
         ("finalize", stage_finalize) if scenario is None
@@ -809,7 +907,8 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
     cohort's rows, which are distinct within a round: no atomics), as the
     reference's donated scan carry is: the state passed in is consumed.
     The cohort block has no static support, so ``auto`` runs the dense
-    mix."""
+    mix; under secagg the support is all-ones [k, k] and the masked
+    gather mix runs instead (no kernel)."""
     channels = resolve_dts_signal(cfg)
     if world.epochs <= 0:
         raise ValueError("cross-device world compiled for 0 rounds")
@@ -828,9 +927,19 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
     max_staleness = int(cfg.max_staleness)
     decay = float(cfg.dts_conf_decay)
     decay_t = torch.tensor(decay, dtype=torch.float32, device=dev)
-    ltrain = local_train_fn(task, train, cfg.local_epochs)
-    transport = make_transport(cfg, backend=gossip_backend, adjacency=None)
+    ltrain = local_train_fn(task, train, cfg.local_epochs,
+                            dp_clip=cfg.dp_clip, dp_sigma=cfg.dp_sigma)
+    # the cohort block has no static support, except under secagg, whose
+    # per-edge pads need one: every cohort-slot pair is a potential wire
+    # edge (pads are keyed on (round, slot, slot), so two users holding
+    # one slot in different rounds never share a pad)
+    transport = make_transport(
+        cfg, backend=gossip_backend,
+        adjacency=np.ones((k, k), bool) if cfg.secagg is not None else None)
     use_ef = transport.use_ef
+    dp_update = uses_update_dp(cfg)
+    masked_geom = cfg.secagg is not None \
+        and cfg.secagg_mode == "masked_geom"
     noise_kinds = tuple(kk for kk in world.kinds_present
                         if kk in RANDOM_ATTACKS)
 
@@ -899,16 +1008,11 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
         """reads g_params (the leaves' shapes), g_x (the shard size);
         writes draws for the cohort (W = k): Gumbel rows, minibatch
         permutations and, gated at build time, the random attack kinds'
-        noise and the stochastic wire's uniforms, in one provider call."""
-        shapes = {kk: tuple(v.shape) for kk, v in c["g_params"].items()}
-        extra = {}
-        if noise_kinds:
-            extra["kind_noise"] = {kk: shapes for kk in noise_kinds}
-        if transport.stochastic:
-            extra["wire_shapes"] = {kk: (k, v[0].numel())
-                                    for kk, v in c["g_params"].items()}
-        c["draws"] = draws(k, cfg.local_epochs, c["g_x"].shape[1], None,
-                           **extra)
+        noise, the stochastic wire's uniforms and the DP normals, in one
+        provider call."""
+        n = c["g_x"].shape[1]
+        c["draws"] = draws(k, cfg.local_epochs, n, None, **_draw_shapes(
+            c["g_params"], cfg, train, k, n, transport, noise_kinds))
 
     def stage_peer_sample(c):
         """reads conf (the decayed k-block), eff_adj, draws.gumbel; writes
@@ -937,9 +1041,11 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
         wire_u = c["draws"].wire_u
         if use_ef:
             c["agg"], c["wire_err"] = transport.mix(
-                P, c["g_params"], residual=c["g_wire_err"], wire_u=wire_u)
+                P, c["g_params"], residual=c["g_wire_err"], wire_u=wire_u,
+                round_=c["epoch"])
         else:
-            c["agg"] = transport.mix(P, c["g_params"], wire_u=wire_u)
+            c["agg"] = transport.mix(P, c["g_params"], wire_u=wire_u,
+                                     round_=c["epoch"])
             c["wire_err"] = c["g_wire_err"]
 
     def stage_damage_check(c):
@@ -961,10 +1067,17 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
             c["start"] = c["agg"]
 
     def stage_local_train(c):
-        """reads start, g_x, y_data, g_mask, draws.perm; writes trained and
-        train_loss."""
+        """reads start, g_x, y_data, g_mask, draws.perm (+ draws.dp_sgd
+        under DP-SGD); writes trained and train_loss."""
         c["trained"], c["train_loss"] = ltrain(
-            c["draws"].perm, c["start"], c["g_x"], c["y_data"], c["g_mask"])
+            c["draws"].perm, c["start"], c["g_x"], c["y_data"], c["g_mask"],
+            c["draws"].dp_sgd)
+
+    def stage_dp_noise(c):
+        """reads trained, start, draws.dp_update; writes trained: the dense
+        round's update-DP stage on the cohort block."""
+        c["trained"] = apply_update_dp(cfg, c["draws"].dp_update,
+                                       c["start"], c["trained"])
 
     def stage_attack_inject(c):
         """reads trained, agg, att_kind, att_scale, att_on, theta,
@@ -984,12 +1097,23 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
         its correlation channel swapped for the sparse-observation one:
         the ring buffer rotates with a stamp column holding t, and pairs
         with fewer than ``cfg.dts_min_obs`` stamp-matched slots join
-        neither the suspicion nor its median + MAD baseline."""
+        neither the suspicion nor its median + MAD baseline. Under
+        ``masked_geom`` the pooled signal only: the ring buffer does not
+        rotate and the stamps pass through unchanged."""
         loss_trust = torch.where(c["damaged"],
                                  torch.full_like(c["loss_agg"],
                                                  dts_mod.DAMAGE_PENALTY),
                                  c["loss_agg"] - c["g_last"])
-        if channels:
+        if channels and masked_geom:
+            deltas = dts_mod.flatten_stacked(c["trained"]) \
+                - dts_mod.flatten_stacked(c["start"])
+            gmask = c["eff_adj"] & c["fire"][None, :]
+            mg = dts_mod.masked_geom_trust(deltas, c["P"], gmask)
+            if corr:
+                c["sketch"], c["stamp"] = c["g_sketch"], c["g_stamp"]
+            c["conf_new"] = c["conf"] - c["sampled"] * c["P"] \
+                * (loss_trust + cfg.dts_geom_weight * mg)[:, None]
+        elif channels:
             deltas = dts_mod.flatten_stacked(c["trained"]) \
                 - dts_mod.flatten_stacked(c["start"])
             gmask = c["eff_adj"] & c["fire"][None, :]
@@ -1066,6 +1190,7 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
         ("transport", stage_transport),
         ("damage_check", stage_damage_check),
         ("local_train", stage_local_train),
+    ) + ((("dp_noise", stage_dp_noise),) if dp_update else ()) + (
         ("attack_inject", stage_attack_inject),
         ("trust_update", stage_trust_update),
         ("scatter_merge", stage_scatter_merge),

@@ -20,6 +20,13 @@ is EF21: each worker sends ``row + residual`` and keeps what the decode
 lost for the next round. The mix stays leaf by leaf because the int8 scale
 is per (worker, leaf) row: packing the leaves into one row would change
 the numbers.
+
+With ``secagg`` (a pad root, ``secagg.secagg_base_key``) the payload
+crosses the wire one-time-padded per directed edge in the wire format's
+integer ring and the receiver unmasks before the weighted sum
+(``_mix_pytree_secagg``). As in the reference this is a gather-sum in
+plain torch over the padded-CSR support, whatever the backend: no mix
+kernel runs on a secagg round.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.core import secagg as sa
 from repro_torch.kernels import ops
 
 SPARSE_DENSITY_THRESHOLD = 0.25
@@ -189,7 +197,7 @@ def _encode_rows(flat, r_flat, wire, *, rounding: str = "nearest", u=None):
 
 def mix_pytree(P, stacked: dict, backend: str = "einsum", *, adjacency=None,
                wire=None, residual=None, wire_round: str = "nearest",
-               wire_u=None, secagg=None):
+               wire_u=None, secagg=None, secagg_round=None):
     """P: [W, W] row-stochastic f32; stacked: dict of [W, ...] leaves.
 
     ``adjacency``: static bool [W, W] numpy support of P (required by the
@@ -197,8 +205,10 @@ def mix_pytree(P, stacked: dict, backend: str = "einsum", *, adjacency=None,
     | "int8". ``residual``: EF21 buffers (dict like ``stacked``); when
     given the return value is ``(mixed, new_residual)``. ``wire_round=
     "stochastic"`` (int8 only) takes ``wire_u``, one [W, F] U[0, 1) tensor
-    per leaf name (``rng.RoundDraws.wire_u``). The secure-aggregation wire
-    is a later item of the port and raises ``NotImplementedError``.
+    per leaf name (``rng.RoundDraws.wire_u``). ``secagg``: the pad root
+    (``secagg.secagg_base_key``); the masked gather mix needs
+    ``adjacency`` and keys its pads on ``secagg_round`` (an int or a 0-dim
+    tensor; 0 when None).
     """
     w = P.shape[0]
     backend = _resolve_backend(backend, adjacency, w)
@@ -210,9 +220,14 @@ def mix_pytree(P, stacked: dict, backend: str = "einsum", *, adjacency=None,
         raise ValueError("wire_round='stochastic' is an int8-wire option "
                          f"(wire={wire!r})")
     if secagg is not None:
-        raise NotImplementedError(
-            "the secure-aggregation wire is not ported yet (ROADMAP.md, "
-            "queue 1a, item 5: privacy wire)")
+        if adjacency is None:
+            raise ValueError(
+                "secagg needs the static topology: pass "
+                "adjacency=<bool [W, W]> (the pads are per wire edge)")
+        return _mix_pytree_secagg(
+            P, stacked, adjacency, wire=wire, residual=residual,
+            wire_round=wire_round, wire_u=wire_u, base=secagg,
+            round_=secagg_round)
     if backend not in ("einsum", "pallas", "sparse"):
         raise ValueError(f"unknown gossip backend {backend!r}")
     if backend == "sparse":
@@ -250,6 +265,71 @@ def mix_pytree(P, stacked: dict, backend: str = "einsum", *, adjacency=None,
             if nr is not None:
                 new_res[name] = nr.reshape(x.shape)
         mixed[name] = out.reshape(x.shape).to(x.dtype)
+    if residual is not None:
+        return mixed, new_res
+    return mixed
+
+
+def _mix_pytree_secagg(P, stacked, adjacency, *, wire, residual,
+                       wire_round, wire_u, base, round_):
+    """Receiver-side pairwise-masked gather mix (ref
+    ``gossip._mix_pytree_secagg``). Each receiver gathers the encoded
+    payload rows of its padded-CSR support; a gathered row models the
+    wire, ``ring(q_j) + pad(round, j -> i)`` in the wire's integer ring,
+    and the receiver subtracts the same directed-edge pad before the
+    weighted sum over the K slots. The pad is exact word for word, so the
+    recovered rows equal the encoded rows bit for bit and the masked mix
+    equals the same gather-sum without masks (at int8 within the plain
+    quantization error, EF21 residuals equal). A dead or unsampled edge
+    rides P's zero weight: its recovered row is annihilated.
+
+    The pads of every leaf (tag 2·li) and of every int8 scale channel
+    (tag 2·li + 1) come from one ``secagg.pad_block`` call a round."""
+    w = P.shape[0]
+    round_ = 0 if round_ is None else round_
+    idx, val = sparse_weights(P, adjacency)
+    idx = idx.long()
+    k = idx.shape[1]
+    if w > sa.MAX_NODES:
+        raise ValueError(f"secagg pads key workers on 16 bits: W = {w}")
+    names = sorted(stacked)
+    enc, channels = [], []
+    for li, name in enumerate(names):
+        flat = stacked[name].reshape(w, -1)
+        if wire is None:
+            payload, scale, nr = flat.float(), None, None
+        else:
+            r = residual[name] if residual is not None else None
+            r_flat = r.reshape(w, -1) if r is not None else None
+            u = wire_u[name] if wire_u is not None else None
+            payload, scale, nr = _encode_rows(flat, r_flat, wire,
+                                              rounding=wire_round, u=u)
+        enc.append((payload, scale, nr))
+        channels.append((2 * li, payload.shape[1]))
+        if scale is not None:
+            channels.append((2 * li + 1, 1))
+    recv = torch.arange(w, device=P.device)[:, None]
+    pads = iter(sa.pad_block(sa.domain_key(base, sa.DOMAIN_EDGE), round_,
+                             idx, recv, channels))
+    flat_idx = idx.reshape(-1)
+    mixed, new_res = {}, {}
+    for name, (payload, scale, nr) in zip(names, enc):
+        x = stacked[name]
+        pad = sa.ring_pad(next(pads), wire)
+        gathered = payload.index_select(0, flat_idx).reshape(w, k, -1)
+        rec = sa.unmask_payload(sa.mask_payload(gathered, pad, wire), pad,
+                                wire)                       # == gathered
+        if scale is not None:
+            spad = sa.ring_pad(next(pads)[..., 0])
+            s_g = scale.index_select(0, flat_idx).reshape(w, k)
+            s_rec = sa.unmask_payload(sa.mask_payload(s_g, spad), spad)
+            weights = val * s_rec                 # dequant into the weights
+        else:
+            weights = val
+        out = torch.einsum("wk,wkf->wf", weights, rec.float())
+        mixed[name] = out.reshape(x.shape).to(x.dtype)
+        if nr is not None:
+            new_res[name] = nr.reshape(x.shape)
     if residual is not None:
         return mixed, new_res
     return mixed

@@ -2,9 +2,10 @@
 tensors.
 
 A DeFTA round asks its ``Draws`` provider once per round for a
-``RoundDraws`` (with two build-time-gated extras: the scenario attacks'
-per-kind noise and the stochastic int8 wire's uniforms, asked for by
-keyword only when the round needs them, so a provider that knows neither
+``RoundDraws`` (with four build-time-gated extras: the scenario attacks'
+per-kind noise, the stochastic int8 wire's uniforms, DP-SGD's per-step
+gradient noise and update DP's per-round noise, each asked for by keyword
+only when the round needs it, so a provider that knows none of them
 serves every other world unchanged); a FedAvg round asks its
 ``FedAvgDraws`` provider once per round for a ``FedAvgRoundDraws``; an
 async tick asks its ``TickDraws`` provider once per live tick for one
@@ -40,18 +41,27 @@ class RoundDraws:
     wire_u: Optional[dict] = None
                               # stochastic int8 wire: leaf name -> [W, F]
                               # U[0, 1), the rounding uniforms
+    dp_sgd: Optional[dict] = None
+                              # DP-SGD: leaf name -> [W, local_epochs,
+                              # steps, *leaf] N(0, 1), one per step
+    dp_update: Optional[dict] = None
+                              # update DP: leaf name -> [W, *leaf] N(0, 1)
 
 
 class Draws(Protocol):
     def __call__(self, w: int, local_epochs: int, n: int,
                  noise_shapes: Optional[dict], *,
                  kind_noise: Optional[dict] = None,
-                 wire_shapes: Optional[dict] = None) -> RoundDraws:
+                 wire_shapes: Optional[dict] = None,
+                 dp_sgd_shapes: Optional[dict] = None,
+                 dp_update_shapes: Optional[dict] = None) -> RoundDraws:
         """Draws for one round: W workers, ``local_epochs`` permutations of
         ``n`` samples each, and one normal draw per leaf of
         ``noise_shapes`` (name -> shape), or none if it is None. The round
-        passes ``kind_noise`` (attack kind -> {leaf name -> shape}) and
-        ``wire_shapes`` (leaf name -> [W, F]) only when it needs them."""
+        passes ``kind_noise`` (attack kind -> {leaf name -> shape}),
+        ``wire_shapes`` (leaf name -> [W, F]), ``dp_sgd_shapes`` (leaf name
+        -> [W, local_epochs, steps, *leaf]) and ``dp_update_shapes`` (leaf
+        name -> [W, *leaf]) only when it needs them."""
 
 
 def _perm(g: torch.Generator, w, local_epochs, n) -> torch.Tensor:
@@ -80,7 +90,8 @@ class TorchDraws:
         self.gen = generator
 
     def __call__(self, w, local_epochs, n, noise_shapes, *,
-                 kind_noise=None, wire_shapes=None):
+                 kind_noise=None, wire_shapes=None, dp_sgd_shapes=None,
+                 dp_update_shapes=None):
         g = self.gen
         # Gumbel(0, 1) = -log(E) with E ~ Exp(1)
         gumbel = -torch.empty(w, w, device=g.device).exponential_(
@@ -93,6 +104,8 @@ class TorchDraws:
             d.kind_noise = {k: _noise(g, shapes)
                             for k, shapes in kind_noise.items()}
         d.wire_u = _uniform(g, wire_shapes)
+        d.dp_sgd = _noise(g, dp_sgd_shapes)
+        d.dp_update = _noise(g, dp_update_shapes)
         return d
 
 

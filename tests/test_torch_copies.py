@@ -88,6 +88,30 @@ def test_cross_device_runner_helpers_are_verbatim(name):
         inspect.getsource(getattr(jcd, name))
 
 
+@pytest.mark.parametrize("module,name", [
+    ("launch/roofline.py", "secagg_pad_bytes"),
+    ("launch/roofline.py", "dp_epsilon"),
+    ("core/secagg.py", "pair_seed"),
+    ("core/secagg.py", "secagg_mask_bytes")])
+def test_privacy_contracts_are_verbatim(module, name):
+    """The privacy wire's byte and budget contracts and the secagg module's
+    plain-Python functions are the reference's, source for source."""
+    import importlib
+    import inspect
+    mod = module[:-3].replace("/", ".")
+    ours = importlib.import_module(f"repro_torch.{mod}")
+    theirs = importlib.import_module(f"repro.{mod}")
+    assert inspect.getsource(getattr(ours, name)) == \
+        inspect.getsource(getattr(theirs, name))
+
+
+def test_roofline_wire_bytes_equal():
+    from repro.launch import roofline as jroofline
+
+    from repro_torch.launch import roofline
+    assert roofline.WIRE_BYTES == jroofline.WIRE_BYTES
+
+
 @pytest.mark.parametrize("k,explore", [(2, 0.0), (3, 0.5)])
 def test_peer_selection_copy_equal(k, explore):
     from repro.core import peer_selection as jps
@@ -247,7 +271,7 @@ st, *_ = run_defta(0, mlp_task(32, 10), dataclasses.replace(
                    TrainConfig(batch_size=16), data, epochs=2,
                    scenario="paper_noise@2", device="cpu")
 import importlib.util
-for name in ("port_table3", "port_cross_device"):
+for name in ("port_table3", "port_cross_device", "port_secagg"):
     spec = importlib.util.spec_from_file_location(
         name, f"benchmarks/{name}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -260,6 +284,13 @@ st, hist = run_cross_device(
     eval_every=3, test_x=data["test_x"], test_y=data["test_y"],
     device="cpu")
 assert st.sketch_round.shape == (4, 8) and hist[0][0] == 3
+from repro_torch.launch import roofline
+st, *_ = run_defta(0, mlp_task(32, 10), dataclasses.replace(
+                       cfg, secagg="pairwise", secagg_mode="masked_geom",
+                       dts_signal="all", dp_sigma=1.0),
+                   TrainConfig(batch_size=16), data, epochs=2,
+                   num_malicious=1, device="cpu")
+assert st.epoch.tolist() == [2] * 5 and roofline.dp_epsilon(1.0, 2) > 0
 from repro_torch.launch import serve
 tokens, _ = serve.main(["--arch", "deepseek-moe-16b", "--smoke", "--device",
                         "cpu", "--batch", "2", "--prompt-len", "4",
@@ -294,6 +325,9 @@ def test_port_sources_import_no_jax_or_repro():
               "examples/port_quickstart.py", "examples/port_serve_decode.py",
               "examples/port_robustness_demo.py",
               "benchmarks/port_cross_device.py",
+              "benchmarks/port_secagg.py",
+              "src/repro_torch/core/secagg.py",
+              "src/repro_torch/launch/roofline.py",
               "src/repro_torch/core/cross_device.py",
               "src/repro_torch/scenarios/cross_device.py"):
         assert ROOT / f in files, f

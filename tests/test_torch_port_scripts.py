@@ -104,3 +104,16 @@ def test_port_examples_run_on_the_cpu(capsys):
     assert tuple(out.shape) == (2, 2)
     text = capsys.readouterr().out
     assert "DeFTA   (+1 malicious)" in text and "tok/s on cpu" in text
+
+
+def test_port_secagg_runs_on_the_cpu(capsys):
+    """The privacy-wire bench on a cut run (2 epochs): its three contracts
+    hold and every run of it is recorded."""
+    bench = load("benchmarks/port_secagg.py", "port_secagg")
+    out = bench.bench(epochs=2, eval_every=1, device="cpu")
+    assert out["mask_bytes_ok"] and out["clean_ok"] and out["host_ok"]
+    assert out["runs"]["clean"]["chunks"] == 2
+    assert sorted(out["runs"]) == ["clean", "secagg", "secagg_dp"]
+    assert sorted(out["attacked"]) == ["edge", "masked_geom", "plain"]
+    assert sorted(out["dp_epsilon"]) == ["0.5", "1", "2"]
+    assert "contract clean parity" in capsys.readouterr().out

@@ -15,6 +15,7 @@ kernel ``auto`` picks). Worlds: 10 vanilla workers, MLP, 8 epochs.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -56,19 +57,52 @@ def world_data(num_workers=10):
                               alpha=0.5)
 
 
+@functools.partial(jax.jit, static_argnums=1)
+def _dp_sgd_normals(k_train, shapes):
+    w, e, steps = shapes[0][1][:3]
+
+    def step(sk):
+        lk = jax.random.split(sk, len(shapes))
+        return [jax.random.normal(k, shape[3:], jnp.float32)
+                for k, (_, shape) in zip(lk, shapes)]
+
+    def epoch(ek):
+        return jax.vmap(step)(jax.random.split(jax.random.split(ek)[1],
+                                               steps))
+
+    return jax.vmap(lambda k: jax.vmap(epoch)(jax.random.split(k, e)))(
+        jax.random.split(k_train, w))
+
+
+def replay_dp_sgd(k_train, shapes):
+    """DP-SGD's per-step gradient noise, leaf name -> [W, E, steps,
+    *leaf]: ``split(k_train, W)`` -> ``split(., E)`` -> ``split(ekey)[1]``
+    -> ``split(., steps)`` -> ``split(skey, n_leaves)``, one N(0, 1) per
+    leaf in sorted order (ref ``engine.local_train_fn``)."""
+    spec = tuple(sorted((nm, tuple(s)) for nm, s in shapes.items()))
+    out = _dp_sgd_normals(k_train, spec)
+    return {nm: torch.tensor(np.asarray(v))
+            for (nm, _), v in zip(spec, out)}
+
+
 class JaxScenarioDraws:
     """The reference's per-round draws under a scenario: ``JaxDraws``'s
-    layout with the stochastic wire's fifth key, the per-kind attack noise
-    and the wire's uniforms."""
+    layout with the stochastic wire's fifth key (and update DP's key after
+    it when ``dp_update``), the per-kind attack noise, the wire's uniforms
+    and the DP draws: DP-SGD's from ``k_train`` (``replay_dp_sgd``),
+    update DP's from ``split(k_dp, n_leaves)``."""
 
-    def __init__(self, key, stochastic: bool):
+    def __init__(self, key, stochastic: bool, dp_update: bool = False):
         self.key, self.stochastic, self.calls = key, stochastic, 0
+        self.dp_update = dp_update
 
     def __call__(self, w, local_epochs, n, noise_shapes, *, kind_noise=None,
-                 wire_shapes=None):
+                 wire_shapes=None, dp_sgd_shapes=None,
+                 dp_update_shapes=None):
         assert (wire_shapes is not None) == self.stochastic
         self.calls += 1
-        ks = jengine.split_round_keys(self.key, self.stochastic, False)
+        ks = jengine.split_round_keys(self.key, self.stochastic,
+                                      self.dp_update)
         self.key = ks["key"]
         gumbel = jax.vmap(lambda k: jax.random.gumbel(k, (w,)))(
             jax.random.split(ks["k_sample"], w))
@@ -86,6 +120,11 @@ class JaxScenarioDraws:
             d.wire_u = {nm: torch.tensor(np.asarray(jax.random.uniform(
                 k, wire_shapes[nm], jnp.float32)))
                 for nm, k in zip(names, keys)}
+        if dp_sgd_shapes is not None:
+            d.dp_sgd = replay_dp_sgd(ks["k_train"], dp_sgd_shapes)
+        if dp_update_shapes is not None:
+            d.dp_update = slice_helpers.replay_noise(ks["k_dp"],
+                                                     dp_update_shapes)
         return d
 
 
