@@ -88,7 +88,7 @@ def cd_run(enrolled, k, attacks, signal, *, rounds, device, avg_peers=4,
     state, _ = run_cross_device(
         0, task, cfg, TrainConfig(learning_rate=0.05, batch_size=32), data,
         world=world, epochs=rounds, eval_every=EVAL_EVERY,
-        test_x=data["test_x"], test_y=data["test_y"], ledger=led,
+        test_x=data["test_x"], test_y=data["test_y"], ledger=led, probes=False,
         device=device)
     m, s = evaluate_probe(task, state, data["test_x"], data["test_y"],
                           probe_indices(world, 32, seed=0))
@@ -172,7 +172,7 @@ def run_full(rounds, signal, wire, device):
     state, hist = run_cross_device(
         0, task, cfg, train, data, world=world, epochs=rounds,
         eval_every=chunk, test_x=data["test_x"], test_y=data["test_y"],
-        ledger=led, device=dev)
+        ledger=led, probes=False, device=dev)
     per_round = [1e3 * s / chunk for s in led.superstep_s]
     peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
         if dev.type == "cuda" else None

@@ -1,7 +1,7 @@
 """Where the PyTorch port's time goes, on one CUDA card.
 
     PYTHONPATH=src python benchmarks/port_profile.py \
-        [defta|trust|cross_device|privacy|serve] \
+        [defta|trust|cross_device|privacy|telemetry|serve] \
         [--epochs 3] [--table PATH]
 
 ``defta`` (the default) runs the Table 2 worlds of ``chip_smoke.py`` (MLP
@@ -32,6 +32,10 @@ DP (``dp_sigma`` 1, with and without secagg) and under DP-SGD (``dp_clip``
 under ``all`` plain and with secagg and update DP, per round; after each
 window one more round stage by stage, each stage under its own profiler,
 for the launches of ``transport``, ``local_train`` and ``dp_noise``.
+``telemetry`` runs the Table 2 and Table 3 worlds per epoch, async DeFTA
+per tick and the full-width cross-device world per round, each with the
+telemetry probes off and on in turn (off, on, on, off), for the probes'
+launches and ms (``profile_telemetry``).
 ``serve`` draws each served model at full size on the card in turn
 (random weights, seed 0) and runs, after a warm-up, two
 ``build_prefill_step`` calls at each of its two prefill shapes and 8
@@ -259,11 +263,12 @@ def stage_launches(stages, c) -> dict:
     return counts
 
 
-def cross_device_round(change, rounds):
+def cross_device_round(change, rounds, telemetry=None):
     """The full-width cross-device world under ``all`` with the config
-    ``change``, built as a round over a population on the card; returns
-    (round, [state], device data, world, run(ts)) after 3 warm-up rounds,
-    the world compiled for ``rounds`` + 2 more."""
+    ``change``, built as a round over a population on the card (with the
+    ``telemetry`` registry, if one is given); returns (round, [state],
+    device data, world, run(ts)) after 3 warm-up rounds, the world
+    compiled for ``rounds`` + 2 more."""
     sys.path.insert(0, str(ROOT / "benchmarks"))
     from port_cross_device import full_world
     from repro_torch.core.cross_device import initial_population
@@ -281,12 +286,14 @@ def cross_device_round(change, rounds):
     box = [initial_population(gen, task, cfg, world.enrolled, None)]
     rnd = build_cross_device_round(
         task, cfg, train, world, data["sizes"], draws=TorchDraws(gen),
-        device=dev, num_classes=int(np.max(data["y"])) + 1)
+        device=dev, num_classes=int(np.max(data["y"])) + 1,
+        telemetry=telemetry)
     tdata = to_device_data(data, dev)
 
     def run(ts):
         for t in ts:
-            box[0] = rnd(box[0], tdata, t)
+            out = rnd(box[0], tdata, t)
+            box[0] = out if telemetry is None else out[0]
     run(range(3))
     return rnd, box, tdata, world, run
 
@@ -326,6 +333,49 @@ def profile_cross_device(rounds, out) -> bool:
     for name, n in stage_launches(rnd.stages, c).items():
         print(f"  stage {name:14s} launches {n}")
     return ok
+
+
+def profile_telemetry(epochs, out):
+    """The telemetry windows, probes off, on, on, off in turn (a
+    ``RunLedger`` each; ``probes=False`` builds the round without a
+    registry): the Table 2 world (MLP fp32 ``auto``, 20 workers + 2 noise
+    attackers) and the Table 3 world (``paper_noise@40``, W = 60) per
+    epoch and async DeFTA in the Table 2 world per tick, each a whole run
+    after a warm-up run; then the full-width cross-device world under
+    ``all`` per round through ``engine.drive_epochs``, which writes each
+    round's frame into the chunk's buffers when the round carries a
+    registry."""
+    from repro_torch.core.engine import drive_epochs
+    from repro_torch.telemetry import RunLedger, Telemetry
+    task, cfg, train, data = world("mlp", "float32")
+    runs = (("table2 mlp fp32 auto", "epoch", STAGES,
+             lambda n, on: run_defta(0, task, cfg, train, data, epochs=n,
+                                     num_malicious=2, ledger=RunLedger(),
+                                     probes=on)),
+            ("table3 paper_noise@40", "epoch", SCENARIO_STAGES,
+             lambda n, on: run_defta(0, task, cfg, train, data, epochs=n,
+                                     scenario="paper_noise@40",
+                                     ledger=RunLedger(), probes=on)),
+            ("table2 async fp32 auto", "tick", STAGES,
+             lambda n, on: run_async_defta(0, task, cfg, train, data,
+                                           ticks=n, num_malicious=2,
+                                           ledger=RunLedger(), probes=on)))
+    for label, unit, stages, run in runs:
+        run(1, True)
+        for on in (False, True, True, False):
+            profile_window(f"{label} probes {'on' if on else 'off'}",
+                           lambda: run(epochs, on), epochs, unit, out,
+                           stages=stages)
+    for on in (False, True, True, False):
+        rnd, box, tdata, _, _ = cross_device_round(
+            {}, epochs, telemetry=Telemetry() if on else None)
+        profile_window(f"cross-device full world all probes "
+                       f"{'on' if on else 'off'}",
+                       lambda: drive_epochs(rnd, box[0], tdata, epochs,
+                                            ledger=RunLedger()),
+                       epochs, "round", out, stages=CROSS_DEVICE_STAGES)
+        del rnd, box
+        torch.cuda.empty_cache()
 
 
 def profile_privacy(epochs, out):
@@ -428,7 +478,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("path", nargs="?",
                     choices=("defta", "trust", "cross_device", "privacy",
-                             "serve"),
+                             "telemetry", "serve"),
                     default="defta")
     ap.add_argument("--epochs", type=int, default=3,
                     help="DeFTA and FedAvg epochs (async ticks) to profile")
@@ -452,6 +502,8 @@ def main() -> int:
                 return 1
         elif args.path == "privacy":
             profile_privacy(args.epochs, out)
+        elif args.path == "telemetry":
+            profile_telemetry(args.epochs, out)
         else:
             profile_defta(args.epochs, out)
     finally:

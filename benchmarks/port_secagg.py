@@ -82,7 +82,7 @@ def counted_run(task, cfg, train, data, epochs, eval_every, device,
             st, adj, mal, _ = run_defta(
                 0, task, cfg, train, data, epochs=epochs, scenario=scenario,
                 eval_every=eval_every, test_x=data["test_x"],
-                test_y=data["test_y"], ledger=led, device=dev)
+                test_y=data["test_y"], ledger=led, probes=False, device=dev)
             wall = time.perf_counter() - t0
         finally:
             if dev.type == "cuda":

@@ -149,6 +149,27 @@
    (phase 4's int8 limits, models within one quantization step) and the
    full-width cross-device secagg world, 6 rounds (within 1e-4, counters
    and stamps equal).
+4m. The telemetry plane and the launcher. Each gossip mix the launcher's
+   worlds run, against its plain version at their shapes (the dense mix
+   at W = 10, stream; the sparse and int8 mixes on ``paper_noise@40``'s
+   W = 60 topology; the dense mix at k = 64, tile). One chunk of the
+   Table 2 world under ``torch.cuda.set_sync_debug_mode("warn")``: no
+   more synchronisation warnings with probes than without. The Table 2
+   world (20 epochs), the Table 3 world (``paper_noise@40``, W = 60), the
+   [4c] full-width world under ``all`` (30 rounds) and async ``storm``
+   (20 ticks, a target), each with probes off, on, on, off (a ledger
+   each; ``probes=False`` builds the round without a registry): the
+   states equal bit for bit, the gossip launches equal, one row a round
+   per probe, ms a unit off and on side by side. Then
+   ``python -m repro_torch.launch.train`` in a subprocess for the CI's
+   smokes (scenario, cross-device, secagg, secagg cross-device,
+   telemetry), the README's Table 3 (``paper_noise@40``, 50 epochs) and
+   async ``storm`` (median) commands and the Table 3 world on the int8
+   wire, each with ``--telemetry`` (one also with ``--profile``): exit 0
+   (``--assert-acc`` met), the gossip launches by regime it must make,
+   a ledger of manifest, one row per epoch or tick run and summary, and
+   ``benchmarks/render_experiments.py --telemetry-panel`` rendering it;
+   the profiled run leaves a Chrome trace with the stages' ranges.
 5. Serving end to end: DeepSeekMoE-16B at full width and depth (28 layers,
    64 routed experts top-6 + 2 shared, bf16, random weights from a seed)
    initialised on the card; ``build_prefill_step`` at B=4, S=512 and at
@@ -1328,7 +1349,8 @@ def end_to_end():
         st, _, _, hist = run_defta(0, task, cfg, train, data, epochs=epochs,
                                    num_malicious=2, gossip_backend=backend,
                                    eval_every=5, test_x=data["test_x"],
-                                   test_y=data["test_y"], ledger=led)
+                                   test_y=data["test_y"], ledger=led,
+                                   probes=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(ops.LAUNCHES)
@@ -1366,7 +1388,7 @@ def fedavg_end_to_end():
         st, hist = run_fedavg(0, task, cfg, train, data, epochs=epochs,
                               num_malicious=2, eval_every=5,
                               test_x=data["test_x"], test_y=data["test_y"],
-                              ledger=led, **kw)
+                              ledger=led, probes=False, **kw)
         torch.cuda.synchronize()
         counts = dict(ops.LAUNCHES)
         dev = st.server["w1"].device
@@ -1390,7 +1412,7 @@ def fedavg_end_to_end():
     led = RunLedger()
     st, hist = run_fedavg(0, task, cfg, train, data, epochs=epochs,
                           eval_every=epochs, test_x=data["test_x"],
-                          test_y=data["test_y"], ledger=led)
+                          test_y=data["test_y"], ledger=led, probes=False)
     print(f"  fedavg cfl-f, no attacker: per_epoch_ms="
           f"{1e3 * led.wall_s / epochs:.2f} server_acc={hist[-1][1]:.4f}")
     if not hist[-1][1] > 0.3:
@@ -1421,7 +1443,7 @@ def async_end_to_end(launches):
         st, _, mal, _ = run_async_defta(0, task, cfg, train, data,
                                         num_malicious=2,
                                         gossip_backend=backend, ledger=led,
-                                        **kw)
+                                        probes=False, **kw)
         torch.cuda.synchronize()
         counts = dict(ops.LAUNCHES)
         ran = led.rounds_done
@@ -1499,7 +1521,7 @@ def scenario_end_to_end(launches):
             st, _, mal, hist = run_defta(0, task, c, train, data,
                                          epochs=epochs, eval_every=epochs,
                                          test_x=tx, test_y=ty, ledger=led,
-                                         **kw)
+                                         probes=False, **kw)
             return st, mal, hist, led
         (st, mal, hist, led), counts = run_counted(
             label, kernel, lambda led: led.rounds_done, go, regime)
@@ -1567,7 +1589,8 @@ def scenario_end_to_end(launches):
         led = RunLedger()
         st, _, mal, _ = run_async_defta(0, task, cfg, train, data, ticks=40,
                                         target_epochs=4, check_every=4,
-                                        scenario="storm", ledger=led)
+                                        scenario="storm", ledger=led,
+                                        probes=False)
         return st, mal, led
     (st, mal, led), counts = run_counted(
         "async storm target 4", "gossip_mix_sparse",
@@ -1696,7 +1719,7 @@ def trust_end_to_end(launches):
             st, adj, mal, hist = run_defta(
                 0, task, cfg, train, data, epochs=epochs, scenario=spec,
                 eval_every=epochs, test_x=data["test_x"],
-                test_y=data["test_y"], ledger=led, **kw)
+                test_y=data["test_y"], ledger=led, probes=False, **kw)
             return st, adj, mal, hist, led
         (st, adj, mal, hist, led), counts = run_counted(
             label, kernel, lambda led: led.rounds_done, go, regime)
@@ -1760,7 +1783,8 @@ def trust_end_to_end(launches):
         led = RunLedger()
         st, _, mal, _ = run_async_defta(
             0, t3_task, dataclasses.replace(t3_cfg, dts_sketch_rounds=24),
-            t3_train, t3_data, ticks=20, scenario="storm", ledger=led)
+            t3_train, t3_data, ticks=20, scenario="storm", ledger=led,
+            probes=False)
         return st, mal, led
     (st, mal, led), counts = run_counted(
         "async storm all", "gossip_mix_sparse", lambda led: led.rounds_done,
@@ -1989,7 +2013,7 @@ def cross_device_end_to_end(launches):
         st, hist = run_cross_device(
             0, task, cfg, train, data, world=world, epochs=CD_ROUNDS,
             eval_every=10, test_x=data["test_x"], test_y=data["test_y"],
-            ledger=led, init=init, draws=None)
+            ledger=led, probes=False, init=init, draws=None)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 1e9
         counts, regimes = dict(ops.LAUNCHES), dict(ops.REGIMES)
@@ -2056,7 +2080,7 @@ def cross_device_small_world(launches):
         0, mlp_task(32, 10), cfg,
         TrainConfig(learning_rate=0.05, batch_size=32), data, world=spec,
         epochs=CD_ROUNDS, eval_every=CD_ROUNDS, test_x=data["test_x"],
-        test_y=data["test_y"], ledger=led)
+        test_y=data["test_y"], ledger=led, probes=False)
     torch.cuda.synchronize()
     counts, regimes = dict(ops.LAUNCHES), dict(ops.REGIMES)
     n = CD_LEAVES * CD_ROUNDS
@@ -2318,7 +2342,7 @@ def privacy_end_to_end(launches):
                                         eval_every=chunk,
                                         test_x=data["test_x"],
                                         test_y=data["test_y"], ledger=led,
-                                        **kw)
+                                        probes=False, **kw)
             return st, adj, mal, led
         return go
 
@@ -2368,7 +2392,7 @@ def privacy_end_to_end(launches):
             0, task, dataclasses.replace(cfg, secagg="pairwise",
                                          dp_sigma=1.0),
             train, data, ticks=epochs, check_every=chunk, target_epochs=999,
-            scenario="storm", ledger=led)
+            scenario="storm", ledger=led, probes=False)
         return st, mal, led
     privacy_defta_run("async storm secagg + update dp", None, go_async,
                       launches)
@@ -2411,7 +2435,7 @@ def privacy_cross_device(launches):
                 0, task, cfg, train, data, world=world,
                 epochs=PRIVACY_ROUNDS, eval_every=PRIVACY_ROUNDS // 4,
                 test_x=data["test_x"], test_y=data["test_y"], ledger=led,
-                init=init)
+                probes=False, init=init)
             return st, led
         (st, _), ms = privacy_defta_run(f"cross-device all {label}", kernel,
                                         go, launches, base_ms=base)
@@ -2522,6 +2546,363 @@ def privacy_card_vs_cpu():
         fail(f"4p cross-device secagg card run disagrees with the CPU run "
              f"(errors {errs}, counters and stamps equal {exact}, sketch "
              f"entries differing {differ})")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4m: the telemetry plane and the launcher
+# ---------------------------------------------------------------------------
+
+def flat_fields(fields: dict) -> dict:
+    """A state's numpy fields flattened to ``{"field" or "field.leaf":
+    array}`` (None fields left out)."""
+    out = {}
+    for f, v in fields.items():
+        if isinstance(v, dict):
+            out.update({f"{f}.{k}": x for k, x in v.items()})
+        elif v is not None:
+            out[f] = v
+    return out
+
+
+def state_gap(a: dict, b: dict) -> float:
+    """Largest absolute difference between two flattened states (0.0 when
+    equal bit for bit; inf when their fields or shapes differ)."""
+    fa, fb = flat_fields(a), flat_fields(b)
+    if fa.keys() != fb.keys() or any(fa[k].shape != fb[k].shape
+                                     for k in fa):
+        return float("inf")
+    gaps = [0.0 if np.array_equal(fa[k], fb[k], equal_nan=True)
+            else float(np.abs(fa[k].astype(np.float64)
+                              - fb[k].astype(np.float64)).max())
+            for k in fa]
+    return max(gaps)
+
+
+def telemetry_worlds(cache):
+    """The [4m] parity and cost worlds, each ``run(on) -> (state fields,
+    ledger, units, unit)``: the Table 2 world (MLP fp32 ``auto``, 20
+    epochs, eval every 5), the Table 3 world (``paper_noise@40``, W = 60,
+    20 epochs, eval every 5), the [4c] full-width cross-device world
+    under ``all`` (30 rounds, eval every 10) and async ``storm`` in the
+    Table 2 world (20 ticks, a target of 4 epochs checked every 4)."""
+    from repro_torch.convert import (cross_device_state_to_numpy,
+                                     state_to_numpy)
+    from repro_torch.core.async_defta import run_async_defta
+    from repro_torch.core.cross_device import run_cross_device
+    from repro_torch.core.defta import run_defta
+    from repro_torch.scenarios import compile_world
+    from repro_torch.telemetry import RunLedger
+
+    data, task, cfg, train = table2_world()
+    tx, ty = data["test_x"], data["test_y"]
+    cd_task, cd_cfg, cd_train, cd_data, spec = cross_device_world(cache)
+    cd_cfg = dataclasses.replace(cd_cfg, dts_signal="all")
+    world = compile_world(spec, CD_ROUNDS)
+
+    def table2(on):
+        led = RunLedger()
+        st, *_ = run_defta(0, task, cfg, train, data, epochs=20,
+                           num_malicious=2, eval_every=5, test_x=tx,
+                           test_y=ty, ledger=led, probes=on)
+        return state_to_numpy(st), led, 20, "epoch"
+
+    def table3(on):
+        led = RunLedger()
+        st, *_ = run_defta(0, task, cfg, train, data, epochs=20,
+                           scenario="paper_noise@40", eval_every=5,
+                           test_x=tx, test_y=ty, ledger=led, probes=on)
+        return state_to_numpy(st), led, 20, "epoch"
+
+    def cross_device(on):
+        led = RunLedger()
+        st, _ = run_cross_device(0, cd_task, cd_cfg, cd_train, cd_data,
+                                 world=world, epochs=CD_ROUNDS,
+                                 eval_every=10, test_x=cd_data["test_x"],
+                                 test_y=cd_data["test_y"], ledger=led,
+                                 probes=on)
+        return cross_device_state_to_numpy(st), led, CD_ROUNDS, "round"
+
+    def storm_async(on):
+        led = RunLedger()
+        st, *_ = run_async_defta(0, task, cfg, train, data, ticks=20,
+                                 target_epochs=4, check_every=4,
+                                 scenario="storm", ledger=led, probes=on)
+        return state_to_numpy(st), led, led.rounds_done, "tick"
+
+    # storm appends 3 attackers to the 20 workers: W = 23 at density
+    # 0.22, the sparse mix
+    return (("table2", table2, "gossip_mix_sparse"),
+            ("table3", table3, "gossip_mix_sparse"),
+            ("cross_device", cross_device, "gossip_mix"),
+            ("storm_async", storm_async, "gossip_mix_sparse"))
+
+
+def telemetry_parity_and_cost(launches, cache):
+    """Each [4m] world four times, probes off, on, on, off (one process,
+    one seed): the states with probes on equal those with probes off bit
+    for bit, the gossip launch counts are equal, every probe has one row
+    a round, and the ms a unit with and without probes (the median over
+    the eval chunks of the two runs of each) are printed side by side.
+    The launches of the runs with probes on are added to ``launches``."""
+    from repro_torch.kernels import ops
+    out = {}
+    for name, run, kernel in telemetry_worlds(cache):
+        res = []
+        for on in (False, True, True, False):
+            ops.reset_launches()
+            fields, led, units, unit = run(on)
+            torch.cuda.synchronize()
+            res.append((on, fields, led, units, dict(ops.LAUNCHES),
+                        dict(ops.REGIMES)))
+        offs = [r for r in res if not r[0]]
+        ons = [r for r in res if r[0]]
+        gap = max(state_gap(a[1], b[1]) for a, b in zip(offs, ons))
+        same_launches = all(a[4] == b[4] and a[5] == b[5]
+                            for a, b in zip(offs, ons))
+        led_on = ons[0][2]
+        rows = {n: led_on.series(n).shape[0] for n in led_on.names()}
+        units = ons[0][3]
+
+        def ms(rs):
+            per = [1e3 * s / n for r in rs
+                   for s, n in zip(r[2].superstep_s, chunk_sizes(r[2]))]
+            return statistics.median(per)
+        ms_off, ms_on = ms(offs), ms(ons)
+        out[name] = (ms_off, ms_on)
+        print(f"  4m {name:12s} state gap on vs off {gap:.3e} launches "
+              f"{ons[0][4][kernel]} equal={same_launches} regimes "
+              f"{ons[0][5]} probes {len(rows)} rows/probe "
+              f"{sorted(set(rows.values()))} ms/{unit} off "
+              f"{ms_off:.3f} on {ms_on:.3f} ({ms_on / ms_off - 1:+.2%})",
+              flush=True)
+        if gap != 0.0:
+            fail(f"4m {name}: the state with probes on differs from the "
+                 f"state with probes off by {gap:.3e}")
+        if not same_launches:
+            fail(f"4m {name}: launches differ with probes on and off")
+        if not rows or set(rows.values()) != {units}:
+            fail(f"4m {name}: probe rows {rows}, expected {units} each")
+        if not ons[0][4][kernel] or sum(ons[0][4].values()) != \
+                ons[0][4][kernel]:
+            fail(f"4m {name}: launches {ons[0][4]}, expected {kernel} "
+                 f"only")
+        for r in ons:
+            launches[kernel] += r[4][kernel]
+    return out
+
+
+def chunk_sizes(led):
+    """The rounds of each chunk a ledger recorded: ``rounds_done`` over
+    the chunks, all of one size but the last."""
+    n, k = led.rounds_done, len(led.superstep_s)
+    size = -(-n // k)
+    return [size] * (k - 1) + [n - size * (k - 1)]
+
+
+def telemetry_no_sync():
+    """One chunk of the Table 2 world (5 epochs, no eval) with probes off
+    and on under ``torch.cuda.set_sync_debug_mode("warn")``: the run with
+    probes must warn of no more host synchronisations than the run
+    without (the frames reach the host by asynchronous copies into pinned
+    memory before the chunk's own synchronize)."""
+    import warnings
+
+    from repro_torch.core.defta import run_defta
+    from repro_torch.telemetry import RunLedger
+    data, task, cfg, train = table2_world()
+    counts = {}
+    for on in (False, True, False, True):
+        led = RunLedger()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run_defta(0, task, cfg, train, data, epochs=5,
+                          num_malicious=2, ledger=led, probes=on)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts[on] = sum("synchroniz" in str(w.message).lower()
+                         for w in rec)
+    print(f"  4m sync warnings in one chunk (Table 2, 5 epochs): probes "
+          f"off {counts[False]}, on {counts[True]}", flush=True)
+    if counts[True] > counts[False]:
+        fail(f"4m: probes add host synchronisations ({counts})")
+
+
+def launcher_mix_world(w: int, adj, seed: int, dev):
+    """P on a launcher world's topology as a round builds it (about half
+    the peers sampled, self-loops, row-stochastic) and its padded CSR."""
+    from repro_torch.core.gossip import sparse_weights
+    rng = np.random.default_rng(seed)
+    keep = (adj & (rng.random((w, w)) < 0.5)) | np.eye(w, dtype=bool)
+    P = keep * rng.uniform(0.5, 1.5, (w, w))
+    P = torch.tensor(P / P.sum(1, keepdims=True), dtype=torch.float32,
+                     device=dev)
+    idx, val = sparse_weights(P, adj)
+    return P, idx, val.contiguous()
+
+
+def check_launcher_mixes(dev):
+    """Each gossip mix that the launcher's worlds run, against its plain
+    version at their shapes on the MLP's leaves (F = 2048, 640, 64, 10):
+    the scenario worlds' dense mix at W = 10 (``churn_signflip`` on 8
+    vanilla workers, avg_peers 4: density 0.5, the stream regime) on fp32
+    and int8 rows, the sparse and int8 mixes at W = 60 (``paper_noise@40``
+    on 20, density 0.083, its topology's padded CSR), the dense mix at
+    k = 64 (the cross-device cohort: the tile regime). Limit 1e-5 (1 +
+    max|plain|); each call launches once, in its regime."""
+    from repro_torch.core.topology import make_topology
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    worlds = (("churn_signflip", 10, make_topology("random_kout", 10, 4, 0),
+               ("float32", "int8"), ("gossip_mix",)),
+              ("paper_noise@40", 60, make_topology("random_kout", 60, 4, 0),
+               ("float32", "int8"), ("gossip_mix_sparse",
+                                     "gossip_mix_quant")),
+              ("cohort k=64", 64, np.ones((64, 64), bool), ("float32",),
+               ("gossip_mix",)))
+    for tag, w, adj, dtypes, names in worlds:
+        for f in (2048, 640, 64, 10):
+            P, idx, val = launcher_mix_world(w, adj, seed=w + f, dev=dev)
+            for dtype in dtypes:
+                x, scale = payload(gen, w, f, dtype)
+                calls = kernel_calls(ops, ref, P, idx, val, x, scale)
+                for name in (n for n in names if n in calls):
+                    kern, plain = calls[name]
+                    regimes = dict(ops.REGIMES)
+                    got = kern()
+                    torch.cuda.synchronize()
+                    want = plain()
+                    launched = {k: v - regimes.get(k, 0)
+                                for k, v in ops.REGIMES.items()
+                                if v != regimes.get(k, 0)}
+                    regime = expected_regime(ops, name, w, tag)
+                    err = float((got - want).abs().max())
+                    tol = 1e-5 * (1.0 + float(want.abs().max()))
+                    print(f"  4m check {name:18s} {tag:14s} W={w:3d} "
+                          f"F={f:5d} {dtype:8s} max_abs_err={err:.3e} "
+                          f"{regime}")
+                    if launched != {regime: 1} or not err <= tol:
+                        fail(f"4m {name} at {tag} F={f} {dtype}: error "
+                             f"{err} (limit {tol}), launches {launched}")
+
+
+# (label, launcher arguments, the gossip launches by regime it must make,
+# whether its rows count epochs or ticks): the CI's smokes
+# (.github/workflows/ci.yml), the README's Table 3 and storm commands, and
+# the Table 3 world on the int8 wire (the quant mix and ``ef_norm``); every
+# run streams its ledger, one of them under --profile
+LAUNCHER_RUNS = (
+    ("ci scenario", ["--scenario", "churn_signflip", "--sim-epochs", "16",
+                     "--assert-acc", "0.3"], {"gossip_mix/stream": 64}),
+    ("ci cross-device", ["--cross-device", "--enrolled", "10000",
+                         "--sample-k", "64", "--sim-epochs", "6",
+                         "--cd-attacks", "label_flip:0.15,alie:0.14",
+                         "--dts-signal", "all", "--max-staleness", "6"],
+     {"gossip_mix/tile": 24}),
+    ("ci secagg", ["--scenario", "churn_signflip", "--sim-epochs", "16",
+                   "--secagg", "--gossip-wire", "int8", "--assert-acc",
+                   "0.3"], {}),
+    ("ci secagg cross-device", ["--cross-device", "--enrolled", "40",
+                                "--sample-k", "8", "--sim-epochs", "8",
+                                "--secagg", "--dp-sigma", "0.5",
+                                "--gossip-wire", "int8"], {}),
+    ("ci telemetry", ["--scenario", "churn_signflip", "--sim-epochs", "8"],
+     {"gossip_mix/stream": 32}),
+    ("readme table3", ["--scenario", "paper_noise@40", "--sim-workers",
+                       "20", "--sim-epochs", "50"],
+     {"gossip_mix_sparse/slices": 200}),
+    ("readme storm async", ["--scenario", "storm", "--async-ticks", "40",
+                            "--aggregation", "median"], {}),
+    ("table3 int8 wire", ["--scenario", "paper_noise@40", "--sim-workers",
+                          "20", "--sim-epochs", "20", "--gossip-wire",
+                          "int8"], {"gossip_mix_quant/slices": 80}),
+)
+PROFILED = "ci telemetry"
+
+
+def launcher_runs(launches):
+    """Each ``LAUNCHER_RUNS`` command through ``python -m
+    repro_torch.launch.train`` in a subprocess, with ``--telemetry``: it
+    must exit 0 (its ``--assert-acc`` met), launch exactly the gossip
+    kernels in the regimes it should, and leave a JSONL ledger of a
+    manifest, one round row per epoch or tick run (stamps 0 .. n - 1, as
+    many as the summary counts) and a summary, which
+    ``benchmarks/render_experiments.py --telemetry-panel`` renders with a
+    row per round shown. ``PROFILED`` also runs under ``--profile`` and
+    must leave a Chrome trace with the round's stage ranges. The runs'
+    launches are added to ``launches``."""
+    import os
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, argv, want in LAUNCHER_RUNS:
+            ledger = Path(tmp) / (label.replace(" ", "_") + ".jsonl")
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", *argv,
+                   "--telemetry", str(ledger)]
+            trace_dir = Path(tmp) / "profile"
+            if label == PROFILED:
+                cmd += ["--profile", str(trace_dir)]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                               text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            lines = r.stdout.strip().splitlines()
+            if r.returncode != 0:
+                print("\n".join(lines[-8:]) + "\n" + r.stderr[-3000:])
+                fail(f"4m launcher {label}: exit {r.returncode}")
+            final = [ln for ln in lines if ln.startswith("final ")]
+            counted = json.loads(lines[-1].split(": ", 1)[1])
+            regimes = counted["regimes"]
+            rows = [json.loads(ln) for ln in ledger.read_text().splitlines()]
+            body = [x for x in rows if x["type"] == "round"]
+            print(f"  4m launcher {label:22s} {wall:6.1f}s {final[0][:120]} "
+                  f"regimes {regimes} rows {len(body)}", flush=True)
+            if regimes != want:
+                fail(f"4m launcher {label}: regimes {regimes}, expected "
+                     f"{want}")
+            summary = rows[-1]
+            if rows[0]["type"] != "manifest" or summary["type"] != \
+                    "summary" or [x["t"] for x in body] != list(
+                        range(summary["rounds_recorded"])) or not body:
+                fail(f"4m launcher {label}: ledger rows malformed "
+                     f"({len(rows)} rows, summary {summary})")
+            panel = subprocess.run(
+                [sys.executable, "benchmarks/render_experiments.py",
+                 "--telemetry-panel", str(ledger)], cwd=ROOT, env=env,
+                capture_output=True, text=True, timeout=120)
+            table = [ln for ln in panel.stdout.splitlines()
+                     if ln.startswith("| ")]
+            if panel.returncode != 0 or len(table) < 1 + min(len(body), 32):
+                fail(f"4m launcher {label}: the panel rendered "
+                     f"{len(table)} table lines (exit {panel.returncode})")
+            if label == PROFILED:
+                trace = trace_dir / "trace.json"
+                names = {e.get("name") for e in json.loads(
+                    trace.read_text())["traceEvents"]}
+                print(f"  4m --profile trace {trace.stat().st_size} bytes, "
+                      f"{len(names)} event names; panel:\n    "
+                      + "\n    ".join(panel.stdout.splitlines()[:6]))
+                if not {"transport", "trust_update"} <= names:
+                    fail("4m --profile: no stage ranges in the trace")
+            others = {k: n for k, n in counted["launches"].items()
+                      if n and k not in GOSSIP}
+            if others:
+                fail(f"4m launcher {label}: launched {others}")
+            for name in GOSSIP:
+                launches[name] += counted["launches"][name]
+
+
+def telemetry_end_to_end(launches):
+    """Phase 4m on the card; the phase's launches are added to
+    ``launches``."""
+    check_launcher_mixes(torch.device("cuda"))
+    telemetry_no_sync()
+    cost = telemetry_parity_and_cost(launches, {})
+    launcher_runs(launches)
+    return cost
 
 
 # ---------------------------------------------------------------------------
@@ -2864,6 +3245,9 @@ def main() -> int:
 
     print("[4p] the privacy wire end to end", flush=True)
     privacy_end_to_end(launches)
+
+    print("[4m] telemetry and the launcher", flush=True)
+    telemetry_end_to_end(launches)
 
     print("[5] serving end to end", flush=True)
     launches.update(serve_full(dev))

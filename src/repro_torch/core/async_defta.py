@@ -28,8 +28,8 @@ import torch
 
 from repro_torch.config import DeFTAConfig, TrainConfig
 from repro_torch.core.defta import (attacker_world, check_world,
-                                    initial_state, scenario_world,
-                                    to_device_data)
+                                    initial_state, registry,
+                                    scenario_world, to_device_data)
 from repro_torch.core.engine import (DeFTAState, build_defta_round,
                                      build_fire_gated_tick, drive_ticks)
 from repro_torch.core.tasks import Task
@@ -45,7 +45,8 @@ def run_async_defta(seed: int, task: Task, cfg: DeFTAConfig,
                     num_malicious: int = 0, scenario=None,
                     speed_range=(0.3, 1.0), target_epochs: int = 0,
                     check_every: int = 0, host_exit: bool = False,
-                    ledger=None, shards: Optional[int] = None, device=None,
+                    ledger=None, probes: bool = True,
+                    shards: Optional[int] = None, device=None,
                     gossip_backend: str = "auto",
                     init: Optional[DeFTAState] = None, draws=None,
                     tick_draws=None):
@@ -74,6 +75,12 @@ def run_async_defta(seed: int, task: Task, cfg: DeFTAConfig,
     fire opportunities reach it are waited for (all vanilla workers if none
     can). ``shards`` is a later item of the port and raises
     ``NotImplementedError``.
+
+    ``ledger`` (a ``telemetry.RunLedger``) receives each chunk's ticks and
+    wall seconds and, as in the reference, every tick's frame: the round's
+    ``defta_specs`` with ``fired`` last, one row for each tick that ran
+    (an early exit leaves exactly those). ``probes=False`` keeps the
+    accounting without the probes.
     """
     del host_exit
     dev = resolve_device(device)
@@ -92,7 +99,8 @@ def run_async_defta(seed: int, task: Task, cfg: DeFTAConfig,
     rnd_fn = build_defta_round(task, cfg, train, adj, sizes, malicious,
                                draws=draws or TorchDraws(gen), device=dev,
                                gossip_backend=gossip_backend,
-                               scenario=scenario, num_classes=num_classes)
+                               scenario=scenario, num_classes=num_classes,
+                               telemetry=registry(ledger, probes))
     tick = build_fire_gated_tick(rnd_fn, to_device_data(data, dev),
                                  torch.as_tensor(speeds).to(dev), w,
                                  draws=tick_draws or TorchTickDraws(gen))

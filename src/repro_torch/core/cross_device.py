@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import DeFTAConfig, TrainConfig
-from repro_torch.core.defta import check_world, to_device_data
+from repro_torch.core.defta import check_world, registry, to_device_data
 from repro_torch.core.engine import (CrossDeviceState,
                                      build_cross_device_round, drive_epochs,
                                      init_cross_device_state, sketch_shape)
@@ -109,7 +109,8 @@ def run_cross_device(seed: int, task: Task, cfg: DeFTAConfig,
                      train: TrainConfig, data, *, world, epochs: int,
                      gossip_backend: str = "auto", eval_every: int = 0,
                      test_x=None, test_y=None, probe: int = 32,
-                     ledger=None, shards: Optional[int] = None, device=None,
+                     ledger=None, probes: bool = True,
+                     shards: Optional[int] = None, device=None,
                      init: Optional[CrossDeviceState] = None, draws=None):
     """Train a cross-device world for ``epochs`` global rounds.
 
@@ -124,7 +125,10 @@ def run_cross_device(seed: int, task: Task, cfg: DeFTAConfig,
     raises without one; ``device="cpu"`` runs the kernels' plain
     versions. ``gossip_backend="auto"`` runs the dense mix on the cohort
     block. ``ledger`` (a ``telemetry.RunLedger``) receives the per-chunk
-    round counts and wall seconds; ``shards`` is a later item of the port
+    round counts and wall seconds and, as in the reference, every round's
+    ``cross_device_specs`` frame (the round is built with a
+    ``telemetry.Telemetry`` registry); ``probes=False`` keeps the
+    accounting without the probes. ``shards`` is a later item of the port
     and raises ``NotImplementedError``.
 
     Returns ``(state, history)`` with history entries ``(done_rounds,
@@ -144,7 +148,8 @@ def run_cross_device(seed: int, task: Task, cfg: DeFTAConfig,
     rnd = build_cross_device_round(task, cfg, train, world, data["sizes"],
                                    draws=draws or TorchDraws(gen),
                                    device=dev, gossip_backend=gossip_backend,
-                                   num_classes=num_classes)
+                                   num_classes=num_classes,
+                                   telemetry=registry(ledger, probes))
     tdata = to_device_data(data, dev)
 
     eval_fn = None

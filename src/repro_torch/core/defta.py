@@ -28,6 +28,7 @@ from repro_torch.rng import TorchDraws
 from repro_torch.scenarios.compile import (CompiledScenario,
                                            compile_scenario, to_device)
 from repro_torch.scenarios.spec import ScenarioSpec, get_scenario
+from repro_torch.telemetry.spec import Telemetry
 
 __all__ = ["DeFTAState", "evaluate", "global_model", "resolve_scenario",
            "run_defta"]
@@ -124,6 +125,13 @@ def scenario_world(scenario, num_malicious: int, cfg: DeFTAConfig, data,
             int(np.max(data["y"])) + 1)
 
 
+def registry(ledger, probes: bool):
+    """The round's telemetry registry: a fresh one whenever a ledger is
+    given (as the reference's drivers build one), unless ``probes`` is
+    False (a ledger that keeps only the chunk accounting)."""
+    return Telemetry() if ledger is not None and probes else None
+
+
 def check_world(shards) -> None:
     """Refuse the parts of a DeFTA world this port does not carry yet."""
     if shards is not None and shards > 1:
@@ -154,7 +162,7 @@ def initial_state(gen: torch.Generator, task: Task, cfg: DeFTAConfig,
 def run_defta(seed: int, task: Task, cfg: DeFTAConfig, train: TrainConfig,
               data, *, epochs: int, num_malicious: int = 0, scenario=None,
               gossip_backend: str = "auto", eval_every: int = 0,
-              test_x=None, test_y=None, ledger=None,
+              test_x=None, test_y=None, ledger=None, probes: bool = True,
               shards: Optional[int] = None, device=None,
               init: Optional[DeFTAState] = None, draws=None):
     """End-to-end driver. Malicious workers are appended after the vanilla
@@ -171,7 +179,12 @@ def run_defta(seed: int, task: Task, cfg: DeFTAConfig, train: TrainConfig,
     ``eval_every`` with ``test_x``/``test_y`` evaluates every that many
     epochs into the returned history as ``(done, mean, std)``. ``ledger``
     (a ``telemetry.RunLedger``) receives the per-chunk round counts and wall
-    seconds (the reference's ``stats`` dict is ``ledger.as_stats()``).
+    seconds (the reference's ``stats`` dict is ``ledger.as_stats()``) and,
+    as in the reference, the round is then built with a
+    ``telemetry.Telemetry`` registry: every round's ``defta_specs`` frame
+    lands in the ledger (``ledger.series(name)``; one JSONL row a round
+    when it has a sink). ``probes=False`` keeps the ledger's accounting
+    and builds the round without probes (a probe-free timing run).
     ``scenario`` (a ``ScenarioSpec``, a ``CompiledScenario`` or a preset
     name: ``paper_noise@K``, ``churn_signflip``, ``storm``) replaces
     ``num_malicious`` with a full event timeline: its attackers are
@@ -194,7 +207,8 @@ def run_defta(seed: int, task: Task, cfg: DeFTAConfig, train: TrainConfig,
     rnd_fn = build_defta_round(task, cfg, train, adj, sizes, malicious,
                                draws=draws or TorchDraws(gen), device=dev,
                                gossip_backend=gossip_backend,
-                               scenario=scenario, num_classes=num_classes)
+                               scenario=scenario, num_classes=num_classes,
+                               telemetry=registry(ledger, probes))
     tdata = to_device_data(data, dev)
 
     eval_fn = None

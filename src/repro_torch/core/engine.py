@@ -36,6 +36,13 @@ of an enrolled population:
 ``drive_epochs`` runs rounds and ``drive_ticks`` runs ticks in a Python
 loop, with per-chunk wall time.
 
+Each builder takes ``telemetry=`` (a ``telemetry.Telemetry`` registry):
+its stages then emit the reference's probes (``telemetry.spec``; read-only
+observations of values the stages computed) and the round returns
+``(state, frame)``. The drivers write the frames into preallocated device
+buffers and hand them to the ``RunLedger`` once a chunk. Without a
+registry no probe operation runs.
+
 The trust update carries every DTS signal: the paper's loss delta, update
 geometry (v2) and the cross-round sketch correlation (v3), whose ring
 buffer rides in ``DeFTAState.sketch`` and is merged by ``fire`` and by the
@@ -46,7 +53,7 @@ ring buffer does not rotate.
 
 ``check_supported`` raises the reference's ``ValueError`` for a config the
 reference rejects, then ``NotImplementedError`` for what the port does not
-carry yet: telemetry and sharded workers.
+carry yet: sharded workers.
 """
 from __future__ import annotations
 
@@ -69,6 +76,10 @@ from repro_torch.scenarios.attacks import (LABEL_FLIP_CODE, RANDOM_ATTACKS,
 from repro_torch.scenarios.compile import epoch_view
 from repro_torch.scenarios.robust_agg import ROBUST_RULES, robust_mix
 from repro_torch.telemetry.ledger import RunLedger
+from repro_torch.telemetry.spec import (cross_device_specs, defta_specs,
+                                        fedavg_specs, gather_frames,
+                                        stacked_payload_bytes, tick_specs,
+                                        tree_payload_bytes)
 
 
 def _not_ported(what: str, item: str):
@@ -102,8 +113,7 @@ def sketch_shape(cfg: DeFTAConfig):
     return None
 
 
-def check_supported(cfg: DeFTAConfig, *, telemetry=None,
-                    shard=None) -> None:
+def check_supported(cfg: DeFTAConfig, *, shard=None) -> None:
     """Raise the reference's ``ValueError`` for a config it rejects (an
     unknown trust signal, secure-aggregation scheme or mode, secure
     aggregation under a robust rule), then ``NotImplementedError`` for any
@@ -124,8 +134,6 @@ def check_supported(cfg: DeFTAConfig, *, telemetry=None,
             f"secagg composes with the weighted gossip mix only — robust "
             f"rules ({cfg.aggregation!r}) inspect individual plaintext "
             f"models, which is exactly what the masked wire denies them")
-    if telemetry is not None:
-        _not_ported("telemetry", "item 6: telemetry")
     if shard is not None:
         _not_ported("sharded workers", "item 7: multi-device transports")
 
@@ -361,8 +369,13 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
     attack zoo and merges by ``fire``; ``epoch`` must be given. Without it
     the round is the static one, with the paper's noise attack on
     ``malicious`` workers. ``num_classes`` is needed by a ``label_flip``
-    scenario (the flip is ``y -> C-1-y``)."""
-    check_supported(cfg, telemetry=telemetry, shard=shard)
+    scenario (the flip is ``y -> C-1-y``).
+
+    ``telemetry``: a ``telemetry.Telemetry`` registry. The round declares
+    ``defta_specs`` into it, its stages emit them, and it returns
+    ``(state, frame)``; ``round.telemetry`` is the registry (None without
+    one, and then no probe operation runs)."""
+    check_supported(cfg, shard=shard)
     channels = resolve_dts_signal(cfg)
     corr = "corr" in channels
     dev = torch.device(device)
@@ -410,6 +423,11 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
                                adjacency=support, robust=robust)
     use_ef = transport.use_ef
     regen = scenario is not None and scenario.adj_seg is not None
+    if telemetry is not None:
+        telemetry.declare(*defta_specs(w, scenario=scenario is not None,
+                                       use_ef=use_ef))
+        tm_specs = telemetry.specs       # snapshot: the tick adds "fired"
+        off_diag = ~eye
 
     # ---- stages -----------------------------------------------------------
 
@@ -448,6 +466,13 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
             ep = c["state"].epoch
             fresh = (ep[:, None] - ep[None, :]) <= max_staleness
             c["eff_adj"] = c["eff_adj"] & fresh
+        if telemetry is not None:
+            # a host number: the drivers stamp the column from one arange
+            telemetry.emit(c, "round",
+                           -1 if c["epoch"] is None else c["epoch"])
+            if scenario is not None:
+                telemetry.emit(c, "alive", c["alive"])
+                telemetry.emit(c, "fire", c["fire"])
 
     def stage_peer_sample(c):
         """reads eff_adj, state.conf, draws.gumbel; writes theta [W, W]
@@ -462,6 +487,8 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         c["theta"] = theta
         c["sampled"] = dts_mod.sample_peers(c["draws"].gumbel, theta,
                                             cfg.num_sampled)
+        if telemetry is not None:
+            telemetry.emit(c, "theta_in", theta.mean(dim=0))
 
     def stage_transport(c):
         """reads sampled, eff_adj, state.params, state.wire_err,
@@ -470,6 +497,14 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         the uniform bookkeeping weights the trust update needs."""
         state = c["state"]
         mask = (c["sampled"] & c["eff_adj"]) | eye
+        if telemetry is not None:
+            # priced from the plaintext payload, secagg or not (the pads
+            # ride in place)
+            live = (c["sampled"] & c["eff_adj"] & off_diag).sum()
+            telemetry.emit(c, "edges", live)
+            telemetry.emit(c, "wire_bytes", live.float()
+                           * stacked_payload_bytes(state.params,
+                                                   transport.wire))
         if robust:
             c["agg"] = robust_mix(cfg.aggregation, mask, state.params,
                                   trim=cfg.robust_trim)
@@ -495,6 +530,9 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
             c["agg"], c["wire_err"] = transport.mix(
                 P, state.params, residual=state.wire_err, wire_u=wire_u,
                 round_=round_)
+            if telemetry is not None:
+                telemetry.emit(c, "ef_norm", torch.linalg.norm(
+                    dts_mod.flatten_stacked(c["wire_err"]), dim=1))
         else:
             c["agg"] = transport.mix(P, state.params, wire_u=wire_u,
                                      round_=round_)
@@ -520,6 +558,9 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         else:
             c["damaged"] = torch.zeros_like(c["loss_agg"], dtype=torch.bool)
             c["start"] = c["agg"]
+        if telemetry is not None:
+            telemetry.emit(c, "loss_agg", c["loss_agg"])
+            telemetry.emit(c, "damaged", c["damaged"])
 
     def stage_local_train(c):
         """reads start, y_data, data, draws.perm (+ draws.dp_sgd under
@@ -528,6 +569,8 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         c["trained"], c["train_loss"] = ltrain(
             c["draws"].perm, c["start"], data["x"], c["y_data"],
             data["mask"], c["draws"].dp_sgd)
+        if telemetry is not None:
+            telemetry.emit(c, "train_loss", c["train_loss"])
 
     def stage_dp_noise(c):
         """reads trained, start, draws.dp_update; writes trained: every
@@ -574,6 +617,7 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
                                                  dts_mod.DAMAGE_PENALTY),
                                  c["loss_agg"] - state.last_loss)
         c["sketch"] = state.sketch
+        deltas = None
         if channels and masked_geom:
             deltas = dts_mod.flatten_stacked(c["trained"]) \
                 - dts_mod.flatten_stacked(c["start"])
@@ -605,6 +649,14 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         else:
             c["conf"] = state.conf - c["sampled"] * c["P"] \
                 * loss_trust[:, None]
+        if telemetry is not None:
+            if deltas is None:
+                deltas = dts_mod.flatten_stacked(c["trained"]) \
+                    - dts_mod.flatten_stacked(c["start"])
+            telemetry.emit(c, "loss_trust", loss_trust)
+            telemetry.emit(c, "conf_in", c["conf"].mean(dim=0))
+            telemetry.emit(c, "update_norm", torch.linalg.norm(deltas,
+                                                               dim=1))
         improved = (c["loss_agg"] < state.best_loss) & ~c["damaged"]
         # the time machine RATCHETS: a damaged round trained from the
         # backup, so its result is clean by induction and becomes the new
@@ -661,9 +713,12 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
     def round(state: DeFTAState, data, epoch=None):
         c = {"state": state, "data": data, "epoch": epoch}
         run_pipeline(stages, c)
-        return c["next"]
+        if telemetry is None:
+            return c["next"]
+        return c["next"], telemetry.collect(c, tm_specs)
 
     round.stages = stages
+    round.telemetry = telemetry
     return round
 
 
@@ -671,7 +726,7 @@ def build_fedavg_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
                        sizes: np.ndarray, malicious: np.ndarray, *, draws,
                        device, sample_workers: int = 0,
                        server_opt: str = "none", server_lr: float = 1.0,
-                       noise_scale: float = 200.0):
+                       noise_scale: float = 200.0, telemetry=None):
     """FedAvg as a stage selection over the same pipeline: the transport is
     a STAR topology (server broadcast down, size-weighted mean up), there
     is no peer sampling / DTS / time machine, and the server optimizer is
@@ -681,7 +736,9 @@ def build_fedavg_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
     only ``local_epochs`` is read. ``draws`` is the round's
     ``rng.FedAvgDraws`` provider (one call per round).
 
-    Returns round(state, data, epoch=None) -> ``FedAvgState``."""
+    Returns round(state, data, epoch=None) -> ``FedAvgState``; with a
+    ``telemetry`` registry it declares ``fedavg_specs`` and returns
+    ``(state, frame)``."""
     dev = torch.device(device)
     w = len(sizes)
     sizes_t = torch.as_tensor(np.asarray(sizes, np.float32)).to(dev)
@@ -690,6 +747,10 @@ def build_fedavg_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
     attack_scale = torch.full((w,), noise_scale, dtype=torch.float32,
                               device=dev)
     ltrain = local_train_fn(task, train, cfg.local_epochs)
+    if telemetry is not None:
+        telemetry.declare(*fedavg_specs(w))
+        tm_specs = telemetry.specs
+        star_bytes = {}                  # the star wire's constant, once
 
     def stage_split_draws(c):
         """writes draws: this round's permutations, (with attackers) the
@@ -707,12 +768,19 @@ def build_fedavg_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         local training hands it to autograd)."""
         c["bcast"] = {k: v.expand(w, *v.shape).contiguous()
                       for k, v in c["state"].server.items()}
+        if telemetry is not None:
+            telemetry.emit(c, "round",
+                           -1 if c["epoch"] is None else c["epoch"])
 
     def stage_local_train(c):
-        """reads bcast, data, draws.perm; writes trained."""
+        """reads bcast, data, draws.perm; writes trained (its per-worker
+        losses feed the telemetry probe)."""
         data = c["data"]
-        c["trained"], _ = ltrain(c["draws"].perm, c["bcast"], data["x"],
-                                 data["y"], data["mask"])
+        c["trained"], train_loss = ltrain(c["draws"].perm, c["bcast"],
+                                          data["x"], data["y"],
+                                          data["mask"])
+        if telemetry is not None:
+            telemetry.emit(c, "train_loss", train_loss)
 
     def stage_attack_inject(c):
         """reads trained, bcast, draws.noise; writes trained (attacker
@@ -736,6 +804,17 @@ def build_fedavg_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         c["new_server"] = {
             k: torch.einsum("i,i...->...", aw.to(x.dtype), x)
             for k, x in c["trained"].items()}
+        if telemetry is not None:
+            # star wire: W broadcasts down + the (sampled) cohort up, at the
+            # fp32 payload; one device constant (a fill, no copy) made on
+            # the first round
+            if not star_bytes:
+                up = sample_workers if sample_workers else w
+                star_bytes["v"] = torch.full(
+                    (), (w + up) * tree_payload_bytes(c["state"].server,
+                                                      None),
+                    dtype=torch.float32, device=dev)
+            telemetry.emit(c, "wire_bytes", star_bytes["v"])
 
     def stage_server_update(c):
         """reads new_server, state.{server, opt}; writes next: plain
@@ -767,9 +846,12 @@ def build_fedavg_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
     def round(state: FedAvgState, data, epoch=None):
         c = {"state": state, "data": data, "epoch": epoch}
         run_pipeline(stages, c)
-        return c["next"]
+        if telemetry is None:
+            return c["next"]
+        return c["next"], telemetry.collect(c, tm_specs)
 
     round.stages = stages
+    round.telemetry = telemetry
     return round
 
 
@@ -793,12 +875,22 @@ def build_fire_gated_tick(rnd_fn, data, speeds: torch.Tensor, w: int, *,
     nothing; here the driver never calls a tick past the budget or after
     the early exit, so there are none.
 
-    Returns tick(state, t) -> state."""
+    When the round carries a telemetry registry the tick declares
+    ``tick_specs`` into it and returns ``(state, frame)``, the round's
+    frame with ``fired`` added last.
 
-    def tick(state: DeFTAState, t: int) -> DeFTAState:
+    Returns tick(state, t) -> state."""
+    telemetry = getattr(rnd_fn, "telemetry", None)
+    if telemetry is not None:
+        telemetry.declare(*tick_specs(w))
+
+    def tick(state: DeFTAState, t: int):
         fired = draws(w) < speeds
-        nxt = rnd_fn(state, data, t)
-        return DeFTAState(
+        if telemetry is None:
+            nxt = rnd_fn(state, data, t)
+        else:
+            nxt, frame = rnd_fn(state, data, t)
+        merged = DeFTAState(
             params=tree_select(fired, nxt.params, state.params),
             backup=tree_select(fired, nxt.backup, state.backup),
             conf=torch.where(fired[:, None], nxt.conf, state.conf),
@@ -809,7 +901,11 @@ def build_fire_gated_tick(rnd_fn, data, speeds: torch.Tensor, w: int, *,
             tree_select(fired, nxt.wire_err, state.wire_err),
             sketch=None if state.sketch is None else
             torch.where(fired[:, None, None], nxt.sketch, state.sketch))
+        if telemetry is None:
+            return merged
+        return merged, dict(frame, fired=fired)
 
+    tick.telemetry = telemetry
     return tick
 
 
@@ -908,7 +1004,12 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
     reference's donated scan carry is: the state passed in is consumed.
     The cohort block has no static support, so ``auto`` runs the dense
     mix; under secagg the support is all-ones [k, k] and the masked
-    gather mix runs instead (no kernel)."""
+    gather mix runs instead (no kernel).
+
+    ``telemetry``: a ``telemetry.Telemetry`` registry; the round then
+    declares ``cross_device_specs`` (cohort, occupancy, dropout, straggler
+    and scatter-write counts, then the transport, damage, train and trust
+    probes on the [k, k] block) and returns ``(state, frame)``."""
     channels = resolve_dts_signal(cfg)
     if world.epochs <= 0:
         raise ValueError("cross-device world compiled for 0 rounds")
@@ -919,7 +1020,7 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
         raise ValueError(
             f"robust aggregation ({cfg.aggregation!r}) has no "
             f"cross-device selection yet — use defta/defl/uniform")
-    check_supported(cfg, telemetry=telemetry, shard=shard)
+    check_supported(cfg, shard=shard)
     corr = "corr" in channels
     dev = torch.device(device)
     k = int(world.sample_k)
@@ -955,6 +1056,10 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
     att_kind_u = on_dev(world.attack_kind)               # [N] int32
     att_scale_u = on_dev(world.attack_scale)             # [N] float32
     eye_k = torch.eye(k, dtype=torch.bool, device=dev)
+    if telemetry is not None:
+        telemetry.declare(*cross_device_specs(k, use_ef=use_ef))
+        tm_specs = telemetry.specs
+        off_k = ~eye_k
 
     # ---- stages -----------------------------------------------------------
 
@@ -1003,6 +1108,16 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
             fresh = (t - c["g_last_part"]) <= max_staleness
             eff = eff & fresh[None, :]
         c["eff_adj"] = eff
+        if telemetry is not None:
+            telemetry.emit(c, "round", t)
+            telemetry.emit(c, "cohort", ix)
+            telemetry.emit(c, "occupancy", active.sum())
+            telemetry.emit(c, "dropout_count",
+                           (filled_t[t] & ~survive_t[t]).sum())
+            telemetry.emit(c, "straggler_count",
+                           (active & ~complete_t[t]).sum())
+            telemetry.emit(c, "fire", c["fire"])
+            telemetry.emit(c, "scatter_writes", c["fire"].sum())
 
     def stage_split_draws(c):
         """reads g_params (the leaves' shapes), g_x (the shard size);
@@ -1038,11 +1153,20 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
             npeers = (c["sampled"] & c["eff_adj"] & ~eye_k).sum(dim=1)
             P = torch.where((npeers >= k_min)[:, None], P, eye_k.float())
         c["P"] = P
+        if telemetry is not None:
+            live = (c["sampled"] & c["eff_adj"] & off_k).sum()
+            telemetry.emit(c, "edges", live)
+            telemetry.emit(c, "wire_bytes", live.float()
+                           * stacked_payload_bytes(c["g_params"],
+                                                   transport.wire))
         wire_u = c["draws"].wire_u
         if use_ef:
             c["agg"], c["wire_err"] = transport.mix(
                 P, c["g_params"], residual=c["g_wire_err"], wire_u=wire_u,
                 round_=c["epoch"])
+            if telemetry is not None:
+                telemetry.emit(c, "ef_norm", torch.linalg.norm(
+                    dts_mod.flatten_stacked(c["wire_err"]), dim=1))
         else:
             c["agg"] = transport.mix(P, c["g_params"], wire_u=wire_u,
                                      round_=c["epoch"])
@@ -1065,6 +1189,8 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
         else:
             c["damaged"] = torch.zeros_like(c["loss_agg"], dtype=torch.bool)
             c["start"] = c["agg"]
+        if telemetry is not None:
+            telemetry.emit(c, "loss_agg", c["loss_agg"])
 
     def stage_local_train(c):
         """reads start, g_x, y_data, g_mask, draws.perm (+ draws.dp_sgd
@@ -1072,6 +1198,8 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
         c["trained"], c["train_loss"] = ltrain(
             c["draws"].perm, c["start"], c["g_x"], c["y_data"], c["g_mask"],
             c["draws"].dp_sgd)
+        if telemetry is not None:
+            telemetry.emit(c, "train_loss", c["train_loss"])
 
     def stage_dp_noise(c):
         """reads trained, start, draws.dp_update; writes trained: the dense
@@ -1104,6 +1232,7 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
                                  torch.full_like(c["loss_agg"],
                                                  dts_mod.DAMAGE_PENALTY),
                                  c["loss_agg"] - c["g_last"])
+        deltas = None
         if channels and masked_geom:
             deltas = dts_mod.flatten_stacked(c["trained"]) \
                 - dts_mod.flatten_stacked(c["start"])
@@ -1138,6 +1267,14 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
         else:
             c["conf_new"] = c["conf"] - c["sampled"] * c["P"] \
                 * loss_trust[:, None]
+        if telemetry is not None:
+            if deltas is None:
+                deltas = dts_mod.flatten_stacked(c["trained"]) \
+                    - dts_mod.flatten_stacked(c["start"])
+            telemetry.emit(c, "loss_trust", loss_trust)
+            telemetry.emit(c, "conf_in", c["conf_new"].mean(dim=0))
+            telemetry.emit(c, "update_norm", torch.linalg.norm(deltas,
+                                                               dim=1))
         improved = (c["loss_agg"] < c["g_best"]) & ~c["damaged"]
         c["backup"] = tree_select(improved | c["damaged"], c["trained"],
                                   c["g_backup"])
@@ -1202,9 +1339,12 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
                              "round t (epoch=)")
         c = {"state": state, "data": data, "epoch": int(epoch)}
         run_pipeline(stages, c)
-        return c["next"]
+        if telemetry is None:
+            return c["next"]
+        return c["next"], telemetry.collect(c, tm_specs)
 
     round.stages = stages
+    round.telemetry = telemetry
     return round
 
 
@@ -1212,38 +1352,98 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
 # Drivers
 # ---------------------------------------------------------------------------
 
-def _synchronize(state) -> None:
-    """Wait for the card that holds the state's tensors (a no-op on the
-    CPU). Serves every state: the first field that holds a tensor, or a
-    dict of them, names the device."""
+def _state_device(state) -> torch.device:
+    """The device of the state's tensors. Serves every state: the first
+    field that holds a tensor, or a dict of them, names it."""
     for v in vars(state).values():
         t = next(iter(v.values()), None) if isinstance(v, dict) else v
         if isinstance(t, torch.Tensor):
-            if t.is_cuda:
-                torch.cuda.synchronize(t.device)
-            return
+            return t.device
+    raise ValueError("state holds no tensor")
+
+
+def _synchronize(state) -> None:
+    """Wait for the card that holds the state's tensors (a no-op on the
+    CPU)."""
+    dev = _state_device(state)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class _FrameChunk:
+    """One driver chunk's telemetry buffers on the device: ``[n, ...]``
+    per probe (``Telemetry.zero_buffers``), the ``round`` column made by
+    one ``arange`` over the chunk's stamps (the one probe the host knows:
+    no device tensor is built from a Python int per round), every other
+    probe written in place round by round. On the card ``stage`` queues
+    one asynchronous copy per probe into pinned host memory before the
+    chunk's synchronize, so reading the frames adds no synchronisation."""
+
+    def __init__(self, telemetry, start: int, n: int, device):
+        self.start = start
+        self.bufs = telemetry.zero_buffers(n, device=device)
+        if "round" in self.bufs:
+            self.bufs["round"] = torch.arange(start, start + n,
+                                              dtype=torch.int32,
+                                              device=device)
+        self.host = self.bufs
+
+    def write(self, i: int, frame: dict) -> None:
+        for name, v in frame.items():
+            if name != "round":
+                self.bufs[name][i].copy_(v)
+
+    def stage(self) -> None:
+        if next(iter(self.bufs.values())).is_cuda:
+            self.host = {k: torch.empty(v.shape, dtype=v.dtype,
+                                        pin_memory=True).copy_(
+                                            v, non_blocking=True)
+                         for k, v in self.bufs.items()}
+
+    def flush(self, led: RunLedger) -> None:
+        """Hand the chunk's rounds to the ledger (after the chunk's
+        synchronize), the probes in sorted name order: the reference's
+        frames come back from its scan as a JAX pytree, whose dict keys
+        are sorted, and its JSONL rows and ``ledger.names()`` follow that
+        order."""
+        led.record_frames(dict(sorted(gather_frames(self.host).items())),
+                          self.start)
 
 
 def drive_epochs(rnd_fn, state, data, epochs: int, *, eval_every: int = 0,
                  eval_fn=None, ledger: Optional[RunLedger] = None):
     """Run ``epochs`` rounds in a Python loop, in chunks bounded by eval
-    points (the DeFTA and the FedAvg round alike). Each chunk ends in a
-    device synchronize and is recorded in
-    the ``RunLedger`` with its wall-clock seconds (``ledger.superstep_s``;
-    ``ledger.as_stats()`` gives ``{"dispatches": chunks, "epochs": e}``).
+    points (the DeFTA, the FedAvg and the cross-device round alike). Each
+    chunk ends in a device synchronize and is recorded in the
+    ``RunLedger`` with its wall-clock seconds (``ledger.superstep_s``;
+    ``ledger.as_stats()`` gives ``{"dispatches": chunks, "epochs": e}``:
+    the port's ledger counts host chunks, not XLA dispatches). When the
+    round carries a telemetry registry (``rnd_fn.telemetry``), its frames
+    are written into the chunk's device buffers and gathered into the
+    ledger once a chunk, stamped with their epochs.
     ``eval_fn(state, done_epochs)`` runs at eval boundaries; its results
     form the returned history. Returns ``(state, history)``."""
     led = ledger if ledger is not None else RunLedger()
+    telemetry = getattr(rnd_fn, "telemetry", None)
     history = []
     chunk = eval_every if (eval_every and eval_fn is not None) else epochs
     done = 0
     while done < epochs:
         n = min(chunk, epochs - done)
         t0 = time.perf_counter()
-        for e in range(done, done + n):
-            state = rnd_fn(state, data, e)
+        if telemetry is None:
+            for e in range(done, done + n):
+                state = rnd_fn(state, data, e)
+        else:
+            frames = _FrameChunk(telemetry, done, n, _state_device(state))
+            for i in range(n):
+                state, frame = rnd_fn(state, data, done + i)
+                frames.write(i, frame)
+            frames.stage()
         _synchronize(state)
         led.record_dispatch(n, time.perf_counter() - t0)
+        if telemetry is not None:
+            frames.flush(led)
         done += n
         if eval_every and done % eval_every == 0 and eval_fn is not None:
             history.append(eval_fn(state, done))
@@ -1269,8 +1469,12 @@ def drive_ticks(tick_fn, state: DeFTAState, ticks: int, *, check_every: int,
     Each chunk ends in a device synchronize and is recorded in the
     ``RunLedger`` (``rounds_done`` counts the ticks run); the ledger counts
     chunks, so ``as_stats()["dispatches"]`` is not the reference's XLA
-    dispatch count. Returns the final state."""
+    dispatch count. With a telemetry-built tick (``tick_fn.telemetry``)
+    each chunk's frames go to the ledger after it, so an early exit leaves
+    exactly the ticks that ran, stamped 0 .. ran - 1, as the reference's
+    trimmed buffers do. Returns the final state."""
     led = ledger if ledger is not None else RunLedger()
+    telemetry = getattr(tick_fn, "telemetry", None)
     chunk = check_every if target_epochs else max(ticks, 1)
     req = None
     if target_epochs:
@@ -1283,10 +1487,19 @@ def drive_ticks(tick_fn, state: DeFTAState, ticks: int, *, check_every: int,
             break
         n = min(chunk, ticks - done)
         t0 = time.perf_counter()
-        for t in range(done, done + n):
-            state = tick_fn(state, t)
+        if telemetry is None:
+            for t in range(done, done + n):
+                state = tick_fn(state, t)
+        else:
+            frames = _FrameChunk(telemetry, done, n, _state_device(state))
+            for i in range(n):
+                state, frame = tick_fn(state, done + i)
+                frames.write(i, frame)
+            frames.stage()
         _synchronize(state)
         led.record_dispatch(n, time.perf_counter() - t0)
+        if telemetry is not None:
+            frames.flush(led)
         done += n
     led.finish("ticks", ticks)
     return state

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import DeFTAConfig, TrainConfig
-from repro_torch.core.defta import attacker_world, to_device_data
+from repro_torch.core.defta import attacker_world, registry, to_device_data
 from repro_torch.core.engine import (FedAvgState, build_fedavg_round,
                                      drive_epochs)
 from repro_torch.core.tasks import Task
@@ -44,21 +44,23 @@ def init_state(generator: torch.Generator, task: Task,
 def build_round_fn(task: Task, cfg: DeFTAConfig, train: TrainConfig,
                    sizes: np.ndarray, malicious: np.ndarray, *, draws,
                    device, sample_workers: int = 0, server_opt: str = "none",
-                   server_lr: float = 1.0, noise_scale: float = 200.0):
+                   server_lr: float = 1.0, noise_scale: float = 200.0,
+                   telemetry=None):
     """round(state, data, epoch=None) -> state; ``sample_workers=0`` ->
     CFL-F, >0 -> CFL-S (see ``engine.build_fedavg_round``)."""
     return build_fedavg_round(task, cfg, train, sizes, malicious,
                               draws=draws, device=device,
                               sample_workers=sample_workers,
                               server_opt=server_opt, server_lr=server_lr,
-                              noise_scale=noise_scale)
+                              noise_scale=noise_scale, telemetry=telemetry)
 
 
 def run_fedavg(seed: int, task: Task, cfg: DeFTAConfig, train: TrainConfig,
                data, *, epochs: int, num_malicious: int = 0,
                sample_workers: int = 0, server_opt: str = "none",
                eval_every: int = 0, test_x=None, test_y=None, ledger=None,
-               device=None, init: Optional[FedAvgState] = None, draws=None):
+               probes: bool = True, device=None,
+               init: Optional[FedAvgState] = None, draws=None):
     """End-to-end FedAvg driver. Attackers are appended after the
     ``cfg.num_workers`` vanilla workers, with padded data slots.
 
@@ -68,7 +70,10 @@ def run_fedavg(seed: int, task: Task, cfg: DeFTAConfig, train: TrainConfig,
     and ``draws`` the provider. ``device=None`` runs on the card and raises
     without one. ``eval_every`` with ``test_x``/``test_y`` evaluates the
     server every that many epochs. ``ledger`` (a ``telemetry.RunLedger``)
-    receives the per-chunk epoch counts and wall seconds.
+    receives the per-chunk epoch counts and wall seconds and, as in the
+    reference, every round's ``fedavg_specs`` frame (the round is built
+    with a ``telemetry.Telemetry`` registry); ``probes=False`` keeps the
+    accounting without the probes.
 
     Returns ``(state, history)``, history a list of ``(epoch,
     server_acc)`` (the reference's ``stats["history"]``)."""
@@ -83,7 +88,8 @@ def run_fedavg(seed: int, task: Task, cfg: DeFTAConfig, train: TrainConfig,
     rnd_fn = build_round_fn(task, cfg, train, sizes, malicious,
                             draws=draws or TorchFedAvgDraws(gen), device=dev,
                             sample_workers=sample_workers,
-                            server_opt=server_opt)
+                            server_opt=server_opt,
+                            telemetry=registry(ledger, probes))
 
     eval_fn = None
     if test_x is not None:

@@ -1,2 +1,3 @@
-"""Serving entry points: the prefill and decode step builders and the
-batched decode loop (``python -m repro_torch.launch.serve``)."""
+"""Entry points: the serving step builders and the batched decode loop
+(``python -m repro_torch.launch.serve``), and the simulation launcher
+(``python -m repro_torch.launch.train``)."""

@@ -106,6 +106,50 @@ class CompiledScenario:
     def num_segments(self) -> int:
         return self.alive_np.shape[0]
 
+    def summary(self, adj: Optional[np.ndarray] = None) -> dict:
+        """Human/JSON-facing digest (the reference's): per-segment alive
+        counts and (with the static topology) the fraction of its edges
+        still up — the scenario cost delta (wire bytes scale with live
+        edges). Reads ``attack_kind`` back once."""
+        segs = []
+        e_of_seg = [np.flatnonzero(self.seg_of_epoch_np == s)
+                    for s in range(self.num_segments)]
+        for s in range(self.num_segments):
+            d = {"epochs": [int(e_of_seg[s][0]), int(e_of_seg[s][-1]) + 1],
+                 "alive": int(self.alive_np[s].sum())}
+            if adj is not None:
+                a = np.asarray(adj, bool)
+                # under a time-varying topology the segment's own drawn
+                # adjacency carries the edges; the fraction stays
+                # normalized by the STATIC graph so it remains the
+                # wire-byte multiplier vs the static run
+                seg_a = self.adj_seg_np[s] if self.adj_seg_np is not None \
+                    else a
+                eff = seg_a & self.link_ok_np[s] \
+                    & self.alive_np[s][None, :] & self.alive_np[s][:, None]
+                d["edge_fraction"] = round(
+                    float(eff.sum()) / max(int(a.sum()), 1), 4)
+            segs.append(d)
+        kinds = self.attack_kind.cpu().numpy()
+        out = {
+            "name": self.spec.name,
+            "workers": self.num_workers,
+            "vanilla": self.num_vanilla,
+            "epochs": self.epochs,
+            "events": self.spec.event_count(),
+            "segments": segs,
+            "attacks": {k: int((kinds == ATTACK_CODE[k]).sum())
+                        for k in self.kinds_present},
+            "stragglers": len(self.spec.stragglers),
+        }
+        if adj is not None:
+            # mean live-edge fraction over the timeline = the wire-byte
+            # multiplier vs the static run (each live edge ships one model)
+            fracs = [segs[self.seg_of_epoch_np[e]]["edge_fraction"]
+                     for e in range(self.epochs)]
+            out["mean_edge_fraction"] = round(float(np.mean(fracs)), 4)
+        return out
+
 
 def compile_scenario(spec: ScenarioSpec, num_vanilla: int, epochs: int,
                      device=None) -> CompiledScenario:

@@ -3,9 +3,11 @@
 
 The ledger records, per driver chunk (a "dispatch" in the reference's
 words: one eval chunk of rounds), how many rounds it covered and its
-wall-clock seconds; plus, once telemetry is ported, the ``[n_rounds,
-...]`` probe frames flushed at each eval boundary. ``as_stats`` gives the
-``{"dispatches": n, "epochs": e}`` view the reference's tests use.
+wall-clock seconds; plus, when the round was built with a
+``telemetry.Telemetry`` registry (every ``run_*`` driver builds one when
+it is given a ledger), the ``[n_rounds, ...]`` probe frames gathered at
+the end of each chunk. ``as_stats`` gives the ``{"dispatches": n,
+"epochs": e}`` view the reference's tests use.
 """
 from __future__ import annotations
 

@@ -52,7 +52,8 @@ def test_aggregation_copy_is_verbatim():
 
 
 @pytest.mark.parametrize("path", ["scenarios/spec.py",
-                                  "core/peer_selection.py"])
+                                  "core/peer_selection.py",
+                                  "telemetry/sinks.py"])
 def test_numpy_module_copy_is_verbatim(path):
     ours = ROOT / "src" / "repro_torch" / path
     theirs = ROOT / "src" / "repro" / path
@@ -291,6 +292,14 @@ st, *_ = run_defta(0, mlp_task(32, 10), dataclasses.replace(
                    TrainConfig(batch_size=16), data, epochs=2,
                    num_malicious=1, device="cpu")
 assert st.epoch.tolist() == [2] * 5 and roofline.dp_epsilon(1.0, 2) > 0
+import os, tempfile
+from repro_torch.launch import train
+from repro_torch.telemetry import RunLedger
+path = os.path.join(tempfile.mkdtemp(), "ledger.jsonl")
+assert train.main(["--device", "cpu", "--scenario", "churn_signflip",
+                   "--sim-epochs", "1", "--sim-local-epochs", "1",
+                   "--sim-workers", "4", "--telemetry", path]) == 0
+assert open(path).read().count('"type": "round"') == 1
 from repro_torch.launch import serve
 tokens, _ = serve.main(["--arch", "deepseek-moe-16b", "--smoke", "--device",
                         "cpu", "--batch", "2", "--prompt-len", "4",
@@ -329,7 +338,10 @@ def test_port_sources_import_no_jax_or_repro():
               "src/repro_torch/core/secagg.py",
               "src/repro_torch/launch/roofline.py",
               "src/repro_torch/core/cross_device.py",
-              "src/repro_torch/scenarios/cross_device.py"):
+              "src/repro_torch/scenarios/cross_device.py",
+              "src/repro_torch/telemetry/spec.py",
+              "src/repro_torch/telemetry/sinks.py",
+              "src/repro_torch/launch/train.py"):
         assert ROOT / f in files, f
     assert hits == []
 

@@ -247,13 +247,30 @@ def test_unported_parts_name_their_item(change, kw, item):
 
 
 def test_telemetry_names_its_item():
+    """Telemetry (item 6) is ported: the round builds with a registry and
+    returns, beside the state, a frame that carries ``cross_device_specs``
+    in declaration order, with the round stamp and the world's cohort."""
+    from repro_torch.core.defta import to_device_data
+    from repro_torch.telemetry import Telemetry, cross_device_specs
     w = tworld.compile_world(tworld.CrossDeviceSpec(enrolled=12,
                                                     sample_k=4), 2)
-    with pytest.raises(NotImplementedError, match="item 6: telemetry"):
-        engine.build_cross_device_round(
-            mlp_task(8, 4, hidden=16), DeFTAConfig(num_workers=12),
-            TrainConfig(**TRAIN), w, np.full(12, 24), draws=None,
-            device="cpu", telemetry=object())
+    reg = Telemetry()
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    rnd = engine.build_cross_device_round(
+        mlp_task(8, 4, hidden=16), DeFTAConfig(num_workers=12),
+        TrainConfig(**TRAIN), w, np.full(12, 24), draws=TorchDraws(gen),
+        device="cpu", num_classes=4, telemetry=reg)
+    assert rnd.telemetry is reg and reg.specs == cross_device_specs(4)
+    st = engine.init_cross_device_state(gen, mlp_task(8, 4, hidden=16), 12)
+    st, frame = rnd(st, to_device_data(small_world(), "cpu"), 1)
+    assert list(frame) == [s.name for s in cross_device_specs(4)]
+    for s in cross_device_specs(4):
+        assert tuple(frame[s.name].shape) == s.shape, s.name
+    assert int(frame["round"]) == 1
+    np.testing.assert_array_equal(frame["cohort"].numpy(), w.part_ix[1])
+    assert int(frame["scatter_writes"]) == int(frame["fire"].sum())
+    assert st.epoch.sum() == frame["scatter_writes"]
 
 
 def test_run_cross_device_defaults_to_the_card(monkeypatch):

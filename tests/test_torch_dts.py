@@ -194,9 +194,10 @@ def test_unknown_aggregation_is_stricter_than_the_reference():
 
 
 def test_scenario_shards_telemetry_and_later_gossip_parts_raise():
-    """Shards and telemetry still raise and name their items; a scenario
-    runs, but not beside num_malicious; the stochastic rounding asks for
-    its uniforms; the secure-aggregation wire asks for its topology."""
+    """Shards still raise and name their item (telemetry, item 6, is
+    ported: ``test_torch_telemetry_slice``); a scenario runs, but not
+    beside num_malicious; the stochastic rounding asks for its uniforms;
+    the secure-aggregation wire asks for its topology."""
     data = federated_dataset("vector", 4, np.random.default_rng(0),
                              n_per_worker=16)
     cfg = DeFTAConfig(num_workers=4)
@@ -206,8 +207,6 @@ def test_scenario_shards_telemetry_and_later_gossip_parts_raise():
     with pytest.raises(ValueError, match="not num_malicious"):
         run_defta(0, mlp_task(32, 10), cfg, TrainConfig(), data, epochs=1,
                   device="cpu", scenario="churn_signflip", num_malicious=1)
-    with pytest.raises(NotImplementedError, match="item 6: telemetry"):
-        engine.check_supported(cfg, telemetry=object())
     x = torch.zeros(3, 4)
     with pytest.raises(ValueError, match="uniforms"):
         gossip.quantize_rows_int8(x, rounding="stochastic")

@@ -380,9 +380,8 @@ def test_dp_noise_stage_gated():
 def test_check_supported_takes_the_privacy_wire(change):
     cfg = DeFTAConfig(**dict(CFG, **change))
     engine.check_supported(cfg)
-    for kw in ({"telemetry": object()}, {"shard": object()}):
-        with pytest.raises(NotImplementedError):
-            engine.check_supported(cfg, **kw)
+    with pytest.raises(NotImplementedError):
+        engine.check_supported(cfg, shard=object())
 
 
 @pytest.mark.parametrize("change", [
