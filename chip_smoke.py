@@ -170,6 +170,25 @@
    a ledger of manifest, one row per epoch or tick run and summary, and
    ``benchmarks/render_experiments.py --telemetry-panel`` rendering it;
    the profiled run leaves a Chrome trace with the stages' ranges.
+4w. Worker-axis sharding, every shard on the card (``shard_devices=
+   ["cuda:0"] * S``). The sparse (f32, bf16) and int8 mixes against their
+   plain versions at the local blocks the sharded transport hands them
+   (W_local = 4, 15, 13 and 1,250: W = 16, 60 and 100 on 4, 4 and 8
+   shards, 10,000 on 8), first and last shard, the MLP's leaves; timed
+   at W_local = 15 and 1,250. Sharded against unsharded on the card, one
+   seed and one draw stream: the Table 2 world on 2 and 4 shards (4
+   epochs), its int8 + EF21 wire on 4 (one quantization step), secagg
+   on the fp32 and int8 wires on 4 (equal to plain sharded bit for bit),
+   the Table 3 world with 40 alie colluders under ``all`` on 4 (one
+   round), W = 100 on 8 (warned, state whole, transport padded), async
+   ``storm`` on 4 (4 ticks) and the launcher's cross-device world
+   (10,000 enrolled, k = 64) on 4: every field within rtol and atol
+   1e-4, epochs, ticks, stamps, counters and sketches equal; the local
+   kernels launch shards x leaves x rounds, the k-block its 4 tile
+   launches a round; the bytes moved between shards equal
+   ``roofline.sharded_ring_bytes``. W = 10,000 on 8 shards for 2 epochs
+   (every epoch 2; state a shard and the card's peak memory). ms an
+   epoch at 1, 2 and 4 shards on the Table 2 world, in turns.
 5. Serving end to end: DeepSeekMoE-16B at full width and depth (28 layers,
    64 routed experts top-6 + 2 shared, bf16, random weights from a seed)
    initialised on the card; ``build_prefill_step`` at B=4, S=512 and at
@@ -2906,6 +2925,389 @@ def telemetry_end_to_end(launches):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4w: worker-axis sharding
+# ---------------------------------------------------------------------------
+
+# (W, shards) of the local blocks the sharded transport hands the sparse
+# and int8 kernels: W_local = 4, 15 (Table 3), 13 (the last block part
+# padding) and 1,250
+SHARD_BLOCKS = ((16, 4), (60, 4), (100, 8), (10_000, 8))
+MLP_LEAVES = (2048, 640, 64, 10)
+
+
+def shard_block(w, s, si, dev):
+    """Shard ``si``'s local block of a W-worker ``random_kout`` topology
+    (4 peers, seed 0, as ``run_defta`` makes it) on ``s`` shards: (the
+    plan, idx [B, K] int32, val [B, K]: random weights on the valid slots,
+    0 on the pad slots, rows normalised)."""
+    from repro_torch.core.gossip import _plan_tensors, worker_shard_plan
+    from repro_torch.core.topology import make_topology
+    plan = worker_shard_plan(make_topology("random_kout", w, 4, 0), s)
+    idx, valid = _plan_tensors(plan, str(dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(w + si)
+    val = torch.rand(valid[si].shape, generator=gen, device=dev) \
+        * valid[si]
+    val = (val / val.sum(1, keepdim=True)).contiguous()
+    return plan, idx[si], val
+
+
+def check_shard_blocks(dev):
+    """The sparse (f32, bf16) and int8 mixes against their plain versions
+    at the local-block shapes of ``SHARD_BLOCKS``, the first and the last
+    shard's block, the MLP's leaves; limit 1e-5 (1 + max|plain|). Then
+    time the local-block kernels at W_local = 15 and 1,250 (F = 2048).
+    Returns {kernel: max err}."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    max_err = {"gossip_mix_sparse": 0.0, "gossip_mix_quant": 0.0}
+    for w, s in SHARD_BLOCKS:
+        for si in (0, s - 1):
+            plan, idx, val = shard_block(w, s, si, dev)
+            b = plan.block
+            for f in MLP_LEAVES:
+                for dtype in ("float32", "bfloat16", "int8"):
+                    w_in, scale = payload(gen, b, f, dtype)
+                    name = "gossip_mix_quant" if scale is not None \
+                        else "gossip_mix_sparse"
+                    before = ops.LAUNCHES[name]
+                    got = ops.gossip_mix_quant(idx, val, scale, w_in) \
+                        if scale is not None \
+                        else ops.gossip_mix_sparse(idx, val, w_in)
+                    torch.cuda.synchronize()
+                    want = ref.gossip_mix_quant_ref(idx, val, scale, w_in) \
+                        if scale is not None \
+                        else ref.gossip_mix_sparse_ref(idx, val, w_in)
+                    err = float((got - want).abs().max())
+                    tol = 1e-5 * (1.0 + float(want.abs().max()))
+                    if ops.LAUNCHES[name] - before != 1 or not err <= tol:
+                        fail(f"{name} local block W={w} S={s} shard {si} "
+                             f"F={f} {dtype}: err {err:.3e} (tol "
+                             f"{tol:.1e}), launches "
+                             f"{ops.LAUNCHES[name] - before}")
+                    max_err[name] = max(max_err[name], err)
+            print(f"  4w block W={w:5d} S={s} shard {si}: W_local={b:4d} "
+                  f"K={idx.shape[1]} sparse/quant vs plain max_abs_err "
+                  f"{max_err['gossip_mix_sparse']:.3e} / "
+                  f"{max_err['gossip_mix_quant']:.3e}", flush=True)
+    for w, s in ((60, 4), (10_000, 8)):
+        plan, idx, val = shard_block(w, s, 0, dev)
+        b, k, f = plan.block, idx.shape[1], 2048
+        nnz = int(plan.valid[0].sum())
+        w32, _ = payload(gen, b, f, "float32")
+        q, scale = payload(gen, b, f, "int8")
+        for name, kern, plain, lib, in_bytes in (
+                ("gossip_mix_sparse",
+                 lambda: ops.gossip_mix_sparse(idx, val, w32),
+                 lambda: ref.gossip_mix_sparse_ref(idx, val, w32), True, 4),
+                ("gossip_mix_quant",
+                 lambda: ops.gossip_mix_quant(idx, val, scale, q),
+                 lambda: ref.gossip_mix_quant_ref(idx, val, scale, q),
+                 False, 1)):
+            csr = torch.sparse_coo_tensor(
+                torch.stack([torch.arange(b, device=dev).repeat_interleave(
+                    k), idx.reshape(-1).long()]), val.reshape(-1),
+                (b, b)).coalesce().to_sparse_csr()
+            ms, plain_ms = device_ms(kern), device_ms(plain)
+            lib_ms = device_ms(lambda: torch.sparse.mm(csr, w32)) \
+                if lib else None
+            b_ms, b_by = bound(name, b, nnz, k, f, in_bytes)
+            print(f"  4w time {name:18s} W={w:5d} S={s} W_local={b:4d} "
+                  f"K={k} F={f} kernel={ms * 1e3:.2f}us plain="
+                  f"{plain_ms * 1e3:.2f}us library="
+                  f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.2f}'}us "
+                  f"bound={b_ms * 1e3:.2f}us ({b_by})", flush=True)
+    return max_err
+
+
+def numpy_state(st):
+    """A state's fields as numpy (DeFTAState or CrossDeviceState)."""
+    out = {}
+    for f in dataclasses.fields(st):
+        v = getattr(st, f.name)
+        if isinstance(v, dict):
+            out[f.name] = {k: x.cpu().numpy() for k, x in v.items()}
+        elif v is not None:
+            out[f.name] = v.cpu().numpy()
+    return out
+
+
+# fields held exact between a sharded run and an unsharded one
+SHARD_EXACT = ("epoch", "last_part", "obs", "sketch", "sketch_round")
+
+
+def shard_gap(a, b, int8=False):
+    """The largest excess of |a - b| over 1e-4 |b| across the float fields
+    of two numpy states (rtol and atol 1e-4, the CPU tests' limit, hold
+    when it is at most 1e-4; None when an exact field differs); ``int8``:
+    params, backup and residuals in units of one quantization step of the
+    row (max|row| / 127), one step counting as 1e-4."""
+    gap = 0.0
+    for f, x in a.items():
+        y = b[f]
+        if f in SHARD_EXACT:
+            if not np.array_equal(x, y):
+                return None
+            continue
+        for k in (x if isinstance(x, dict) else {None: x}):
+            u = x[k] if k is not None else x
+            v = y[k] if k is not None else y
+            d = np.abs(u.astype(np.float64) - v.astype(np.float64)) \
+                - 1e-4 * np.abs(v.astype(np.float64))
+            d = np.where(np.isfinite(u) & np.isfinite(v), d,
+                         np.where(u == v, 0.0, np.inf))
+            if int8 and f in ("params", "backup", "wire_err"):
+                step = np.abs(a["params"][k].reshape(len(u), -1)).max(1) \
+                    / 127.0
+                d = d.reshape(len(u), -1) / np.maximum(step, 1e-30)[:, None] \
+                    * 1e-4             # one step maps to the 1e-4 limit
+            gap = max(gap, float(d.max()))
+    return gap
+
+
+def sharded_pair(label, run, s, kernel, count=None, int8=False,
+                 want_ring=None):
+    """``run(shards)`` -> (state, ledger) unsharded and on ``s`` shards of
+    the card (counters at 0 before the sharded run): the sharded run must
+    launch ``kernel`` ``count(ledger)`` times (default: s x 4 leaves x the
+    rounds or ticks run, one local block per shard and leaf) and nothing
+    else, move ``want_ring(ledger)`` bytes between shards when given, and
+    end within 1e-4 of the unsharded run (exact fields equal). Returns
+    (launches, ms a round or tick of both runs, sharded state)."""
+    from repro_torch.core import gossip
+    from repro_torch.kernels import ops
+    one, led1 = run(None)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    gossip.reset_ring()
+    st, led = run(s)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    n = count(led) if count is not None else s * 4 * led.rounds_done
+    if counts != {kernel: n}:
+        fail(f"4w {label}: launches {counts}, expected {{{kernel}: {n}}}")
+    if want_ring is not None and gossip.RING["bytes"] != want_ring(led):
+        fail(f"4w {label}: ring bytes {gossip.RING['bytes']}, the "
+             f"contract {want_ring(led)}")
+    gap = shard_gap(numpy_state(one), numpy_state(st), int8)
+    if gap is None or not gap <= 1e-4:
+        fail(f"4w {label}: sharded vs unsharded gap {gap} (epochs, ticks, "
+             f"stamps, counters and sketches must be equal)")
+    ms = [1e3 * sum(x.superstep_s) / max(x.rounds_done, 1)
+          for x in (led1, led)]
+    print(f"  4w {label:34s} S={s} {kernel}={n} ring_bytes="
+          f"{gossip.RING['bytes']} gap={gap:.2e} ms/unit unsharded "
+          f"{ms[0]:.2f} sharded {ms[1]:.2f}", flush=True)
+    return n, ms, st
+
+
+def shard_world(w, n_per_worker, local_epochs=2):
+    from repro_torch.config import DeFTAConfig, TrainConfig
+    from repro_torch.core.tasks import mlp_task
+    from repro_torch.data import federated_dataset
+    data = federated_dataset("vector", w, np.random.default_rng(0),
+                             n_per_worker=n_per_worker, alpha=0.5)
+    cfg = DeFTAConfig(num_workers=w, avg_peers=4, num_sampled=2,
+                      local_epochs=local_epochs)
+    return data, mlp_task(32, 10), cfg, TrainConfig(learning_rate=0.05,
+                                                    batch_size=32)
+
+
+def ring_contract(cfg, adj, s, n_params, leaves=4):
+    """The sharded_ring_bytes of one round of ``cfg``'s wire."""
+    from repro_torch.core.gossip import normalize_wire
+    from repro_torch.launch.roofline import sharded_ring_bytes
+    return sharded_ring_bytes(n_params, adj, s,
+                              normalize_wire(cfg.gossip_dtype),
+                              rows=leaves)["ring_bytes"]
+
+
+def shard_end_to_end(launches):
+    """Phase 4w on the card; the phase's launches are added to
+    ``launches``."""
+    import warnings
+
+    from repro_torch import sharding
+    from repro_torch.core.async_defta import run_async_defta
+    from repro_torch.core.cross_device import run_cross_device
+    from repro_torch.core.defta import run_defta
+    from repro_torch.core.engine import init_cross_device_state, sketch_shape
+    from repro_torch.core.topology import make_topology
+    from repro_torch.kernels import ops
+    from repro_torch.scenarios import compile_world
+    from repro_torch.telemetry import RunLedger
+
+    def on_card(s):
+        return None if s is None else ["cuda:0"] * s
+
+    def defta(data, task, cfg, train, epochs, s, **kw):
+        led = RunLedger()
+        st, *_ = run_defta(0, task, cfg, train, data, epochs=epochs,
+                           ledger=led, probes=False, device="cuda",
+                           shards=s, shard_devices=on_card(s), **kw)
+        return st, led
+
+    # the equality runs take 4 epochs, as the reference's shard tests do
+    # (SGD amplifies the summation-order differences round by round)
+    epochs = 4
+    data, task, cfg, train = table2_world()
+    n_params = sum(MLP_LEAVES)
+    adj22 = make_topology(cfg.topology, 22, cfg.avg_peers, cfg.seed)
+    for s in (2, 4):
+        n, _, _ = sharded_pair(
+            f"Table 2 W=22 fp32 {epochs} epochs",
+            lambda sh: defta(data, task, cfg, train, epochs, sh,
+                             num_malicious=2, eval_every=2,
+                             test_x=data["test_x"], test_y=data["test_y"]),
+            s, "gossip_mix_sparse",
+            want_ring=lambda led, s=s: led.rounds_done * ring_contract(
+                cfg, adj22, s, n_params))
+        launches["gossip_mix_sparse"] += n
+    # ms an epoch by shard count, in turns (1, 2, 4, 4, 2, 1), 10 epochs
+    # each in two chunks of 5; the second chunk is the one kept
+    ms_by_s = {1: [], 2: [], 4: []}
+    for s in (1, 2, 4, 4, 2, 1):
+        _, led = defta(data, task, cfg, train, 10, s if s > 1 else None,
+                       num_malicious=2, eval_every=5, test_x=data["test_x"],
+                       test_y=data["test_y"])
+        ms_by_s[s].append(1e3 * led.superstep_s[-1] / 5)
+    print("  4w Table 2 world ms an epoch by shards (probes off, the "
+          "second 5-epoch chunk of 10, two runs each): "
+          + "; ".join(f"S={k}: {', '.join(f'{x:.2f}' for x in v)}"
+                      for k, v in ms_by_s.items()), flush=True)
+
+    cfg8 = dataclasses.replace(cfg, gossip_dtype="int8")
+    n, _, _ = sharded_pair(
+        "Table 2 int8 + EF21",
+        lambda sh: defta(data, task, cfg8, train, epochs, sh,
+                         num_malicious=2), 4, "gossip_mix_quant",
+        int8=True,
+        want_ring=lambda led: led.rounds_done * ring_contract(
+            cfg8, adj22, 4, n_params))
+    launches["gossip_mix_quant"] += n
+
+    # secagg on the fp32 and int8 wires: sharded secagg = sharded
+    # plaintext bit for bit (the local blocks still run their kernels)
+    for wire, kernel in (("float32", "gossip_mix_sparse"),
+                         ("int8", "gossip_mix_quant")):
+        c_plain = dataclasses.replace(cfg, gossip_dtype=wire)
+        c_sec = dataclasses.replace(c_plain, secagg="pairwise")
+        plain, _ = defta(data, task, c_plain, train, 4, 4, num_malicious=2)
+        ops.reset_launches()
+        sec, _ = defta(data, task, c_sec, train, 4, 4, num_malicious=2)
+        torch.cuda.synchronize()
+        a, b = numpy_state(plain), numpy_state(sec)
+        same = all(np.array_equal(a[f][k], b[f][k]) for f in a
+                   if isinstance(a[f], dict) for k in a[f]) and all(
+            np.array_equal(a[f], b[f], equal_nan=True) for f in a
+            if not isinstance(a[f], dict))
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        print(f"  4w secagg {wire:7s} S=4 sharded secagg == sharded "
+              f"plaintext bit for bit: {same}; launches {got}", flush=True)
+        if not same or got != {kernel: 4 * 4 * 4}:
+            fail(f"4w secagg {wire}: equal {same}, launches {got}")
+        launches[kernel] += got[kernel]
+
+    # the Table 3 world: 20 vanilla + 40 alie colluders under all, one
+    # round (past it the geometry channel's half-mass tie lets float
+    # summation order decide a receiver's norm median: ROADMAP queue 3)
+    from repro_torch.scenarios import AttackSpec, ScenarioSpec
+    t3 = dataclasses.replace(cfg, local_epochs=1, dts_signal="all")
+    alie = ScenarioSpec(name="alie_k40", attacks=tuple(
+        AttackSpec("alie") for _ in range(40)))
+    n, _, st = sharded_pair(
+        "Table 3 W=60 alie@40 all, 1 round",
+        lambda sh: defta(data, task, t3, train, 1, sh, scenario=alie), 4,
+        "gossip_mix_sparse")
+    if st.conf.shape != (60, 60) or not float(st.sketch.abs().max()) > 0:
+        fail("4w Table 3: world or sketch not as built")
+    launches["gossip_mix_sparse"] += n
+
+    # W = 100 on 8 shards: warned, state whole, transport padded (8 blocks
+    # of 13, the last 9 real rows)
+    d100, task100, c100, tr100 = shard_world(100, 32)
+    sharding._DEMOTION_WARNED.clear()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        n, _, _ = sharded_pair(
+            "W=100 on 8 shards (padded)",
+            lambda sh: defta(d100, task100, c100, tr100, 2, sh), 8,
+            "gossip_mix_sparse")
+    if not any("not divisible" in str(r.message) for r in rec):
+        fail("4w W=100 on 8 shards: no 'not divisible' warning")
+    launches["gossip_mix_sparse"] += n
+
+    # async storm on 4 shards (W = 23: one block, the transport padded),
+    # 4 ticks: past them the sign_flip attacker's model grows without
+    # bound and carries the two runs' last-bit differences with it (8
+    # ticks on the CPU: 0.14 apart at |w| = 23, the vanilla workers within
+    # 1e-4)
+    def storm(sh):
+        led = RunLedger()
+        st, *_ = run_async_defta(0, task, cfg, train, data, ticks=4,
+                                 scenario="storm", ledger=led,
+                                 probes=False, device="cuda", shards=sh,
+                                 shard_devices=on_card(sh))
+        return st, led
+    n, _, _ = sharded_pair("async storm 4 ticks", storm, 4,
+                           "gossip_mix_sparse")
+    launches["gossip_mix_sparse"] += n
+
+    # the launcher's cross-device world (10,000 enrolled, k = 64) with the
+    # enrolled rows on 4 shards: the k-block keeps its 4 tile launches
+    cache = {}
+    ctask, ccfg, ctrain, cdata, spec = cross_device_world(cache)
+    rounds = 6
+    world = compile_world(spec, rounds)
+
+    def cross(sh):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        init = init_cross_device_state(gen, ctask, world.enrolled,
+                                       sketch=sketch_shape(ccfg))
+        led = RunLedger()
+        st, _ = run_cross_device(0, ctask, ccfg, ctrain, cdata,
+                                 world=world, epochs=rounds, ledger=led,
+                                 probes=False, init=init, device="cuda",
+                                 shards=sh,
+                                 shard_devices=on_card(sh))
+        return st, led
+    ops.reset_launches()
+    n, _, _ = sharded_pair("cross-device N=10,000 k=64, 6 rounds", cross,
+                           4, "gossip_mix", lambda led: 4 * led.rounds_done)
+    if ops.REGIMES != {"gossip_mix/tile": 4 * rounds}:
+        fail(f"4w cross-device: regimes {ops.REGIMES}")
+    launches["gossip_mix"] += n
+
+    # full width: W = 10,000 on 8 shards, 2 epochs
+    dw, taskw, cw, _ = shard_world(10_000, 8, local_epochs=1)
+    trw = dataclasses.replace(train, batch_size=8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    st, led = defta(dw, taskw, cw, trw, 2, 8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state_gb = sum(x.nbytes for f in numpy_state(st).values()
+                   for x in (f.values() if isinstance(f, dict) else [f])) \
+        / 1e9
+    counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    print(f"  4w full width W=10,000 S=8 2 epochs: wall {wall:.2f}s, "
+          f"chunks {led.as_stats()['dispatches']}, launches {counts}, "
+          f"state {state_gb:.3f} GB ({state_gb / 8:.3f} GB a shard), card "
+          f"peak {peak:.2f} GB (all 8 shards on one card)", flush=True)
+    if not bool((st.epoch == 2).all()) or counts != {
+            "gossip_mix_sparse": 8 * 4 * 2} or \
+            not bool(torch.isfinite(st.last_loss).all()):
+        fail(f"4w full width: epochs {st.epoch.unique().tolist()}, "
+             f"launches {counts}")
+    launches["gossip_mix_sparse"] += counts["gossip_mix_sparse"]
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: serving end to end
 # ---------------------------------------------------------------------------
 
@@ -3248,6 +3650,11 @@ def main() -> int:
 
     print("[4m] telemetry and the launcher", flush=True)
     telemetry_end_to_end(launches)
+
+    print("[4w] worker-axis sharding end to end", flush=True)
+    for k, v in check_shard_blocks(dev).items():
+        max_err[k] = max(max_err[k], v)
+    shard_end_to_end(launches)
 
     print("[5] serving end to end", flush=True)
     launches.update(serve_full(dev))

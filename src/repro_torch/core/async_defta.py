@@ -27,15 +27,16 @@ import numpy as np
 import torch
 
 from repro_torch.config import DeFTAConfig, TrainConfig
-from repro_torch.core.defta import (attacker_world, check_world,
-                                    initial_state, registry,
-                                    scenario_world, to_device_data)
+from repro_torch.core.defta import (attacker_world, initial_state,
+                                    registry, scenario_world,
+                                    to_device_data)
 from repro_torch.core.engine import (DeFTAState, build_defta_round,
                                      build_fire_gated_tick, drive_ticks)
 from repro_torch.core.tasks import Task
 from repro_torch.core.topology import make_topology
 from repro_torch.device import resolve_device
 from repro_torch.rng import TorchDraws, TorchTickDraws
+from repro_torch.sharding import worker_shards
 
 __all__ = ["run_async_defta"]
 
@@ -46,8 +47,8 @@ def run_async_defta(seed: int, task: Task, cfg: DeFTAConfig,
                     speed_range=(0.3, 1.0), target_epochs: int = 0,
                     check_every: int = 0, host_exit: bool = False,
                     ledger=None, probes: bool = True,
-                    shards: Optional[int] = None, device=None,
-                    gossip_backend: str = "auto",
+                    shards: Optional[int] = None, shard_devices=None,
+                    device=None, gossip_backend: str = "auto",
                     init: Optional[DeFTAState] = None, draws=None,
                     tick_draws=None):
     """Run until every vanilla worker reaches ``target_epochs`` (if > 0) or
@@ -73,8 +74,8 @@ def run_async_defta(seed: int, task: Task, cfg: DeFTAConfig,
     compiled over ``max(ticks, 1)`` ticks and replayed with the tick index
     as its epoch. With a target, only the vanilla workers whose scenario
     fire opportunities reach it are waited for (all vanilla workers if none
-    can). ``shards`` is a later item of the port and raises
-    ``NotImplementedError``.
+    can). ``shards`` and ``shard_devices`` shard the worker axis as in
+    ``run_defta``: the tick merges each block's rows of ``fired``.
 
     ``ledger`` (a ``telemetry.RunLedger``) receives each chunk's ticks and
     wall seconds and, as in the reference, every tick's frame: the round's
@@ -84,7 +85,9 @@ def run_async_defta(seed: int, task: Task, cfg: DeFTAConfig,
     """
     del host_exit
     dev = resolve_device(device)
-    check_world(shards)
+    shard = worker_shards(shards, dev, shard_devices)
+    if shard is not None:
+        dev = shard.devices[0]
     scenario, num_classes = scenario_world(scenario, num_malicious, cfg,
                                            data, max(ticks, 1), dev)
     w, malicious, data, sizes = attacker_world(cfg, data, num_malicious,
@@ -100,8 +103,12 @@ def run_async_defta(seed: int, task: Task, cfg: DeFTAConfig,
                                draws=draws or TorchDraws(gen), device=dev,
                                gossip_backend=gossip_backend,
                                scenario=scenario, num_classes=num_classes,
-                               telemetry=registry(ledger, probes))
-    tick = build_fire_gated_tick(rnd_fn, to_device_data(data, dev),
+                               telemetry=registry(ledger, probes),
+                               shard=shard)
+    tdata = to_device_data(data, dev)
+    if shard is not None:
+        tdata = shard.shard_leading(tdata, w)
+    tick = build_fire_gated_tick(rnd_fn, tdata,
                                  torch.as_tensor(speeds).to(dev), w,
                                  draws=tick_draws or TorchTickDraws(gen))
     if not check_every:
@@ -117,5 +124,5 @@ def run_async_defta(seed: int, task: Task, cfg: DeFTAConfig,
             required = ~malicious
     state = drive_ticks(tick, state, ticks, check_every=max(1, check_every),
                         required=required, target_epochs=target_epochs,
-                        ledger=ledger)
+                        ledger=ledger, shard=shard, shard_rows=w)
     return state, adj, malicious, speeds

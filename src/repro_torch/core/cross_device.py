@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import DeFTAConfig, TrainConfig
-from repro_torch.core.defta import check_world, registry, to_device_data
+from repro_torch.core.defta import registry, to_device_data
 from repro_torch.core.engine import (CrossDeviceState,
                                      build_cross_device_round, drive_epochs,
                                      init_cross_device_state, sketch_shape)
@@ -32,6 +32,7 @@ from repro_torch.rng import TorchDraws
 from repro_torch.scenarios.cross_device import (CompiledWorld,
                                                 CrossDeviceSpec,
                                                 compile_world)
+from repro_torch.sharding import worker_shards
 
 __all__ = ["CrossDeviceState", "evaluate_probe", "probe_indices",
            "resolve_world", "run_cross_device"]
@@ -110,8 +111,9 @@ def run_cross_device(seed: int, task: Task, cfg: DeFTAConfig,
                      gossip_backend: str = "auto", eval_every: int = 0,
                      test_x=None, test_y=None, probe: int = 32,
                      ledger=None, probes: bool = True,
-                     shards: Optional[int] = None, device=None,
-                     init: Optional[CrossDeviceState] = None, draws=None):
+                     shards: Optional[int] = None, shard_devices=None,
+                     device=None, init: Optional[CrossDeviceState] = None,
+                     draws=None):
     """Train a cross-device world for ``epochs`` global rounds.
 
     ``data``: the federated dataset dict sharded over the ENROLLED
@@ -128,15 +130,20 @@ def run_cross_device(seed: int, task: Task, cfg: DeFTAConfig,
     round counts and wall seconds and, as in the reference, every round's
     ``cross_device_specs`` frame (the round is built with a
     ``telemetry.Telemetry`` registry); ``probes=False`` keeps the
-    accounting without the probes. ``shards`` is a later item of the port
-    and raises ``NotImplementedError``.
+    accounting without the probes. ``shards`` and ``shard_devices`` shard
+    the enrolled axis as ``run_defta`` shards its workers: the population
+    buffers (and the users' data) become row blocks, each cohort row is
+    gathered from and written back to the block that owns it, and the
+    dense k-block runs on the first shard device.
 
     Returns ``(state, history)`` with history entries ``(done_rounds,
     probe_acc_mean, probe_acc_std)`` every ``eval_every`` rounds when
     ``test_x`` and ``test_y`` are given.
     """
     dev = resolve_device(device)
-    check_world(shards)
+    shard = worker_shards(shards, dev, shard_devices)
+    if shard is not None:
+        dev = shard.devices[0]
     world = resolve_world(world, epochs)
     if data["x"].shape[0] != world.enrolled:
         raise ValueError(f"data sharded over {data['x'].shape[0]} users, "
@@ -149,7 +156,8 @@ def run_cross_device(seed: int, task: Task, cfg: DeFTAConfig,
                                    draws=draws or TorchDraws(gen),
                                    device=dev, gossip_backend=gossip_backend,
                                    num_classes=num_classes,
-                                   telemetry=registry(ledger, probes))
+                                   telemetry=registry(ledger, probes),
+                                   shard=shard)
     tdata = to_device_data(data, dev)
 
     eval_fn = None
@@ -161,4 +169,5 @@ def run_cross_device(seed: int, task: Task, cfg: DeFTAConfig,
             return (done, m, s)
 
     return drive_epochs(rnd, state, tdata, epochs, eval_every=eval_every,
-                        eval_fn=eval_fn, ledger=ledger)
+                        eval_fn=eval_fn, ledger=ledger, shard=shard,
+                        shard_rows=world.enrolled)

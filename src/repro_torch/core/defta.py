@@ -28,6 +28,7 @@ from repro_torch.rng import TorchDraws
 from repro_torch.scenarios.compile import (CompiledScenario,
                                            compile_scenario, to_device)
 from repro_torch.scenarios.spec import ScenarioSpec, get_scenario
+from repro_torch.sharding import worker_shards
 from repro_torch.telemetry.spec import Telemetry
 
 __all__ = ["DeFTAState", "evaluate", "global_model", "resolve_scenario",
@@ -132,14 +133,6 @@ def registry(ledger, probes: bool):
     return Telemetry() if ledger is not None and probes else None
 
 
-def check_world(shards) -> None:
-    """Refuse the parts of a DeFTA world this port does not carry yet."""
-    if shards is not None and shards > 1:
-        raise NotImplementedError("sharded workers are not ported yet "
-                                  "(ROADMAP.md, queue 1a, item 7: "
-                                  "multi-device transports)")
-
-
 def initial_state(gen: torch.Generator, task: Task, cfg: DeFTAConfig,
                   w: int, init: Optional[DeFTAState]) -> DeFTAState:
     """``init`` checked against the world (W, the EF21 residuals and the
@@ -163,8 +156,8 @@ def run_defta(seed: int, task: Task, cfg: DeFTAConfig, train: TrainConfig,
               data, *, epochs: int, num_malicious: int = 0, scenario=None,
               gossip_backend: str = "auto", eval_every: int = 0,
               test_x=None, test_y=None, ledger=None, probes: bool = True,
-              shards: Optional[int] = None, device=None,
-              init: Optional[DeFTAState] = None, draws=None):
+              shards: Optional[int] = None, shard_devices=None,
+              device=None, init: Optional[DeFTAState] = None, draws=None):
     """End-to-end driver. Malicious workers are appended after the vanilla
     ones (paper §4.3: normal workers fixed, attackers newly joined).
 
@@ -189,13 +182,24 @@ def run_defta(seed: int, task: Task, cfg: DeFTAConfig, train: TrainConfig,
     name: ``paper_noise@K``, ``churn_signflip``, ``storm``) replaces
     ``num_malicious`` with a full event timeline: its attackers are
     appended the same way, and churn, link, partition and straggler events
-    replay round by round. ``shards`` is a later item of the port and
-    raises ``NotImplementedError``.
+    replay round by round.
+
+    ``shards``: shard the worker axis over that many devices
+    (``sharding.worker_shards``: the first ``shards`` cards, or
+    ``["cpu"] * shards`` with ``device="cpu"``; ``shard_devices``, e.g.
+    ``["cuda:0"] * 4``, names them instead and then runs on its first).
+    Per-shard blocks carry their own params, confidence, EF21 residual and
+    sketch rows, and the transport becomes the local-block CSR +
+    cross-shard ring mix; W need not divide ``shards`` (the state then
+    stays whole, warned once, and only the transport pads). The draws,
+    the result and the ledger rows are those of an unsharded run.
 
     Returns ``(state, adj, malicious, history)``.
     """
     dev = resolve_device(device)
-    check_world(shards)
+    shard = worker_shards(shards, dev, shard_devices)
+    if shard is not None:
+        dev = shard.devices[0]
     scenario, num_classes = scenario_world(scenario, num_malicious, cfg,
                                            data, epochs, dev)
     w, malicious, data, sizes = attacker_world(cfg, data, num_malicious,
@@ -208,7 +212,8 @@ def run_defta(seed: int, task: Task, cfg: DeFTAConfig, train: TrainConfig,
                                draws=draws or TorchDraws(gen), device=dev,
                                gossip_backend=gossip_backend,
                                scenario=scenario, num_classes=num_classes,
-                               telemetry=registry(ledger, probes))
+                               telemetry=registry(ledger, probes),
+                               shard=shard)
     tdata = to_device_data(data, dev)
 
     eval_fn = None
@@ -218,7 +223,7 @@ def run_defta(seed: int, task: Task, cfg: DeFTAConfig, train: TrainConfig,
             return (done, m, s)
     state, history = drive_epochs(rnd_fn, state, tdata, epochs,
                                   eval_every=eval_every, eval_fn=eval_fn,
-                                  ledger=ledger)
+                                  ledger=ledger, shard=shard, shard_rows=w)
     return state, adj, malicious, history
 
 

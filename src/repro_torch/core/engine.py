@@ -52,8 +52,15 @@ channels give way to the pooled signal (``dts.masked_geom_trust``) and the
 ring buffer does not rotate.
 
 ``check_supported`` raises the reference's ``ValueError`` for a config the
-reference rejects, then ``NotImplementedError`` for what the port does not
-carry yet: sharded workers.
+reference rejects.
+
+Worker-axis sharding (``shard=``, a ``sharding.WorkerShards``): the sync
+round, the tick and the cross-device round take their per-worker state
+as a list of row blocks, one per shard device, and run each stage block
+by block; the transport is the sharded local-block mix
+(``gossip.mix_rows_sharded``), and the stages that read across rows
+gather explicitly. The drivers place the state (``shard=`` on
+``drive_epochs`` / ``drive_ticks``) and hand back one whole state.
 """
 from __future__ import annotations
 
@@ -67,7 +74,9 @@ import torch
 from repro_torch.config import DeFTAConfig, TrainConfig
 from repro_torch.core import dts as dts_mod
 from repro_torch.core.gossip import (dynamic_mixing_matrix, mix_pytree,
-                                     normalize_wire, uses_error_feedback)
+                                     mix_rows_sharded, mixing_rows,
+                                     normalize_wire, uses_error_feedback,
+                                     worker_shard_plan)
 from repro_torch.core.secagg import secagg_base_key
 from repro_torch.core.tasks import Task
 from repro_torch.scenarios.attacks import (LABEL_FLIP_CODE, RANDOM_ATTACKS,
@@ -75,16 +84,12 @@ from repro_torch.scenarios.attacks import (LABEL_FLIP_CODE, RANDOM_ATTACKS,
                                            tree_select)
 from repro_torch.scenarios.compile import epoch_view
 from repro_torch.scenarios.robust_agg import ROBUST_RULES, robust_mix
+from repro_torch.sharding import tree_map
 from repro_torch.telemetry.ledger import RunLedger
 from repro_torch.telemetry.spec import (cross_device_specs, defta_specs,
                                         fedavg_specs, gather_frames,
                                         stacked_payload_bytes, tick_specs,
                                         tree_payload_bytes)
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1a, {item})")
 
 
 _DTS_CHANNELS = {"loss": (), "geom": ("geom",), "both": ("geom",),
@@ -116,26 +121,43 @@ def sketch_shape(cfg: DeFTAConfig):
 def check_supported(cfg: DeFTAConfig, *, shard=None) -> None:
     """Raise the reference's ``ValueError`` for a config it rejects (an
     unknown trust signal, secure-aggregation scheme or mode, secure
-    aggregation under a robust rule), then ``NotImplementedError`` for any
-    part the port does not carry yet, naming the ROADMAP item that ports
-    it. A config is never silently ignored. An unknown ``aggregation`` is
-    a ``ValueError`` here, where the reference builds a uniform mix."""
+    aggregation under a robust rule, a robust rule on a lossy wire,
+    stochastic int8 rounding on the sharded transport), in the
+    reference's order. A config is never silently ignored. An unknown
+    ``aggregation`` is a ``ValueError`` here, where the reference builds a
+    uniform mix."""
     resolve_dts_signal(cfg)
     if cfg.aggregation not in ("defta", "defl", "uniform") + ROBUST_RULES:
         raise ValueError(f"unknown aggregation {cfg.aggregation!r}")
+    _check_transport(cfg, robust=cfg.aggregation in ROBUST_RULES,
+                     shard=shard)
+
+
+def _check_transport(cfg: DeFTAConfig, *, robust: bool, shard) -> None:
+    """``make_transport``'s refusals, in the reference's order."""
+    wire = normalize_wire(cfg.gossip_dtype)
+    if robust and wire is not None:
+        raise ValueError(
+            f"robust aggregation ({cfg.aggregation!r}) simulates lossless "
+            f"model exchange — it never runs the quantized wire, so "
+            f"comparing it against a lossy-wire DeFTA run would be "
+            f"apples-to-oranges; set gossip_dtype='float32'")
     if cfg.secagg not in (None, "pairwise"):
         raise ValueError(f"unknown secagg scheme {cfg.secagg!r} "
                          f"(None | 'pairwise')")
     if cfg.secagg_mode not in ("edge", "masked_geom"):
         raise ValueError(f"unknown secagg_mode {cfg.secagg_mode!r} "
                          f"('edge' | 'masked_geom')")
-    if cfg.secagg is not None and cfg.aggregation in ROBUST_RULES:
+    if cfg.secagg is not None and robust:
         raise ValueError(
             f"secagg composes with the weighted gossip mix only — robust "
             f"rules ({cfg.aggregation!r}) inspect individual plaintext "
             f"models, which is exactly what the masked wire denies them")
-    if shard is not None:
-        _not_ported("sharded workers", "item 7: multi-device transports")
+    if shard is not None and wire == "int8" \
+            and cfg.gossip_wire_round == "stochastic":
+        raise ValueError("wire_round='stochastic' is not supported on "
+                         "the sharded transport (row-local nearest "
+                         "encode only)")
 
 
 # ---------------------------------------------------------------------------
@@ -247,37 +269,53 @@ class Transport:
     dict, or ``(mixed, new_residual)`` when an EF21 residual dict is
     passed; ``wire_u`` carries the stochastic wire's uniforms and
     ``round_`` is the round the secagg pads are keyed on (inert without
-    secagg)."""
-    kind: str                    # "in_process"
+    secagg). The sharded transport mixes row blocks instead:
+    ``mix_rows(P_rows, stacked_rows, residual_rows, round_)`` returns
+    ``(mixed_rows, new_residual_rows)`` (``gossip.mix_rows_sharded``)."""
+    kind: str                    # "in_process" | "sharded"
     wire: Optional[str]          # None | "bf16" | "int8"
     use_ef: bool
     stochastic: bool             # int8 stochastic rounding
-    mix: Callable
+    mix: Optional[Callable] = None
+    mix_rows: Optional[Callable] = None
 
 
 def make_transport(cfg: DeFTAConfig, *, backend: str = "auto",
-                   adjacency=None, robust: bool = False) -> Transport:
-    """The in-process transport over the ``mix_pytree`` backends.
-    ``adjacency`` is the static support of every P the round builds (the
-    scenario's support union under a time-varying topology). Stochastic
-    int8 rounding exists on the int8 wire only (elsewhere the knob is
-    inert, as in the reference). A robust rule never runs the lossy wire.
-    With ``cfg.secagg`` the pad root comes from ``cfg.seed`` alone
-    (``secagg.secagg_base_key``: no draw moves) and every mix is the
-    masked gather mix. The cross-pod ring and the sharded transport are
-    later items."""
+                   adjacency=None, robust: bool = False,
+                   shard=None) -> Transport:
+    """The in-process transport over the ``mix_pytree`` backends, or, with
+    ``shard`` (a ``sharding.WorkerShards``), the worker-axis-sharded one:
+    intra-shard edges run the padded-CSR sparse or int8 kernels on each
+    shard's local block, cross-shard edges ride the block-granular ring
+    (``gossip.mix_rows_sharded``); like the reference's it encodes
+    row-local to nearest, so stochastic int8 rounding raises its
+    ``ValueError`` there. ``adjacency`` is the static support of every P
+    the round builds (the scenario's support union under a time-varying
+    topology). Stochastic int8 rounding exists on the int8 wire only
+    (elsewhere the knob is inert, as in the reference). A robust rule
+    never runs the lossy wire. With ``cfg.secagg`` the pad root comes from
+    ``cfg.seed`` alone (``secagg.secagg_base_key``: no draw moves): the
+    in-process mix is then the masked gather mix, the sharded one masks
+    its block channels. The cross-pod ring is a later item."""
+    _check_transport(cfg, robust=robust, shard=shard)
     wire = normalize_wire(cfg.gossip_dtype)
     use_ef = uses_error_feedback(cfg)
     stochastic = wire == "int8" and cfg.gossip_wire_round == "stochastic"
     wire_round = "stochastic" if stochastic else "nearest"
-    if robust and wire is not None:
-        raise ValueError(
-            f"robust aggregation ({cfg.aggregation!r}) simulates lossless "
-            f"model exchange — it never runs the quantized wire, so "
-            f"comparing it against a lossy-wire DeFTA run would be "
-            f"apples-to-oranges; set gossip_dtype='float32'")
     sec_base = secagg_base_key(cfg.seed) if cfg.secagg is not None \
         else None
+    if shard is not None:
+        plan = None if adjacency is None \
+            else worker_shard_plan(adjacency, shard.shards)
+
+        def mix_rows(P_rows, stacked_rows, residual_rows=None, round_=None):
+            return mix_rows_sharded(P_rows, stacked_rows, shard,
+                                    adjacency=adjacency, wire=wire,
+                                    residual_rows=residual_rows,
+                                    secagg=sec_base, secagg_round=round_,
+                                    plan=plan)
+        return Transport(kind="sharded", wire=wire, use_ef=use_ef,
+                         stochastic=False, mix_rows=mix_rows)
 
     def mix(P, stacked, residual=None, wire_u=None, round_=None):
         return mix_pytree(P, stacked, backend=backend, adjacency=adjacency,
@@ -329,19 +367,20 @@ def apply_update_dp(cfg: DeFTAConfig, noise: dict, start: dict,
             for k, d in delta.items()}
 
 
-def _draw_shapes(params: dict, cfg: DeFTAConfig, train: TrainConfig,
+def _draw_shapes(shapes: dict, cfg: DeFTAConfig, train: TrainConfig,
                  w: int, n: int, transport: Transport,
                  noise_kinds: tuple) -> dict:
     """The build-time-gated extras a round asks its provider for: the
     random attack kinds' noise, the stochastic wire's uniforms and the two
-    DP draws, each only when the round needs it."""
-    shapes = {k: tuple(v.shape) for k, v in params.items()}
+    DP draws, each only when the round needs it. ``shapes``: each leaf's
+    [W, ...] shape."""
     extra = {}
     if noise_kinds:
         extra["kind_noise"] = {k: shapes for k in noise_kinds}
     if transport.stochastic:
-        extra["wire_shapes"] = {k: (w, v[0].numel())
-                                for k, v in params.items()}
+        extra["wire_shapes"] = {
+            k: (w, int(np.prod(v[1:], dtype=np.int64)))
+            for k, v in shapes.items()}
     if cfg.dp_clip > 0:
         steps = max(n // train.batch_size, 1)
         extra["dp_sgd_shapes"] = {
@@ -350,6 +389,59 @@ def _draw_shapes(params: dict, cfg: DeFTAConfig, train: TrainConfig,
     if uses_update_dp(cfg):
         extra["dp_update_shapes"] = shapes
     return extra
+
+
+def _blocks(state, data, n: int) -> list:
+    """The round's per-block contexts: a state and its data, each a list
+    of row blocks (a sharded run) or one whole tree."""
+    states = state if isinstance(state, list) else [state]
+    datas = data if isinstance(data, list) else [data]
+    if len(states) != n or len(datas) != n:
+        raise ValueError(f"the round runs {n} row block(s); got "
+                         f"{len(states)} state and {len(datas)} data "
+                         f"block(s) (place them with "
+                         f"WorkerShards.shard_leading)")
+    return [{"state": s, "data": d} for s, d in zip(states, datas)]
+
+
+def _close_blocks(c) -> None:
+    """The round's last stage: ``next`` is the blocks' next states, a list
+    when the round was given one, else the one state."""
+    nxt = [bc["next"] for bc in c["blocks"]]
+    c["next"] = nxt if isinstance(c["state"], list) else nxt[0]
+
+
+def _cat(parts, dev):
+    """Row blocks -> one tensor on ``dev``; a single block passes
+    through."""
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p.to(dev) for p in parts])
+
+
+def _cat_tree(parts, dev):
+    """Row blocks of a dict of tensors -> one dict on ``dev``."""
+    if len(parts) == 1:
+        return parts[0]
+    return {k: _cat([p[k] for p in parts], dev) for k in parts[0]}
+
+
+def _total(parts, dev):
+    """The sum of per-block partial results on ``dev`` (a single block
+    passes through)."""
+    out = parts[0].to(dev)
+    for p in parts[1:]:
+        out = out + p.to(dev)
+    return out
+
+
+def _split(tree, bounds):
+    """A whole tensor (or dict or dataclass of them) -> its rows of each
+    block ``(r0, r1, device)``; a single block takes it whole."""
+    if len(bounds) == 1:
+        return [tree]
+    return [tree_map(lambda x, r0=r0, r1=r1, d=d: x[r0:r1].to(d), tree)
+            for r0, r1, d in bounds]
 
 
 def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
@@ -374,7 +466,21 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
     ``telemetry``: a ``telemetry.Telemetry`` registry. The round declares
     ``defta_specs`` into it, its stages emit them, and it returns
     ``(state, frame)``; ``round.telemetry`` is the registry (None without
-    one, and then no probe operation runs)."""
+    one, and then no probe operation runs).
+
+    ``shard``: a ``sharding.WorkerShards`` (``device`` its first device).
+    The round then takes and returns the state and data as lists of row
+    blocks (``WorkerShards.shard_leading``: one per shard when W divides
+    evenly, else one whole block) and runs its stages block by block; the
+    transport is the sharded local-block mix (``gossip.mix_rows_sharded``).
+    The draws are asked for once at full W and each block takes its rows,
+    so a sharded run consumes the unsharded stream. The stages that read
+    across rows gather their inputs onto ``device`` explicitly (what
+    GSPMD's collectives do in the reference): the staleness test (the
+    epoch vector), the scenario's outdegrees, the robust rules, the
+    attack zoo's population statistics, the geometry, correlation and
+    ``masked_geom`` trust channels, and the probes over receivers.
+    ``round.bounds`` lists the blocks as (r0, r1, device)."""
     check_supported(cfg, shard=shard)
     channels = resolve_dts_signal(cfg)
     corr = "corr" in channels
@@ -420,14 +526,38 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
     if scenario is not None and scenario.adj_union is not None:
         support = scenario.adj_union
     transport = make_transport(cfg, backend=gossip_backend,
-                               adjacency=support, robust=robust)
+                               adjacency=support, robust=robust, shard=shard)
     use_ef = transport.use_ef
     regen = scenario is not None and scenario.adj_seg is not None
     if telemetry is not None:
         telemetry.declare(*defta_specs(w, scenario=scenario is not None,
                                        use_ef=use_ef))
         tm_specs = telemetry.specs       # snapshot: the tick adds "fired"
-        off_diag = ~eye
+    bounds = shard.bounds(w) if shard is not None else [(0, w, dev)]
+    # each block's receiver-row constants (the column-indexed ones, col_w
+    # and sizes, stay whole)
+    consts = [dict(
+        rows=slice(r0, r1), dev=bdev, adj=adj_t[r0:r1].to(bdev),
+        eye=eye[r0:r1].to(bdev), off=~eye[r0:r1].to(bdev),
+        malicious=malicious_t[r0:r1].to(bdev),
+        attack_scale=attack_scale[r0:r1].to(bdev), col_w=col_w.to(bdev),
+        sizes=sizes_t.to(bdev),
+        attack_kind=None if scenario is None
+        else scenario.attack_kind[r0:r1].to(bdev))
+        for r0, r1, bdev in bounds]
+
+    def full(bs, key):
+        """A per-block tensor (or dict of them) of every block, whole on
+        ``device``."""
+        parts = [bc[key] for bc in bs]
+        if isinstance(parts[0], dict):
+            return _cat_tree(parts, dev)
+        return _cat(parts, dev)
+
+    def to_blocks(bs, key, value):
+        """Each block takes its rows of a whole tensor (or dict)."""
+        for bc, part in zip(bs, _split(value, bounds)):
+            bc[key] = part
 
     # ---- stages -----------------------------------------------------------
 
@@ -436,36 +566,50 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         (static path, with attackers) the noise attack's draws, and, gated
         at build time, the scenario's per-kind attack noise, the stochastic
         wire's uniforms and the DP-SGD or update-DP normals, in one
-        provider call."""
-        params = c["state"].params
-        n = c["data"]["x"].shape[1]
-        extra = _draw_shapes(params, cfg, train, w, n, transport,
+        provider call at full W; each block takes its rows. Opens the
+        round's per-block contexts (``blocks``) over state and data."""
+        c["blocks"] = bs = _blocks(c["state"], c["data"], len(bounds))
+        shapes = {k: (w,) + tuple(v.shape[1:])
+                  for k, v in bs[0]["state"].params.items()}
+        n = bs[0]["data"]["x"].shape[1]
+        extra = _draw_shapes(shapes, cfg, train, w, n, transport,
                              noise_kinds)
         legacy = scenario is None and malicious_np.any()
         c["draws"] = draws(w, cfg.local_epochs, n,
-                           {k: tuple(v.shape) for k, v in params.items()}
-                           if legacy else None, **extra)
+                           shapes if legacy else None, **extra)
+        to_blocks(bs, "draws", c["draws"])
 
     def stage_scenario_view(c):
         """reads epoch, state.epoch; writes eff_adj (and alive, fire,
         att_on under a scenario): the round's topology = (segment or
         static) adjacency ∧ link_ok ∧ alive on both ends; with
         ``max_staleness`` S > 0, minus the edges from peers whose epoch
-        lags the receiver's by more than S."""
+        lags the receiver's by more than S (the whole epoch vector
+        gathered)."""
+        bs = c["blocks"]
         if scenario is not None:
             view = epoch_view(scenario, c["epoch"])
             alive = view["alive"]
             c["alive"], c["fire"], c["att_on"] = \
                 alive, view["fire"], view["attack_on"]
             base = view["adj"] if regen else adj_t
-            c["eff_adj"] = base & view["link_ok"] & alive[None, :] \
-                & alive[:, None]
+            for bc, k in zip(bs, consts):
+                r = k["rows"]
+                bc["alive"] = alive[r].to(k["dev"])
+                bc["fire"] = view["fire"][r].to(k["dev"])
+                bc["att_on"] = view["attack_on"][r].to(k["dev"])
+                bc["eff_adj"] = (base[r] & view["link_ok"][r]
+                                 & alive[None, :] & alive[r, None]
+                                 ).to(k["dev"])
         else:
-            c["eff_adj"] = adj_t
+            for bc, k in zip(bs, consts):
+                bc["eff_adj"] = k["adj"]
         if max_staleness:
-            ep = c["state"].epoch
-            fresh = (ep[:, None] - ep[None, :]) <= max_staleness
-            c["eff_adj"] = c["eff_adj"] & fresh
+            ep = _cat([bc["state"].epoch for bc in bs], dev)
+            for bc, k in zip(bs, consts):
+                fresh = (bc["state"].epoch[:, None]
+                         - ep.to(k["dev"])[None, :]) <= max_staleness
+                bc["eff_adj"] = bc["eff_adj"] & fresh
         if telemetry is not None:
             # a host number: the drivers stamp the column from one arange
             telemetry.emit(c, "round",
@@ -477,100 +621,132 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
     def stage_peer_sample(c):
         """reads eff_adj, state.conf, draws.gumbel; writes theta [W, W]
         (DTS sampling weights, observed by theta_aware) and sampled [W, W]
-        (Gumbel top-k, ≤ num_sampled per row)."""
-        if cfg.use_dts:
-            theta = dts_mod.sample_weights(c["state"].conf, c["eff_adj"],
-                                           cfg.crelu_slope)
-        else:
-            a = c["eff_adj"].float()
-            theta = a / a.sum(1, keepdim=True).clamp_min(1)
-        c["theta"] = theta
-        c["sampled"] = dts_mod.sample_peers(c["draws"].gumbel, theta,
-                                            cfg.num_sampled)
+        (Gumbel top-k, ≤ num_sampled per row), each block its rows."""
+        for bc in c["blocks"]:
+            if cfg.use_dts:
+                theta = dts_mod.sample_weights(bc["state"].conf,
+                                               bc["eff_adj"], cfg.crelu_slope)
+            else:
+                a = bc["eff_adj"].float()
+                theta = a / a.sum(1, keepdim=True).clamp_min(1)
+            bc["theta"] = theta
+            bc["sampled"] = dts_mod.sample_peers(bc["draws"].gumbel, theta,
+                                                 cfg.num_sampled)
         if telemetry is not None:
-            telemetry.emit(c, "theta_in", theta.mean(dim=0))
+            telemetry.emit(c, "theta_in", full(c["blocks"], "theta")
+                           .mean(dim=0))
 
     def stage_transport(c):
         """reads sampled, eff_adj, state.params, state.wire_err,
         draws.wire_u; writes P (mixing matrix), agg (the mixed models) and
         wire_err. A robust rule replaces the mix (no kernel launch), with P
         the uniform bookkeeping weights the trust update needs."""
-        state = c["state"]
-        mask = (c["sampled"] & c["eff_adj"]) | eye
+        bs = c["blocks"]
+        for bc, k in zip(bs, consts):
+            bc["mask"] = (bc["sampled"] & bc["eff_adj"]) | k["eye"]
         if telemetry is not None:
             # priced from the plaintext payload, secagg or not (the pads
             # ride in place)
-            live = (c["sampled"] & c["eff_adj"] & off_diag).sum()
+            live = _total([(bc["sampled"] & bc["eff_adj"] & k["off"]).sum()
+                           for bc, k in zip(bs, consts)], dev)
             telemetry.emit(c, "edges", live)
             telemetry.emit(c, "wire_bytes", live.float()
-                           * stacked_payload_bytes(state.params,
+                           * stacked_payload_bytes(bs[0]["state"].params,
                                                    transport.wire))
         if robust:
-            c["agg"] = robust_mix(cfg.aggregation, mask, state.params,
-                                  trim=cfg.robust_trim)
-            c["P"] = mask.float() / mask.sum(dim=1, keepdim=True)
-            c["wire_err"] = state.wire_err
+            params = [bc["state"].params for bc in bs]
+            to_blocks(bs, "agg", robust_mix(
+                cfg.aggregation, full(bs, "mask"), _cat_tree(params, dev),
+                trim=cfg.robust_trim))
+            for bc in bs:
+                bc["P"] = bc["mask"].float() \
+                    / bc["mask"].sum(dim=1, keepdim=True)
+                bc["wire_err"] = bc["state"].wire_err
             return
         if scenario is not None:
-            # per-epoch outdegrees under the dynamic adjacency
-            P = dynamic_mixing_matrix(c["sampled"], c["eff_adj"], sizes_t,
+            # per-epoch outdegrees under the dynamic adjacency (a sum over
+            # every block's receivers)
+            deg = _total([(bc["eff_adj"] | k["eye"]).sum(dim=0)
+                          for bc, k in zip(bs, consts)], dev)
+            for bc, k in zip(bs, consts):
+                bc["P"] = mixing_rows(bc["sampled"], bc["eff_adj"], k["eye"],
+                                      deg.to(k["dev"]), k["sizes"],
                                       cfg.aggregation)
         else:
-            P = mask * col_w[None, :]
-            P = P / P.sum(dim=1, keepdim=True)
-        c["P"] = P
-        wire_u = c["draws"].wire_u
+            for bc, k in zip(bs, consts):
+                P = bc["mask"] * k["col_w"][None, :]
+                bc["P"] = P / P.sum(dim=1, keepdim=True)
         round_ = 0 if c["epoch"] is None else c["epoch"]
-        if use_ef:
-            if state.wire_err is None:
-                raise ValueError(
-                    "cfg enables gossip error feedback on a lossy wire "
-                    "but the state carries no residual buffers — build "
-                    "it with init_state(..., wire_error=True)")
-            c["agg"], c["wire_err"] = transport.mix(
-                P, state.params, residual=state.wire_err, wire_u=wire_u,
-                round_=round_)
-            if telemetry is not None:
-                telemetry.emit(c, "ef_norm", torch.linalg.norm(
-                    dts_mod.flatten_stacked(c["wire_err"]), dim=1))
+        if use_ef and bs[0]["state"].wire_err is None:
+            raise ValueError(
+                "cfg enables gossip error feedback on a lossy wire "
+                "but the state carries no residual buffers — build "
+                "it with init_state(..., wire_error=True)")
+        if transport.kind == "sharded":
+            aggs, errs = transport.mix_rows(
+                [bc["P"] for bc in bs], [bc["state"].params for bc in bs],
+                [bc["state"].wire_err for bc in bs] if use_ef else None,
+                round_)
+            for i, bc in enumerate(bs):
+                bc["agg"] = aggs[i]
+                bc["wire_err"] = errs[i] if use_ef else bc["state"].wire_err
         else:
-            c["agg"] = transport.mix(P, state.params, wire_u=wire_u,
-                                     round_=round_)
-            c["wire_err"] = state.wire_err
+            bc = bs[0]
+            state = bc["state"]
+            wire_u = bc["draws"].wire_u
+            if use_ef:
+                bc["agg"], bc["wire_err"] = transport.mix(
+                    bc["P"], state.params, residual=state.wire_err,
+                    wire_u=wire_u, round_=round_)
+            else:
+                bc["agg"] = transport.mix(bc["P"], state.params,
+                                          wire_u=wire_u, round_=round_)
+                bc["wire_err"] = state.wire_err
+        if telemetry is not None and use_ef:
+            telemetry.emit(c, "ef_norm", _cat([torch.linalg.norm(
+                dts_mod.flatten_stacked(bc["wire_err"]), dim=1)
+                for bc in bs], dev))
 
     def stage_damage_check(c):
         """reads agg, state.{backup,best_loss}, data, att_on; writes y_data
         (the labels, flipped for active label-flippers), loss_agg (each
         worker's self-evaluation of the aggregate), damaged [W] and start
         (the backup on damaged rounds: the §3.3 time machine)."""
-        state, data = c["state"], c["data"]
-        y_data = data["y"]
-        if scenario is not None and "label_flip" in scenario.kinds_present:
-            lf = (scenario.attack_kind == LABEL_FLIP_CODE) & c["att_on"]
-            y_data = flip_labels(y_data, lf, num_classes)
-        c["y_data"] = y_data
-        c["loss_agg"] = task.loss(c["agg"], data["x"], y_data,
-                                  data["mask"]).detach()
-        if cfg.time_machine:
-            c["damaged"] = dts_mod.is_damaged(c["loss_agg"],
-                                              state.best_loss)
-            c["start"] = tree_select(c["damaged"], state.backup, c["agg"])
-        else:
-            c["damaged"] = torch.zeros_like(c["loss_agg"], dtype=torch.bool)
-            c["start"] = c["agg"]
+        bs = c["blocks"]
+        for bc, k in zip(bs, consts):
+            state, data = bc["state"], bc["data"]
+            y_data = data["y"]
+            if scenario is not None and \
+                    "label_flip" in scenario.kinds_present:
+                lf = (k["attack_kind"] == LABEL_FLIP_CODE) & bc["att_on"]
+                y_data = flip_labels(y_data, lf, num_classes)
+            bc["y_data"] = y_data
+            bc["loss_agg"] = task.loss(bc["agg"], data["x"], y_data,
+                                       data["mask"]).detach()
+            if cfg.time_machine:
+                bc["damaged"] = dts_mod.is_damaged(bc["loss_agg"],
+                                                   state.best_loss)
+                bc["start"] = tree_select(bc["damaged"], state.backup,
+                                          bc["agg"])
+            else:
+                bc["damaged"] = torch.zeros_like(bc["loss_agg"],
+                                                 dtype=torch.bool)
+                bc["start"] = bc["agg"]
         if telemetry is not None:
-            telemetry.emit(c, "loss_agg", c["loss_agg"])
-            telemetry.emit(c, "damaged", c["damaged"])
+            telemetry.emit(c, "loss_agg", full(bs, "loss_agg"))
+            telemetry.emit(c, "damaged", full(bs, "damaged"))
 
     def stage_local_train(c):
         """reads start, y_data, data, draws.perm (+ draws.dp_sgd under
         DP-SGD); writes trained and train_loss."""
-        data = c["data"]
-        c["trained"], c["train_loss"] = ltrain(
-            c["draws"].perm, c["start"], data["x"], c["y_data"],
-            data["mask"], c["draws"].dp_sgd)
+        bs = c["blocks"]
+        for bc in bs:
+            data = bc["data"]
+            bc["trained"], bc["train_loss"] = ltrain(
+                bc["draws"].perm, bc["start"], data["x"], bc["y_data"],
+                data["mask"], bc["draws"].dp_sgd)
         if telemetry is not None:
-            telemetry.emit(c, "train_loss", c["train_loss"])
+            telemetry.emit(c, "train_loss", full(bs, "train_loss"))
 
     def stage_dp_noise(c):
         """reads trained, start, draws.dp_update; writes trained: every
@@ -578,24 +754,52 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         becomes the next round's send, so peers and the trust channels
         see only the privatized update (``apply_update_dp``). Built only
         under ``uses_update_dp(cfg)``."""
-        c["trained"] = apply_update_dp(cfg, c["draws"].dp_update,
-                                       c["start"], c["trained"])
+        for bc in c["blocks"]:
+            bc["trained"] = apply_update_dp(cfg, bc["draws"].dp_update,
+                                            bc["start"], bc["trained"])
 
     def stage_attack_inject(c):
         """reads trained, agg, theta, att_on, draws.{noise, kind_noise};
         writes trained: attacker slots replaced by their poisoned sends
-        (the scenario's zoo, or on the static path agg + noise_scale·N(0,
-        1), the paper's attack)."""
+        (the scenario's zoo, over the whole population, since alie,
+        dts_dodge and theta_aware read every row; or on the static path
+        agg + noise_scale·N(0, 1), the paper's attack, block by block)."""
+        bs = c["blocks"]
         if scenario is not None:
-            c["trained"] = poison_sends(
+            to_blocks(bs, "trained", poison_sends(
                 c["draws"].kind_noise, scenario.kinds_present,
                 scenario.attack_kind, scenario.attack_scale, c["att_on"],
-                c["agg"], c["trained"],
-                theta=c["theta"] if cfg.use_dts else None)
+                full(bs, "agg"), full(bs, "trained"),
+                theta=full(bs, "theta") if cfg.use_dts else None))
         elif malicious_np.any():
-            poisoned = noise(c["draws"].noise, c["agg"], c["trained"],
-                             attack_scale)
-            c["trained"] = tree_select(malicious_t, poisoned, c["trained"])
+            for bc, k in zip(bs, consts):
+                poisoned = noise(bc["draws"].noise, bc["agg"],
+                                 bc["trained"], k["attack_scale"])
+                bc["trained"] = tree_select(k["malicious"], poisoned,
+                                            bc["trained"])
+
+    def trust_channels(conf, sampled, P, theta, loss_trust, damaged,
+                       deltas, eff_adj, fire, sketch):
+        """The geometry, correlation or ``masked_geom`` confidence update
+        over whole [W, ...] inputs: returns (conf, sketch)."""
+        gmask = eff_adj & fire[None, :] if scenario is not None else eff_adj
+        if masked_geom:
+            mg = dts_mod.masked_geom_trust(deltas, P, gmask)
+            return conf - sampled * P \
+                * (loss_trust + cfg.dts_geom_weight * mg)[:, None], sketch
+        # non-firing peers (stragglers) are left out: the fire merge drops
+        # their delta, so no peer consumes it
+        if corr:
+            if sketch is None:
+                raise ValueError(
+                    f"dts_signal={cfg.dts_signal!r} needs the sketch "
+                    f"ring buffer — build the state with "
+                    f"init_state(..., sketch=sketch_shape(cfg))")
+            sketch = dts_mod.update_sketch(sketch, deltas, seed=cfg.seed)
+        return dts_mod.geom_confidence_update(
+            cfg.dts_signal, cfg.dts_geom_weight, conf, sampled, P,
+            loss_trust, damaged, deltas, gmask, theta, sketch=sketch,
+            lam_corr=cfg.dts_corr_weight), sketch
 
     def stage_trust_update(c):
         """reads loss_agg, damaged, sampled, P, theta, state.{conf, backup,
@@ -607,75 +811,67 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         signal, the signal being the loss delta ("loss", Algorithm 3) or
         its fusion with the geometry and correlation scores of each peer's
         local-update delta ``trained − start`` (after attack injection, so
-        the poison is what gets scored). Under ``masked_geom`` the extra
-        channels are replaced by the pooled aggregate-minus-own signal
-        (``dts.masked_geom_trust``), broadcast over the receiver's sampled
-        row, and the sketch ring buffer is left as it was."""
-        state = c["state"]
-        loss_trust = torch.where(c["damaged"],
-                                 torch.full_like(c["loss_agg"],
-                                                 dts_mod.DAMAGE_PENALTY),
-                                 c["loss_agg"] - state.last_loss)
-        c["sketch"] = state.sketch
+        the poison is what gets scored; every block's rows gathered). Under
+        ``masked_geom`` the extra channels are replaced by the pooled
+        aggregate-minus-own signal (``dts.masked_geom_trust``), broadcast
+        over the receiver's sampled row, and the sketch ring buffer is
+        left as it was."""
+        bs = c["blocks"]
+        for bc in bs:
+            state = bc["state"]
+            bc["loss_trust"] = torch.where(
+                bc["damaged"], torch.full_like(bc["loss_agg"],
+                                               dts_mod.DAMAGE_PENALTY),
+                bc["loss_agg"] - state.last_loss)
+            bc["conf0"], bc["sketch"] = state.conf, state.sketch
         deltas = None
-        if channels and masked_geom:
-            deltas = dts_mod.flatten_stacked(c["trained"]) \
-                - dts_mod.flatten_stacked(c["start"])
-            gmask = c["eff_adj"] & c["fire"][None, :] \
-                if scenario is not None else c["eff_adj"]
-            mg = dts_mod.masked_geom_trust(deltas, c["P"], gmask)
-            c["conf"] = state.conf - c["sampled"] * c["P"] \
-                * (loss_trust + cfg.dts_geom_weight * mg)[:, None]
-        elif channels:
-            # non-firing peers (stragglers) are left out: the fire merge
-            # drops their delta, so no peer consumes it
-            deltas = dts_mod.flatten_stacked(c["trained"]) \
-                - dts_mod.flatten_stacked(c["start"])
-            gmask = c["eff_adj"] & c["fire"][None, :] \
-                if scenario is not None else c["eff_adj"]
-            if corr:
-                if state.sketch is None:
-                    raise ValueError(
-                        f"dts_signal={cfg.dts_signal!r} needs the sketch "
-                        f"ring buffer — build the state with "
-                        f"init_state(..., sketch=sketch_shape(cfg))")
-                c["sketch"] = dts_mod.update_sketch(state.sketch, deltas,
-                                                    seed=cfg.seed)
-            c["conf"] = dts_mod.geom_confidence_update(
-                cfg.dts_signal, cfg.dts_geom_weight, state.conf,
-                c["sampled"], c["P"], loss_trust, c["damaged"], deltas,
-                gmask, c["theta"], sketch=c["sketch"],
-                lam_corr=cfg.dts_corr_weight)
+        if channels:
+            deltas = dts_mod.flatten_stacked(full(bs, "trained")) \
+                - dts_mod.flatten_stacked(full(bs, "start"))
+            conf, sketch = trust_channels(
+                full(bs, "conf0"), full(bs, "sampled"), full(bs, "P"),
+                full(bs, "theta"), full(bs, "loss_trust"),
+                full(bs, "damaged"), deltas, full(bs, "eff_adj"),
+                c.get("fire"), full(bs, "sketch") if corr else None)
+            to_blocks(bs, "conf", conf)
+            if corr and not masked_geom:
+                to_blocks(bs, "sketch", sketch)
         else:
-            c["conf"] = state.conf - c["sampled"] * c["P"] \
-                * loss_trust[:, None]
+            for bc in bs:
+                bc["conf"] = bc["conf0"] - bc["sampled"] * bc["P"] \
+                    * bc["loss_trust"][:, None]
         if telemetry is not None:
             if deltas is None:
-                deltas = dts_mod.flatten_stacked(c["trained"]) \
-                    - dts_mod.flatten_stacked(c["start"])
-            telemetry.emit(c, "loss_trust", loss_trust)
-            telemetry.emit(c, "conf_in", c["conf"].mean(dim=0))
+                deltas = dts_mod.flatten_stacked(full(bs, "trained")) \
+                    - dts_mod.flatten_stacked(full(bs, "start"))
+            telemetry.emit(c, "loss_trust", full(bs, "loss_trust"))
+            telemetry.emit(c, "conf_in", full(bs, "conf").mean(dim=0))
             telemetry.emit(c, "update_norm", torch.linalg.norm(deltas,
                                                                dim=1))
-        improved = (c["loss_agg"] < state.best_loss) & ~c["damaged"]
-        # the time machine RATCHETS: a damaged round trained from the
-        # backup, so its result is clean by induction and becomes the new
-        # backup (a worker whose peers are all attackers keeps learning)
-        c["backup"] = tree_select(improved | c["damaged"], c["trained"],
-                                  state.backup)
-        c["best_loss"] = torch.where(improved, c["loss_agg"],
-                                     state.best_loss)
-        c["last_loss"] = torch.where(c["damaged"], state.last_loss,
-                                     c["loss_agg"])
+        for bc in bs:
+            state = bc["state"]
+            improved = (bc["loss_agg"] < state.best_loss) & ~bc["damaged"]
+            # the time machine RATCHETS: a damaged round trained from the
+            # backup, so its result is clean by induction and becomes the
+            # new backup (a worker whose peers are all attackers keeps
+            # learning)
+            bc["backup"] = tree_select(improved | bc["damaged"],
+                                       bc["trained"], state.backup)
+            bc["best_loss"] = torch.where(improved, bc["loss_agg"],
+                                          state.best_loss)
+            bc["last_loss"] = torch.where(bc["damaged"], state.last_loss,
+                                          bc["loss_agg"])
 
     def stage_finalize(c):
         """writes next: every worker advanced one epoch."""
-        state = c["state"]
-        c["next"] = DeFTAState(
-            params=c["trained"], backup=c["backup"], conf=c["conf"],
-            best_loss=c["best_loss"], last_loss=c["last_loss"],
-            epoch=state.epoch + 1, wire_err=c["wire_err"],
-            sketch=c["sketch"])
+        for bc in c["blocks"]:
+            state = bc["state"]
+            bc["next"] = DeFTAState(
+                params=bc["trained"], backup=bc["backup"], conf=bc["conf"],
+                best_loss=bc["best_loss"], last_loss=bc["last_loss"],
+                epoch=state.epoch + 1, wire_err=bc["wire_err"],
+                sketch=bc["sketch"])
+        _close_blocks(c)
 
     def stage_fire_merge(c):
         """reads fire + everything finalize reads; writes next: workers
@@ -683,18 +879,22 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         backup, conf rows, losses, EF21 residual and sketch row (a ring
         buffer must not rotate on a round whose delta no peer consumed);
         epoch advances by fire."""
-        state, fire = c["state"], c["fire"]
-        c["next"] = DeFTAState(
-            params=tree_select(fire, c["trained"], state.params),
-            backup=tree_select(fire, c["backup"], state.backup),
-            conf=torch.where(fire[:, None], c["conf"], state.conf),
-            best_loss=torch.where(fire, c["best_loss"], state.best_loss),
-            last_loss=torch.where(fire, c["last_loss"], state.last_loss),
-            epoch=state.epoch + fire.to(state.epoch.dtype),
-            wire_err=tree_select(fire, c["wire_err"], state.wire_err)
-            if use_ef else state.wire_err,
-            sketch=torch.where(fire[:, None, None], c["sketch"],
-                               state.sketch) if corr else state.sketch)
+        for bc in c["blocks"]:
+            state, fire = bc["state"], bc["fire"]
+            bc["next"] = DeFTAState(
+                params=tree_select(fire, bc["trained"], state.params),
+                backup=tree_select(fire, bc["backup"], state.backup),
+                conf=torch.where(fire[:, None], bc["conf"], state.conf),
+                best_loss=torch.where(fire, bc["best_loss"],
+                                      state.best_loss),
+                last_loss=torch.where(fire, bc["last_loss"],
+                                      state.last_loss),
+                epoch=state.epoch + fire.to(state.epoch.dtype),
+                wire_err=tree_select(fire, bc["wire_err"], state.wire_err)
+                if use_ef else state.wire_err,
+                sketch=torch.where(fire[:, None, None], bc["sketch"],
+                                   state.sketch) if corr else state.sketch)
+        _close_blocks(c)
 
     stages = (
         ("split_draws", stage_split_draws),
@@ -710,7 +910,7 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
         else ("fire_merge", stage_fire_merge),
     )
 
-    def round(state: DeFTAState, data, epoch=None):
+    def round(state, data, epoch=None):
         c = {"state": state, "data": data, "epoch": epoch}
         run_pipeline(stages, c)
         if telemetry is None:
@@ -719,6 +919,7 @@ def build_defta_round(task: Task, cfg: DeFTAConfig, train: TrainConfig,
 
     round.stages = stages
     round.telemetry = telemetry
+    round.bounds = bounds
     return round
 
 
@@ -879,18 +1080,17 @@ def build_fire_gated_tick(rnd_fn, data, speeds: torch.Tensor, w: int, *,
     ``tick_specs`` into it and returns ``(state, frame)``, the round's
     frame with ``fired`` added last.
 
+    With a sharded round (``rnd_fn.bounds``, more than one block) the
+    state is a list of row blocks and each takes its rows of ``fired``.
+
     Returns tick(state, t) -> state."""
     telemetry = getattr(rnd_fn, "telemetry", None)
     if telemetry is not None:
         telemetry.declare(*tick_specs(w))
+    bounds = getattr(rnd_fn, "bounds", [(0, w, speeds.device)])
 
-    def tick(state: DeFTAState, t: int):
-        fired = draws(w) < speeds
-        if telemetry is None:
-            nxt = rnd_fn(state, data, t)
-        else:
-            nxt, frame = rnd_fn(state, data, t)
-        merged = DeFTAState(
+    def merge(fired, nxt, state):
+        return DeFTAState(
             params=tree_select(fired, nxt.params, state.params),
             backup=tree_select(fired, nxt.backup, state.backup),
             conf=torch.where(fired[:, None], nxt.conf, state.conf),
@@ -901,6 +1101,18 @@ def build_fire_gated_tick(rnd_fn, data, speeds: torch.Tensor, w: int, *,
             tree_select(fired, nxt.wire_err, state.wire_err),
             sketch=None if state.sketch is None else
             torch.where(fired[:, None, None], nxt.sketch, state.sketch))
+
+    def tick(state, t: int):
+        fired = draws(w) < speeds
+        if telemetry is None:
+            nxt = rnd_fn(state, data, t)
+        else:
+            nxt, frame = rnd_fn(state, data, t)
+        if isinstance(state, list):
+            merged = [merge(f, n, s) for f, n, s in
+                      zip(_split(fired, bounds), nxt, state)]
+        else:
+            merged = merge(fired, nxt, state)
         if telemetry is None:
             return merged
         return merged, dict(frame, fired=fired)
@@ -1009,7 +1221,16 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
     ``telemetry``: a ``telemetry.Telemetry`` registry; the round then
     declares ``cross_device_specs`` (cohort, occupancy, dropout, straggler
     and scatter-write counts, then the transport, damage, train and trust
-    probes on the [k, k] block) and returns ``(state, frame)``."""
+    probes on the [k, k] block) and returns ``(state, frame)``.
+
+    ``shard`` (a ``sharding.WorkerShards``, ``device`` its first device):
+    the population buffers are lists of row blocks of the enrolled N
+    (``WorkerShards.shard_leading``); ``participation`` gathers each
+    cohort row from the block that owns it, the dense k-block runs on
+    ``device`` (the reference replicates it; the numbers are the same)
+    and ``scatter_merge`` writes each row back to its owner. Which block
+    owns which cohort slot is read from the compiled timeline on the host
+    at build time."""
     channels = resolve_dts_signal(cfg)
     if world.epochs <= 0:
         raise ValueError("cross-device world compiled for 0 rounds")
@@ -1056,6 +1277,55 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
     att_kind_u = on_dev(world.attack_kind)               # [N] int32
     att_scale_u = on_dev(world.attack_scale)             # [N] float32
     eye_k = torch.eye(k, dtype=torch.bool, device=dev)
+    n_users = int(world.enrolled)
+    bounds = shard.bounds(n_users) if shard is not None \
+        else [(0, n_users, dev)]
+    # per round: each block's (cohort slots it owns, on the device; their
+    # rows in the block, on the block's device), and the order that puts
+    # the blocks' gathered rows back in cohort order
+    owners = []
+    if len(bounds) > 1:
+        for t in range(world.epochs):
+            ixt = np.asarray(world.part_ix[t], np.int64)
+            per, slots = [], []
+            for r0, r1, bdev in bounds:
+                pos = np.flatnonzero((ixt >= r0) & (ixt < r1))
+                per.append((on_dev(pos, torch.int64),
+                            torch.as_tensor(ixt[pos] - r0).to(bdev)))
+                slots.append(pos)
+            owners.append((per, on_dev(np.argsort(np.concatenate(slots),
+                                                  kind="stable"),
+                                       torch.int64)))
+
+    def gather_rows(blocks, t, ix):
+        """Rows ``ix`` (the cohort of round t) of a population buffer held
+        as row blocks, in cohort order on ``device``."""
+        if blocks[0] is None:
+            return None
+        if len(blocks) == 1:
+            return _gather(blocks[0], ix)
+        per, order = owners[t]
+        parts = [_gather(b, loc) for b, (_, loc) in zip(blocks, per)]
+        if isinstance(parts[0], dict):
+            return {name: torch.cat([p[name].to(dev) for p in parts])
+                    .index_select(0, order) for name in parts[0]}
+        return torch.cat([p.to(dev) for p in parts]).index_select(0, order)
+
+    def scatter_rows(blocks, t, ix, rows):
+        """Write the cohort's ``rows`` back into the blocks that own them
+        (in place); returns the blocks."""
+        if len(blocks) == 1:
+            per = [(None, ix)]
+        else:
+            per = owners[t][0]
+        for b, (pos, loc) in zip(blocks, per):
+            part = rows if pos is None else _gather(rows, pos)
+            if isinstance(b, dict):
+                for name, v in b.items():
+                    v.index_copy_(0, loc, part[name].to(v.device))
+            else:
+                b.index_copy_(0, loc, part.to(b.device))
+        return blocks
     if telemetry is not None:
         telemetry.declare(*cross_device_specs(k, use_ef=use_ef))
         tm_specs = telemetry.specs
@@ -1071,34 +1341,39 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
         by the rounds since their user last fired; conf the [k, k] block)
         and the gathered data shards and attack assignment. t indexes the
         compiled timeline on the host: nothing is read back."""
-        state, t = c["state"], c["epoch"]
+        blocks = _blocks(c["state"], c["data"], len(bounds))
+        c["blocks"] = bs = [b["state"] for b in blocks]
+        c["data_blocks"] = [b["data"] for b in blocks]
+        t = c["epoch"]
         ix = part_ix[t]
         c["ix"] = ix
         active = filled_t[t] & survive_t[t]
         c["active"] = active
         c["fire"] = active & complete_t[t]
-        c["g_params"] = _gather(state.params, ix)
-        c["g_backup"] = _gather(state.backup, ix)
-        c["g_wire_err"] = _gather(state.wire_err, ix) if use_ef else None
-        c["g_epoch"] = _gather(state.epoch, ix)
-        c["g_last_part"] = _gather(state.last_part, ix)
-        c["g_conf_raw"] = _gather(state.conf, ix)             # [k, N]
+
+        def g(field):
+            return gather_rows([getattr(b, field) for b in bs], t, ix)
+        c["g_params"] = g("params")
+        c["g_backup"] = g("backup")
+        c["g_wire_err"] = g("wire_err") if use_ef else None
+        c["g_epoch"] = g("epoch")
+        c["g_last_part"] = g("last_part")
+        c["g_conf_raw"] = g("conf")                           # [k, N]
         rows = c["g_conf_raw"]
         if decay < 1.0:
             gap = (t - c["g_last_part"]).clamp_min(0).float()
             rows = rows * decay_t.pow(gap)[:, None]
         c["g_conf_rows"] = rows
         c["conf"] = rows.index_select(1, ix)                  # [k, k]
-        c["g_best"] = _gather(state.best_loss, ix)
-        c["g_last"] = _gather(state.last_loss, ix)
-        c["g_obs"] = _gather(state.obs, ix)
+        c["g_best"] = g("best_loss")
+        c["g_last"] = g("last_loss")
+        c["g_obs"] = g("obs")
         if corr:
-            c["g_sketch"] = _gather(state.sketch, ix)
-            c["g_stamp"] = _gather(state.sketch_round, ix)
-        data = c["data"]
-        c["g_x"] = _gather(data["x"], ix)
-        c["g_y"] = _gather(data["y"], ix)
-        c["g_mask"] = _gather(data["mask"], ix)
+            c["g_sketch"] = g("sketch")
+            c["g_stamp"] = g("sketch_round")
+        for key in ("x", "y", "mask"):
+            c[f"g_{key}"] = gather_rows([d[key] for d in c["data_blocks"]],
+                                        t, ix)
         c["g_sizes"] = _gather(sizes_t, ix)
         c["att_kind"] = _gather(att_kind_u, ix)
         c["att_scale"] = _gather(att_scale_u, ix)
@@ -1127,7 +1402,8 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
         provider call."""
         n = c["g_x"].shape[1]
         c["draws"] = draws(k, cfg.local_epochs, n, None, **_draw_shapes(
-            c["g_params"], cfg, train, k, n, transport, noise_kinds))
+            {kk: tuple(v.shape) for kk, v in c["g_params"].items()}, cfg,
+            train, k, n, transport, noise_kinds))
 
     def stage_peer_sample(c):
         """reads conf (the decayed k-block), eff_adj, draws.gumbel; writes
@@ -1288,37 +1564,39 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
         that does not fire writes back its original, undecayed rows, so
         every carried buffer (trust, EF21 residuals, sketch, stamps) is
         unchanged across a round its user misses."""
-        state, t, ix, fire = c["state"], c["epoch"], c["ix"], c["fire"]
+        bs, t, ix, fire = c["blocks"], c["epoch"], c["ix"], c["fire"]
 
-        def scat(full, new_rows, old_rows):
-            if isinstance(full, dict):
+        def scat(field, new_rows, old_rows):
+            blocks = [getattr(b, field) for b in bs]
+            if isinstance(new_rows, dict):
                 sel = tree_select(fire, new_rows, old_rows)
-                for name, v in full.items():
-                    v.index_copy_(0, ix, sel[name])
-                return full
-            f = fire.reshape((-1,) + (1,) * (new_rows.ndim - 1))
-            return full.index_copy_(0, ix, torch.where(f, new_rows,
-                                                       old_rows))
+            else:
+                f = fire.reshape((-1,) + (1,) * (new_rows.ndim - 1))
+                sel = torch.where(f, new_rows, old_rows)
+            return scatter_rows(blocks, t, ix, sel)
 
         rows_new = c["g_conf_rows"].index_copy(1, ix, c["conf_new"])
         fire_i = fire.to(torch.int32)
-        c["next"] = CrossDeviceState(
-            params=scat(state.params, c["trained"], c["g_params"]),
-            backup=scat(state.backup, c["backup"], c["g_backup"]),
-            conf=scat(state.conf, rows_new, c["g_conf_raw"]),
-            best_loss=scat(state.best_loss, c["best_loss"], c["g_best"]),
-            last_loss=scat(state.last_loss, c["last_loss"], c["g_last"]),
-            epoch=state.epoch.index_copy_(0, ix, c["g_epoch"] + fire_i),
-            last_part=scat(state.last_part,
-                           torch.full_like(c["g_last_part"], t),
+        fields = dict(
+            params=scat("params", c["trained"], c["g_params"]),
+            backup=scat("backup", c["backup"], c["g_backup"]),
+            conf=scat("conf", rows_new, c["g_conf_raw"]),
+            best_loss=scat("best_loss", c["best_loss"], c["g_best"]),
+            last_loss=scat("last_loss", c["last_loss"], c["g_last"]),
+            epoch=scatter_rows([b.epoch for b in bs], t, ix,
+                               c["g_epoch"] + fire_i),
+            last_part=scat("last_part", torch.full_like(c["g_last_part"], t),
                            c["g_last_part"]),
-            obs=state.obs.index_copy_(0, ix, c["g_obs"] + fire_i),
-            wire_err=scat(state.wire_err, c["wire_err"], c["g_wire_err"])
-            if use_ef else state.wire_err,
-            sketch=scat(state.sketch, c["sketch"], c["g_sketch"])
-            if corr else state.sketch,
-            sketch_round=scat(state.sketch_round, c["stamp"], c["g_stamp"])
-            if corr else state.sketch_round)
+            obs=scatter_rows([b.obs for b in bs], t, ix, c["g_obs"] + fire_i),
+            wire_err=scat("wire_err", c["wire_err"], c["g_wire_err"])
+            if use_ef else [b.wire_err for b in bs],
+            sketch=scat("sketch", c["sketch"], c["g_sketch"])
+            if corr else [b.sketch for b in bs],
+            sketch_round=scat("sketch_round", c["stamp"], c["g_stamp"])
+            if corr else [b.sketch_round for b in bs])
+        nxt = [CrossDeviceState(**{f: v[i] for f, v in fields.items()})
+               for i in range(len(bs))]
+        c["next"] = nxt if isinstance(c["state"], list) else nxt[0]
 
     stages = (
         ("participation", stage_participation),
@@ -1333,7 +1611,7 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
         ("scatter_merge", stage_scatter_merge),
     )
 
-    def round(state: CrossDeviceState, data, epoch=None):
+    def round(state, data, epoch=None):
         if epoch is None:
             raise ValueError("the cross-device round needs the global "
                              "round t (epoch=)")
@@ -1345,6 +1623,7 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
 
     round.stages = stages
     round.telemetry = telemetry
+    round.bounds = bounds
     return round
 
 
@@ -1353,8 +1632,11 @@ def build_cross_device_round(task: Task, cfg: DeFTAConfig,
 # ---------------------------------------------------------------------------
 
 def _state_device(state) -> torch.device:
-    """The device of the state's tensors. Serves every state: the first
-    field that holds a tensor, or a dict of them, names it."""
+    """The device of the state's tensors (of its first block, for a list
+    of row blocks). Serves every state: the first field that holds a
+    tensor, or a dict of them, names it."""
+    if isinstance(state, list):
+        state = state[0]
     for v in vars(state).values():
         t = next(iter(v.values()), None) if isinstance(v, dict) else v
         if isinstance(t, torch.Tensor):
@@ -1363,11 +1645,26 @@ def _state_device(state) -> torch.device:
 
 
 def _synchronize(state) -> None:
-    """Wait for the card that holds the state's tensors (a no-op on the
+    """Wait for every card that holds the state's tensors (a no-op on the
     CPU)."""
-    dev = _state_device(state)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    blocks = state if isinstance(state, list) else [state]
+    for dev in {_state_device(b) for b in blocks}:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def _place(shard, state, data, rows: Optional[int]):
+    """The drivers' placement rule: with a ``WorkerShards``, the state
+    (and the data, when given as one whole dict) as row blocks of its
+    ``rows`` workers (default: the state's conf rows), and a function
+    that gives a state of blocks back whole."""
+    if shard is None:
+        return state, data, lambda st: st
+    n = rows if rows is not None else state.conf.shape[0]
+    if data is not None and not isinstance(data, list):
+        data = shard.shard_leading(data, n)
+    return (shard.shard_leading(state, n), data,
+            lambda st: shard.gather_leading(st, n))
 
 
 class _FrameChunk:
@@ -1411,7 +1708,8 @@ class _FrameChunk:
 
 
 def drive_epochs(rnd_fn, state, data, epochs: int, *, eval_every: int = 0,
-                 eval_fn=None, ledger: Optional[RunLedger] = None):
+                 eval_fn=None, ledger: Optional[RunLedger] = None,
+                 shard=None, shard_rows: Optional[int] = None):
     """Run ``epochs`` rounds in a Python loop, in chunks bounded by eval
     points (the DeFTA, the FedAvg and the cross-device round alike). Each
     chunk ends in a device synchronize and is recorded in the
@@ -1422,10 +1720,18 @@ def drive_epochs(rnd_fn, state, data, epochs: int, *, eval_every: int = 0,
     are written into the chunk's device buffers and gathered into the
     ledger once a chunk, stamped with their epochs.
     ``eval_fn(state, done_epochs)`` runs at eval boundaries; its results
-    form the returned history. Returns ``(state, history)``."""
+    form the returned history. Returns ``(state, history)``.
+
+    With ``shard`` (a ``sharding.WorkerShards``, the round built with it)
+    the state and data are placed as row blocks of ``shard_rows`` workers
+    (default: the state's conf rows) before the first chunk; ``eval_fn``
+    sees, and the driver returns, the state reassembled whole on shard
+    0's device, and the round's frames are already in the global layout,
+    so ledger rows do not depend on the shard count."""
     led = ledger if ledger is not None else RunLedger()
     telemetry = getattr(rnd_fn, "telemetry", None)
     history = []
+    state, data, whole = _place(shard, state, data, shard_rows)
     chunk = eval_every if (eval_every and eval_fn is not None) else epochs
     done = 0
     while done < epochs:
@@ -1446,14 +1752,15 @@ def drive_epochs(rnd_fn, state, data, epochs: int, *, eval_every: int = 0,
             frames.flush(led)
         done += n
         if eval_every and done % eval_every == 0 and eval_fn is not None:
-            history.append(eval_fn(state, done))
+            history.append(eval_fn(whole(state), done))
     led.finish("epochs", epochs)
-    return state, history
+    return whole(state), history
 
 
 def drive_ticks(tick_fn, state: DeFTAState, ticks: int, *, check_every: int,
                 required: np.ndarray, target_epochs: int = 0,
-                ledger: Optional[RunLedger] = None) -> DeFTAState:
+                ledger: Optional[RunLedger] = None, shard=None,
+                shard_rows: Optional[int] = None) -> DeFTAState:
     """Run AsyncDeFTA ticks ``tick_fn(state, t)`` in a Python loop.
 
     With no target every tick runs, as one chunk. With ``target_epochs``
@@ -1472,19 +1779,25 @@ def drive_ticks(tick_fn, state: DeFTAState, ticks: int, *, check_every: int,
     dispatch count. With a telemetry-built tick (``tick_fn.telemetry``)
     each chunk's frames go to the ledger after it, so an early exit leaves
     exactly the ticks that ran, stamped 0 .. ran - 1, as the reference's
-    trimmed buffers do. Returns the final state."""
+    trimmed buffers do. With ``shard`` the state is placed as row blocks
+    (``drive_epochs``; ``run_async_defta`` places the tick's data), the
+    check reads the epoch vector gathered, and the final state comes back
+    whole on shard 0's device. Returns the final state."""
     led = ledger if ledger is not None else RunLedger()
     telemetry = getattr(tick_fn, "telemetry", None)
     chunk = check_every if target_epochs else max(ticks, 1)
+    state, _, whole = _place(shard, state, None, shard_rows)
+    home = _state_device(state)
     req = None
     if target_epochs:
-        req = torch.as_tensor(np.asarray(required, bool)).to(
-            state.epoch.device)
+        req = torch.as_tensor(np.asarray(required, bool)).to(home)
     done = 0
     while done < ticks:
-        if req is not None and bool((state.epoch[req]
-                                     >= target_epochs).all()):
-            break
+        if req is not None:
+            ep = _cat([b.epoch for b in state], home) \
+                if isinstance(state, list) else state.epoch
+            if bool((ep[req] >= target_epochs).all()):
+                break
         n = min(chunk, ticks - done)
         t0 = time.perf_counter()
         if telemetry is None:
@@ -1502,4 +1815,4 @@ def drive_ticks(tick_fn, state: DeFTAState, ticks: int, *, check_every: int,
             frames.flush(led)
         done += n
     led.finish("ticks", ticks)
-    return state
+    return whole(state)

@@ -27,6 +27,13 @@ integer ring and the receiver unmasks before the weighted sum
 (``_mix_pytree_secagg``). As in the reference this is a gather-sum in
 plain torch over the padded-CSR support, whatever the backend: no mix
 kernel runs on a secagg round.
+
+The worker-axis-sharded transport (``WorkerShardPlan``,
+``mix_rows_sharded``, ``mix_pytree_sharded``) splits the rows into one
+block per shard: each shard's intra-shard edges run the padded-CSR
+sparse or int8 kernel on its local block, and each used (src, dst) shard
+pair ships the source's whole block once (a block-granular ring); under
+secagg those block channels are one-time-padded.
 """
 from __future__ import annotations
 
@@ -155,7 +162,16 @@ def dynamic_mixing_matrix(sampled, eff_adj, sizes, scheme: str = "defta"):
     padded-CSR support and masked entries ride as zero-weight slots."""
     w = eff_adj.shape[0]
     eye = torch.eye(w, dtype=torch.bool, device=eff_adj.device)
-    outdeg = (eff_adj | eye).sum(dim=0).float()
+    return mixing_rows(sampled, eff_adj, eye, (eff_adj | eye).sum(dim=0),
+                       sizes, scheme)
+
+
+def mixing_rows(sampled, eff_adj, eye, outdeg, sizes, scheme: str = "defta"):
+    """Rows of ``dynamic_mixing_matrix`` for a block of receivers:
+    ``sampled``, ``eff_adj`` and ``eye`` are the block's [r, W] rows,
+    ``outdeg`` [W] the outdegrees over EVERY receiver (the column sums of
+    ``eff_adj | eye``), ``sizes`` [W]."""
+    outdeg = outdeg.float()
     sizes = sizes.float()
     if scheme == "defta":
         col_w = sizes / outdeg
@@ -333,3 +349,342 @@ def _mix_pytree_secagg(P, stacked, adjacency, *, wire, residual,
     if residual is not None:
         return mixed, new_res
     return mixed
+
+
+# ---------------------------------------------------------------------------
+# Worker-axis sharding: local-block CSR + block-granular cross-shard ring
+# ---------------------------------------------------------------------------
+
+# bytes and blocks the sharded transport moved between shards (every
+# payload block and int8 scale vector it copied from one shard to another)
+RING = {"bytes": 0, "blocks": 0}
+
+
+def reset_ring() -> None:
+    RING["bytes"] = RING["blocks"] = 0
+
+
+class WorkerShardPlan:
+    """The static schedule of one sharded gossip round (the reference's,
+    numpy only, field for field).
+
+    The W worker rows are padded to ``wp = shards × block`` and split into
+    per-shard blocks of ``block`` consecutive workers. The adjacency
+    support then splits into:
+
+    * the DIAGONAL blocks — intra-shard edges, compiled to one padded-CSR
+      support per shard (``idx``/``valid`` [S, B, K], local coordinates,
+      K = the max local row degree across shards) so the
+      ``gossip_mix_sparse``/``gossip_mix_quant`` kernels run unchanged on
+      the local block;
+    * the OFF-DIAGONAL blocks — cross-shard edges, compiled to a
+      block-granular ring: shard-offset ``d`` is used iff some shard
+      receives from the shard ``d`` ring positions behind it, and its
+      permutation names only the (src, dst) shard pairs with at least one
+      real edge. A shard therefore ships its whole block once per
+      DISTINCT destination shard — ring bytes scale with the number of
+      used shard PAIRS × block, not with W².
+
+    Padded worker rows get a self-loop only (weight supplied by the
+    identity padding of P), so the schedule never depends on W being
+    divisible by the shard count.
+    """
+
+    def __init__(self, adjacency, shards: int):
+        a0 = np.asarray(adjacency, bool)
+        w = a0.shape[0]
+        s = int(shards)
+        b = -(-w // s)                       # ceil(w / shards)
+        wp = s * b
+        a = np.zeros((wp, wp), bool)
+        a[:w, :w] = a0
+        np.fill_diagonal(a, True)            # self-loops (incl. padding)
+
+        # diagonal blocks -> per-shard padded-CSR support, local coords
+        k = 1
+        for si in range(s):
+            blk = a[si * b:(si + 1) * b, si * b:(si + 1) * b]
+            k = max(k, int(blk.sum(axis=1).max()))
+        idx = np.tile(np.arange(b, dtype=np.int32)[None, :, None],
+                      (s, 1, k))
+        valid = np.zeros((s, b, k), bool)
+        for si in range(s):
+            blk = a[si * b:(si + 1) * b, si * b:(si + 1) * b]
+            for i in range(b):
+                peers = np.flatnonzero(blk[i]).astype(np.int32)
+                idx[si, i, :peers.size] = peers
+                valid[si, i, :peers.size] = True
+
+        # off-diagonal blocks -> block-granular ring schedule
+        pairs = []
+        for src in range(s):
+            for dst in range(s):
+                if src == dst:
+                    continue
+                if a[dst * b:(dst + 1) * b, src * b:(src + 1) * b].any():
+                    pairs.append((src, dst))
+        perms = {}
+        for src, dst in pairs:
+            perms.setdefault((dst - src) % s, []).append((src, dst))
+
+        at = a0 | np.eye(w, dtype=bool)      # true-W support, self-loops in
+        intra = 0
+        for si in range(s):
+            intra += int(at[si * b:min((si + 1) * b, w),
+                            si * b:min((si + 1) * b, w)].sum())
+
+        idx.setflags(write=False)
+        valid.setflags(write=False)
+        self.w, self.shards, self.block, self.wp = w, s, b, wp
+        self.idx, self.valid = idx, valid
+        self.pairs = tuple(pairs)
+        self.used_offsets = tuple(sorted(perms))
+        self.perms = {d: tuple(p) for d, p in perms.items()}
+        self.intra_edges = intra
+        self.cross_edges = int(at.sum()) - intra
+        # the sources each shard receives a block from, in the order the
+        # transport adds them (used offsets ascending)
+        self.sources = tuple(
+            tuple((si - d) % s for d in self.used_offsets
+                  if ((si - d) % s, si) in self.perms[d])
+            for si in range(s))
+
+    def ring_bytes(self, n_params: int, wire=None, *, rows: int = 1) -> int:
+        """Cross-shard wire bytes of ONE sharded round: every used shard
+        pair ships one block of ``block`` worker payloads (int8 payloads
+        carry their per-row scales). This is the contract
+        ``launch.roofline.sharded_ring_bytes`` must reproduce."""
+        from repro_torch.launch.roofline import gossip_wire_bytes
+        payload = gossip_wire_bytes(n_params, wire, rows=rows)
+        return len(self.pairs) * self.block * payload
+
+
+_PLAN_CACHE: dict = {}
+_PLAN_CACHE_MAX = 16
+
+
+def worker_shard_plan(adjacency, shards: int) -> WorkerShardPlan:
+    """Memoized ``WorkerShardPlan`` (a 16-entry LRU, as the reference's)."""
+    a = np.asarray(adjacency, bool)
+    key = (a.shape, a.tobytes(), int(shards))
+    cached = _PLAN_CACHE.get(key)
+    if cached is not None:
+        _PLAN_CACHE[key] = _PLAN_CACHE.pop(key)
+        return cached
+    while len(_PLAN_CACHE) >= _PLAN_CACHE_MAX:
+        _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
+    plan = WorkerShardPlan(a, shards)
+    _PLAN_CACHE[key] = plan
+    return plan
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_tensors(plan: WorkerShardPlan, device: str):
+    """A plan's local-block supports on one device: idx [S, B, K] int32
+    and valid [S, B, K] f32."""
+    return (torch.tensor(plan.idx, device=device),
+            torch.tensor(plan.valid, dtype=torch.float32, device=device))
+
+
+def _pad_mixing(P, wp: int):
+    """P [W, W] -> [wp, wp] f32 with identity rows (and columns) for the
+    padding workers, so every padded row is row-stochastic."""
+    w = P.shape[0]
+    Pp = torch.zeros((wp, wp), dtype=torch.float32, device=P.device)
+    Pp[:w, :w] = P.float()
+    pad = torch.arange(w, wp, device=P.device)
+    Pp[pad, pad] = 1.0
+    return Pp
+
+
+def _shard_pads(plan, base, round_, src: int, dst: int, widths, wire,
+                device):
+    """The one-time pads of the (src shard -> dst shard) block channel on
+    ``device``: per leaf li the payload pad (tag 2·li, in the wire's ring)
+    and, on the int8 wire, the scale pad (tag 2·li + 1, 32-bit ring)."""
+    channels = []
+    for li, width in enumerate(widths):
+        channels.append((2 * li, width))
+        if wire == "int8":
+            channels.append((2 * li + 1, plan.block))
+    words = iter(sa.pad_block(sa.domain_key(base, sa.DOMAIN_SHARD), round_,
+                              torch.tensor(src, device=device),
+                              torch.tensor(dst, device=device), channels))
+    out = []
+    for _ in widths:
+        pay = sa.ring_pad(next(words), wire)
+        out.append((pay, sa.ring_pad(next(words)) if wire == "int8"
+                    else None))
+    return out
+
+
+def mix_rows_sharded(P_rows, stacked_rows, shards, *, adjacency=None,
+                     wire=None, residual_rows=None, secagg=None,
+                     secagg_round=None, plan=None):
+    """The sharded mix over row blocks (the transport of a sharded round).
+
+    ``P_rows``: a list of [r, W] row blocks of P, one per placement block
+    (``WorkerShards.bounds``); ``stacked_rows``: the matching list of dicts
+    of [r, ...] leaves (and ``residual_rows`` their EF21 residuals);
+    ``shards``: the ``sharding.WorkerShards``. With one block per shard the
+    blocks are the shards' blocks; with a single block (W not divisible by
+    the shard count) its rows are padded to ``shards × block`` and split
+    onto the shard devices. Returns ``(mixed_rows, new_residual_rows)``
+    (the latter None without a residual), block for block.
+
+    The order of operations is the reference's ``mix_pytree_sharded``:
+    encode row-local at true W (nearest rounding); pad payload rows with
+    zeros and int8 scales with 1.0, P with identity rows; each shard's
+    accumulator starts from the local-block kernel
+    (``ops.gossip_mix_sparse`` / ``ops.gossip_mix_quant`` on
+    ``val = P_diag[idx] · valid``), then, offset by used offset, the source
+    shard's block is copied to the receiver's device and ``blk @ q_src``
+    added, the int8 scales folded into the columns of the P sub-block.
+    A (src, dst) pair with no real edge ships nothing (the reference's
+    ring delivers zeros there and gates them to a zero term).
+
+    ``secagg`` (a pad root, ``secagg.secagg_base_key``): each used (src,
+    dst) block channel is masked by a one-time pad of
+    ``secagg.domain_key(base, DOMAIN_SHARD)`` keyed on (round, src, dst,
+    tag) before the block leaves its shard's device, and unmasked after
+    it arrives; the intra-shard diagonal is not masked (the privacy
+    boundary is the device, as in the reference).
+
+    ``plan``: the adjacency's ``WorkerShardPlan`` when the caller holds
+    it (the transport builds it once: the memo's key is the adjacency's
+    bytes, 100 MB at W = 10,000); else it is looked up."""
+    wire = normalize_wire(wire)
+    if residual_rows is not None and wire is None:
+        raise ValueError("error-feedback residual needs a lossy wire "
+                         "(wire='bf16'|'int8')")
+    w = sum(int(p.shape[0]) for p in P_rows)
+    if adjacency is None:                    # documented dense fallback
+        adjacency = np.ones((w, w), bool)
+    devs = shards.devices
+    s_n = shards.shards
+    if plan is None:
+        plan = worker_shard_plan(adjacency, s_n)
+    b = plan.block
+    names = sorted(stacked_rows[0])
+    round_ = 0 if secagg_round is None else secagg_round
+
+    # encode at true W, row-local (the numerics of the other transports)
+    enc = []                                 # [block][leaf] (q, s, new_r)
+    for bi, rows in enumerate(stacked_rows):
+        enc.append([])
+        for name in names:
+            x = rows[name]
+            flat = x.reshape(x.shape[0], -1)
+            if wire is None:
+                enc[-1].append((flat, None, None))
+                continue
+            r = residual_rows[bi][name] if residual_rows is not None \
+                else None
+            payload, scale, nr = _encode_rows(
+                flat, r.reshape(r.shape[0], -1) if r is not None else None,
+                wire)
+            enc[-1].append((payload, scale,
+                            nr.reshape(x.shape) if nr is not None else None))
+
+    direct = len(P_rows) == s_n
+    if direct:                               # one placement block a shard
+        Ps = [p.float() for p in P_rows]
+        qs = [[e[0].contiguous() for e in blk] for blk in enc]
+        ss = [[e[1] for e in blk] for blk in enc]
+    else:                                    # one block: pad, then split
+        Pp = _pad_mixing(P_rows[0], plan.wp)
+        Ps = [Pp[si * b:(si + 1) * b].to(devs[si]) for si in range(s_n)]
+        qs = [[] for _ in range(s_n)]
+        ss = [[] for _ in range(s_n)]
+        for q, s_, _ in enc[0]:
+            qp = torch.nn.functional.pad(q, (0, 0, 0, plan.wp - w))
+            sp = None if s_ is None else torch.nn.functional.pad(
+                s_, (0, plan.wp - w), value=1.0)
+            for si in range(s_n):
+                qs[si].append(qp[si * b:(si + 1) * b].to(devs[si])
+                              .contiguous())
+                ss[si].append(None if sp is None else
+                              sp[si * b:(si + 1) * b].to(devs[si]))
+    widths = [b * q.shape[1] for q in qs[0]]
+
+    def ship(src, dst):
+        """The source shard's blocks as they arrive on dst's device, per
+        leaf (q, s): copied, and masked and unmasked under secagg."""
+        out = []
+        if secagg is not None:
+            pads_out = _shard_pads(plan, secagg, round_, src, dst, widths,
+                                   wire, devs[src])
+            pads_in = pads_out if devs[src] == devs[dst] else _shard_pads(
+                plan, secagg, round_, src, dst, widths, wire, devs[dst])
+        for li, (q, s_) in enumerate(zip(qs[src], ss[src])):
+            RING["bytes"] += q.numel() * q.element_size() + \
+                (4 * s_.numel() if s_ is not None else 0)
+            RING["blocks"] += 1
+            if secagg is None:
+                out.append((q.to(devs[dst]),
+                            None if s_ is None else s_.to(devs[dst])))
+                continue
+            (po, so), (pi, si_) = pads_out[li], pads_in[li]
+            qw = sa.mask_payload(q.reshape(-1), po, wire).to(devs[dst])
+            qq = sa.unmask_payload(qw, pi, wire).reshape(q.shape)
+            sq = None
+            if s_ is not None:
+                sw = sa.mask_payload(s_, so).to(devs[dst])
+                sq = sa.unmask_payload(sw, si_)
+            out.append((qq, sq))
+        return out
+
+    outs = []
+    for si in range(s_n):
+        dev = devs[si]
+        idx_all, valid_all = _plan_tensors(plan, str(dev))
+        idx_l, valid_l = idx_all[si], valid_all[si]
+        p_diag = Ps[si][:, si * b:(si + 1) * b]
+        val = (p_diag.gather(1, idx_l.long()) * valid_l).contiguous()
+        acc = []
+        for q, s_ in zip(qs[si], ss[si]):
+            acc.append(ops.gossip_mix_quant(idx_l, val, s_, q)
+                       if s_ is not None
+                       else ops.gossip_mix_sparse(idx_l, val, q))
+        for src in plan.sources[si]:
+            blk = Ps[si][:, src * b:(src + 1) * b]
+            for li, (qq, sq) in enumerate(ship(src, si)):
+                blk_l = blk * sq[None, :] if sq is not None else blk
+                acc[li] = acc[li] + blk_l @ qq.float()
+        outs.append(acc)
+
+    if direct:
+        mixed = [{name: o.reshape(rows[name].shape).to(rows[name].dtype)
+                  for name, o in zip(names, out)}
+                 for out, rows in zip(outs, stacked_rows)]
+    else:
+        rows = stacked_rows[0]
+        mixed = [{name: torch.cat([outs[si][li].to(devs[0])
+                                   for si in range(s_n)])[:w]
+                  .reshape(rows[name].shape).to(rows[name].dtype)
+                  for li, name in enumerate(names)}]
+    new_res = None
+    if residual_rows is not None:
+        new_res = [{name: e[2] for name, e in zip(names, blk)}
+                   for blk in enc]
+    return mixed, new_res
+
+
+def mix_pytree_sharded(P, stacked: dict, shards, *, adjacency=None,
+                       wire=None, residual=None, secagg=None,
+                       secagg_round=None, plan=None):
+    """Worker-axis-sharded gossip on whole [W, ...] tensors (the
+    reference's ``mix_pytree_sharded`` contract): P [W, W] row-stochastic
+    with support ⊆ adjacency ∪ self-loops, ``stacked`` a dict of [W, ...]
+    leaves, ``shards`` a ``sharding.WorkerShards``; the rows are padded to
+    ``shards × block`` and split onto the shard devices
+    (``mix_rows_sharded``), and the result comes back whole on P's
+    device. Returns the mixed dict, or ``(mixed, new_residual)`` with an
+    EF21 ``residual``."""
+    mixed, new_res = mix_rows_sharded(
+        [P], [stacked], shards, adjacency=adjacency, wire=wire,
+        residual_rows=None if residual is None else [residual],
+        secagg=secagg, secagg_round=secagg_round, plan=plan)
+    if residual is not None:
+        return mixed[0], new_res[0]
+    return mixed[0]

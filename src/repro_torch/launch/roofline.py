@@ -1,9 +1,13 @@
-"""The privacy wire's byte and budget contracts (the port's copy of three
-names of ``repro.launch.roofline``; a test pins them source for source).
+"""The gossip wire's byte contracts and the privacy wire's budget (the
+port's copy of five names of ``repro.launch.roofline``; a test pins the
+functions source for source).
 
 The rest of the reference module costs a TPU mesh from compiled HLO and
 is not ported. ``WIRE_BYTES`` is the gossip wire's bytes per parameter
 (the reference's ``core.gossip.WIRE_BYTES`` plus the config spellings).
+``sharded_ring_bytes`` is the independent re-derivation that
+``core.gossip.WorkerShardPlan.ring_bytes`` and the sharded transport's
+byte counter (``gossip.RING``) are held to.
 """
 from __future__ import annotations
 
@@ -11,6 +15,62 @@ from typing import Dict
 
 WIRE_BYTES = {None: 4, "fp32": 4, "bf16": 2, "int8": 1,
               "float32": 4, "bfloat16": 2}
+
+
+def gossip_wire_bytes(n_params: int, wire=None, *, rows: int = 1) -> int:
+    """Bytes of ONE serialized model payload under a gossip wire format:
+    payload + the fp32 per-row quantization scales int8 ships alongside
+    (``rows`` = number of quantization rows, one per worker×leaf)."""
+    b = n_params * WIRE_BYTES[wire]
+    if WIRE_BYTES[wire] == 1:
+        b += 4 * rows
+    return b
+
+
+def sharded_ring_bytes(n_params: int, adjacency, shards: int, wire=None, *,
+                       rows: int = 1) -> Dict[str, float]:
+    """Cross-shard wire contract of ONE worker-axis-sharded gossip round
+    (``core.gossip.mix_pytree_sharded`` — the independent re-derivation
+    ``WorkerShardPlan.ring_bytes`` is tested against).
+
+    The W×W support pads to ``shards × block`` and splits at shard-block
+    granularity: DIAGONAL blocks stay on-device (``intra_edges``, priced
+    at zero wire bytes), OFF-DIAGONAL blocks ride a block-granular
+    ppermute ring where a (src, dst) shard pair is on the schedule iff its
+    block has ≥ 1 real edge — and then ships the WHOLE src block once
+    (``bytes_per_boundary`` = block × payload). Total ring bytes scale
+    with used shard pairs × block, not with the cross-edge count: dense
+    cross-shard coupling amortizes, a single stray edge costs a full
+    boundary.
+    """
+    import numpy as np
+    a0 = np.asarray(adjacency, bool)
+    w = a0.shape[0]
+    s = int(shards)
+    b = -(-w // s)                            # ceil(w / shards)
+    wp = s * b
+    a = np.zeros((wp, wp), bool)
+    a[:w, :w] = a0
+    np.fill_diagonal(a, True)
+    pairs = sum(1 for src in range(s) for dst in range(s)
+                if src != dst and
+                a[dst * b:(dst + 1) * b, src * b:(src + 1) * b].any())
+    at = a0 | np.eye(w, dtype=bool)           # true-W support, self-loops
+    intra = sum(int(at[si * b:min((si + 1) * b, w),
+                       si * b:min((si + 1) * b, w)].sum())
+                for si in range(s))
+    payload = gossip_wire_bytes(n_params, wire, rows=rows)
+    boundary = b * payload
+    return {
+        "shards": s,
+        "block": b,
+        "intra_edges": intra,
+        "cross_edges": int(at.sum()) - intra,
+        "used_pairs": pairs,
+        "bytes_per_boundary": float(boundary),
+        "ring_bytes": float(pairs * boundary),
+    }
+
 
 
 def secagg_pad_bytes(adjacency, n_params: int, wire=None, *,

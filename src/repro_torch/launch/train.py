@@ -25,17 +25,19 @@ round row per epoch or per tick run, a summary row) that
 ``DIR/trace.json``. The last line of a run counts its gossip kernel
 launches by kernel and by regime.
 
-Both modes keep the reference's "dispatches > budget" checks (a secagg
-scenario run, and every cross-device run, exit 1 past ceil(epochs /
+Both modes keep the reference's "dispatches > budget" checks (a secagg or
+sharded scenario run, and every cross-device run, exit 1 past ceil(epochs /
 eval_every)). The port's ledger counts host chunks of the Python-loop
 driver, not XLA dispatches: a chunk ends at each eval point, so the check
 holds by construction here and guards the chunking itself.
 
 The run lands on the card (``--device cuda``, the default) and raises
-without one; ``--device cpu`` runs the kernels' plain versions. The
-reference's other modes are later items of the port and raise
-``NotImplementedError``: ``--shard-workers`` > 1 (item 7), ``--fl`` and
-the LM training path (item 11).
+without one; ``--device cpu`` runs the kernels' plain versions.
+``--shard-workers S`` shards the worker (or enrolled) axis over S devices
+(``repro_torch.sharding``): the first S cards, or S CPU shards with
+``--device cpu``. The reference's other modes are later items of the port
+and raise ``NotImplementedError``: ``--fl`` and the LM training path
+(item 11).
 """
 from __future__ import annotations
 
@@ -172,6 +174,9 @@ def run_scenario_sim(args) -> int:
     compiled = resolve_scenario(args.scenario, cfg, horizon, dev)
     print(f"scenario {compiled.spec.name}: {compiled.summary()}")
 
+    shards = args.shard_workers if args.shard_workers > 1 else None
+    if shards:
+        print(f"worker axis sharded over {shards} devices ({dev.type})")
     ledger, sink = make_ledger(args, cfg, "async" if args.async_ticks
                                else "scenario")
     led, probes = accounting(ledger)
@@ -181,13 +186,13 @@ def run_scenario_sim(args) -> int:
         st, adj, mal, _ = run_async_defta(
             cfg.seed, task, cfg, train, data, ticks=args.async_ticks,
             scenario=compiled, target_epochs=args.sim_epochs, ledger=led,
-            probes=probes, device=dev)
+            probes=probes, device=dev, shards=shards)
     else:
         st, adj, mal, hist = run_defta(
             cfg.seed, task, cfg, train, data, epochs=args.sim_epochs,
             scenario=compiled, eval_every=max(args.sim_epochs // 4, 1),
             test_x=data["test_x"], test_y=data["test_y"], ledger=led,
-            probes=probes, device=dev)
+            probes=probes, device=dev, shards=shards)
         for e, m, s in hist:
             print(f"  epoch {e:4d}: vanilla acc {m:.3f} ± {s:.3f}")
     stop_profile(args, prof)
@@ -198,12 +203,13 @@ def run_scenario_sim(args) -> int:
           f"({stats['dispatches']} dispatches, "
           f"{time.time() - t0:.1f}s, epochs={st.epoch.tolist()})")
     print_launches()
-    if args.secagg and not args.async_ticks:
+    if (shards or args.secagg) and not args.async_ticks:
         budget = -(-args.sim_epochs // max(args.sim_epochs // 4, 1))
         if stats["dispatches"] > budget:
             print(f"FAIL: {stats['dispatches']} dispatches > "
-                  f"ceil(epochs/eval_every) = {budget} — the secagg "
-                  f"round program broke the chunking")
+                  f"ceil(epochs/eval_every) = {budget} — the "
+                  f"{'sharded ' if shards else 'secagg '}round program "
+                  f"broke the chunking")
             return 1
     if args.assert_acc and m < args.assert_acc:
         print(f"FAIL: vanilla accuracy {m:.3f} < --assert-acc "
@@ -261,6 +267,9 @@ def run_cross_device_sim(args) -> int:
 
     eval_every = max(args.sim_epochs // 4, 1)
     budget = -(-args.sim_epochs // eval_every)
+    shards = args.shard_workers if args.shard_workers > 1 else None
+    if shards:
+        print(f"enrolled axis sharded over {shards} devices ({dev.type})")
     ledger, sink = make_ledger(args, cfg, "cross_device")
     led, probes = accounting(ledger)
     prof = start_profile(args)
@@ -269,7 +278,7 @@ def run_cross_device_sim(args) -> int:
         cfg.seed, task, cfg, train, data, world=world,
         epochs=args.sim_epochs, eval_every=eval_every,
         test_x=data["test_x"], test_y=data["test_y"], ledger=led,
-        probes=probes, device=dev)
+        probes=probes, device=dev, shards=shards)
     stop_profile(args, prof)
     close_ledger(args, ledger, sink)
     stats = led.as_stats()
@@ -374,8 +383,11 @@ def parser() -> argparse.ArgumentParser:
                     help="drop a peer's contribution when its model is "
                          "more than this many rounds stale (0 = off)")
     ap.add_argument("--shard-workers", type=int, default=0,
-                    help="shard the worker axis over this many devices "
-                         "(item 7; not ported)")
+                    help="shard the worker/enrolled axis of the "
+                         "simulation engines over this many devices (the "
+                         "first N cards, or N CPU shards with --device "
+                         "cpu); scenario runs exit 1 on a chunk-count "
+                         "violation")
     lm = ap.add_argument_group(
         "LM training and --fl (the reference's; item 11, not ported)")
     lm.add_argument("--fl", action="store_true")
@@ -400,9 +412,6 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
     args.argv = list(sys.argv) if argv is None else [sys.argv[0], *argv]
-    if args.shard_workers > 1:
-        _not_ported("--shard-workers (sharded workers)",
-                    "item 7: multi-device transports")
     if args.fl:
         _not_ported("--fl (DeFTA across pods)", "item 11: training")
     if args.cross_device:

@@ -277,14 +277,17 @@ def test_tick_merge_gates_every_field_on_fired():
 
 
 def test_refusals():
-    """Shards still raise (item 7); a scenario runs (test_torch_scenario_
-    async.py), but attackers come from it or from num_malicious, not
-    both."""
+    """A scenario runs (test_torch_scenario_async.py), but attackers come
+    from it or from num_malicious, not both. Shards (item 7) are ported:
+    more shards than visible cards raise the reference's ``ValueError``,
+    and CPU shards run the unsharded run's ticks."""
     data, cfg_kw, train_kw = async_setup_world()
     args = (0, mlp_task(32, 10), DeFTAConfig(**cfg_kw),
             TrainConfig(**train_kw), data)
     with pytest.raises(ValueError, match="not num_malicious"):
         run_async_defta(*args, ticks=2, scenario="churn_signflip",
                         num_malicious=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1a, item 7"):
-        run_async_defta(*args, ticks=2, shards=2, device="cpu")
+    one, *_ = run_async_defta(*args, ticks=2, device="cpu")
+    two, *_ = run_async_defta(*args, ticks=2, shards=2, device="cpu",
+                              shard_devices=["cpu"] * 2)
+    assert torch.equal(one.epoch, two.epoch)

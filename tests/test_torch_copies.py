@@ -92,6 +92,8 @@ def test_cross_device_runner_helpers_are_verbatim(name):
 @pytest.mark.parametrize("module,name", [
     ("launch/roofline.py", "secagg_pad_bytes"),
     ("launch/roofline.py", "dp_epsilon"),
+    ("launch/roofline.py", "gossip_wire_bytes"),
+    ("launch/roofline.py", "sharded_ring_bytes"),
     ("core/secagg.py", "pair_seed"),
     ("core/secagg.py", "secagg_mask_bytes")])
 def test_privacy_contracts_are_verbatim(module, name):
@@ -292,6 +294,9 @@ st, *_ = run_defta(0, mlp_task(32, 10), dataclasses.replace(
                    TrainConfig(batch_size=16), data, epochs=2,
                    num_malicious=1, device="cpu")
 assert st.epoch.tolist() == [2] * 5 and roofline.dp_epsilon(1.0, 2) > 0
+st2, *_ = run_defta(0, mlp_task(32, 10), DeFTAConfig(num_workers=4),
+                    TrainConfig(), data, epochs=1, device="cpu", shards=2)
+assert st2.epoch.tolist() == [1] * 4
 import os, tempfile
 from repro_torch.launch import train
 from repro_torch.telemetry import RunLedger
@@ -341,7 +346,9 @@ def test_port_sources_import_no_jax_or_repro():
               "src/repro_torch/scenarios/cross_device.py",
               "src/repro_torch/telemetry/spec.py",
               "src/repro_torch/telemetry/sinks.py",
-              "src/repro_torch/launch/train.py"):
+              "src/repro_torch/launch/train.py",
+              "src/repro_torch/sharding.py",
+              "benchmarks/port_shard_scaling.py"):
         assert ROOT / f in files, f
     assert hits == []
 

@@ -235,15 +235,18 @@ def test_refusals_raise_the_references_exception(case):
     ({}, dict(shards=2), "item 7: multi-device transports"),
 ])
 def test_unported_parts_name_their_item(change, kw, item):
-    """Shards still raise and name their item; the privacy wire (item 5)
-    is ported, and its worlds now run a round."""
-    if item == "item 5: privacy wire":
-        engine.check_supported(DeFTAConfig(**change))
-        st, _ = run_pkg("torch", small_world(), change, {}, **kw)
-        assert bool(torch.isfinite(st.conf).all())
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        run_pkg("torch", small_world(), change, {}, **kw)
+    """The privacy wire (item 5) and the sharded enrolled axis (item 7)
+    are ported: their worlds run a round (the sharded one equal to the
+    unsharded run bit for bit, ``test_torch_shard_slice`` holds it against
+    the reference)."""
+    engine.check_supported(DeFTAConfig(**change))
+    st, _ = run_pkg("torch", small_world(), change, {}, **kw)
+    assert bool(torch.isfinite(st.conf).all())
+    if kw:
+        one, _ = run_pkg("torch", small_world(), change, {})
+        assert torch.equal(one.conf, st.conf)
+        assert all(torch.equal(one.params[k], st.params[k])
+                   for k in one.params)
 
 
 def test_telemetry_names_its_item():

@@ -194,16 +194,23 @@ def test_unknown_aggregation_is_stricter_than_the_reference():
 
 
 def test_scenario_shards_telemetry_and_later_gossip_parts_raise():
-    """Shards still raise and name their item (telemetry, item 6, is
-    ported: ``test_torch_telemetry_slice``); a scenario runs, but not
-    beside num_malicious; the stochastic rounding asks for its uniforms;
-    the secure-aggregation wire asks for its topology."""
+    """Shards (item 7) and telemetry (item 6) are ported
+    (``test_torch_shard_slice``, ``test_torch_telemetry_slice``): stochastic
+    int8 rounding on the sharded transport raises the reference's
+    ``ValueError``; a scenario runs, but not beside num_malicious; the
+    stochastic rounding asks for its uniforms; the secure-aggregation wire
+    asks for its topology."""
     data = federated_dataset("vector", 4, np.random.default_rng(0),
                              n_per_worker=16)
     cfg = DeFTAConfig(num_workers=4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run_defta(0, mlp_task(32, 10), cfg, TrainConfig(), data, epochs=1,
-                  device="cpu", shards=2)
+    st, *_ = run_defta(0, mlp_task(32, 10), cfg, TrainConfig(), data,
+                       epochs=1, device="cpu", shards=2)
+    assert st.epoch.tolist() == [1] * 4
+    with pytest.raises(ValueError, match="sharded transport"):
+        run_defta(0, mlp_task(32, 10),
+                  DeFTAConfig(num_workers=4, gossip_dtype="int8",
+                              gossip_wire_round="stochastic"),
+                  TrainConfig(), data, epochs=1, device="cpu", shards=2)
     with pytest.raises(ValueError, match="not num_malicious"):
         run_defta(0, mlp_task(32, 10), cfg, TrainConfig(), data, epochs=1,
                   device="cpu", scenario="churn_signflip", num_malicious=1)

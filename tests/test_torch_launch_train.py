@@ -6,8 +6,10 @@ each with ``--telemetry``, both launchers run with the same arguments: both
 exit 0, the manifests carry the same config, the JSONL round rows the same
 keys in the same order and the same ``t`` stamps, and the port's ledger
 renders through ``benchmarks/render_experiments.render_telemetry_panel``.
-The refusals (``--dts-signal`` without DTS, the unported modes, no card)
-and ``--profile``'s trace are checked on the port.
+The CI's two ``--shard-workers 8`` commands run on 8 CPU shards with the
+reference launcher's unsharded ledger layout. The refusals
+(``--dts-signal`` without DTS, the unported modes, no card) and
+``--profile``'s trace are checked on the port.
 """
 from __future__ import annotations
 
@@ -83,6 +85,40 @@ def test_launcher_ledger_matches_the_references(mode, tmp_path, monkeypatch,
     assert text.count("\n| ") >= 1 + len(body)
 
 
+# the CI's shard lane (.github/workflows/ci.yml, "Sharded scenario smoke"
+# and "Sharded cross-device smoke") at a reduced size: fewer epochs and
+# enrolled users, one local epoch
+SHARDED = {
+    "scenario": ["--scenario", "churn_signflip", "--sim-epochs", "4",
+                 "--sim-workers", "16", "--sim-local-epochs", "1",
+                 "--shard-workers", "8"],
+    "cross_device": ["--cross-device", "--enrolled", "64", "--sample-k",
+                     "16", "--sim-epochs", "2", "--sim-local-epochs", "1",
+                     "--cd-shard-size", "40", "--shard-workers", "8"],
+}
+
+
+@pytest.mark.parametrize("mode", sorted(SHARDED))
+def test_sharded_ci_commands_match_the_references_unsharded_ledger(
+        mode, tmp_path, monkeypatch, capsys):
+    """``--shard-workers 8`` runs (8 CPU shards) and its ledger has the
+    reference launcher's unsharded config, row keys and stamps: ledger
+    rows do not depend on the shard count."""
+    ours, theirs = tmp_path / "port.jsonl", tmp_path / "ref.jsonl"
+    argv = SHARDED[mode]
+    assert train.main(["--device", "cpu", *argv, "--telemetry",
+                       str(ours)]) == 0
+    assert "sharded over 8 devices" in capsys.readouterr().out
+    assert reference_run([*argv[:-2], "--telemetry", str(theirs)],
+                         monkeypatch) == 0
+    got, want = rows_of(ours), rows_of(theirs)
+    assert got[0]["config"] == want[0]["config"]
+    assert [list(r) for r in got[1:]] == [list(r) for r in want[1:]]
+    assert [r.get("t") for r in got] == [r.get("t") for r in want]
+    assert sum(r["type"] == "round" for r in got) == int(argv[argv.index(
+        "--sim-epochs") + 1])
+
+
 def test_launcher_without_telemetry_writes_nothing(tmp_path, monkeypatch,
                                                    capsys):
     monkeypatch.chdir(tmp_path)
@@ -102,8 +138,6 @@ def test_profile_leaves_a_trace(tmp_path):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--scenario", "storm", "--shard-workers", "2"], NotImplementedError,
-     "item 7"),
     (["--fl", "--pods", "4", "--scenario", "churn_signflip"],
      NotImplementedError, "item 11"),
     (["--steps", "4"], NotImplementedError, "item 11"),

@@ -54,6 +54,7 @@ from repro_torch.core.tasks import mlp_task
 from repro_torch.core.topology import make_topology
 from repro_torch.rng import RoundDraws, TorchDraws
 from repro_torch.scenarios.cross_device import CrossDeviceSpec
+from repro_torch.sharding import WorkerShards
 from repro_torch.telemetry import RunLedger
 
 EPOCHS = 6
@@ -380,8 +381,9 @@ def test_dp_noise_stage_gated():
 def test_check_supported_takes_the_privacy_wire(change):
     cfg = DeFTAConfig(**dict(CFG, **change))
     engine.check_supported(cfg)
-    with pytest.raises(NotImplementedError):
-        engine.check_supported(cfg, shard=object())
+    # the sharded transport carries the privacy wire too (item 7)
+    engine.check_supported(cfg, shard=WorkerShards((torch.device("cpu"),)
+                                                   * 2))
 
 
 @pytest.mark.parametrize("change", [

@@ -1,0 +1,279 @@
+"""Sharded runs of the port against live JAX runs, unsharded, on the
+reference's draws.
+
+The reference's own shard tests (``test_shard_engine.py``) hold its
+sharded run equal to its unsharded one; here each of its six worlds (a
+static W = 16 on 4 shards; secagg on the fp32 and on the int8 wire; W =
+100 on 8 shards, where the state stays whole with a warning and only the
+transport pads; the telemetry ledger; async on 4 shards; cross-device, 64
+enrolled, k = 8, on 8 shards) and the paper's Table 3 world (20 vanilla
+workers + 40 ``alie`` colluders, W = 60, under ``dts_signal="all"``, on 4
+shards of 15: the attack zoo's population statistics and the geometry and
+correlation channels read across shards) runs through the reference
+unsharded and through the port on ``["cpu"] * S`` shards, from the
+reference's initial state and on its replayed draws, and through the port
+unsharded beside it.
+
+Limits: every float field within rtol and atol 1e-4 of the reference
+(the int8 world's params, backups and residuals within one quantization
+step, as the privacy slice holds its int8 world); epochs, ticks, stamps,
+participation counters and sketches exact; ledger rows' integer and mask
+probes exact, float probes within 1e-4. Secagg sharded equals plaintext
+sharded bit for bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.scenarios.spec as jspec
+import test_torch_slice as slice_helpers
+from repro.config import DeFTAConfig as JDeFTAConfig
+from repro.config import TrainConfig as JTrainConfig
+from repro.core import engine as jengine
+from repro.core.async_defta import run_async_defta as jrun_async_defta
+from repro.core.cross_device import run_cross_device as jrun_cross_device
+from repro.core.defta import run_defta as jrun_defta
+from repro.core.gossip import uses_error_feedback as juses_ef
+from repro.core.tasks import mlp_task as jmlp_task
+from repro.data.synthetic import federated_dataset as jfederated_dataset
+from repro.scenarios.cross_device import CrossDeviceSpec as JSpec
+from repro.telemetry import RunLedger as JRunLedger
+from test_torch_async import JaxTickDraws
+from test_torch_privacy_slice import assert_int8_close
+from test_torch_scenario_slice import JaxScenarioDraws
+
+import repro_torch.scenarios.spec as tspec
+from repro_torch import sharding
+from repro_torch.config import DeFTAConfig, TrainConfig
+from repro_torch.convert import (cross_device_state_from_jax,
+                                 cross_device_state_to_numpy,
+                                 state_from_jax, state_to_numpy)
+from repro_torch.core import gossip
+from repro_torch.core.async_defta import run_async_defta
+from repro_torch.core.cross_device import run_cross_device
+from repro_torch.core.defta import run_defta
+from repro_torch.core.tasks import mlp_task
+from repro_torch.scenarios.cross_device import CrossDeviceSpec
+from repro_torch.telemetry import RunLedger
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+EXACT = ("epoch", "last_part", "obs", "sketch", "sketch_round")
+EXACT_PROBES = ("round", "edges", "wire_bytes", "damaged", "alive", "fire",
+                "fired", "cohort", "occupancy", "dropout_count",
+                "straggler_count", "scatter_writes")
+TRAIN = dict(learning_rate=0.05, batch_size=32)
+
+
+def fields_of(st):
+    return {f.name: jax.tree.map(np.asarray, getattr(st, f.name))
+            for f in dataclasses.fields(st) if f.name != "key"}
+
+
+def shard_cfg(w, **change):
+    return dict(num_workers=w, avg_peers=4, num_sampled=2, local_epochs=2,
+                **change)
+
+
+def data_for(w, n_per_worker=64):
+    return jfederated_dataset("vector", w, np.random.default_rng(0),
+                              n_per_worker=n_per_worker, alpha=0.5)
+
+
+def sync_world(w, shards, *, cfg_change=None, scenario=None, epochs=3,
+               seed=0, n_per_worker=64, ledger=False, cfg_kw=None):
+    """One sync world through the reference (unsharded) and the port
+    sharded and unsharded; returns (reference fields, {label: port
+    fields}, {label: ledger})."""
+    cfg_kw = cfg_kw or shard_cfg(w, **(cfg_change or {}))
+    data = data_for(cfg_kw["num_workers"], n_per_worker)
+    key = jax.random.PRNGKey(seed)
+    jcfg = JDeFTAConfig(**cfg_kw)
+    jled = JRunLedger() if ledger else None
+    jst, _, jmal, _ = jrun_defta(
+        key, jmlp_task(32, 10), jcfg, JTrainConfig(**TRAIN), data,
+        epochs=epochs, ledger=jled,
+        scenario=scenario(jspec) if scenario else None)
+    init = jengine.init_state(key, jmlp_task(32, 10), len(jmal),
+                              wire_error=juses_ef(jcfg),
+                              sketch=jengine.sketch_shape(jcfg))
+    got, leds = {}, {"jax": jled}
+    for label, s in (("sharded", shards), ("unsharded", None)):
+        led = RunLedger() if ledger else None
+        draws = JaxScenarioDraws(init.key, False)
+        st, *_ = run_defta(
+            0, mlp_task(32, 10), DeFTAConfig(**cfg_kw),
+            TrainConfig(**TRAIN), data, epochs=epochs, device="cpu",
+            shards=s, ledger=led,
+            scenario=scenario(tspec) if scenario else None,
+            init=state_from_jax(fields_of(init), device="cpu"), draws=draws)
+        assert draws.calls == epochs
+        got[label], leds[label] = state_to_numpy(st), led
+    return fields_of(jst), got, leds
+
+
+def assert_close(want, got, tol=TOL):
+    for f in want:
+        if want[f] is None:
+            assert got[f] is None, f
+            continue
+        if f in EXACT:
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+        elif isinstance(want[f], dict):
+            for leaf in want[f]:
+                np.testing.assert_allclose(got[f][leaf], want[f][leaf],
+                                           err_msg=f"{f}.{leaf}", **tol)
+        else:
+            np.testing.assert_allclose(got[f], want[f], err_msg=f, **tol)
+
+
+def assert_ledgers_close(a, b):
+    assert a.names() == b.names() and a.names()
+    assert a.rounds_done == b.rounds_done
+    for name in a.names():
+        x, y = a.series(name), b.series(name)
+        assert x.shape == y.shape and x.dtype == y.dtype, name
+        if name in EXACT_PROBES:
+            np.testing.assert_array_equal(x, y, err_msg=name)
+        else:
+            np.testing.assert_allclose(x, y, err_msg=name, **TOL)
+
+
+def alie_colluders(m):
+    """The Table 3 world's attackers: 40 ``alie`` colluders."""
+    return m.ScenarioSpec(name="alie_k40", attacks=tuple(
+        m.AttackSpec("alie") for _ in range(40)))
+
+
+def test_static_world_on_4_shards_matches_jax():
+    want, got, _ = sync_world(16, 4)
+    assert_close(want, got["sharded"])
+    assert_close(got["unsharded"], got["sharded"])
+
+
+@pytest.mark.parametrize("wire", ["float32", "int8"])
+def test_secagg_world_on_4_shards_matches_jax(wire):
+    """The block channels are masked and unmasked: secagg sharded equals
+    plaintext sharded bit for bit, and both match the reference's secagg
+    run unsharded."""
+    change = dict(secagg="pairwise", gossip_dtype=wire)
+    want, got, _ = sync_world(16, 4, cfg_change=change)
+    if wire == "int8":
+        assert_int8_close(want, got["sharded"])
+    else:
+        assert_close(want, got["sharded"])
+    assert_close(got["unsharded"], got["sharded"])
+    plain = sync_world(16, 4, cfg_change=dict(gossip_dtype=wire))[1]
+    slice_helpers.assert_fields_close(plain["sharded"], got["sharded"],
+                                      rtol=0, atol=0)
+
+
+def test_padded_world_w100_on_8_shards_matches_jax():
+    """W = 100 on 8 shards: the placement warns and keeps the state whole,
+    the transport pads to 8 blocks of 13 (the last one 9 real rows)."""
+    sharding._DEMOTION_WARNED.clear()
+    gossip.reset_ring()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        want, got, _ = sync_world(100, 8, epochs=2, seed=1,
+                                  n_per_worker=32)
+    assert any("not divisible" in str(r.message) for r in rec), \
+        [str(r.message) for r in rec]
+    assert gossip.RING["blocks"] > 0
+    assert_close(want, got["sharded"])
+    assert_close(got["unsharded"], got["sharded"])
+
+
+def test_telemetry_ledger_does_not_depend_on_the_shard_count():
+    """A sharded ledger's rows equal the reference's unsharded ones and the
+    port's unsharded ones; probes on and off leave the sharded state bit
+    for bit the same."""
+    want, got, leds = sync_world(16, 4, ledger=True)
+    assert_ledgers_close(leds["sharded"], leds["jax"])
+    assert_ledgers_close(leds["sharded"], leds["unsharded"])
+    assert_close(want, got["sharded"])
+    off = sync_world(16, 4)[1]["sharded"]
+    slice_helpers.assert_fields_close(off, got["sharded"], rtol=0, atol=0)
+
+
+def test_async_world_on_4_shards_matches_jax():
+    cfg_kw = shard_cfg(16)
+    data = data_for(16)
+    key = jax.random.PRNGKey(2)
+    ticks = 4
+    jst, *_ = jrun_async_defta(key, jmlp_task(32, 10), JDeFTAConfig(**cfg_kw),
+                               JTrainConfig(**TRAIN), data, ticks=ticks)
+    init = jengine.init_state(key, jmlp_task(32, 10), 16)
+    got = {}
+    for label, s in (("sharded", 4), ("unsharded", None)):
+        st, *_ = run_async_defta(
+            0, mlp_task(32, 10), DeFTAConfig(**cfg_kw),
+            TrainConfig(**TRAIN), data, ticks=ticks, device="cpu",
+            shards=s, init=state_from_jax(fields_of(init), device="cpu"),
+            draws=slice_helpers.JaxDraws(init.key),
+            tick_draws=JaxTickDraws(key, ticks))
+        got[label] = state_to_numpy(st)
+    assert_close(fields_of(jst), got["sharded"])
+    assert_close(got["unsharded"], got["sharded"])
+    assert got["sharded"]["epoch"].max() <= ticks
+
+
+def test_cross_device_world_on_8_shards_matches_jax():
+    """64 enrolled users on 8 shards of 8, cohorts of 8: each cohort row is
+    gathered from its owner and written back to it; the ledger's rows are
+    the reference's."""
+    n = 64
+    cfg_kw = dict(num_workers=n, avg_peers=4, num_sampled=2,
+                  local_epochs=1)
+    train = dict(learning_rate=0.05, batch_size=16)
+    data = jfederated_dataset("vector", n, np.random.default_rng(0),
+                              n_per_worker=16, alpha=0.5)
+    spec_kw = dict(enrolled=n, sample_k=8, availability=0.8, dropout=0.05,
+                   straggle=0.1, seed=0)
+    key = jax.random.PRNGKey(0)
+    jcfg = JDeFTAConfig(**cfg_kw)
+    jled = JRunLedger()
+    jst, _ = jrun_cross_device(key, jmlp_task(32, 10), jcfg,
+                               JTrainConfig(**train), data,
+                               world=JSpec(**spec_kw), epochs=4,
+                               ledger=jled)
+    init = jengine.init_cross_device_state(key, jmlp_task(32, 10), n)
+    got, leds = {}, {}
+    for label, s in (("sharded", 8), ("unsharded", None)):
+        led = RunLedger()
+        st, _ = run_cross_device(
+            0, mlp_task(32, 10), DeFTAConfig(**cfg_kw), TrainConfig(**train),
+            data, world=CrossDeviceSpec(**spec_kw), epochs=4, device="cpu",
+            shards=s, ledger=led,
+            init=cross_device_state_from_jax(fields_of(init), device="cpu"),
+            draws=JaxScenarioDraws(init.key, False))
+        got[label], leds[label] = cross_device_state_to_numpy(st), led
+    assert_close(fields_of(jst), got["sharded"])
+    slice_helpers.assert_fields_close(got["unsharded"], got["sharded"],
+                                      rtol=0, atol=0)
+    assert_ledgers_close(leds["sharded"], jled)
+    assert_ledgers_close(leds["sharded"], leds["unsharded"])
+    assert got["sharded"]["obs"].sum() > 0
+
+
+def test_table3_alie_world_under_all_on_4_shards_matches_jax():
+    """One round of the Table 3 world on 4 shards of 15: the colluders'
+    population mean and std, every peer's delta for the geometry scores
+    and every sketch for the correlation read across shards. One round:
+    from the second, the reference and the port, unsharded as well as
+    sharded, part at the geometry channel's half-mass tie, where a float
+    summation order decides a receiver's norm median (ROADMAP.md queue 3,
+    item 3)."""
+    cfg_kw = dict(num_workers=20, avg_peers=4, num_sampled=2,
+                  local_epochs=1, seed=0, dts_signal="all")
+    want, got, _ = sync_world(60, 4, cfg_kw=cfg_kw, scenario=alie_colluders,
+                              epochs=1, n_per_worker=48)
+    assert want["conf"].shape == (60, 60)
+    assert_close(want, got["sharded"])
+    assert_close(got["unsharded"], got["sharded"])
+    assert np.abs(got["sharded"]["sketch"]).max() > 0
