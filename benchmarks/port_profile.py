@@ -1,7 +1,7 @@
 """Where the PyTorch port's time goes, on one CUDA card.
 
     PYTHONPATH=src python benchmarks/port_profile.py \
-        [defta|trust|cross_device|privacy|telemetry|serve] \
+        [defta|trust|cross_device|privacy|telemetry|serve|fl] \
         [--epochs 3] [--table PATH]
 
 ``defta`` (the default) runs the Table 2 worlds of ``chip_smoke.py`` (MLP
@@ -43,6 +43,10 @@ decode steps of the serve loop (batch 4, after a 32-token prompt), per call
 or step: DeepSeekMoE-16B at B=4, S=512 and B=1, S=4096; Mamba2-780M at
 B=4, S=2048 and B=1, S=16384; Jamba-v0.1 at full width cut to one 8-layer
 period (the whole model does not fit one card) at B=1, S=4096.
+``fl`` runs the launcher's ``--fl`` path at paper-small's full width, 4
+pods on the card: the FL train step per step, then the pod gossip round
+per round on the in-process fp32 wire, the cross-pod ring (fp32, int8 +
+EF21) and under ``--pod-dts --dts-signal all`` (``profile_fl``).
 
 Each window runs under ``torch.profiler`` and prints: the wall ms
 (synchronized; the profiler's own host overhead is in it), the kernels' busy ms
@@ -474,11 +478,89 @@ def profile_serve(out):
         torch.cuda.empty_cache()
 
 
+POD_STAGES = ("split_draws", "scenario_view", "peer_sample", "transport",
+              "damage_check", "attack_inject", "trust_update", "finalize")
+FL_PODS = 4
+
+
+def profile_fl(out):
+    """The launcher's ``--fl`` path at paper-small's full width (2 layers,
+    d 256, vocab 33,278, bf16; 4 pods on the card, 2 sequences of 128 a
+    pod): the FL train step (the pods in turn, each a forward with the
+    flash kernel and a backward through its plain version) per step, then
+    the pod gossip round per round on the in-process fp32 wire, the
+    cross-pod ring fp32 and int8 + EF21, and in-process fp32 under
+    ``--pod-dts --dts-signal all`` (the geometry and correlation channels
+    over the pods' whole models), after a warm-up."""
+    from repro_torch.config import DeFTAConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import pods as pods_mod
+    from repro_torch.core.engine import init_pod_state, sketch_shape
+    from repro_torch.core.topology import make_topology
+    from repro_torch.data.loader import TokenBatcher
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.steps import (build_fl_train_step,
+                                          build_pod_gossip_step)
+    from repro_torch.models import model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.rng import TorchDraws
+
+    dev = resolve_device(None)
+    cfg = get_config("paper-small")
+    devices = [dev] * FL_PODS
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    opt = make_optimizer("adam", 1e-3)
+    pod_params = pods_mod.replicate(params, devices)
+    pod_opt = [opt.init(p) for p in pod_params]
+    fl_step = build_fl_train_step(cfg, opt)
+    batcher = TokenBatcher(cfg.vocab_size, 128, 8)
+    batches = [{k: torch.as_tensor(v).reshape(FL_PODS, 2, -1)
+                for k, v in batcher.batch_at(i).items()} for i in range(8)]
+    state = {"p": pod_params, "o": pod_opt, "step": 0, "losses": None}
+
+    def train(n):
+        for i in range(n):
+            state["p"], state["o"], state["step"], state["losses"] = \
+                fl_step(state["p"], state["o"], state["step"],
+                        batches[i % len(batches)])
+    train(2)                                         # warm-up
+    profile_window("fl step (4 pods, paper-small, bf16)",
+                   lambda: train(4), 4, "step", out)
+    adj = make_topology("dense", FL_PODS, FL_PODS - 1)
+    for label, transport, kw in (
+            ("in_jit fp32", "in_jit", {}),
+            ("ring fp32", "ppermute", {}),
+            ("ring int8+ef", "ppermute", dict(gossip_dtype="int8")),
+            ("in_jit fp32 dts all", "in_jit",
+             dict(use_dts=True, dts_signal="all"))):
+        dcfg = DeFTAConfig(num_workers=FL_PODS, avg_peers=FL_PODS - 1,
+                           num_sampled=2, topology="dense",
+                           time_machine=False,
+                           **dict(dict(use_dts=False), **kw))
+        rnd, _ = build_pod_gossip_step(
+            cfg, dcfg, FL_PODS, np.full(FL_PODS, 8), adjacency=adj,
+            transport=transport, pods=devices, device=dev,
+            draws=TorchDraws(torch.Generator(device=dev).manual_seed(101)))
+        pst = init_pod_state(FL_PODS, state["p"],
+                             wire_error=dcfg.gossip_dtype == "int8",
+                             sketch=sketch_shape(dcfg), device=dev)
+        box = {"ps": pst, "p": state["p"]}
+
+        def gossip(n):
+            for _ in range(n):
+                box["ps"], box["p"] = rnd(box["ps"], box["p"],
+                                          state["losses"], state["p"])
+        gossip(2)                                    # warm-up
+        profile_window(f"pod gossip round {label}", lambda: gossip(3), 3,
+                       "round", out, stages=POD_STAGES)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("path", nargs="?",
                     choices=("defta", "trust", "cross_device", "privacy",
-                             "telemetry", "serve"),
+                             "telemetry", "serve", "fl"),
                     default="defta")
     ap.add_argument("--epochs", type=int, default=3,
                     help="DeFTA and FedAvg epochs (async ticks) to profile")
@@ -495,6 +577,8 @@ def main() -> int:
     try:
         if args.path == "serve":
             profile_serve(out)
+        elif args.path == "fl":
+            profile_fl(out)
         elif args.path == "trust":
             profile_trust(args.epochs, out)
         elif args.path == "cross_device":

@@ -189,6 +189,30 @@
    ``roofline.sharded_ring_bytes``. W = 10,000 on 8 shards for 2 epochs
    (every epoch 2; state a shard and the card's peak memory). ms an
    epoch at 1, 2 and 4 shards on the Table 2 world, in turns.
+4f. LM training and DeFTA across pods. The flash kernel under autograd
+   (its forward; the gradient of the plain version, recomputed) at the
+   pods' [2, 4, 128, 64] bf16 (tensor cores) and the example's [4, 12,
+   128, 64] f32 (SIMT): the forward within [2]'s limits; dq, dk, dv equal
+   to the plain version's within 1e-6 of their max (a plumbing check of
+   the wrapper: the backward is the plain version's own, so no kernel's
+   gradient is under test); kernel forward, recompute backward and plain
+   forward + backward timed. The launcher's
+   ``--fl`` (``launch.train.train_lm``) at paper-small's full width (2
+   layers, d 256, vocab 33,278, bf16; seq 128, batch 8), 4 pods on the
+   card, 8 steps, a gossip round every 4: in-process fp32, in-process
+   int8 + EF21, the cross-pod ring fp32 and int8 + EF21, and ``--pod-dts
+   --dts-signal all --pod-time-machine``; losses finite and falling,
+   flash_attention_tc launches pods x layers x steps (+ pods x layers a
+   round for the time machine's held-out evaluations) and no other
+   kernel, ring bytes = rounds x ``roofline.ppermute_ring_bytes`` (the
+   fp32 wire ships the bf16 leaves as they are: priced as "bf16"); ms a
+   step, ms a gossip round, peak memory. On the trained pods' params (in
+   f32): the ring = the in-process mix within 1e-5 (int8: one step), its
+   bytes the contract; the three gossip mixes against their plain
+   versions at every leaf's [4, F]; the pod round on ``pallas`` (dense),
+   ``sparse`` and int8 on ``sparse`` (quant): one launch a leaf, params
+   = the einsum round's. Ten steps of ``examples/port_train_federated.py``
+   (~100M f32, 4 workers): 480 SIMT flash launches, finite losses.
 5. Serving end to end: DeepSeekMoE-16B at full width and depth (28 layers,
    64 routed experts top-6 + 2 shared, bf16, random weights from a seed)
    initialised on the card; ``build_prefill_step`` at B=4, S=512 and at
@@ -3308,6 +3332,350 @@ def shard_end_to_end(launches):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4f: LM training and DeFTA across pods (--fl)
+# ---------------------------------------------------------------------------
+
+FL_PODS, FL_STEPS, FL_EVERY = 4, 8, 4
+# the launcher's --fl arguments at paper-small's full width (2 layers, d 256,
+# vocab 33,278, bf16; seq 128, batch 8: 2 a pod), per run
+FL_RUNS = {
+    "in_jit fp32": [],
+    "in_jit int8+EF": ["--gossip-wire", "int8"],
+    "ring fp32": ["--transport", "ppermute"],
+    "ring int8+EF": ["--transport", "ppermute", "--gossip-wire", "int8"],
+    "dts all+time machine": ["--pod-dts", "--dts-signal", "all",
+                             "--pod-time-machine"],
+}
+
+
+def event_ms(fn, calls: int = 10, repeats: int = 5) -> float:
+    """Median device-and-host milliseconds per call between CUDA events,
+    ``calls`` back-to-back calls a repeat, after a warm-up (for work a
+    CUDA graph cannot capture, such as an autograd backward)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def check_flash_grad(dev):
+    """The flash kernel under autograd (``ops._FlashAttention``: the kernel
+    forward, the plain version's gradient recomputed from q, k, v) against
+    the plain version's forward and gradient, at the [4f] pods' shape
+    [2, 4, 128, 64] bf16 (``flash_attention_tc``) and the example's
+    [4, 12, 128, 64] f32 (SIMT ``flash_attention``), in the model's layout
+    (views of [B, S, H, D] tensors), causal. Limits: the forward as [2]'s
+    (``ref.flash_tc_limit`` / ``flash_err``); dq, dk, dv equal to the plain
+    version's within 1e-6 of their max |.|. The backward is the plain
+    version's, so the gradient check is a plumbing check of the wrapper
+    (the saved q, k, v reach the recompute, the grads come back in the
+    model's layout), not a check of a kernel. Times the kernel forward, the recompute backward and
+    the plain forward + backward. Returns {kernel: max forward err}."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    worst = {}
+    for (b, h, s, d), dtype in (((2, 4, 128, 64), torch.bfloat16),
+                                ((4, 12, 128, 64), torch.float32)):
+        name = ops.flash_kernel(dtype, d)
+        base = [torch.randn(b, s, h, d, generator=gen, device=dev)
+                .to(dtype) for _ in range(3)]
+        go = torch.randn(b, h, s, d, generator=gen, device=dev).to(dtype)
+
+        def leaves():
+            return [t.detach().clone().requires_grad_().transpose(1, 2)
+                    for t in base]
+        q, k, v = leaves()
+        before = dict(ops.LAUNCHES)
+        out = ops.flash_attention(q, k, v, causal=True)
+        grads = torch.autograd.grad(out, (q, k, v), go)
+        grad_fn = type(out.grad_fn).__name__
+        out = out.detach()
+        torch.cuda.synchronize()
+        launched = {n: ops.LAUNCHES[n] - before[n] for n in
+                    ("flash_attention", "flash_attention_tc")}
+        if launched != {n: int(n == name) for n in launched} or \
+                grad_fn != "_FlashAttentionBackward":
+            fail(f"4f flash under autograd {dtype}: launches {launched}, "
+                 f"grad_fn {grad_fn}")
+        pq, pk, pv = leaves()
+        want = ref.flash_attention_ref(pq, pk, pv, causal=True)
+        pgrads = torch.autograd.grad(want, (pq, pk, pv), go)
+        want = want.detach()
+        if name == "flash_attention_tc":
+            lim = ref.flash_tc_limit(*(t.detach() for t in (q, k, v)), want,
+                                     causal=True)
+            diff = (out.float() - want.float()).abs()
+            err, ratio = float(diff.max()), float((diff / lim).max())
+        else:
+            err, ratio = flash_err(out, want, dtype)
+        gerr = [float((g.float() - p.float()).abs().max())
+                for g, p in zip(grads, pgrads)]
+        glim = [1e-6 * float(p.float().abs().max()) for p in pgrads]
+        fwd = device_ms(lambda: ops.flash_attention(q.detach(), k.detach(),
+                                                    v.detach(), causal=True))
+
+        def kernel_bwd():
+            qq, kk, vv = leaves()
+            o = ops.flash_attention(qq, kk, vv, causal=True)
+            torch.autograd.grad(o, (qq, kk, vv), go)
+
+        def plain_fwd_bwd():
+            qq, kk, vv = leaves()
+            o = ref.flash_attention_ref(qq, kk, vv, causal=True)
+            torch.autograd.grad(o, (qq, kk, vv), go)
+        both = event_ms(kernel_bwd)
+        plain = event_ms(plain_fwd_bwd)
+        print(f"  4f flash grad {name:18s} {[b, h, s, d]} "
+              f"{str(dtype)[6:]:8s} fwd max_abs_err={err:.3e} "
+              f"err/limit={ratio:.3f}; dq/dk/dv (plumbing) max_abs_err="
+              f"{['%.2e' % e for e in gerr]}; kernel fwd {fwd:.4f} ms, "
+              f"kernel fwd + recompute bwd {both:.4f} ms (bwd "
+              f"{both - fwd:.4f}), plain fwd + bwd {plain:.4f} ms")
+        if not ratio <= 1.0 or any(not e <= lim for e, lim in
+                                   zip(gerr, glim)):
+            fail(f"4f flash under autograd {dtype}: forward ratio {ratio}, "
+                 f"gradient errors {gerr} (limits {glim})")
+        worst[name] = err
+    return worst
+
+
+def fl_args(extra):
+    from repro_torch.launch import train
+    argv = ["--fl", "--pods", str(FL_PODS), "--steps", str(FL_STEPS),
+            "--gossip-every", str(FL_EVERY), "--batch", "8", "--seq", "128",
+            *extra]
+    args = train.parser().parse_args(argv)
+    args.argv = ["chip_smoke.py", *argv]
+    return args
+
+
+def fl_end_to_end(dev):
+    """``launch.train.train_lm`` (``--fl``) at paper-small's full width, 4
+    pods on the card, 8 steps, a gossip round every 4, on each of
+    ``FL_RUNS``: every pod's loss finite and its mean falling from the
+    first step to the last; flash_attention_tc launches = pods x layers x
+    steps (forward only; the time machine's held-out evaluations add pods
+    x layers a round), no other kernel launch (the einsum backend and the
+    ring run none); on the ring, the bytes moved = rounds x
+    ``roofline.ppermute_ring_bytes`` exactly (the fp32 wire ships the
+    bf16 leaves in their dtype, as the reference's ppermute does, so it
+    is priced as "bf16"). Prints ms a step (median past the first), ms a
+    gossip round and peak memory. Returns (flash_attention_tc launches,
+    the last run's pod params)."""
+    from repro_torch.core import gossip
+    from repro_torch.core import pods as pods_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline, train
+
+    total, out = 0, None
+    for label, extra in FL_RUNS.items():
+        args = fl_args(extra)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        gossip.reset_ring()
+        t0 = time.perf_counter()
+        out = train.train_lm(args)
+        wall = time.perf_counter() - t0
+        losses = np.asarray(out["losses"])
+        flat = pods_mod.flatten(out["params"][0])
+        layers = 2
+        rounds = FL_STEPS // FL_EVERY
+        tm = "--pod-time-machine" in extra
+        want = {k: 0 for k in ops.LAUNCHES}
+        want["flash_attention_tc"] = FL_PODS * layers * (
+            FL_STEPS + (rounds if tm else 0))
+        got = dict(ops.LAUNCHES)
+        ring = "ppermute" in extra
+        # on the fp32 wire the ring ships each leaf in its own dtype, as
+        # the reference's ppermute does: paper-small's bf16, 2 bytes each
+        bf16 = next(iter(flat.values())).dtype == torch.bfloat16
+        wire = "int8" if "int8" in extra else ("bf16" if bf16 else None)
+        n_params = sum(v.numel() for v in flat.values())
+        nnz, _ = roofline.ppermute_ring_bytes(
+            n_params, np.ones((FL_PODS, FL_PODS), bool), wire,
+            rows=len(flat))
+        ring_want = rounds * nnz if ring else 0
+        step_ms = 1e3 * float(np.median(out["step_s"][1:]))
+        gossip_ms = [round(1e3 * x, 2) for x in out["gossip_s"]]
+        print(f"  4f --fl {label:22s} transport={out['transport'].kind} "
+              f"losses first {losses[0].round(4).tolist()} last "
+              f"{losses[-1].round(4).tolist()}; ms a step {step_ms:.2f}, "
+              f"gossip round ms {gossip_ms}, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, wall "
+              f"{wall:.1f}s; flash launches {got['flash_attention_tc']}; "
+              f"ring bytes {gossip.RING['bytes']}", flush=True)
+        if not np.isfinite(losses).all() or \
+                not losses[-1].mean() < losses[0].mean():
+            fail(f"4f --fl {label}: losses {losses.tolist()}")
+        if got != want:
+            fail(f"4f --fl {label}: launches {got}, expected {want}")
+        if gossip.RING["bytes"] != ring_want:
+            fail(f"4f --fl {label}: ring bytes {gossip.RING['bytes']}, "
+                 f"expected {ring_want}")
+        if out["pstate"].round != rounds:
+            fail(f"4f --fl {label}: {out['pstate'].round} gossip rounds")
+        total += got["flash_attention_tc"]
+    return total, out["params"]
+
+
+def fl_pod_mixes(dev, pod_params, launches, max_err):
+    """The pod round's transports at pod width on the trained pods' params
+    (paper-small's leaves, cast to f32): the ring equals the in-process
+    einsum mix within 1e-5 on the fp32 wire and within one quantization
+    step of the row on int8, its bytes ``ppermute_ring_bytes`` exactly;
+    then the pod round with ``backend="pallas"`` (the dense mix, stream
+    regime), ``"sparse"`` (the padded-CSR mix) and the int8 wire on
+    ``"sparse"`` (the quant mix): each mix kernel launches once a leaf a
+    round and holds its plain version at each leaf's [4, F] within 1e-5
+    (1 + max|plain|); the round's params equal the einsum round's within
+    1e-5 (int8: one step)."""
+    from repro_torch.config import DeFTAConfig
+    from repro_torch.core import engine, gossip
+    from repro_torch.core import pods as pods_mod
+    from repro_torch.core.gossip import sparse_weights
+    from repro_torch.core.topology import make_topology
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import roofline
+    from repro_torch.rng import TorchDraws
+
+    w = FL_PODS
+    adj = make_topology("dense", w, w - 1)
+    flats = [{k: v.float() for k, v in pods_mod.flatten(p).items()}
+             for p in pod_params]
+    n_params = sum(v.numel() for v in flats[0].values())
+    rng = np.random.default_rng(4)
+    keep = (adj & (rng.random((w, w)) < 0.7)) | np.eye(w, dtype=bool)
+    P = keep * rng.uniform(0.5, 1.5, (w, w))
+    P = torch.tensor(P / P.sum(1, keepdims=True), dtype=torch.float32,
+                     device=dev)
+    for wire in (None, "int8"):
+        cfg = DeFTAConfig(num_workers=w, avg_peers=w - 1, topology="dense",
+                          gossip_dtype="float32" if wire is None else wire,
+                          gossip_error_feedback=False)
+        gossip.reset_ring()
+        ring, _ = engine.make_transport(cfg, adjacency=adj,
+                                        pods=[dev] * w).mix_pods(P, flats)
+        inproc, _ = engine.make_transport(cfg, backend="einsum",
+                                          adjacency=adj).mix_pods(P, flats)
+        nnz, _ = roofline.ppermute_ring_bytes(n_params, adj, wire,
+                                              rows=len(flats[0]))
+        worst = 0.0
+        for a, b in zip(ring, inproc):
+            for k in a:
+                diff = (a[k] - b[k]).abs().reshape(-1)
+                bound = 1e-5 if wire is None else float(
+                    torch.stack([f[k] for f in flats]).abs().max()) / 127
+                worst = max(worst, float(diff.max()) / bound)
+        print(f"  4f ring vs in-process mix, {wire or 'fp32'} wire: worst "
+              f"err/limit {worst:.3f}; ring bytes {gossip.RING['bytes']} "
+              f"(contract {nnz})")
+        if not worst <= 1.0 or gossip.RING["bytes"] != nnz:
+            fail(f"4f ring {wire}: err/limit {worst}, bytes "
+                 f"{gossip.RING['bytes']} vs {nnz}")
+
+    idx, val = sparse_weights(P, adj)
+    val = val.contiguous()
+    for k in sorted(flats[0]):
+        x = torch.stack([f[k].reshape(-1) for f in flats]).contiguous()
+        q, s = gossip.quantize_rows_int8(x)
+        for name, (kern, plain) in {
+                **kernel_calls(ops, ref, P, idx, val, x, None),
+                **{n: c for n, c in kernel_calls(ops, ref, P, idx, val,
+                                                 q, s).items()
+                   if n == "gossip_mix_quant"}}.items():
+            got = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            err = float((got - want).abs().max())
+            tol = 1e-5 * (1.0 + float(want.abs().max()))
+            if not err <= tol:
+                fail(f"4f {name} at pod width, leaf {k} [4, {x.shape[1]}]: "
+                     f"err {err} (limit {tol})")
+            max_err[name] = max(max_err[name], err)
+    print(f"  4f the three mixes vs plain at the pods' {len(flats[0])} "
+          f"leaves (F up to {max(v.numel() for v in flats[0].values())}): "
+          f"max_abs_err { {n: '%.2e' % max_err[n] for n in GOSSIP} }")
+
+    def pod_round(backend, wire):
+        cfg = DeFTAConfig(num_workers=w, avg_peers=w - 1, num_sampled=2,
+                          topology="dense", use_dts=True,
+                          gossip_dtype="float32" if wire is None else wire,
+                          gossip_error_feedback=False)
+        tr = engine.make_transport(cfg, backend=backend, adjacency=adj)
+        rnd = engine.build_pod_round(
+            cfg, w, np.full(w, 2), transport=tr, adj=adj, device=dev,
+            draws=TorchDraws(torch.Generator(device=dev).manual_seed(7)))
+        pst = engine.init_pod_state(w, pod_params, device=dev)
+        trees = [pods_mod.rebuild(p, f) for p, f in zip(pod_params, flats)]
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        pst, out = rnd(pst, trees, torch.arange(w, dtype=torch.float32,
+                                                device=dev))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return [pods_mod.flatten(o) for o in out], dict(ops.LAUNCHES), ms
+
+    for backend, wire, kernel in (("pallas", None, "gossip_mix"),
+                                  ("sparse", None, "gossip_mix_sparse"),
+                                  ("sparse", "int8", "gossip_mix_quant")):
+        got, counts, ms = pod_round(backend, wire)
+        want, _, base_ms = pod_round("einsum", wire)
+        worst = 0.0
+        for a, b in zip(got, want):
+            for k in a:
+                bound = 1e-5 * (1.0 + float(b[k].abs().max())) \
+                    if wire is None else float(torch.stack(
+                        [f[k] for f in flats]).abs().max()) / 127
+                worst = max(worst, float((a[k] - b[k]).abs().max()) / bound)
+        expect = {n: 0 for n in counts}
+        expect[kernel] = len(flats[0])
+        print(f"  4f pod round backend={backend} wire={wire or 'fp32'}: "
+              f"{counts[kernel]} {kernel} launches, vs einsum err/limit "
+              f"{worst:.3f}, round ms {ms:.2f} (einsum {base_ms:.2f})")
+        if counts != expect or not worst <= 1.0:
+            fail(f"4f pod round {backend} {wire}: launches {counts}, "
+                 f"err/limit {worst}")
+        launches[kernel] += counts[kernel]
+
+
+def fl_example(dev):
+    """Ten steps of ``examples/port_train_federated.py`` (the ~100M f32
+    dense LM, 12 layers, 4 workers on the card, gossip every 5): finite
+    losses, SIMT flash launches = workers x layers x steps. Returns the
+    launches."""
+    import importlib.util
+    from repro_torch.kernels import ops
+    spec = importlib.util.spec_from_file_location(
+        "port_train_federated", ROOT / "examples" / "port_train_federated.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = mod.main(["--steps", "10", "--gossip-every", "5"])
+    want = {k: 0 for k in ops.LAUNCHES}
+    want["flash_attention"] = 4 * 12 * 10
+    print(f"  4f example: ms a step {1e3 * np.median(out['step_s'][1:]):.2f}"
+          f", peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, "
+          f"launches {dict(ops.LAUNCHES)}")
+    if dict(ops.LAUNCHES) != want or not bool(
+            torch.isfinite(out["losses"]).all()):
+        fail(f"4f example: launches {dict(ops.LAUNCHES)}, losses "
+             f"{out['losses'].tolist()}")
+    return want["flash_attention"]
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: serving end to end
 # ---------------------------------------------------------------------------
 
@@ -3656,12 +4024,25 @@ def main() -> int:
         max_err[k] = max(max_err[k], v)
     shard_end_to_end(launches)
 
+    print("[4f] LM training and DeFTA across pods (--fl)", flush=True)
+    t4f = time.perf_counter()
+    for k, v in check_flash_grad(dev).items():
+        max_err[k] = max(max_err[k], v)
+    fl_tc, pod_params = fl_end_to_end(dev)
+    fl_pod_mixes(dev, pod_params, launches, max_err)
+    del pod_params
+    fl_simt = fl_example(dev)
+    torch.cuda.empty_cache()
+    print(f"  [4f] {time.perf_counter() - t4f:.1f}s", flush=True)
+
     print("[5] serving end to end", flush=True)
     launches.update(serve_full(dev))
     # f32 attention keeps the SIMT flash kernel: its path is the reduced
-    # f32 model served on the card
+    # f32 model served on the card (and [4f]'s f32 example)
     launches["flash_attention"] = serve_reduced_card_vs_cpu(
         dev, "deepseek-moe-16b", 24, attention=True)["flash_attention"]
+    launches["flash_attention_tc"] += fl_tc
+    launches["flash_attention"] += fl_simt
 
     print("[6] serving mamba2-780m end to end", flush=True)
     launches.update(serve_mamba2(dev))

@@ -12,7 +12,9 @@ PRNG ``key`` has no counterpart here (the port's randomness comes from an
 reference's ``FedAvgState`` arrives the same way: ``server`` a dict of
 arrays, ``opt`` None or ``{"m": ..., "v": ...}``; so does its
 ``CrossDeviceState``, with the sketch ring buffer's stamps
-(``sketch_round``) and the participation counters.
+(``sketch_round``) and the participation counters. Its ``PodState``
+arrives with its stacked ``[npods, ...]`` trees split into the port's
+per-pod trees, one on each pod device.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import (CrossDeviceState, DeFTAState,
-                                     FedAvgState)
+                                     FedAvgState, PodState)
 from repro_torch.device import resolve_device, to_numpy, to_torch
 
 STATE_FIELDS = ("params", "backup", "conf", "best_loss", "last_loss",
@@ -114,3 +116,57 @@ def model_params_to_numpy(params: dict) -> dict:
         t = node.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return walk(params)
+
+
+def _stacked_to_pods(tree, devices):
+    """A stacked [npods, ...] numpy tree -> one tree of tensors a pod."""
+    if tree is None:
+        return None
+    return [model_params_from_jax(
+        _index_tree(tree, p), device=d) for p, d in enumerate(devices)]
+
+
+def _index_tree(tree, p):
+    return {k: _index_tree(v, p) if isinstance(v, dict) else np.asarray(v)[p]
+            for k, v in tree.items()}
+
+
+def _pods_to_stacked(trees):
+    if trees is None:
+        return None
+    pods = [model_params_to_numpy(t) for t in trees]
+
+    def walk(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: walk([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack(nodes)
+    return walk(pods)
+
+
+def pod_state_from_jax(fields: dict, devices) -> PodState:
+    """The reference's ``PodState`` fields as numpy (a dict keyed by field
+    name; its ``key`` is not read) -> the port's ``PodState``: the
+    [npods, ...] fields on ``devices[0]`` (the controller), ``wire_err``
+    and ``backup`` split into per-pod trees, pod p's on ``devices[p]``."""
+    dev = resolve_device(devices[0])
+    devs = [resolve_device(d) for d in devices]
+    opt = lambda x: None if x is None else to_torch(np.asarray(x), dev)
+    return PodState(conf=opt(fields["conf"]),
+                    last_loss=opt(fields["last_loss"]),
+                    round=int(np.asarray(fields["round"])),
+                    wire_err=_stacked_to_pods(fields.get("wire_err"), devs),
+                    backup=_stacked_to_pods(fields.get("backup"), devs),
+                    best_loss=opt(fields.get("best_loss")),
+                    sketch=opt(fields.get("sketch")))
+
+
+def pod_state_to_numpy(state: PodState) -> dict:
+    """The inverse of ``pod_state_from_jax``: the per-pod trees stacked
+    back on a leading pod axis, ``round`` an int32 scalar."""
+    return {"conf": to_numpy(state.conf),
+            "last_loss": to_numpy(state.last_loss),
+            "round": np.int32(state.round),
+            "wire_err": _pods_to_stacked(state.wire_err),
+            "backup": _pods_to_stacked(state.backup),
+            "best_loss": to_numpy(state.best_loss),
+            "sketch": to_numpy(state.sketch)}

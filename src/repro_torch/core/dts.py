@@ -122,6 +122,24 @@ def weighted_median(vals, wts):
     return torch.where(total[:, None] > 0, med, torch.zeros_like(med))
 
 
+def anchored_median(vals, wts):
+    """The lower weighted median over each receiver's peers and itself, the
+    receiver carrying exactly the whole peer mass (half the total).
+
+    vals: [W, D], row r receiver r's own value and every peer's; wts: [W,
+    W] peer weights (>= 0, the diagonal 0). The cumulative weight can reach
+    half before the receiver only if the whole peer mass lies below its
+    value, so the median is ``min(own, max over positive-weight peers)``
+    per coordinate, 0 for a row with no peer. This is the exact answer: a
+    cumsum in float32 (``weighted_median`` with the self weight on the
+    diagonal) settles the tie by its rounding."""
+    neg_inf = torch.full((), float("-inf"), device=vals.device)
+    peer_max = torch.where(wts[:, :, None] > 0, vals[None, :, :],
+                           neg_inf).amax(dim=1)
+    med = torch.minimum(vals, peer_max)
+    return torch.where(torch.isfinite(med), med, torch.zeros_like(med))
+
+
 def _masked_weights(mask, weights, eye):
     """The receiver-peer weights of the scoring functions: ``weights``
     (uniform when None) on ``mask`` minus the diagonal, 0 elsewhere,
@@ -149,31 +167,24 @@ def geom_scores(deltas, mask, weights=None, *,
     mask: [W, W] bool, i listens to j (the diagonal is ignored); weights:
     [W, W] trust weights (θ; uniform over the mask when None).
 
-    The reference direction r_i is the weighted coordinate-wise median over
-    i's peers and i itself, with i carrying half the mass; at exactly half
-    the lower weighted median is ``min(self, max over positive-weight
-    peers)`` per coordinate, computed in that closed form. Each peer scores
+    The reference direction r_i and the reference norm are the weighted
+    medians over i's peers and i itself, i carrying half the mass
+    (``anchored_median``, exact at that half-mass tie). Each peer scores
     cosine distance to r_i + clipped |log| norm ratio against the
-    self-anchored weighted-median norm + sign-disagreement rate against
-    r_i, centred over the receiver's peers under ``weights``. Returns [W,
-    W]; rows with no peers are all-zero."""
+    reference norm + sign-disagreement rate against r_i, centred over the
+    receiver's peers under ``weights``. Returns [W, W]; rows with no peers
+    are all-zero."""
     w = deltas.shape[0]
     eye = torch.eye(w, dtype=torch.bool, device=deltas.device)
     mask, wts = _masked_weights(mask, weights, eye)
-    # self-anchor: the receiver's own delta carries the whole peer mass
-    wts_ref = wts + eye * wts.sum(1, keepdim=True)
-    neg_inf = torch.full((), float("-inf"), device=deltas.device)
-    peer_max = torch.where(wts[:, :, None] > 0, deltas[None, :, :],
-                           neg_inf).amax(dim=1)
-    ref = torch.minimum(deltas, peer_max)      # row r's self is deltas[r]
-    ref = torch.where(torch.isfinite(ref), ref, torch.zeros_like(ref))
+    ref = anchored_median(deltas, wts)
     dn = torch.sqrt((deltas * deltas).sum(-1))              # [P]
     rn = torch.sqrt((ref * ref).sum(-1))                    # [R]
 
     cos = (ref @ deltas.T) / (dn[None, :] * rn[:, None] + eps)
     cos_score = 1.0 - cos                                   # [0, 2]
 
-    med_n = weighted_median(dn[:, None], wts_ref)[:, 0]     # [R]
+    med_n = anchored_median(dn[:, None], wts)[:, 0]         # [R]
     norm_score = torch.abs(torch.log((dn[None, :] + eps)
                                      / (med_n[:, None] + eps)))
     norm_score = norm_score.clamp(0.0, norm_clip) / norm_clip

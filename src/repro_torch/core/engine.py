@@ -33,6 +33,16 @@ of an enrolled population:
         -> damage_check -> local_train -> attack_inject -> trust_update
         -> scatter_merge
 
+The multi-pod round of ``--fl`` (``build_pod_round``, state ``PodState``)
+runs the same stages over the pod axis between the pods' training steps,
+the pods' params a list of per-pod trees on their devices:
+
+    split_draws -> scenario_view -> peer_sample -> transport
+        -> [damage_check] -> attack_inject -> trust_update -> finalize
+
+its transport the in-process backends on the stacked rows or the
+cross-pod ring (``make_transport(..., pods=devices)``).
+
 ``drive_epochs`` runs rounds and ``drive_ticks`` runs ticks in a Python
 loop, with per-chunk wall time.
 
@@ -73,16 +83,18 @@ import torch
 
 from repro_torch.config import DeFTAConfig, TrainConfig
 from repro_torch.core import dts as dts_mod
+from repro_torch.core import pods as pods_mod
 from repro_torch.core.gossip import (dynamic_mixing_matrix, mix_pytree,
-                                     mix_rows_sharded, mixing_rows,
-                                     normalize_wire, uses_error_feedback,
-                                     worker_shard_plan)
+                                     mix_pytree_ppermute, mix_rows_sharded,
+                                     mixing_rows, normalize_wire,
+                                     uses_error_feedback, worker_shard_plan)
 from repro_torch.core.secagg import secagg_base_key
 from repro_torch.core.tasks import Task
-from repro_torch.scenarios.attacks import (LABEL_FLIP_CODE, RANDOM_ATTACKS,
-                                           flip_labels, noise, poison_sends,
-                                           tree_select)
-from repro_torch.scenarios.compile import epoch_view
+from repro_torch.device import resolve_device
+from repro_torch.scenarios.attacks import (LABEL_FLIP_CODE, MODEL_ATTACKS,
+                                           RANDOM_ATTACKS, flip_labels,
+                                           noise, poison_sends, tree_select)
+from repro_torch.scenarios.compile import ATTACK_CODE, epoch_view
 from repro_torch.scenarios.robust_agg import ROBUST_RULES, robust_mix
 from repro_torch.sharding import tree_map
 from repro_torch.telemetry.ledger import RunLedger
@@ -133,8 +145,11 @@ def check_supported(cfg: DeFTAConfig, *, shard=None) -> None:
                      shard=shard)
 
 
-def _check_transport(cfg: DeFTAConfig, *, robust: bool, shard) -> None:
-    """``make_transport``'s refusals, in the reference's order."""
+def _check_transport(cfg: DeFTAConfig, *, robust: bool, shard,
+                     pods=None) -> None:
+    """``make_transport``'s refusals, in the reference's order (the
+    sharded transport's stochastic-int8 refusal before the cross-pod
+    ring's)."""
     wire = normalize_wire(cfg.gossip_dtype)
     if robust and wire is not None:
         raise ValueError(
@@ -153,10 +168,14 @@ def _check_transport(cfg: DeFTAConfig, *, robust: bool, shard) -> None:
             f"secagg composes with the weighted gossip mix only — robust "
             f"rules ({cfg.aggregation!r}) inspect individual plaintext "
             f"models, which is exactly what the masked wire denies them")
-    if shard is not None and wire == "int8" \
-            and cfg.gossip_wire_round == "stochastic":
+    stochastic = wire == "int8" and cfg.gossip_wire_round == "stochastic"
+    if shard is not None and stochastic:
         raise ValueError("wire_round='stochastic' is not supported on "
                          "the sharded transport (row-local nearest "
+                         "encode only)")
+    if shard is None and pods is not None and stochastic:
+        raise ValueError("wire_round='stochastic' is not supported on "
+                         "the ppermute transport (row-local nearest "
                          "encode only)")
 
 
@@ -271,18 +290,24 @@ class Transport:
     ``round_`` is the round the secagg pads are keyed on (inert without
     secagg). The sharded transport mixes row blocks instead:
     ``mix_rows(P_rows, stacked_rows, residual_rows, round_)`` returns
-    ``(mixed_rows, new_residual_rows)`` (``gossip.mix_rows_sharded``)."""
-    kind: str                    # "in_process" | "sharded"
+    ``(mixed_rows, new_residual_rows)`` (``gossip.mix_rows_sharded``). The pod round mixes per-pod rows:
+    ``mix_pods(P, pod_rows, residual=None, wire_u=None, round_=None)``
+    takes a list of per-pod dicts of leaves and returns ``(mixed,
+    new_residual or None)``, lists alike: the in-process backends on the
+    rows stacked onto P's device, or the cross-pod ring
+    (``gossip.mix_pytree_ppermute``) between the pods' devices."""
+    kind: str                    # "in_process" | "sharded" | "ppermute"
     wire: Optional[str]          # None | "bf16" | "int8"
     use_ef: bool
     stochastic: bool             # int8 stochastic rounding
     mix: Optional[Callable] = None
     mix_rows: Optional[Callable] = None
+    mix_pods: Optional[Callable] = None
 
 
 def make_transport(cfg: DeFTAConfig, *, backend: str = "auto",
                    adjacency=None, robust: bool = False,
-                   shard=None) -> Transport:
+                   shard=None, pods=None) -> Transport:
     """The in-process transport over the ``mix_pytree`` backends, or, with
     ``shard`` (a ``sharding.WorkerShards``), the worker-axis-sharded one:
     intra-shard edges run the padded-CSR sparse or int8 kernels on each
@@ -296,8 +321,14 @@ def make_transport(cfg: DeFTAConfig, *, backend: str = "auto",
     never runs the lossy wire. With ``cfg.secagg`` the pad root comes from
     ``cfg.seed`` alone (``secagg.secagg_base_key``: no draw moves): the
     in-process mix is then the masked gather mix, the sharded one masks
-    its block channels. The cross-pod ring is a later item."""
-    _check_transport(cfg, robust=robust, shard=shard)
+    its block channels.
+
+    ``pods`` (a list of devices, one a pod; the reference's ``mesh=``)
+    selects the cross-pod ``ppermute`` ring for the pod round
+    (``gossip.mix_pytree_ppermute``: the ring schedule over the static
+    ``adjacency``, row-local nearest encode, so stochastic int8 rounding
+    raises its ``ValueError`` there too)."""
+    _check_transport(cfg, robust=robust, shard=shard, pods=pods)
     wire = normalize_wire(cfg.gossip_dtype)
     use_ef = uses_error_feedback(cfg)
     stochastic = wire == "int8" and cfg.gossip_wire_round == "stochastic"
@@ -317,13 +348,37 @@ def make_transport(cfg: DeFTAConfig, *, backend: str = "auto",
         return Transport(kind="sharded", wire=wire, use_ef=use_ef,
                          stochastic=False, mix_rows=mix_rows)
 
+    if pods is not None:
+        devices = [torch.device(d) for d in pods]
+
+        def ring(P, pod_rows, residual=None, wire_u=None, round_=None):
+            out = mix_pytree_ppermute(P, pod_rows, devices,
+                                      adjacency=adjacency, wire=wire,
+                                      residual=residual, secagg=sec_base,
+                                      secagg_round=round_)
+            return out if residual is not None else (out, None)
+        return Transport(kind="ppermute", wire=wire, use_ef=use_ef,
+                         stochastic=False, mix_pods=ring)
+
     def mix(P, stacked, residual=None, wire_u=None, round_=None):
         return mix_pytree(P, stacked, backend=backend, adjacency=adjacency,
                           wire=wire, residual=residual,
                           wire_round=wire_round, wire_u=wire_u,
                           secagg=sec_base, secagg_round=round_)
+
+    def mix_pods(P, pod_rows, residual=None, wire_u=None, round_=None):
+        devices = [next(iter(r.values())).device for r in pod_rows]
+        stacked = pods_mod.stack(pod_rows, P.device)
+        if residual is None:
+            out = mix(P, stacked, wire_u=wire_u, round_=round_)
+            return pods_mod.unstack(out, devices), None
+        out, err = mix(P, stacked, residual=pods_mod.stack(residual,
+                                                           P.device),
+                       wire_u=wire_u, round_=round_)
+        return pods_mod.unstack(out, devices), pods_mod.unstack(err,
+                                                                devices)
     return Transport(kind="in_process", wire=wire, use_ef=use_ef,
-                     stochastic=stochastic, mix=mix)
+                     stochastic=stochastic, mix=mix, mix_pods=mix_pods)
 
 
 # ---------------------------------------------------------------------------
@@ -1119,6 +1174,340 @@ def build_fire_gated_tick(rnd_fn, data, speeds: torch.Tensor, w: int, *,
 
     tick.telemetry = telemetry
     return tick
+
+
+# ---------------------------------------------------------------------------
+# Multi-pod round program (launch/train.py --fl)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PodState:
+    """Gossip-round state of the multi-pod path (ref ``PodState``): DTS
+    confidence, EF21 residuals and the round counter; the pods' params and
+    optimizer states live in the launcher's training loop. ``backup`` /
+    ``best_loss`` are the pod time machine (None when it is off). The
+    [npods, ...] fields lie on the controller device; ``wire_err`` and
+    ``backup`` are lists of per-pod trees on the pods' devices. ``round``
+    is a host counter (the reference's int32 scalar; the port's randomness
+    comes from the round's ``rng.Draws`` provider, so there is no key)."""
+    conf: torch.Tensor           # [npods, npods]
+    last_loss: torch.Tensor      # [npods]
+    round: int = 0
+    wire_err: Optional[list] = None   # per-pod EF21 residual trees (f32)
+    backup: Optional[list] = None     # per-pod best-eval param trees
+    best_loss: Optional[torch.Tensor] = None   # [npods]
+    sketch: Optional[torch.Tensor] = None      # [npods, R, S]
+
+
+def init_pod_state(npods: int, params=None, *, wire_error: bool = False,
+                   time_machine: bool = False, sketch=None,
+                   device=None) -> PodState:
+    """``params``: the per-pod parameter trees (needed to size the EF21
+    residuals and the time machine's backups); ``sketch``: the (R, S) dims
+    from ``sketch_shape(cfg)`` when the correlation channel is on.
+    ``device``: the controller device (default: pod 0's, else the
+    card)."""
+    if (wire_error or time_machine) and params is None:
+        raise ValueError("wire_error/time_machine pod state needs the "
+                         "stacked params to size its buffers")
+    if device is None and params is not None:
+        dev = next(iter(pods_mod.flatten(params[0]).values())).device
+    else:
+        dev = resolve_device(device)
+
+    def zeros_f32(tree):
+        return {k: zeros_f32(v) if isinstance(v, dict) else
+                torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+                for k, v in tree.items()}
+    return PodState(
+        conf=torch.zeros((npods, npods), device=dev),
+        last_loss=torch.zeros(npods, device=dev),
+        round=0,
+        wire_err=[zeros_f32(p) for p in params] if wire_error else None,
+        backup=[pods_mod.copy_to(p) for p in params] if time_machine
+        else None,
+        best_loss=torch.full((npods,), float("inf"), device=dev)
+        if time_machine else None,
+        sketch=torch.zeros((npods,) + tuple(sketch), device=dev)
+        if sketch else None)
+
+
+def build_pod_round(cfg: DeFTAConfig, npods: int, sizes, *,
+                    transport: Transport, adj: np.ndarray, draws,
+                    device=None, scenario=None, num_appended: int = 0,
+                    self_eval=None):
+    """The multi-pod gossip round (ref ``build_pod_round``) as the same
+    stage pipeline over the pod axis:
+
+        split_draws -> scenario_view -> peer_sample -> transport
+            -> [damage_check] -> attack_inject -> trust_update -> finalize
+
+    Local training happens between gossip rounds (``launch.steps``).
+    ``transport``: ``make_transport(cfg, adjacency=..., pods=devices)``
+    for the cross-pod ring, without ``pods`` for the in-process backends.
+    ``draws``: the round's ``rng.Draws`` provider, asked once a round for
+    the peer-sampling Gumbel rows (and, gated at build time, the random
+    attack kinds' noise and the stochastic wire's uniforms). ``device``:
+    the controller device, where the [npods, ...] state and the stages
+    that read across pods run (default: the card).
+
+    ``self_eval(pod_params) -> [npods] losses`` (a list of per-pod trees
+    in, a tensor on the controller device out) is the pod time machine's
+    held-out self-evaluation: with ``cfg.time_machine`` the candidate
+    aggregate is evaluated, damaged pods restore their backup instead of
+    adopting the mix, and the damage penalty feeds the trust update.
+    Without it ``damage_check`` is not built.
+
+    Returns gossip_round(pstate, params, losses, start_params=None) ->
+    (pstate, new_params): ``params`` the per-pod trees, ``losses`` [npods]
+    the pods' current train losses. ``start_params`` (the per-pod trees
+    the pods departed from this interval) makes the geometry and
+    correlation channels score the true local-train deltas ``sent −
+    start``; without it they score the round displacement ``out −
+    params``, as the reference's legacy pod path does. The scenario's
+    epoch axis is the gossip round (``pstate.round``); its
+    ``num_appended`` attackers occupy the last pod slots."""
+    del num_appended                      # slots are already in npods
+    w = npods
+    dev = resolve_device(device)
+    adj_t = torch.as_tensor(np.asarray(adj, bool)).to(dev)
+    eye = torch.eye(w, dtype=torch.bool, device=dev)
+    sizes_t = torch.as_tensor(np.asarray(sizes, np.float32)).to(dev)
+    robust = cfg.aggregation in ROBUST_RULES
+    if robust and transport.wire is not None:
+        raise ValueError("robust aggregation on the pod path needs a "
+                         "lossless wire (gossip_dtype='float32')")
+    if scenario is not None and scenario.num_workers != w:
+        raise ValueError(f"scenario compiled for W={scenario.num_workers} "
+                         f"pods, mesh has {w}")
+    regen = scenario is not None and scenario.adj_seg is not None
+    use_ef = transport.use_ef
+    channels = resolve_dts_signal(cfg)
+    corr = "corr" in channels
+    if cfg.secagg is not None and cfg.secagg_mode == "masked_geom":
+        raise ValueError(
+            "secagg_mode='masked_geom' has no pod selection: pod trust "
+            "already runs at pod granularity (each pod IS an aggregate) "
+            "— use the simulation/cross-device engines to measure the "
+            "aggregate-only trust degradation")
+    time_machine = cfg.time_machine and self_eval is not None
+    noise_kinds = () if scenario is None else tuple(
+        k for k in scenario.kinds_present if k in RANDOM_ATTACKS)
+    model_kinds = () if scenario is None else tuple(
+        k for k in scenario.kinds_present if k in MODEL_ATTACKS)
+
+    def stage_split_draws(c):
+        """reads params; writes draws (the Gumbel rows, and the random
+        attack kinds' noise and the stochastic wire's uniforms when the
+        round needs them) and flat (each pod's params, wire_err and
+        backup as dicts of leaves)."""
+        pstate = c["pstate"]
+        c["flat"] = [pods_mod.flatten(p) for p in c["params"]]
+        c["flat_err"] = None if pstate.wire_err is None else \
+            [pods_mod.flatten(e) for e in pstate.wire_err]
+        shapes = {k: (w,) + tuple(v.shape) for k, v in c["flat"][0].items()}
+        extra = {}
+        if noise_kinds:
+            extra["kind_noise"] = {k: shapes for k in noise_kinds}
+        if transport.stochastic:
+            extra["wire_shapes"] = {
+                k: (w, int(np.prod(v[1:], dtype=np.int64)))
+                for k, v in shapes.items()}
+        c["draws"] = draws(w, 0, 0, None, **extra)
+
+    def stage_scenario_view(c):
+        """reads pstate.round; writes eff_adj (+ alive, fire, att_on with
+        a scenario): the gossip round is the scenario's epoch."""
+        if scenario is not None:
+            view = epoch_view(scenario, c["pstate"].round)
+            c["alive"], c["fire"], c["att_on"] = \
+                view["alive"], view["fire"], view["attack_on"]
+            base = view["adj"] if regen else adj_t
+            c["eff_adj"] = base & view["link_ok"] \
+                & c["alive"][None, :] & c["alive"][:, None]
+        else:
+            c["eff_adj"] = adj_t
+
+    def stage_peer_sample(c):
+        """reads eff_adj, pstate.conf, draws.gumbel; writes theta and
+        sampled (without DTS every live peer is listened to and theta is
+        the row-normalised adjacency)."""
+        if cfg.use_dts:
+            theta = dts_mod.sample_weights(c["pstate"].conf, c["eff_adj"],
+                                           cfg.crelu_slope)
+            c["sampled"] = dts_mod.sample_peers(
+                c["draws"].gumbel.to(dev), theta, cfg.num_sampled)
+        else:
+            a = c["eff_adj"].float()
+            theta = a / a.sum(1, keepdim=True).clamp_min(1)
+            c["sampled"] = c["eff_adj"]
+        c["theta"] = theta
+
+    def stage_transport(c):
+        """reads sampled, eff_adj, flat, pstate.wire_err, draws.wire_u;
+        writes P, agg (per-pod dicts) and wire_err: the wire stack over the
+        in-process backends or the cross-pod ring, or a robust rule."""
+        pstate = c["pstate"]
+        mask = (c["sampled"] & c["eff_adj"]) | eye
+        c["mask"] = mask
+        devices = [next(iter(f.values())).device for f in c["flat"]]
+        if robust:
+            c["agg"] = pods_mod.unstack(robust_mix(
+                cfg.aggregation, mask, pods_mod.stack(c["flat"], dev),
+                trim=cfg.robust_trim), devices)
+            c["P"] = mask.float() / mask.sum(dim=1, keepdim=True)
+            c["wire_err"] = c["flat_err"]
+            return
+        P = dynamic_mixing_matrix(c["sampled"], c["eff_adj"], sizes_t,
+                                  cfg.aggregation)
+        c["P"] = P
+        if use_ef and c["flat_err"] is None:
+            raise ValueError(
+                "cfg enables gossip error feedback on a lossy wire but the "
+                "pod state carries no residual buffers — build it with "
+                "init_pod_state(..., wire_error=True)")
+        c["agg"], err = transport.mix_pods(
+            P, c["flat"], residual=c["flat_err"] if use_ef else None,
+            wire_u=c["draws"].wire_u, round_=pstate.round)
+        c["wire_err"] = err if use_ef else c["flat_err"]
+
+    def stage_damage_check(c):
+        """reads agg, pstate.{backup, best_loss}; writes eval_loss (the
+        held-out self-eval of the candidate aggregate), damaged, and agg
+        (damaged pods restore their backup: the pod time machine)."""
+        pstate = c["pstate"]
+        c["eval_loss"] = self_eval([pods_mod.rebuild(like, a) for like, a
+                                    in zip(c["params"], c["agg"])]).to(dev)
+        c["damaged"] = dts_mod.is_damaged(c["eval_loss"], pstate.best_loss)
+        c["flat_backup"] = [pods_mod.flatten(b) for b in pstate.backup]
+        c["agg"] = pods_mod.select(c["damaged"], c["flat_backup"], c["agg"])
+
+    def stage_attack_inject(c):
+        """reads agg, flat, att_on, theta, draws.kind_noise; writes out
+        (actively attacking slots ship their poisoned send, built from
+        the aggregate and their own pre-mix params; everyone else adopts
+        the aggregate) and att_active."""
+        if scenario is None:
+            c["out"] = c["agg"]
+            c["att_active"] = torch.zeros(w, dtype=torch.bool, device=dev)
+            return
+        devices = [next(iter(f.values())).device for f in c["flat"]]
+        poisoned = poison_sends(
+            c["draws"].kind_noise, scenario.kinds_present,
+            scenario.attack_kind, scenario.attack_scale, c["att_on"],
+            pods_mod.stack(c["agg"], dev), pods_mod.stack(c["flat"], dev),
+            theta=c["theta"] if cfg.use_dts else None)
+        att = torch.zeros_like(c["att_on"])
+        for kind in model_kinds:
+            att = att | (scenario.attack_kind == ATTACK_CODE[kind])
+        c["att_active"] = att & c["att_on"]
+        c["out"] = pods_mod.select(c["att_active"],
+                                   pods_mod.unstack(poisoned, devices),
+                                   c["agg"])
+
+    def stage_trust_update(c):
+        """reads losses, sampled, P, theta, out, flat, att_active,
+        start_params, pstate.{conf, last_loss} (+ pstate.sketch on "corr"
+        / "all"); writes conf (+ sketch). The observable of the geometry
+        and correlation channels is each pod's local-train delta, the
+        post-attack send minus ``start_params`` (the round displacement
+        ``out − params`` without it)."""
+        pstate = c["pstate"]
+        damaged = c.get("damaged")
+        if damaged is None:
+            damaged = torch.zeros(w, dtype=torch.bool, device=dev)
+        losses = c["losses"].to(dev)
+        loss_trust = torch.where(
+            damaged, torch.full_like(losses, dts_mod.DAMAGE_PENALTY),
+            losses - pstate.last_loss)
+        c["sketch"] = pstate.sketch
+        if channels:
+            if c["start_params"] is not None:
+                sent = pods_mod.select(c["att_active"], c["out"], c["flat"])
+                start = [pods_mod.flatten(p) for p in c["start_params"]]
+                deltas = pods_mod.pod_vectors(sent, dev) \
+                    - pods_mod.pod_vectors(start, dev)
+            else:
+                deltas = pods_mod.pod_vectors(c["out"], dev) \
+                    - pods_mod.pod_vectors(c["flat"], dev)
+            gmask = c["eff_adj"] & c["fire"][None, :] \
+                if scenario is not None else c["eff_adj"]
+            if corr:
+                if pstate.sketch is None:
+                    raise ValueError(
+                        f"dts_signal={cfg.dts_signal!r} needs the sketch "
+                        f"ring buffer — build the pod state with "
+                        f"init_pod_state(..., sketch=sketch_shape(cfg))")
+                c["sketch"] = dts_mod.update_sketch(pstate.sketch, deltas,
+                                                    seed=cfg.seed)
+            c["conf"] = dts_mod.geom_confidence_update(
+                cfg.dts_signal, cfg.dts_geom_weight, pstate.conf,
+                c["sampled"], c["P"], loss_trust, damaged, deltas, gmask,
+                c["theta"], sketch=c["sketch"], lam_corr=cfg.dts_corr_weight)
+        else:
+            c["conf"] = pstate.conf - c["sampled"] * c["P"] \
+                * loss_trust[:, None]
+
+    def stage_finalize(c):
+        """reads out, conf, losses, wire_err, sketch (+ fire, damaged,
+        eval_loss); writes next (PodState) and new_params. With a
+        scenario, non-firing pods freeze (sketch rows included); with the
+        time machine, improving rounds refresh the backup (the ratchet)."""
+        pstate = c["pstate"]
+        losses = c["losses"].to(dev)
+        backup, best_loss = c.get("flat_backup"), pstate.best_loss
+        if time_machine:
+            improved = (c["eval_loss"] < pstate.best_loss) & ~c["damaged"]
+            backup = pods_mod.select(improved, c["out"], c["flat_backup"])
+            best_loss = torch.where(improved, c["eval_loss"],
+                                    pstate.best_loss)
+        sketch = c["sketch"]
+        out, wire_err = c["out"], c["wire_err"]
+        conf, last_loss = c["conf"], losses
+        if scenario is not None:
+            fire = c["fire"]
+            out = pods_mod.select(fire, c["out"], c["flat"])
+            if use_ef:
+                wire_err = pods_mod.select(fire, c["wire_err"],
+                                           c["flat_err"])
+            conf = torch.where(fire[:, None], c["conf"], pstate.conf)
+            last_loss = torch.where(fire, losses, pstate.last_loss)
+            if time_machine:
+                backup = pods_mod.select(fire, backup, c["flat_backup"])
+                best_loss = torch.where(fire, best_loss, pstate.best_loss)
+            if corr:
+                sketch = torch.where(fire[:, None, None], c["sketch"],
+                                     pstate.sketch)
+        def trees(flats):
+            return [pods_mod.rebuild(like, f)
+                    for like, f in zip(c["params"], flats)]
+        c["next"] = PodState(
+            conf=conf, last_loss=last_loss, round=pstate.round + 1,
+            wire_err=None if wire_err is None else trees(wire_err),
+            backup=trees(backup) if time_machine else pstate.backup,
+            best_loss=best_loss, sketch=sketch)
+        c["new_params"] = trees(out)
+
+    stages = (
+        ("split_draws", stage_split_draws),
+        ("scenario_view", stage_scenario_view),
+        ("peer_sample", stage_peer_sample),
+        ("transport", stage_transport),
+    ) + ((("damage_check", stage_damage_check),) if time_machine
+         else ()) + (
+        ("attack_inject", stage_attack_inject),
+        ("trust_update", stage_trust_update),
+        ("finalize", stage_finalize),
+    )
+
+    def gossip_round(pstate: PodState, params, losses, start_params=None):
+        c = {"pstate": pstate, "params": params, "losses": losses,
+             "start_params": start_params}
+        run_pipeline(stages, c)
+        return c["next"], c["new_params"]
+
+    gossip_round.stages = stages
+    return gossip_round
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,11 @@ integer ring and the receiver unmasks before the weighted sum
 plain torch over the padded-CSR support, whatever the backend: no mix
 kernel runs on a secagg round.
 
+The cross-pod ring (``mix_pytree_ppermute``) runs one pod a device: each
+offset of the reference's ring schedule copies only the real edges'
+encoded rows between pod devices, and each receiver accumulates them in
+fp32; it runs no gossip kernel, as in the reference.
+
 The worker-axis-sharded transport (``WorkerShardPlan``,
 ``mix_rows_sharded``, ``mix_pytree_sharded``) splits the rows into one
 block per shard: each shard's intra-shard edges run the padded-CSR
@@ -352,12 +357,156 @@ def _mix_pytree_secagg(P, stacked, adjacency, *, wire, residual,
 
 
 # ---------------------------------------------------------------------------
-# Worker-axis sharding: local-block CSR + block-granular cross-shard ring
+# The cross-pod ring and the worker-axis-sharded transport
 # ---------------------------------------------------------------------------
 
-# bytes and blocks the sharded transport moved between shards (every
-# payload block and int8 scale vector it copied from one shard to another)
+# bytes and blocks the ring transports moved between devices: every payload
+# row (cross-pod ring) or block (sharded transport) and int8 scale they
+# copied from one pod or shard to another
 RING = {"bytes": 0, "blocks": 0}
+
+
+def ring_schedule(adjacency, w: int):
+    """The cross-pod ring's static schedule (ref ``mix_pytree_ppermute``):
+    ``used_offsets``, the circular offsets o at which some pod i receives
+    from i - o (offset 0 is the pod itself), and ``offset_perm[o]``, the
+    (src, dst) pairs of offset o with a real edge ``adjacency[dst, src]``.
+    Without an adjacency every offset and every pair is used (the
+    reference's dense fallback)."""
+    if adjacency is None:
+        used = list(range(w))
+        return used, {o: [(j, (j + o) % w) for j in range(w)] for o in used}
+    a = np.asarray(adjacency, bool) | np.eye(w, dtype=bool)
+    used = [o for o in range(w)
+            if np.any(a[np.arange(w), (np.arange(w) - o) % w])]
+    return used, {o: [(j, (j + o) % w) for j in range(w)
+                      if a[(j + o) % w, j]] for o in used}
+
+
+def _edge_pads(base, round_, src: int, dst: int, enc_row, wire, device):
+    """The one-time pads of the directed edge src -> dst on ``device``, per
+    leaf li: the payload's (tag 2·li, the wire's ring) and, on the int8
+    wire, its scale's (tag 2·li + 1, 32-bit ring), from one
+    ``secagg.pad_block`` call."""
+    channels = []
+    for li, (q, s_, _) in enumerate(enc_row):
+        channels.append((2 * li, q.numel()))
+        if s_ is not None:
+            channels.append((2 * li + 1, 1))
+    words = iter(sa.pad_block(sa.domain_key(base, sa.DOMAIN_EDGE), round_,
+                              torch.tensor(src, device=device),
+                              torch.tensor(dst, device=device), channels))
+    return [(sa.ring_pad(next(words), wire),
+             sa.ring_pad(next(words)) if s_ is not None else None)
+            for _, s_, _ in enc_row]
+
+
+def mix_pytree_ppermute(P, pod_rows: list, devices, *, adjacency=None,
+                        wire=None, residual=None, secagg=None,
+                        secagg_round=None):
+    """The cross-pod gossip ring (ref ``mix_pytree_ppermute``), one pod a
+    device: ``pod_rows[i]`` is pod i's dict of leaves (no pod axis) on
+    ``devices[i]``, P the [W, W] mixing matrix. Returns the mixed per-pod
+    dicts, or ``(mixed, new_residual)`` with an EF21 ``residual`` (a list
+    of per-pod dicts).
+
+    The schedule is the reference's (``ring_schedule``): offset o carries
+    the edges i - o -> i, an offset no pod uses is skipped, and at each
+    offset only the real edges of the static ``adjacency`` are copied from
+    the source pod's device to the receiver's (``RING`` counts the bytes;
+    the reference's unnamed destinations receive zeros, which P's zero
+    weight annihilates). Each pod encodes its rows for the wire on its own
+    device, outside the ring (row-local, rounded to nearest; the EF21
+    residual stays there too); the int8 payload travels with its per-row
+    scale, which the receiver folds into its P weight. Each receiver
+    accumulates weight · row in fp32, offset by offset in the reference's
+    order. No gossip kernel runs.
+
+    ``secagg`` (a pad root, ``secagg.secagg_base_key``): the sender masks
+    each payload and scale with the pad of its directed edge (tags 2·li
+    and 2·li + 1, keyed on ``secagg_round``) before the copy, and the
+    receiver derives the same pad and unmasks after it; only real edges
+    are accumulated (the reference gates its zero-filled slots by the
+    static edge mask)."""
+    w = P.shape[0]
+    wire = normalize_wire(wire)
+    if residual is not None and wire is None:
+        raise ValueError("error-feedback residual needs a lossy wire "
+                         "(wire='bf16'|'int8')")
+    if len(pod_rows) != w or len(devices) != w:
+        raise ValueError(f"the ring runs one pod a device: P is [{w}, {w}], "
+                         f"got {len(pod_rows)} pods on {len(devices)} "
+                         f"devices")
+    used, perm = ring_schedule(adjacency, w)
+    round_ = 0 if secagg_round is None else secagg_round
+    names = sorted(pod_rows[0])
+
+    # encode row-local on each pod's device (no cross-pod traffic)
+    enc = []                                  # [pod][leaf] (q, s, new_r)
+    for i, rows in enumerate(pod_rows):
+        enc.append([])
+        for name in names:
+            x = rows[name]
+            flat = x.reshape(1, -1)
+            if wire is None:
+                enc[i].append((flat, None, None))
+                continue
+            r = residual[i][name].reshape(1, -1) if residual is not None \
+                else None
+            q, s_, nr = _encode_rows(flat, r, wire)
+            enc[i].append((q, s_, nr.reshape(x.shape) if nr is not None
+                           else None))
+
+    # the ring: what each receiver holds at each offset
+    held = [{0: enc[i]} for i in range(w)]
+    for o in used:
+        for src, dst in (perm[o] if o else ()):
+            if secagg is not None:
+                p_out = _edge_pads(secagg, round_, src, dst, enc[src], wire,
+                                   devices[src])
+                p_in = p_out if devices[src] == devices[dst] else \
+                    _edge_pads(secagg, round_, src, dst, enc[src], wire,
+                               devices[dst])
+            got = []
+            for li, (q, s_, _) in enumerate(enc[src]):
+                RING["bytes"] += q.numel() * q.element_size() + \
+                    (4 * s_.numel() if s_ is not None else 0)
+                RING["blocks"] += 1
+                if secagg is None:
+                    got.append((q.to(devices[dst]), None if s_ is None
+                                else s_.to(devices[dst]), None))
+                    continue
+                (po, so), (pi, si) = p_out[li], p_in[li]
+                qw = sa.mask_payload(q.reshape(-1), po, wire).to(devices[dst])
+                qq = sa.unmask_payload(qw, pi, wire).reshape(q.shape)
+                ss = None
+                if s_ is not None:
+                    sw = sa.mask_payload(s_, so).to(devices[dst])
+                    ss = sa.unmask_payload(sw, si)
+                got.append((qq, ss, None))
+            held[dst][o] = got
+
+    mixed = []
+    for i in range(w):
+        p_row = P[i].float().to(devices[i])
+        out = {}
+        for li, name in enumerate(names):
+            acc = torch.zeros_like(enc[i][li][0], dtype=torch.float32)
+            for o in used:
+                if o not in held[i]:
+                    continue
+                q, s_, _ = held[i][o][li]
+                weight = p_row[(i - o) % w]
+                if s_ is not None:
+                    weight = weight * s_[0]
+                acc = torch.addcmul(acc, weight, q.float())
+            x = pod_rows[i][name]
+            out[name] = acc.reshape(x.shape).to(x.dtype)
+        mixed.append(out)
+    if residual is not None:
+        return mixed, [{name: e[2] for name, e in zip(names, row)}
+                       for row in enc]
+    return mixed
 
 
 def reset_ring() -> None:

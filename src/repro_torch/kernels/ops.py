@@ -380,6 +380,38 @@ def flash_kernel(dtype, d: int) -> str:
         and d in FLASH_TC_HEAD_DIMS else "flash_attention"
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel under autograd: the forward launches the kernel
+    (``_flash_forward``); the backward recomputes the plain version
+    (``ref.flash_attention_ref``) from the saved q, k, v and takes its
+    gradient. No backward kernel exists (the JAX package has none)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _flash_forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = ref.flash_attention_ref(*qkv, causal=ctx.causal,
+                                          window=ctx.window)
+        return (*torch.autograd.grad(out, qkv, grad_out), None, None)
+
+
+def _no_card_gradient(name: str, *ts) -> None:
+    """A kernel without a gradient, called on the card under autograd with
+    an input that needs one, raises: the moe and ssm families do not train
+    on the card yet. Their plain versions on the CPU differentiate."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            f"{name}: no gradient on the card (training the moe and ssm "
+            f"families there): ROADMAP.md queue 1a, item 11b")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Attention with scale 1/sqrt(D) over q, k, v [B, H, S, D] of one
     shape and dtype (f32 or bf16), D in ``FLASH_HEAD_DIMS``. ``causal``
@@ -396,7 +428,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     bases and (b, h, s) strides of whole 16 bytes; f32 at any D and bf16
     at D = 32 launch the SIMT kernel ``flash_attention`` (fp32
     throughout), so every f32 caller, the reduced f32 models included,
-    runs it."""
+    runs it.
+
+    Under autograd (an input that needs a gradient) the call goes through
+    ``_FlashAttention``: the same forward, the gradient of the plain
+    version recomputed from q, k and v."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _flash_forward(q, k, v, causal, window)
+
+
+def _flash_forward(q, k, v, causal: bool, window: int):
     if q.dim() != 4:
         raise ValueError(f"q: expected [B, H, S, D], got {tuple(q.shape)}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -490,6 +532,7 @@ def moe_router_topk(logits, k: int):
     t, e = _check_router("moe_router_topk", logits, k)
     if not _on_card(logits):
         return ref.moe_router_topk_ref(logits, k)
+    _no_card_gradient("moe_router_topk", logits)
     gates = torch.empty((t, k), dtype=torch.float32, device=logits.device)
     idx = torch.empty((t, k), dtype=torch.int32, device=logits.device)
     if t == 0:
@@ -549,6 +592,7 @@ def moe_route_slots(logits, k: int, cap: int):
                          f"need cap >= 1 and E*cap, T*k below 2**31")
     if not _on_card(logits):
         return ref.moe_route_slots_ref(logits, k, cap)
+    _no_card_gradient("moe_route_slots", logits)
     dev = logits.device
     gates = torch.empty((t, k), dtype=torch.float32, device=dev)
     idx = torch.empty((t, k), dtype=torch.int32, device=dev)
@@ -613,6 +657,7 @@ def ssd_chunk(C, B, acum, dt, x):
         raise ValueError("ssd_chunk: x must have its head dim contiguous")
     if not _on_card(C, B, acum, dt, x):
         return ref.ssd_chunk_ref(C, B, acum, dt, x)
+    _no_card_gradient("ssd_chunk", C, B, acum, dt, x)
     if g > 65535:
         raise ValueError(f"ssd_chunk: G = {g} > 65535")
     # C, B and x rows are copied 16 bytes at a time

@@ -1,5 +1,5 @@
 """The gossip wire's byte contracts and the privacy wire's budget (the
-port's copy of five names of ``repro.launch.roofline``; a test pins the
+port's copy of seven names of ``repro.launch.roofline``; a test pins the
 functions source for source).
 
 The rest of the reference module costs a TPU mesh from compiled HLO and
@@ -7,7 +7,8 @@ is not ported. ``WIRE_BYTES`` is the gossip wire's bytes per parameter
 (the reference's ``core.gossip.WIRE_BYTES`` plus the config spellings).
 ``sharded_ring_bytes`` is the independent re-derivation that
 ``core.gossip.WorkerShardPlan.ring_bytes`` and the sharded transport's
-byte counter (``gossip.RING``) are held to.
+byte counter (``gossip.RING``) are held to; ``ppermute_ring_bytes`` the
+one the cross-pod ring's (``core.gossip.mix_pytree_ppermute``) is.
 """
 from __future__ import annotations
 
@@ -25,6 +26,38 @@ def gossip_wire_bytes(n_params: int, wire=None, *, rows: int = 1) -> int:
     if WIRE_BYTES[wire] == 1:
         b += 4 * rows
     return b
+
+
+def gossip_round_wire_bytes(n_params: int, w: int, out_degree: float,
+                            wire=None, *, rows: int = 1) -> float:
+    """Cluster-total gossip wire bytes for one DeFTA round: every worker
+    ships its payload to ``out_degree`` outbound peers. The sparse-topology
+    economy (bytes ∝ nnz edges = w·out_degree, not w²) and the wire-format
+    economy (1/2/4 B per param) compose."""
+    return w * out_degree * gossip_wire_bytes(n_params, wire, rows=rows)
+
+
+def ppermute_ring_bytes(n_params: int, adjacency, wire=None, *,
+                        rows: int = 1):
+    """Cluster-total wire bytes of ONE ``mix_pytree_ppermute`` round over
+    a static topology, as ``(nnz_bytes, dense_rotation_bytes)``:
+
+    * ``nnz_bytes`` — with the padded-CSR nnz row selection fused into the
+      ring schedule (each offset's ppermute names only real edges), a pod
+      ships one payload per out-edge: total = nnz(adjacency) × payload —
+      the algorithmic wire contract of ``gossip_round_wire_bytes``.
+    * ``dense_rotation_bytes`` — the pre-selection schedule (every used
+      offset rotates every pod's whole local stack): |used offsets| × W ×
+      payload. The ratio is the row-selection win.
+    """
+    import numpy as np
+    a = np.asarray(adjacency, bool).copy()
+    np.fill_diagonal(a, False)              # offset 0 never crosses a link
+    w = a.shape[0]
+    payload = gossip_wire_bytes(n_params, wire, rows=rows)
+    used = [o for o in range(1, w)
+            if np.any(a[np.arange(w), (np.arange(w) - o) % w])]
+    return int(a.sum()) * payload, len(used) * w * payload
 
 
 def sharded_ring_bytes(n_params: int, adjacency, shards: int, wire=None, *,

@@ -1,16 +1,33 @@
-"""Training launcher, simulation half (port of ``repro.launch.train``).
+"""Training launcher (port of ``repro.launch.train``).
 
     python -m repro_torch.launch.train --scenario churn_signflip \
         --sim-epochs 8 --telemetry run_ledger.jsonl [--device cpu]
+    python -m repro_torch.launch.train --fl --pods 4 --smoke [--device cpu]
 
-Two modes, each the reference's:
+Four modes, each the reference's:
 
-* scenario replay (``--scenario NAME``): run the simulation engines
-  through a named adversarial scenario (churn + attack zoo + faults,
-  compiled to device tensors — see ``repro_torch.scenarios``). Presets:
-  ``paper_noise[@K]``, ``churn_signflip``, ``storm``. ``--async-ticks``
-  routes it through ``run_async_defta`` instead of ``run_defta``;
-  ``--assert-acc X`` exits 1 if the final vanilla accuracy is below X.
+* single-pod: LM training of one model (``--arch``, ``--steps``,
+  ``--batch``, ``--seq``, ``--optimizer``, ``--lr``; ``--smoke`` for the
+  reduced config) on ``TokenBatcher``'s synthetic streams.
+* multi-pod (``--fl``): DeFTA across pods. Each pod is a federated worker
+  with its own model replica and data stream; every ``--gossip-every``
+  steps the pods run one gossip round of the engine's pod pipeline
+  (``core.engine.build_pod_round``): scenario replay (``--scenario``,
+  over the gossip-round axis) -> DTS peer sampling (``--pod-dts``, signal
+  ``--dts-signal``) -> the wire stack (``--gossip-wire`` fp32 / bf16 /
+  int8 + EF21, ``--secagg``, ``--dp-sigma``) over ``--transport``
+  (``in_jit``: the in-process backends; ``ppermute``: the cross-pod ring
+  between the pods' devices) -> the pod time machine
+  (``--pod-time-machine``) -> attack injection -> trust update. The pods
+  are ``--pods`` x ``--device`` (one card holds them all);
+  ``--checkpoint-dir`` saves the reference's layout.
+* scenario replay (``--scenario NAME`` without ``--fl``): run the
+  simulation engines through a named adversarial scenario (churn + attack
+  zoo + faults, compiled to device tensors — see
+  ``repro_torch.scenarios``). Presets: ``paper_noise[@K]``,
+  ``churn_signflip``, ``storm``. ``--async-ticks`` routes it through
+  ``run_async_defta`` instead of ``run_defta``; ``--assert-acc X`` exits 1
+  if the final vanilla accuracy is below X.
 * cross-device (``--cross-device``): an enrolled population of
   ``--enrolled`` users, ``--sample-k`` gathered per round under
   ``--cd-availability`` with mid-round dropout (``--cd-dropout``) and
@@ -18,26 +35,26 @@ Two modes, each the reference's:
   kind:frac[,kind:frac]`` assigns attackers as a fraction of the ENROLLED
   population.
 
-``--telemetry PATH`` streams the JSONL run ledger (a manifest row, one
-round row per epoch or per tick run, a summary row) that
-``benchmarks/render_experiments.py --telemetry-panel PATH`` renders.
-``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the run to
-``DIR/trace.json``. The last line of a run counts its gossip kernel
+``--telemetry PATH`` streams the JSONL run ledger of the simulation modes
+(a manifest row, one round row per epoch or per tick run, a summary row)
+that ``benchmarks/render_experiments.py --telemetry-panel PATH`` renders.
+``--profile DIR`` writes a ``torch.profiler`` Chrome trace of a simulation
+run to ``DIR/trace.json``. The last line of a run counts its kernel
 launches by kernel and by regime.
 
-Both modes keep the reference's "dispatches > budget" checks (a secagg or
-sharded scenario run, and every cross-device run, exit 1 past ceil(epochs /
-eval_every)). The port's ledger counts host chunks of the Python-loop
-driver, not XLA dispatches: a chunk ends at each eval point, so the check
-holds by construction here and guards the chunking itself.
+The simulation modes keep the reference's "dispatches > budget" checks (a
+secagg or sharded scenario run, and every cross-device run, exit 1 past
+ceil(epochs / eval_every)). The port's ledger counts host chunks of the
+Python-loop driver, not XLA dispatches: a chunk ends at each eval point,
+so the check holds by construction here and guards the chunking itself.
 
 The run lands on the card (``--device cuda``, the default) and raises
 without one; ``--device cpu`` runs the kernels' plain versions.
-``--shard-workers S`` shards the worker (or enrolled) axis over S devices
-(``repro_torch.sharding``): the first S cards, or S CPU shards with
-``--device cpu``. The reference's other modes are later items of the port
-and raise ``NotImplementedError``: ``--fl`` and the LM training path
-(item 11).
+``--shard-workers S`` shards the worker (or enrolled) axis of the
+simulation modes over S devices (``repro_torch.sharding``): the first S
+cards, or S CPU shards with ``--device cpu``. ``--debug-mesh`` (the
+reference's tensor-parallel mesh inside a pod) raises
+``NotImplementedError`` (ROADMAP.md queue 1a, item 12).
 """
 from __future__ import annotations
 
@@ -218,6 +235,212 @@ def run_scenario_sim(args) -> int:
     return 0
 
 
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _stack_pods(trees):
+    """Per-pod trees -> one tree of [npods, ...] tensors (the reference's
+    stacked layout, for its checkpoint files)."""
+    from repro_torch.core import pods as pods_mod
+    flats = [pods_mod.flatten(t) for t in trees]
+    if not flats[0]:                      # a state without leaves (SGD)
+        return trees[0]
+    dev = next(iter(flats[0].values())).device
+    return pods_mod.rebuild(trees[0], pods_mod.stack(flats, dev))
+
+
+def train_lm(args, *, params=None, draws=None) -> dict:
+    """LM training: one model (single-pod), or ``--fl``, DeFTA across
+    pods (the reference's ``main`` after its simulation modes). Each pod
+    is a federated worker with its own model replica and data stream on
+    its own device (``--pods`` x ``--device``: one card holds every pod);
+    every ``--gossip-every`` steps the pods run one gossip round of the
+    engine's pod pipeline (``core.engine.build_pod_round``: scenario
+    replay, DTS peer sampling with ``--pod-dts``, the wire stack over
+    ``--transport``, the pod time machine with ``--pod-time-machine``,
+    attack injection, the trust update).
+
+    ``params`` (the initial model tree; default: drawn from a generator
+    seeded 0 on the device) and ``draws`` (the pod round's ``rng.Draws``
+    provider; default: a generator seeded 101) let a caller replay the
+    reference's. Returns {"losses": one [npods] list (or loss) a step,
+    "step_s": wall s a step (host-synchronised), "gossip_s": wall s a
+    gossip round, "params", "opt", "pstate", "transport"}."""
+    from repro_torch.config import reduced
+    from repro_torch.configs import get_config
+    from repro_torch.core import pods as pods_mod
+    from repro_torch.core.topology import make_topology
+    from repro_torch.data.loader import TokenBatcher
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.steps import (build_fl_train_step,
+                                          build_train_step)
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import make_optimizer
+
+    if args.debug_mesh:
+        _not_ported("--debug-mesh (tensor parallelism inside a pod)",
+                    "item 12: launch costing")
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduced(cfg)
+    opt = make_optimizer(args.optimizer, args.lr)
+    pods = args.pods if args.fl else 0
+    batcher = TokenBatcher(cfg.vocab_size, args.seq, args.batch)
+    if params is None:
+        params = model_mod.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg)
+    step = 0
+    out = {"losses": [], "step_s": [], "gossip_s": [], "transport": None,
+           "pstate": None}
+
+    if args.fl:
+        from repro_torch.config import DeFTAConfig
+        from repro_torch.core.engine import (init_pod_state,
+                                             resolve_dts_signal,
+                                             sketch_shape)
+        from repro_torch.core.gossip import uses_error_feedback
+        from repro_torch.launch.steps import build_pod_gossip_step
+        from repro_torch.rng import TorchDraws
+        from repro_torch.scenarios import compile_scenario, get_scenario
+        from repro_torch.scenarios.robust_agg import ROBUST_RULES
+
+        devices = [dev] * pods
+        pod_params = pods_mod.replicate(params, devices)
+        pod_opt = [opt.init(p) for p in pod_params]
+        fl_step = build_fl_train_step(cfg, opt)
+        adj = make_topology("dense", pods, pods - 1)
+        sizes = np.full(pods, args.batch)
+
+        robust = args.aggregation in ROBUST_RULES
+        if args.dts_signal != "loss" and not (args.pod_dts
+                                              and not robust):
+            raise SystemExit(f"--dts-signal {args.dts_signal} needs "
+                             f"--pod-dts (and a non-robust "
+                             f"--aggregation): without DTS no trust "
+                             f"update runs, the flag would be "
+                             f"silently inert")
+        dcfg = DeFTAConfig(
+            num_workers=pods, avg_peers=pods - 1,
+            num_sampled=min(2, pods - 1), topology="dense",
+            aggregation=args.aggregation,
+            use_dts=args.pod_dts and not robust,
+            dts_signal=args.dts_signal,
+            time_machine=args.pod_time_machine and not robust,
+            gossip_dtype="float32" if robust else args.gossip_wire,
+            gossip_error_feedback=not args.no_gossip_ef,
+            gossip_wire_round=args.gossip_wire_round,
+            secagg="pairwise" if args.secagg and not robust else None,
+            secagg_mode=args.secagg_mode,
+            dp_sigma=args.dp_sigma,
+            dp_update_clip=args.dp_update_clip)
+
+        # the scenario's epoch axis is the gossip round index
+        rounds = max(args.steps // args.gossip_every, 1)
+        scenario = None
+        if args.scenario:
+            n_app = get_scenario(args.scenario, pods) \
+                .num_appended_attackers()
+            vanilla = pods - n_app
+            if vanilla <= 0:
+                raise SystemExit(
+                    f"scenario {args.scenario} appends {n_app} "
+                    f"attackers but the mesh only has {pods} pods — "
+                    f"attackers occupy pod slots; use more --pods")
+            scenario = compile_scenario(
+                get_scenario(args.scenario, vanilla), vanilla, rounds,
+                device=dev)
+            assert scenario.num_workers == pods
+            print(f"--fl scenario {scenario.spec.name}: "
+                  f"{scenario.summary(adj)}")
+
+        self_eval = None
+        if dcfg.time_machine:
+            # the held-out self-eval batch: an index the training loop
+            # never reaches, a per-pod-sized share, the same for every pod
+            hb = batcher.batch_at(args.steps + 1)
+            hbatch = {k: torch.as_tensor(v)[:args.batch // pods]
+                      for k, v in hb.items()}
+
+            @torch.no_grad()
+            def self_eval(pod_trees):
+                return torch.stack([model_mod.loss_fn(
+                    p, cfg, {k: v.to(d) for k, v in hbatch.items()})[0]
+                    .to(dev) for p, d in zip(pod_trees, devices)])
+
+        if draws is None:
+            draws = TorchDraws(torch.Generator(device=dev).manual_seed(101))
+        gossip_rnd, pod_tr = build_pod_gossip_step(
+            cfg, dcfg, pods, sizes, adjacency=adj, draws=draws,
+            transport=args.transport, pods=devices, scenario=scenario,
+            self_eval=self_eval, device=dev)
+        pstate = init_pod_state(
+            pods, pod_params,
+            wire_error=uses_error_feedback(dcfg) and not robust,
+            time_machine=dcfg.time_machine, sketch=sketch_shape(dcfg),
+            device=dev)
+        print(f"--fl pod pipeline: transport={pod_tr.kind} "
+              f"wire={pod_tr.wire or 'fp32'} ef={pod_tr.use_ef} "
+              f"aggregation={args.aggregation} dts={dcfg.use_dts} "
+              f"signal={dcfg.dts_signal} tm={dcfg.time_machine}")
+
+        # the geometry and correlation signals score true local-train
+        # deltas: keep what the pods depart from each gossip interval
+        track_start = bool(resolve_dts_signal(dcfg))
+        gossip_start = [pods_mod.copy_to(p) for p in pod_params] \
+            if track_start else None
+        for i in range(args.steps):
+            b = batcher.batch_at(i)
+            batch = {k: torch.as_tensor(v).reshape(
+                pods, args.batch // pods, -1) for k, v in b.items()}
+            t0 = time.time()
+            pod_params, pod_opt, step, losses = fl_step(
+                pod_params, pod_opt, step, batch)
+            gossip = (i + 1) % args.gossip_every == 0
+            if gossip:
+                _sync(dev)
+                g0 = time.time()
+                pstate, pod_params = gossip_rnd(pstate, pod_params, losses,
+                                                gossip_start)
+                _sync(dev)
+                out["gossip_s"].append(time.time() - g0)
+                if track_start:
+                    gossip_start = [pods_mod.copy_to(p) for p in pod_params]
+            row = losses.tolist()
+            out["step_s"].append(time.time() - t0)
+            out["losses"].append(row)
+            print(f"step {i:4d} losses={[round(x, 4) for x in row]} "
+                  f"({out['step_s'][-1]:.2f}s)"
+                  + ("  [gossip]" if gossip else ""))
+        params, opt_state = pod_params, pod_opt
+        out.update(pstate=pstate, transport=pod_tr)
+        saved = {"params": _stack_pods(pod_params),
+                 "opt": _stack_pods(pod_opt)}
+    else:
+        opt_state = opt.init(params)
+        tstep = build_train_step(cfg, opt)
+        for i in range(args.steps):
+            b = batcher.batch_at(i)
+            batch = {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+            t0 = time.time()
+            params, opt_state, step, loss = tstep(params, opt_state, step,
+                                                  batch)
+            out["losses"].append(float(loss))
+            out["step_s"].append(time.time() - t0)
+            print(f"step {i:4d} loss={out['losses'][-1]:.4f} "
+                  f"({out['step_s'][-1]:.2f}s)")
+        saved = {"params": params, "opt": opt_state}
+    print_launches()
+    if args.checkpoint_dir:
+        from repro_torch.checkpoint import save_checkpoint
+        path = save_checkpoint(args.checkpoint_dir, saved, int(step))
+        print("checkpoint saved:", path)
+    out.update(params=params, opt=opt_state)
+    return out
+
+
 def parse_cd_attacks(text: str):
     """``"label_flip:0.15,alie:0.14"`` → ((kind, frac), ...)."""
     if not text:
@@ -306,7 +529,7 @@ def run_cross_device_sim(args) -> int:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="DeFTA simulation launcher (the PyTorch port)")
+        description="DeFTA launcher (the PyTorch port)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--scenario", default="",
@@ -388,38 +611,52 @@ def parser() -> argparse.ArgumentParser:
                          "first N cards, or N CPU shards with --device "
                          "cpu); scenario runs exit 1 on a chunk-count "
                          "violation")
-    lm = ap.add_argument_group(
-        "LM training and --fl (the reference's; item 11, not ported)")
-    lm.add_argument("--fl", action="store_true")
-    for flag, kw in (("--arch", dict(default="paper-small")),
-                     ("--steps", dict(type=int, default=20)),
-                     ("--batch", dict(type=int, default=8)),
-                     ("--seq", dict(type=int, default=128)),
-                     ("--lr", dict(type=float, default=1e-3)),
-                     ("--optimizer", dict(default="adam")),
-                     ("--pods", dict(type=int, default=2)),
-                     ("--gossip-every", dict(type=int, default=4)),
-                     ("--gossip-wire-round", dict(default="nearest")),
-                     ("--transport", dict(default="in_jit")),
-                     ("--checkpoint-dir", dict(default=""))):
-        lm.add_argument(flag, **kw)
-    for flag in ("--pod-dts", "--pod-time-machine", "--debug-mesh",
-                 "--smoke"):
-        lm.add_argument(flag, action="store_true")
+    lm = ap.add_argument_group("LM training and --fl (DeFTA across pods)")
+    lm.add_argument("--arch", default="paper-small")
+    lm.add_argument("--steps", type=int, default=20)
+    lm.add_argument("--batch", type=int, default=8)
+    lm.add_argument("--seq", type=int, default=128)
+    lm.add_argument("--lr", type=float, default=1e-3)
+    lm.add_argument("--optimizer", default="adam")
+    lm.add_argument("--fl", action="store_true",
+                    help="DeFTA-across-pods mode")
+    lm.add_argument("--pods", type=int, default=2,
+                    help="--fl: pods, one model replica each, all on "
+                         "--device")
+    lm.add_argument("--gossip-every", type=int, default=4)
+    lm.add_argument("--gossip-wire-round", default="nearest",
+                    choices=["nearest", "stochastic"],
+                    help="int8 wire rounding (stochastic: in_jit only)")
+    lm.add_argument("--transport", default="in_jit",
+                    choices=["in_jit", "ppermute"],
+                    help="--fl gossip transport: the in-process "
+                         "mix_pytree backends, or the cross-pod ring "
+                         "between the pods' devices")
+    lm.add_argument("--pod-dts", action="store_true",
+                    help="--fl: DTS peer sampling and trust reweighting "
+                         "across pods (default: listen to all live peers)")
+    lm.add_argument("--pod-time-machine", action="store_true",
+                    help="--fl: held-out self-eval between gossip rounds; "
+                         "a pod whose candidate aggregate explodes "
+                         "restores its best-eval backup")
+    lm.add_argument("--debug-mesh", action="store_true",
+                    help="the reference's tensor-parallel mesh inside a "
+                         "pod (not ported: queue 1a item 12)")
+    lm.add_argument("--checkpoint-dir", default="")
+    lm.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-sized)")
     return ap
 
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
     args.argv = list(sys.argv) if argv is None else [sys.argv[0], *argv]
-    if args.fl:
-        _not_ported("--fl (DeFTA across pods)", "item 11: training")
     if args.cross_device:
         return run_cross_device_sim(args)
-    if args.scenario:
+    if args.scenario and not args.fl:
         return run_scenario_sim(args)
-    _not_ported("LM training (no --scenario or --cross-device)",
-                "item 11: training")
+    train_lm(args)
+    return 0
 
 
 if __name__ == "__main__":

@@ -6,11 +6,11 @@ port of ``repro.models.model``):
     logits, aux = forward(params, cfg, batch)
     cache  = init_cache(cfg, batch, seq_len, device)  # None: the card
     logits, cache = decode_step(params, cfg, tokens, cache, pos)
+    loss, metrics = loss_fn(params, cfg, batch)   # batch with labels
 
 ``batch`` is a dict with ``tokens`` [B, S]. The cache holds a KV cache per
 attention layer and a conv window and SSD state per mamba layer. The vlm
-prefix, the whisper encoder-decoder and ``loss_fn`` (training) are not
-ported yet.
+prefix and the whisper encoder-decoder are not ported yet.
 """
 from __future__ import annotations
 
@@ -79,9 +79,26 @@ def forward(params, cfg: ModelConfig, batch, *, moe_strategy="grouped"):
     return unembed(params, x, cfg.tie_embeddings), aux
 
 
-def loss_fn(*args, **kwargs):
-    raise NotImplementedError("training (loss_fn, train step, optim) is not "
-                              "ported yet: ROADMAP.md queue 1a, item 11")
+def loss_fn(params, cfg: ModelConfig, batch, *, moe_strategy="grouped"):
+    """Next-token cross-entropy (+ the MoE aux loss). ``batch`` holds
+    ``tokens`` and ``labels`` [B, S]; labels below 0 are masked out.
+    Returns (loss, {"ce", "aux"}).
+
+    On the card the dense family's attention runs the flash kernel under
+    autograd (``ops.flash_attention``: the kernel forward, the plain
+    version's gradient); the MoE router and SSD kernels have no gradient
+    there yet and raise (ROADMAP.md queue 1a, item 11b). On the CPU every
+    family trains through the plain versions."""
+    logits, aux = forward(params, cfg, batch, moe_strategy=moe_strategy)
+    logits = logits[:, :-1].float()
+    targets = batch["labels"][:, 1:].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
+    mask = (targets >= 0).float()
+    ce = -(ll * mask).sum() / mask.sum().clamp_min(1.0)
+    aux_w = cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
+    loss = ce + aux_w * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -77,6 +77,28 @@ def test_cross_device_world_copy_differs_only_in_imports():
          "from repro.scenarios.spec import ATTACK_KINDS")]
 
 
+def test_token_batcher_copy_differs_only_in_its_import():
+    """``data/loader.py`` (``TokenBatcher``) is the reference's line for
+    line, except the import line, which names the port's module."""
+    ours = (ROOT / "src" / "repro_torch" / "data" /
+            "loader.py").read_text().splitlines()
+    theirs = (ROOT / "src" / "repro" / "data" /
+              "loader.py").read_text().splitlines()
+    assert len(ours) == len(theirs)
+    differ = [(a, b) for a, b in zip(ours, theirs) if a != b]
+    assert differ == [
+        ("from repro_torch.data.synthetic import make_lm_stream",
+         "from repro.data.synthetic import make_lm_stream")]
+    from repro.data.loader import TokenBatcher as JTokenBatcher
+
+    from repro_torch.data.loader import TokenBatcher
+    for step in (0, 3):
+        a, b = TokenBatcher(600, 16, 4, seed=2).batch_at(step), \
+            JTokenBatcher(600, 16, 4, seed=2).batch_at(step)
+        for k in ("tokens", "labels"):
+            np.testing.assert_array_equal(a[k], b[k])
+
+
 @pytest.mark.parametrize("name", ["resolve_world", "probe_indices"])
 def test_cross_device_runner_helpers_are_verbatim(name):
     """The runner's numpy helpers are the reference's, source for source."""
@@ -94,6 +116,8 @@ def test_cross_device_runner_helpers_are_verbatim(name):
     ("launch/roofline.py", "dp_epsilon"),
     ("launch/roofline.py", "gossip_wire_bytes"),
     ("launch/roofline.py", "sharded_ring_bytes"),
+    ("launch/roofline.py", "gossip_round_wire_bytes"),
+    ("launch/roofline.py", "ppermute_ring_bytes"),
     ("core/secagg.py", "pair_seed"),
     ("core/secagg.py", "secagg_mask_bytes")])
 def test_privacy_contracts_are_verbatim(module, name):
@@ -305,6 +329,9 @@ assert train.main(["--device", "cpu", "--scenario", "churn_signflip",
                    "--sim-epochs", "1", "--sim-local-epochs", "1",
                    "--sim-workers", "4", "--telemetry", path]) == 0
 assert open(path).read().count('"type": "round"') == 1
+assert train.main(["--device", "cpu", "--fl", "--smoke", "--pods", "2",
+                   "--steps", "2", "--gossip-every", "1", "--seq", "16",
+                   "--transport", "ppermute"]) == 0
 from repro_torch.launch import serve
 tokens, _ = serve.main(["--arch", "deepseek-moe-16b", "--smoke", "--device",
                         "cpu", "--batch", "2", "--prompt-len", "4",
@@ -348,7 +375,13 @@ def test_port_sources_import_no_jax_or_repro():
               "src/repro_torch/telemetry/sinks.py",
               "src/repro_torch/launch/train.py",
               "src/repro_torch/sharding.py",
-              "benchmarks/port_shard_scaling.py"):
+              "benchmarks/port_shard_scaling.py",
+              "examples/port_train_federated.py",
+              "src/repro_torch/launch/steps.py",
+              "src/repro_torch/core/pods.py",
+              "src/repro_torch/optim/optimizers.py",
+              "src/repro_torch/checkpoint/checkpoint.py",
+              "src/repro_torch/data/loader.py"):
         assert ROOT / f in files, f
     assert hits == []
 

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 import test_torch_slice as slice_helpers
+from geom_tie import record_reference_norm_median, reference_off_exact
 from repro.config import DeFTAConfig as JDeFTAConfig
 from repro.config import TrainConfig as JTrainConfig
 from repro.core import engine as jengine
@@ -134,13 +135,23 @@ def test_round_matches_jax(name, enrolled, k):
     assert got["epoch"].min() < got["epoch"].max()      # partial rounds
 
 
+# the rounds and cohort rows where the reference's float32 norm median
+# leaves the exact one in the int8 world (ROADMAP.md queue 3, item 3)
+INT8_OFF_EXACT = {(12, 4): {3: [3], 5: [0]}, (40, 8): {}}
+
+
 @pytest.mark.parametrize("enrolled,k", [(12, 4), (40, 8)])
-def test_int8_ef_stochastic_matches_jax(enrolled, k):
+def test_int8_ef_stochastic_matches_jax(enrolled, k, monkeypatch):
     """The int8 + EF21 wire with stochastic rounding (equal uniforms):
     counters, sketches and stamps exact, losses and conf within 1e-3,
     params, backup and residuals within one quantization step of the
-    reference's rows."""
+    reference's rows. The reference's geometry norm median is swapped in
+    process for the exact one, which the port computes; its own float32
+    pick leaves the exact median only at the recorded half-mass ties
+    (``test_torch_shard_slice.reference_off_exact``)."""
+    seen = record_reference_norm_median(monkeypatch)
     want, got, _, _ = run_both("int8_ef_stochastic", enrolled, k)
+    assert reference_off_exact(seen) == INT8_OFF_EXACT[enrolled, k]
     assert_exact(want, got)
     for field in ("best_loss", "last_loss", "conf"):
         np.testing.assert_allclose(got[field], want[field], rtol=1e-3,

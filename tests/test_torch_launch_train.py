@@ -27,6 +27,19 @@ from repro_torch.launch import train
 
 ROOT = Path(__file__).resolve().parents[1]
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's torch work: its training
+    runs make many small ops, and under the suite's parallel workers
+    torch's default of a thread a core oversubscribes the CPU (an FL
+    parity run took 143 s with the default and 30 s with one thread,
+    beside five busy processes on 8 cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 MODES = {
     "scenario": ["--scenario", "churn_signflip", "--sim-epochs", "2",
                  "--sim-local-epochs", "1", "--sim-workers", "4"],
@@ -138,9 +151,11 @@ def test_profile_leaves_a_trace(tmp_path):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--fl", "--pods", "4", "--scenario", "churn_signflip"],
-     NotImplementedError, "item 11"),
-    (["--steps", "4"], NotImplementedError, "item 11"),
+    (["--fl", "--smoke", "--debug-mesh"], NotImplementedError, "item 12"),
+    (["--fl", "--smoke", "--pods", "4", "--dts-signal", "geom"],
+     SystemExit, "needs --pod-dts"),
+    (["--fl", "--smoke", "--pods", "2", "--scenario", "paper_noise@2"],
+     SystemExit, "attackers occupy pod slots"),
     (["--scenario", "storm", "--dts-signal", "geom", "--aggregation",
       "median"], SystemExit, "needs DTS"),
 ])
@@ -175,3 +190,110 @@ def test_scenario_summary_is_the_references(name):
     adj = jmake_topology("random_kout", ours.num_workers, 4, 0)
     assert ours.summary() == theirs.summary()
     assert ours.summary(adj) == theirs.summary(adj)
+
+
+# ---------------------------------------------------------------------------
+# LM training and --fl against the reference launcher
+# ---------------------------------------------------------------------------
+
+FL = ["--fl", "--smoke", "--pods", "4", "--steps", "2", "--gossip-every",
+      "1", "--seq", "16"]
+FL_RUNS = {
+    "in_jit_fp32": FL,
+    "dts_all_time_machine": FL + ["--pod-dts", "--dts-signal", "all",
+                                  "--pod-time-machine"],
+    # the reference without a mesh runs ppermute in_jit: the port's ring
+    # must agree with the in-process mix
+    "ring_int8_scenario": FL + ["--gossip-wire", "int8", "--transport",
+                                "ppermute", "--scenario", "churn_signflip"],
+    "single_pod": ["--smoke", "--steps", "2", "--seq", "16"],
+}
+
+
+def printed_losses(out: str):
+    """The reference launcher's per-step losses, as printed (4 decimals)."""
+    import re
+    rows = []
+    for line in out.splitlines():
+        m = re.match(r"step +\d+ (losses=(\[[^\]]*\])|loss=([\d.]+))", line)
+        if m:
+            rows.append(json.loads(m.group(2)) if m.group(2)
+                        else float(m.group(3)))
+    return rows
+
+
+@pytest.mark.parametrize("run", sorted(FL_RUNS))
+def test_lm_training_losses_match_the_reference_launcher(run, monkeypatch,
+                                                         capsys):
+    """The port's ``train_lm`` from the reference launcher's initial
+    params (``init_params(PRNGKey(0))``, carried by ``convert``) on its
+    pod-round draws (``JaxPodDraws`` from ``PRNGKey(101)``) and its
+    ``TokenBatcher`` batches: every step's losses within 1.5e-4 of the
+    reference's printed 4-decimal ones (5e-5 of it the print's rounding),
+    with the same pipeline line."""
+    import jax
+    import numpy as np
+
+    from repro.config import reduced as jreduced
+    from repro.configs import get_config as jget_config
+    from repro.models import model as jmodel
+    from test_torch_pod_round import JaxPodDraws
+
+    from repro_torch.convert import model_params_from_jax
+
+    argv = FL_RUNS[run]
+    monkeypatch.setattr(sys, "argv", ["repro.launch.train", *argv])
+    jtrain.main()                        # LM training returns, no exit
+    ref_out = capsys.readouterr().out
+    want = printed_losses(ref_out)
+    tree = jax.tree.map(np.asarray, jmodel.init_params(
+        jax.random.PRNGKey(0), jreduced(jget_config("paper-small"))))
+    args = train.parser().parse_args(["--device", "cpu", *argv])
+    args.argv = []
+    stochastic = False
+    got = train.train_lm(args, params=model_params_from_jax(tree, "cpu"),
+                         draws=JaxPodDraws(jax.random.PRNGKey(101),
+                                           stochastic))
+    out = capsys.readouterr().out
+    assert len(got["losses"]) == len(want) == int(argv[argv.index(
+        "--steps") + 1])
+    np.testing.assert_allclose(np.asarray(got["losses"]), np.asarray(want),
+                               rtol=0, atol=1.5e-4)
+    if "--fl" in argv:
+        line = [ln for ln in out.splitlines() if "pod pipeline" in ln][0]
+        ref_line = [ln for ln in ref_out.splitlines()
+                    if "pod pipeline" in ln][0]
+        assert line.replace("ppermute", "in_jit").replace(
+            "in_process", "in_jit") == ref_line
+        assert out.count("[gossip]") == 2
+        assert got["pstate"].round == 2
+
+
+def test_fl_smoke_main_and_checkpoint_load_in_the_reference(tmp_path):
+    """``python -m repro_torch.launch.train --fl --smoke --device cpu``
+    runs, and its checkpoint (the reference's layout: the pods' trees
+    stacked) loads in the reference's ``load_checkpoint``."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.checkpoint import load_checkpoint as jload
+
+    ck = tmp_path / "ck"
+    assert train.main(["--device", "cpu", *FL, "--checkpoint-dir",
+                       str(ck)]) == 0
+    from repro.config import reduced as jreduced
+    from repro.configs import get_config as jget_config
+    from repro.models import model as jmodel
+    from repro.optim import make_optimizer as jmake
+
+    like = jax.eval_shape(lambda: jmodel.init_params(
+        jax.random.PRNGKey(0), jreduced(jget_config("paper-small"))))
+    stack = lambda t: jax.tree.map(
+        lambda s: jnp.zeros((4,) + s.shape, s.dtype), t)
+    tree, step = jload(str(ck), {"params": stack(like),
+                                 "opt": stack(jax.eval_shape(
+                                     jmake("adam", 1e-3).init, like))})
+    assert step == 2
+    assert all(np.isfinite(np.asarray(x, np.float32)).all()
+               for x in jax.tree.leaves(tree))

@@ -601,8 +601,10 @@ def test_unported_families_raise(arch):
     gen = torch.Generator()
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         model.init_params(gen, reduced(get_config(arch)))
+    tokens = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        model.loss_fn()
+        model.loss_fn({}, reduced(get_config(arch)),
+                      {"tokens": tokens, "labels": tokens})
 
 
 def test_convert_carries_ssm_leaves():
