@@ -42,7 +42,10 @@ launches and ms (``profile_telemetry``).
 decode steps of the serve loop (batch 4, after a 32-token prompt), per call
 or step: DeepSeekMoE-16B at B=4, S=512 and B=1, S=4096; Mamba2-780M at
 B=4, S=2048 and B=1, S=16384; Jamba-v0.1 at full width cut to one 8-layer
-period (the whole model does not fit one card) at B=1, S=4096.
+period (the whole model does not fit one card) at B=1, S=4096;
+Whisper-tiny at B=4 over 1,500 frames with 448 decoder tokens (its decode
+steps given the encoder states of one ``encode``); InternVL2-2B at B=4
+with 256 vision and 512 text tokens.
 ``fl`` runs the launcher's ``--fl`` path at paper-small's full width, 4
 pods on the card: the FL train step per step, then the pod gossip round
 per round on the in-process fp32 wire, the cross-pod ring (fp32, int8 +
@@ -117,10 +120,13 @@ FAMILIES = (("gossip_mix", ("mix_kernel",)),
 # sort behind index_put_(accumulate=True), the combine's index_add_
 OLD_DISPATCH = ("scan_outer_dim", "indexing_backward_kernel", "radixsort",
                 "indexfunclargeindex", "indexfuncsmallindex")
-# (arch, prefill (batch, seq) shapes, layers kept: None for all)
-SERVE_MODELS = (("deepseek-moe-16b", ((4, 512), (1, 4096)), None),
-                ("mamba2-780m", ((4, 2048), (1, 16384)), None),
-                ("jamba-v0.1-52b", ((1, 4096),), 8))
+# (arch, prefill (batch, seq) shapes, layers kept: None for all, vision
+# tokens prepended: 0 for none)
+SERVE_MODELS = (("deepseek-moe-16b", ((4, 512), (1, 4096)), None, 0),
+                ("mamba2-780m", ((4, 2048), (1, 16384)), None, 0),
+                ("jamba-v0.1-52b", ((1, 4096),), 8, 0),
+                ("whisper-tiny", ((4, 448),), None, 0),
+                ("internvl2-2b", ((4, 512),), None, 256))
 PROMPT, DECODE_STEPS = 32, 8
 
 
@@ -442,11 +448,12 @@ def repeat(fn, n):
 def profile_serve(out):
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
+    from repro_torch.launch.serve import serve_inputs
     from repro_torch.launch.steps import build_decode_step, build_prefill_step
     from repro_torch.models import model
 
     dev = resolve_device(None)
-    for arch, shapes, layers in SERVE_MODELS:
+    for arch, shapes, layers, vision in SERVE_MODELS:
         cfg = get_config(arch)
         if layers is not None:
             cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -454,27 +461,33 @@ def profile_serve(out):
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         params = model.init_params(gen, cfg)
+        dt = params["embedding"].dtype
         prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
         for b, s in shapes:
-            batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
-                                             generator=gen, device=dev)}
+            batch = serve_inputs(cfg, b, s, gen, vision=vision, dtype=dt)
             prefill(params, batch)                       # warm-up
-            profile_window(f"{arch} prefill B={b} S={s}",
+            extra = "".join(f" + {x.shape[1]} {k.split('_')[0]}"
+                            for k, x in batch.items() if k != "tokens")
+            profile_window(f"{arch} prefill B={b} S={s}{extra}",
                            lambda: repeat(lambda: prefill(params, batch), 2),
                            2, "call", out)
             del batch
         total = PROMPT + 2 * DECODE_STEPS
         cache = model.init_cache(cfg, 4, total)
-        tokens = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen,
-                               device=dev)
+        req = serve_inputs(cfg, 4, 1, gen, dtype=dt)
+        tokens, enc = req["tokens"], None
+        if cfg.is_encoder_decoder:
+            with torch.no_grad():
+                enc = model.encode(params, cfg, req["frame_embeds"])
         pos = iter(range(total))
-        step = lambda: decode(params, tokens, cache, next(pos))  # noqa: E731
+        step = lambda: decode(params, tokens, cache, next(pos),  # noqa: E731
+                              enc)
         repeat(step, PROMPT + DECODE_STEPS)   # the prompt, then a warm-up
         profile_window(f"{arch} decode batch=4 (positions "
                        f"{PROMPT + DECODE_STEPS}..{total - 1})",
                        lambda: repeat(step, DECODE_STEPS), DECODE_STEPS,
                        "step", out)
-        del params, cache
+        del params, cache, enc
         torch.cuda.empty_cache()
 
 

@@ -8,8 +8,10 @@
    the grouped dispatch's slots, the SIMT and the tensor-core SSD
    intra-chunk term) from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel) and print ptxas's register and
-   spill report and warnings; a spill in ``ssd_chunk_tc`` or in the dense
-   gossip mix's tile regime fails.
+   spill report and warnings; a spill in ``ssd_chunk_tc``, in any
+   instantiation of the SIMT flash kernel (head dims 32, 64 and 128, each
+   taking the widths up to it) or in the dense gossip mix's tile regime
+   fails.
 2. Kernels: hold each kernel against its plain PyTorch version on the card.
    Gossip mixes at the main path's leaf shapes (W = 22), at the MLP's
    leaves in the Table 3 (W = 60), storm (W = 23) and cross-device cohort
@@ -28,7 +30,13 @@
    bf16 (the tensor-core kernel, ``ref.flash_tc_limit``), bf16 at D = 32
    (SIMT), four adversarial cases (``ref.flash_adversarial``), and the
    main path's two prefill shapes and Jamba's [1, 32, 4096, 128] in its
-   layout (bf16 views of [B, S, H, D] tensors), each call checked to
+   layout (bf16 views of [B, S, H, D] tensors), whisper's cross-attention
+   with k and v of their own length (Sq in {1, 17, 448} over Sk in {64,
+   1500}, D = 64) and its encoder's non-causal S = 1500, f32 (SIMT) and
+   bf16 (tensor cores), the SIMT kernel at the reduced whisper's
+   D = 42 (columns past D masked in the kernel), and the four flash calls
+   of the phase [8] prefills at their shapes, B = 4 and layout
+   (``ENCDEC_FLASH``), each call checked to
    launch the kernel its dtype and D select; the router at T in {4, 1000,
    2048, 4096}, (E, k) in {(64, 6), (16, 2)}, with rows of exact ties;
    both in f32 and bf16; the fused route-and-slot kernel on the same
@@ -60,7 +68,12 @@
    version at Mamba2-780M's two prefill shapes and Jamba's [16, 128, 256,
    16, 64]; the fused route-and-slot kernel, its plain version and the
    route it replaced, the router and a one-hot ``cumsum`` rank, at T in
-   {2048, 4096, 4}, E = 64, k = 6 and T = 4096, E = 16, k = 2).
+   {2048, 4096, 4}, E = 64, k = 6 and T = 4096, E = 16, k = 2); flash as
+   the tensor-core kernel, the SIMT kernel, the plain version and SDPA at
+   the phase [8] prefills' shapes (``ENCDEC_FLASH``: whisper's encoder
+   [4, 6, 1500, 64], cross-attention 448 over 1,500 and causal decoder
+   [4, 6, 448, 64]; InternVL2-2B's [4, 16, 768, 128]), with each shape's
+   bytes/flops bound.
 4. DeFTA, FedAvg and AsyncDeFTA end to end, all in the Table 2 world (20
    workers + 2 noise attackers, MLP, ``local_epochs=5``). The port's
    ``run_defta`` (20 epochs) on the fp32 wire with ``auto`` (sparse
@@ -237,6 +250,20 @@
    parameters, bf16): two prefill calls at B=1, S=4096 with 7
    ssd_chunk_tc, 1 tensor-core flash and 4 route-and-slot launches each
    (0 SIMT ssd_chunk, 0 router) and finite logits.
+8. Whisper-tiny (36,455,040 parameters) and InternVL2-2B (1,897,537,536)
+   at full width and depth, bf16, random weights from a seed, each
+   checked against its parameter count: whisper's prefill at B = 4 over
+   1,500 frames with 448 decoder tokens, exactly 12 tensor-core flash
+   launches a call (4 encoder, 4 causal decoder, 4 cross-attention) and 0
+   SIMT flash; InternVL2-2B's at B = 4 with 256 vision and 512 text
+   tokens, exactly 24; logits finite and of the text positions only; both
+   serve loops at their defaults (batch 4, 32 + 32 tokens, greedy), with 4
+   launches (whisper's single encode) and 0; wall ms, tok/s, peak memory;
+   whisper's encode and 8 greedy decode steps make no host
+   synchronisation (``torch.cuda.set_sync_debug_mode("error")``).
+   Whisper in f32 at full width and at the reduced D = 42, card vs CPU as
+   in 5: logits within 1e-4, equal greedy tokens, teacher-forced decode
+   within 2e-3 of the prefill, through the SIMT kernel only.
 
 Exits non-zero, before the last line, on any failure or without a card.
 The last lines are the card's name and power limit, one JSON object with
@@ -681,6 +708,25 @@ def main_path_qkv(gen, b, s, dev, h=16):
                  .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
 
 
+def cross_qkv(gen, b, h, sq, sk, d, dev, dtype=torch.bfloat16):
+    """q [B, H, Sq, D] and k, v [B, H, Sk, D] as the whisper model hands
+    them to the kernel: views of [B, S, H, D] tensors of their own
+    length."""
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev)
+    k, v = (torch.randn(b, sk, h, d, generator=gen, device=dev)
+            for _ in range(2))
+    return tuple(t.to(dtype).transpose(1, 2) for t in (q, k, v))
+
+
+# (label, B, H, Sq, Sk, D, causal) of the flash calls of the whisper-tiny
+# (B = 4, 1,500 frames, 448 tokens) and InternVL2-2B (B = 4, 256 vision +
+# 512 text tokens) prefills of phase [8]
+ENCDEC_FLASH = (("whisper encoder", 4, 6, 1500, 1500, 64, False),
+                ("whisper cross", 4, 6, 448, 1500, 64, False),
+                ("whisper decoder", 4, 6, 448, 448, 64, True),
+                ("internvl2-2b", 4, 16, 768, 768, 128, True))
+
+
 def check_flash(dev):
     """flash_attention against its plain version, each call checked to
     launch the kernel its dtype and D select (``ops.flash_kernel``): S in
@@ -690,7 +736,15 @@ def check_flash(dev):
     at D = 32 (SIMT, ``flash_err``); the four adversarial cases of
     ``ref.flash_adversarial`` at both D; the main path's two prefill
     shapes and Jamba's [1, 32, 4096, 128] in its layout (``main_path_qkv``),
-    causal, window 0. Returns the worst max |error| of each kernel."""
+    causal, window 0; whisper's shapes (``cross_qkv``, D = 64, 6 heads):
+    cross-attention with k and v of their own length, Sq in {1, 17, 448}
+    over Sk in {64, 1500}, and the encoder's non-causal S = 1500, f32
+    (SIMT) and bf16 (tensor cores); the SIMT kernel at the reduced
+    whisper's D = 42 (f32 and bf16: the columns past D masked in the
+    kernel), causal, window 16, non-causal and across lengths; and the four
+    flash calls of the phase [8] prefills at their own shapes, B = 4 and
+    causal flag, in the model's layout (``ENCDEC_FLASH``, bf16). Returns
+    the worst max |error| of each kernel."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -719,6 +773,21 @@ def check_flash(dev):
         cases.append(("main-path strided" if h == 16 else
                       "jamba strided", main_path_qkv(gen, b, s, dev, h),
                       True, 0))
+    for dtype in (torch.float32, torch.bfloat16):
+        for sq in (1, 17, 448):
+            for sk in (64, 1500):
+                cases.append((f"cross Sk={sk}", cross_qkv(
+                    gen, 2, 6, sq, sk, 64, dev, dtype), False, 0))
+        cases.append(("encoder S=1500", cross_qkv(
+            gen, 2, 6, 1500, 1500, 64, dev, dtype), False, 0))
+        for sq, sk in ((200, 200), (17, 64)):
+            for causal, window in ((True, 0), (True, 16), (False, 0)):
+                if sq == sk or not (causal or window):
+                    cases.append(("D=42", cross_qkv(
+                        gen, 2, 6, sq, sk, 42, dev, dtype), causal, window))
+    for label, b, h, sq, sk, d, causal in ENCDEC_FLASH:
+        cases.append((f"{label} prefill", cross_qkv(gen, b, h, sq, sk, d,
+                                                    dev), causal, 0))
     worst = {"flash_attention": 0.0, "flash_attention_tc": 0.0}
     worst_ratio = dict(worst)
     for tag, (q, k, v), causal, window in cases:
@@ -735,9 +804,10 @@ def check_flash(dev):
             err, ratio = float(diff.max()), float((diff / lim).max())
         else:
             err, ratio = flash_err(got, want, q.dtype)
-        print(f"  check {name:18s} {list(q.shape)} {str(q.dtype)[6:]:8s}"
-              f" causal={causal:d} window={window:3d} max_abs_err={err:.3e}"
-              f" worst_err/limit={ratio:.3f} {tag}")
+        sk = f" Sk={k.shape[2]}" if k.shape[2] != q.shape[2] else ""
+        print(f"  check {name:18s} {list(q.shape)}{sk} "
+              f"{str(q.dtype)[6:]:8s} causal={causal:d} window={window:3d} "
+              f"max_abs_err={err:.3e} worst_err/limit={ratio:.3f} {tag}")
         if launched != {n: int(n == name) for n in worst}:
             fail(f"flash_attention {tag}: launches {launched}, expected one "
                  f"of {name}")
@@ -903,12 +973,14 @@ def check_grouped_capture(dev):
           f"equal to the eager call")
 
 
-def flash_bound(b, h, s, d, itemsize, causal=True):
-    """(bound_ms, bound_by): q, k, v read and out written once, against
-    4*D flops per visible (q, k) pair at the bf16 tensor-core peak (bf16
-    inputs) or the fp32 CUDA-core peak."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    nbytes = 4 * b * h * s * d * itemsize
+def flash_bound(b, h, s, d, itemsize, causal=True, sk=None):
+    """(bound_ms, bound_by): q and out [B, H, S, D], k and v [B, H, Sk, D]
+    (Sk = S unless given) read or written once, against 4*D flops per
+    visible (q, k) pair at the bf16 tensor-core peak (bf16 inputs) or the
+    fp32 CUDA-core peak."""
+    sk = s if sk is None else sk
+    pairs = s * (s + 1) // 2 if causal else s * sk
+    nbytes = 2 * b * h * (s + sk) * d * itemsize
     flops = 4 * b * h * pairs * d
     peak = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
@@ -925,18 +997,18 @@ def router_bound(t, e, k, itemsize):
         else "operations"
 
 
-def simt_flash(q, k, v):
-    """The SIMT flash kernel through its C entry (causal, window 0), on
-    any dtype and D it takes; bypasses ``ops`` and its launch counter, so
-    it times the SIMT kernel on shapes the wrapper sends to the tensor
-    cores."""
+def simt_flash(q, k, v, causal=True):
+    """The SIMT flash kernel through its C entry (window 0), on any dtype
+    and D it takes; bypasses ``ops`` and its launch counter, so it times
+    the SIMT kernel on shapes the wrapper sends to the tensor cores."""
     from repro_torch.kernels import build, ops
-    b, h, s, d = q.shape
+    b, h, sq, d = q.shape
     out = torch.empty_like(q)
     rc = build.load("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, h,
-        s, d, *q.stride()[:3], *out.stride()[:3], 1, 0,
-        ops._DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
+        sq, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
+        *out.stride()[:3], int(causal), 0, ops._DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         fail(f"SIMT flash launch failed (cudaError {rc})")
     return out
@@ -991,6 +1063,33 @@ def time_serving_kernels(dev):
             "ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by})
     return out
+
+
+def time_encdec_flash(dev):
+    """The tensor-core flash kernel at the whisper and InternVL shapes
+    (``ENCDEC_FLASH``, bf16 views of [B, S, H, D] tensors as the model hands
+    them), the SIMT kernel through its C entry, the plain version and SDPA
+    on the same inputs, with the bytes/flops bound of each shape (their
+    agreement with the plain version is ``check_flash``'s)."""
+    from repro_torch.kernels import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    for label, b, h, sq, sk, d, causal in ENCDEC_FLASH:
+        q, k, v = cross_qkv(gen, b, h, sq, sk, d, dev)
+        ms = device_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                       20)
+        simt_ms = device_ms(lambda: simt_flash(q, k, v, causal), 5)
+        lib_ms = device_ms(lambda: sdpa(q, k, v, is_causal=causal), 20)
+        plain_ms = device_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal), 5)
+        b_ms, b_by = flash_bound(b, h, sq, d, 2, causal, sk)
+        print(f"  time flash_attention_tc {label} [{b},{h},{sq},{d}] Sk={sk} "
+              f"bf16 causal={causal:d} kernel={ms * 1e3:.2f}us simt="
+              f"{simt_ms * 1e3:.2f}us plain={plain_ms * 1e3:.2f}us "
+              f"library(sdpa)={lib_ms * 1e3:.2f}us bound={b_ms * 1e3:.2f}us "
+              f"({b_by}) bound/kernel={b_ms / ms:.3f} tc/sdpa="
+              f"{ms / lib_ms:.3f}")
 
 
 def route_slots_bound(t, e, k, cap, itemsize):
@@ -3782,16 +3881,18 @@ def serve_full(dev):
     return counts
 
 
-def serve_reduced_card_vs_cpu(dev, arch, seq, attention):
-    """A reduced ``arch`` (f32) from one set of parameters on the card
-    (kernels) and on the CPU (plain versions): prefill logits of 3 x
-    ``seq`` tokens within 1e-4 (summation order: cuBLAS vs CPU GEMMs, the
-    kernels vs their plain versions), equal greedy tokens, and on the card
-    teacher-forced decode equal to the prefill within 2e-3
-    (tests/test_arch_smoke.py's bound). Returns the kernel launches of
-    these runs (counts set to 0 just before them): with ``attention``,
-    SIMT flash launches (f32 attention runs the SIMT kernel), and never a
-    tensor-core flash launch."""
+def serve_reduced_card_vs_cpu(dev, arch, seq, attention, cfg=None):
+    """A reduced ``arch`` (f32; or ``cfg`` when given) from one set of
+    parameters on the card (kernels) and on the CPU (plain versions):
+    prefill logits of 3 x ``seq`` tokens within 1e-4 (summation order:
+    cuBLAS vs CPU GEMMs, the kernels vs their plain versions), equal greedy
+    tokens, and on the card teacher-forced decode equal to the prefill
+    within 2e-3 (tests/test_arch_smoke.py's bound). An encoder-decoder gets
+    its frames (drawn with the tokens; its decode steps the encoder states
+    of one ``encode``). Returns the kernel launches of these runs (counts
+    set to 0 just before them): with ``attention``, SIMT flash launches
+    (f32 attention runs the SIMT kernel), and never a tensor-core flash
+    launch."""
     from repro_torch.kernels import ops
     from repro_torch.config import reduced
     from repro_torch.configs import get_config
@@ -3800,40 +3901,177 @@ def serve_reduced_card_vs_cpu(dev, arch, seq, attention):
         build_prefill_step
     from repro_torch.models import model
 
-    cfg = reduced(get_config(arch))
+    cfg = cfg or reduced(get_config(arch))
     gen = torch.Generator()
     gen.manual_seed(1)
     ops.reset_launches()
     cpu_params = model.init_params(gen, cfg)
     card_params = to_device(cpu_params, dev)
-    tokens = torch.randint(0, cfg.vocab_size, (3, seq), generator=gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (3, seq),
+                                     generator=gen)}
+    if cfg.is_encoder_decoder:
+        batch["frame_embeds"] = torch.randn(
+            (3, cfg.encoder_seq_len, cfg.d_model), generator=gen)
+    card_batch = to_device(batch, dev)
+    tokens, frames = batch["tokens"], batch.get("frame_embeds")
     prefill = build_prefill_step(cfg)
-    a = prefill(card_params, {"tokens": tokens.to(dev)}).cpu()
-    b = prefill(cpu_params, {"tokens": tokens})
+    a = prefill(card_params, card_batch).cpu()
+    b = prefill(cpu_params, batch)
     err = float((a - b).abs().max())
-    ga, _ = serve.generate(card_params, cfg, tokens[:, :8].to(dev), 12)
-    gb, _ = serve.generate(cpu_params, cfg, tokens[:, :8], 12)
+    ga, _ = serve.generate(card_params, cfg, tokens[:, :8].to(dev), 12,
+                           frame_embeds=card_batch.get("frame_embeds"))
+    gb, _ = serve.generate(cpu_params, cfg, tokens[:, :8], 12,
+                           frame_embeds=frames)
     same = bool(torch.equal(ga.cpu(), gb))
-    full = build_prefill_step(cfg, moe_strategy="dense")(
-        card_params, {"tokens": tokens.to(dev)})
+    full = build_prefill_step(cfg, moe_strategy="dense")(card_params,
+                                                         card_batch)
     decode = build_decode_step(cfg)
+    enc = None
+    if cfg.is_encoder_decoder:
+        with torch.no_grad():
+            enc = model.encode(card_params, cfg, card_batch["frame_embeds"])
     cache = model.init_cache(cfg, 3, seq, device=dev)
     tf_err = 0.0
     for t in range(seq):
-        lg, cache = decode(card_params, tokens[:, t:t + 1].to(dev), cache, t)
+        lg, cache = decode(card_params, tokens[:, t:t + 1].to(dev), cache, t,
+                           enc)
         tf_err = max(tf_err, float((lg[:, 0] - full[:, t]).abs().max()))
-    print(f"  reduced {arch} f32 S={seq} card-vs-cpu: max|logit diff|="
+    print(f"  {cfg.name} f32 S={seq} card-vs-cpu: max|logit diff|="
           f"{err:.3e} (tol 1e-4), greedy tokens equal={same}; teacher-forced "
           f"decode vs prefill on the card max diff={tf_err:.3e} (tol 2e-3)")
     if not (err <= 1e-4 and same and tf_err < 2e-3):
-        fail(f"reduced {arch}: card and CPU disagree")
+        fail(f"{cfg.name}: card and CPU disagree")
     counts = dict(ops.LAUNCHES)
-    print(f"  reduced {arch} card launches: {counts}")
+    print(f"  {cfg.name} card launches: {counts}")
     if counts["flash_attention_tc"] or bool(counts["flash_attention"]) \
             != attention:
-        fail(f"reduced {arch} (f32): flash launches {counts}, expected SIMT "
+        fail(f"{cfg.name} (f32): flash launches {counts}, expected SIMT "
              f"launches only")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: whisper-tiny and the InternVL2-2B vision prefix
+# ---------------------------------------------------------------------------
+
+# (arch, parameters (repro.models.model.abstract_params), prefill tokens,
+# vision tokens, flash_attention_tc launches per prefill call and per serve
+# loop): whisper-tiny's 4 encoder, 4 causal decoder and 4 cross-attention
+# layers at the decoder context of arXiv:2212.04356 (448 tokens over 1,500
+# frames), its serve loop's single encode; InternVL2-2B's 24 layers over
+# 256 vision + 512 text tokens, its token-only serve loop
+ENCDEC_MODELS = (("whisper-tiny", 36_455_040, 448, 0, 12, 4),
+                 ("internvl2-2b", 1_897_537_536, 512, 256, 24, 0))
+
+
+def encdec_steps_no_sync(params, cfg, frames, prompts, arch, steps=8):
+    """An encoder-decoder's serve steps make no host synchronisation: a
+    fresh cache, the encode and ``steps`` greedy decode steps (the body of
+    ``serve.generate`` without its timing synchronisations), once under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from repro_torch.launch.steps import build_decode_step
+    from repro_torch.models import model
+    decode = build_decode_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            cache = model.init_cache(cfg, prompts.shape[0], steps)
+            enc = model.encode(params, cfg, frames)
+            tok = prompts[:, :1]
+            for t in range(steps):
+                logits, cache = decode(params, tok, cache, t, enc)
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+    except RuntimeError as e:
+        fail(f"{arch} serve steps synchronise with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{arch} serve steps: non-finite logits")
+    print(f"  {arch} encode + {steps} greedy decode steps: no host "
+          f"synchronisation", flush=True)
+
+
+def serve_encdec(dev):
+    """Phase [8]: whisper-tiny and InternVL2-2B at full width and depth
+    (bf16, random weights from seed 0) initialised on the card and checked
+    against their parameter counts; 3 ``build_prefill_step`` calls at B = 4
+    (``ENCDEC_MODELS``' shapes, frames and vision embeddings drawn on the
+    card) after a warm-up, each with exactly its tensor-core flash
+    launches and nothing else (0 SIMT flash), finite logits of the text
+    positions; then the serve loop at its defaults (batch 4, prompt 32, 32
+    new tokens, greedy; whisper with 1,500 frames), with the encode's
+    launches only; peak memory; whisper's serve steps checked to make no
+    host synchronisation (``encdec_steps_no_sync``, during the warm-up)
+    and the host time of its positions table built uncached.
+    Returns the flash_attention_tc launches of these runs (counts set to 0
+    just before each model's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import layers, model
+
+    total = 0
+    for arch, want_n, seq, vision, per_call, per_loop in ENCDEC_MODELS:
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params, init_ms = wall_ms(lambda: model.init_params(gen, cfg))
+        n = n_params(params)
+        print(f"  {arch}: {n} parameters ({cfg.dtype}), head dim "
+              f"{cfg.head_dim}, init {init_ms / 1e3:.2f}s, peak memory after "
+              f"init {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        if n != want_n or n != n_params(model.abstract_params(cfg)):
+            fail(f"{arch} parameter count {n}, expected {want_n}")
+        dt = params["embedding"].dtype
+        prefill = build_prefill_step(cfg)
+        batch = serve.serve_inputs(cfg, 4, seq, gen, vision=vision, dtype=dt)
+        req = serve.serve_inputs(cfg, 4, 32, gen, dtype=dt)
+        frames = req.get("frame_embeds")
+        prefill(params, batch)                           # warm-up
+        serve.generate(params, cfg, req["tokens"][:, :2], 2,
+                       frame_embeds=frames)
+        if frames is not None:
+            encdec_steps_no_sync(params, cfg, frames, req["tokens"], arch)
+            table_ms = wall_ms(lambda: layers._sinusoid_table.__wrapped__(
+                cfg.encoder_seq_len, cfg.d_model, False))[1]
+            print(f"  sinusoid table {cfg.encoder_seq_len} x {cfg.d_model} "
+                  f"built uncached: {table_ms:.3f} ms of host time (kept "
+                  f"per shape)")
+
+        ops.reset_launches()
+        times = prefill_launches(prefill, params, batch, cfg.vocab_size,
+                                 {"flash_attention_tc": per_call}, 3)
+        shape = f"B=4 S={seq}" + (f" + {cfg.encoder_seq_len} frames"
+                                  if frames is not None else "") + \
+            (f" + {vision} vision tokens" if vision else "")
+        print(f"  prefill {shape}: wall_ms={[round(x, 2) for x in times]} "
+              f"launches per call: {per_call} tensor-core flash, 0 SIMT "
+              f"flash")
+        before = dict(ops.LAUNCHES)
+        tokens, st = serve.generate(params, cfg, req["tokens"], 32,
+                                    frame_embeds=frames)
+        delta = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+        want = {k: 0 for k in ops.LAUNCHES}
+        want["flash_attention_tc"] = per_loop
+        if delta != want:
+            fail(f"{arch} serve loop: launches {delta}, expected {want}")
+        if tuple(tokens.shape) != (4, 32) or int(tokens.min()) < 0 \
+                or int(tokens.max()) >= cfg.vocab_size:
+            fail(f"{arch} serve loop: bad tokens")
+        print(f"  serve batch=4 prompt=32 new=32 greedy: prefill "
+              f"{st['prefill_s']:.3f}s, decode {st['decode_s']:.3f}s, "
+              f"{st['tok_per_s']:.1f} tok/s, {st['decode_s'] / 32 * 1e3:.2f} "
+              f"ms/step; {per_loop} tensor-core flash launches in the loop")
+        print(f"  peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} "
+              f"GB")
+        total += ops.LAUNCHES["flash_attention_tc"]
+        del params, batch, req, frames
+        torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -3975,7 +4213,7 @@ def main() -> int:
                                                 "warning")):
                 print(f"  ptxas {name}: {line.strip()}")
         for entry, spilled in spills(r["log"]).items():
-            if spilled and (name == "ssd_chunk_tc" or (
+            if spilled and (name in ("ssd_chunk_tc", "flash_attention") or (
                     name == "gossip_mix" and "tile_mix_kernel" in entry)):
                 fail(f"{name} spills registers in {entry}")
 
@@ -3995,6 +4233,7 @@ def main() -> int:
     time_kernels(dev, "k64", 64, 4, 2048)   # the cross-device cohort's
     time_kernels(dev, "w500", 500, 24, 4096)
     main_t.update(time_serving_kernels(dev))
+    time_encdec_flash(dev)
     main_t.update(time_route_slots(dev))
     main_t.update(time_ssd(dev))
 
@@ -4054,6 +4293,20 @@ def main() -> int:
 
     print("[7] jamba, one period at full width", flush=True)
     prefill_jamba_period(dev)
+
+    print("[8] whisper-tiny and InternVL2-2B end to end", flush=True)
+    t8 = time.perf_counter()
+    launches["flash_attention_tc"] += serve_encdec(dev)
+    # f32 whisper runs the SIMT kernel: at full width (D = 64) and reduced
+    # (D = 42, the kernel's masked columns), card vs CPU
+    from repro_torch.configs import get_config
+    whisper_f32 = dataclasses.replace(get_config("whisper-tiny"),
+                                      dtype="float32")
+    for cfg, seq in ((whisper_f32, 24), (None, 24)):
+        launches["flash_attention"] += serve_reduced_card_vs_cpu(
+            dev, "whisper-tiny", seq, attention=True,
+            cfg=cfg)["flash_attention"]
+    print(f"  [8] {time.perf_counter() - t8:.1f}s", flush=True)
 
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],

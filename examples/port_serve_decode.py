@@ -7,9 +7,11 @@ architecture, the hybrid and SSM caches included (the port's version of
 
 The prompt is stepped through the cache token by token (teacher forced),
 then ``--max-new`` tokens are sampled at ``--temperature`` from a seeded
-``torch.Generator``. Runs on the card unless ``--device cpu`` is given.
-The encoder-decoder and vlm families are not ported yet and raise. Imports
-nothing of JAX or of the ``repro`` package.
+``torch.Generator``. An encoder-decoder (``--arch whisper-tiny``) encodes
+random frames once and hands the encoder states to every step; the vlm
+family decodes tokens only, as the reference's example. Runs on the card
+unless ``--device cpu`` is given. Imports nothing of JAX or of the
+``repro`` package.
 """
 import argparse
 import sys
@@ -23,6 +25,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.config import reduced  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.launch.serve import serve_inputs  # noqa: E402
 from repro_torch.models import model as mm  # noqa: E402
 
 
@@ -49,15 +52,17 @@ def main(argv=None):
     params = mm.init_params(gen, cfg)
     total = args.prompt_len + args.max_new
     cache = mm.init_cache(cfg, args.batch, total, device=dev)
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=gen, device=dev)
+    req = serve_inputs(cfg, args.batch, args.prompt_len, gen)
+    prompts, enc_out = req["tokens"], None
+    if cfg.is_encoder_decoder:
+        enc_out = mm.encode(params, cfg, req["frame_embeds"])
 
     logits = None
     sync(dev)
     t0 = time.perf_counter()
     for t in range(args.prompt_len):
         logits, cache = mm.decode_step(params, cfg, prompts[:, t:t + 1],
-                                       cache, t)
+                                       cache, t, enc_out=enc_out)
     sync(dev)
     print(f"prefill (teacher-forced): {time.perf_counter() - t0:.2f}s")
 
@@ -67,7 +72,8 @@ def main(argv=None):
         probs = torch.softmax(logits[:, -1].float() / args.temperature, -1)
         nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
         toks.append(nxt)
-        logits, cache = mm.decode_step(params, cfg, nxt[:, None], cache, t)
+        logits, cache = mm.decode_step(params, cfg, nxt[:, None], cache, t,
+                                       enc_out=enc_out)
     sync(dev)
     dt = time.perf_counter() - t0
     print(f"decoded {args.max_new} tokens x {args.batch} seqs in {dt:.2f}s "

@@ -41,11 +41,11 @@ SIGNATURES = {
                          (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I,
                           _I, _P)),
     "flash_attention": ("flash_attention_launch",
-                        (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L,
-                         _L, _I, _I, _I, _P)),
+                        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L,
+                         _L, _L, _L, _L, _L, _I, _I, _I, _P)),
     "flash_attention_tc": ("flash_attention_tc_launch",
-                           (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
-                            _L, _L, _I, _I, _P)),
+                           (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
+                            _L, _L, _L, _L, _L, _L, _I, _I, _P)),
     "moe_router": ("moe_router_launch", (_P, _P, _P, _I, _I, _I, _I, _P)),
     "moe_route_slots": ("moe_route_slots_launch",
                         (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I,

@@ -2,17 +2,20 @@
 // (sm_90a), with TMA loads, wgmma products and warp specialisation.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py,
-// flash_attention_pallas, for bf16 q, k, v at D in {64, 128}: attention
-// over [B, H, S, D] (addressed through strides, so the model's [B, S, H, D]
-// tensors are read in place), scale 1/sqrt(D), causal and sliding-window
-// masks, key tiles no query of the block can reach skipped; running max m,
-// sum l and the output accumulator in fp32; out = acc / max(l, 1e-20) in
-// bf16. f32 inputs and D = 32 stay on the SIMT kernel (flash_attention.cu).
+// flash_attention_pallas, for bf16 q, k, v at D in {64, 128}: attention of
+// q [B, H, Sq, D] over k, v [B, H, Sk, D] (addressed through strides, q's
+// and k's own, so the model's [B, S, H, D] tensors are read in place),
+// scale 1/sqrt(D), causal and sliding-window masks (at Sk = Sq only: the
+// wrapper refuses them otherwise, so Sk != Sq is the unmasked
+// cross-attention), key tiles no query of the block can reach skipped;
+// running max m, sum l and the output accumulator in fp32; out = acc /
+// max(l, 1e-20) in bf16. f32 inputs and every other D stay on the SIMT
+// kernel (flash_attention.cu).
 //
-// Bound on an H100 SXM: q, k, v read and out written once (4*B*H*S*D*2
-// bytes at 3.35 TB/s) against 4*D flops per visible (q, k) pair at the bf16
-// tensor-core peak of 989 TFLOP/s. DeepSeekMoE-16B's prefill at B=4, S=512
-// ([64, 512, 128]) is bytes-bound (10.0 us); at B=1, S=4096
+// Bound on an H100 SXM: q, k, v read and out written once (2*B*H*(Sq +
+// Sk)*D*2 bytes at 3.35 TB/s) against 4*D flops per visible (q, k) pair
+// at the bf16 tensor-core peak of 989 TFLOP/s. DeepSeekMoE-16B's prefill
+// at B=4, S=512 ([64, 512, 128]) is bytes-bound (10.0 us); at B=1, S=4096
 // ([16, 4096, 128]) it is operations-bound (69.5 us). Only wgmma reaches
 // the tensor cores' rate, so both products run on it, and loads overlap
 // compute through a ring of shared-memory stages.
@@ -33,12 +36,14 @@
 //   compute, so more loads are kept in flight). One CTA per SM, opted in
 //   with cudaFuncSetAttribute once per device.
 // - Loads: each of q, k, v has a 4-D tensor map {D, S, H, B}, innermost
-//   first, with the tensor's own byte strides, so a [B, S, H, D] tensor's
-//   transposed view and a contiguous [B, H, S, D] tensor are read in place.
-//   TMA zero-fills rows at or past S inside each (b, h) slice, so a ragged
-//   S needs no padding; scores of keys at or past S are masked all the
-//   same. Barriers: Q full; per stage K full, V full (TMA transaction
-//   counts) and empty (256 consumer arrivals).
+//   first, with the tensor's own byte strides (q's from Sq, k's and v's
+//   from Sk), so a [B, S, H, D] tensor's transposed view and a contiguous
+//   [B, H, S, D] tensor are read in place. TMA zero-fills rows at or past
+//   the map's S inside each (b, h) slice, so a ragged length needs no
+//   padding; scores of keys at or past Sk are masked all the same. Query
+//   tiles are counted by Sq, key tiles by Sk. Barriers: Q full; per
+//   stage K full, V full (TMA transaction counts) and empty (256
+//   consumer arrivals).
 // - S = Q.K^T: wgmma m64n128k16, A = Q and B = K from shared memory, both
 //   K-major (D contiguous). O += P.V: wgmma m64nDk16 with A = P in
 //   registers (the fp32 score accumulator's layout is the A fragment's
@@ -51,7 +56,7 @@
 //   0. l is summed from the fp32 p, per thread, and reduced over the four
 //   threads of a row once at the end.
 // - The output is written once per element from registers, bf16 pairs,
-//   into q's layout; rows at or past S are never written.
+//   into q's layout; rows at or past Sq are never written.
 //
 // Numerics: P enters the second product as bf16 (as in every flash kernel
 // and in SDPA), which the SIMT kernel does not do. The limit against the
@@ -249,8 +254,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
-                    bf16* __restrict__ o, int H, int S, int n_qt, int BH,
-                    int64_t ob, int64_t oh, int64_t os, int causal,
+                    bf16* __restrict__ o, int H, int Sq, int Sk, int n_qt,
+                    int BH, int64_t ob, int64_t oh, int64_t os, int causal,
                     int window, float scale_log2) {
   using C = Cfg<D>;
   constexpr int ST = C::STAGES;
@@ -268,8 +273,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int b = bh / H, h = bh % H;
   const int q0 = qt * BQ;
   // key tiles some (q, k) pair of this CTA can reach
-  int k_begin = 0, k_end = S;
-  if (causal) k_end = min(S, q0 + BQ);
+  int k_begin = 0, k_end = Sk;
+  if (causal) k_end = min(Sk, q0 + BQ);
   if (window > 0) k_begin = max(0, q0 - window + 1) / BK * BK;
   const int n_k = (k_end - k_begin + BK - 1) / BK;
 
@@ -350,13 +355,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 
       const bool need_mask = (causal && k0 + BK - 1 > qa) ||
                              (window > 0 && k0 <= qb - window) ||
-                             k0 + BK > S;
+                             k0 + BK > Sk;
       if (need_mask) {
 #pragma unroll
         for (int e = 0; e < 64; ++e) {
           const int kpos = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
           const int qpos = row0 + 8 * ((e >> 1) & 1);
-          bool ok = kpos < S;
+          bool ok = kpos < Sk;
           if (causal) ok = ok && kpos <= qpos;
           if (window > 0) ok = ok && kpos > qpos - window;
           if (!ok) sc[e] = -INFINITY;
@@ -417,7 +422,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int e = 0; e < D / 2; e += 2) {
       const int r = (e >> 1) & 1;
       const int qpos = row0 + 8 * r;
-      if (qpos < S)
+      if (qpos < Sq)
         *reinterpret_cast<__nv_bfloat162*>(obase + qpos * os + 8 * (e >> 2) +
                                            2 * t) =
             __floats2bfloat162_rn(acc[e] * inv[r], acc[e + 1] * inv[r]);
@@ -481,9 +486,9 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int H, int S, int D,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int S, int64_t sb, int64_t sh, int64_t ss, int64_t ob,
-           int64_t oh, int64_t os, int causal, int window,
-           cudaStream_t stream) {
+           int H, int Sq, int Sk, int64_t qb, int64_t qh, int64_t qs,
+           int64_t kb, int64_t kh, int64_t ks, int64_t ob, int64_t oh,
+           int64_t os, int causal, int window, cudaStream_t stream) {
   auto kern = flash_tc_kernel<D>;
   // raise the dynamic shared-memory limit once per device, outside any
   // CUDA-graph capture (the first launch on a device is never captured:
@@ -501,40 +506,39 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     configured[dev] = true;
   }
   CUtensorMap tq, tk, tv;
-  int rc = make_map(&tq, q, B, H, S, D, sb, sh, ss);
-  if (rc == 0) rc = make_map(&tk, k, B, H, S, D, sb, sh, ss);
-  if (rc == 0) rc = make_map(&tv, v, B, H, S, D, sb, sh, ss);
+  int rc = make_map(&tq, q, B, H, Sq, D, qb, qh, qs);
+  if (rc == 0) rc = make_map(&tk, k, B, H, Sk, D, kb, kh, ks);
+  if (rc == 0) rc = make_map(&tv, v, B, H, Sk, D, kb, kh, ks);
   if (rc != 0) return rc;
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_qt = (Sq + BQ - 1) / BQ;
   const unsigned grid = static_cast<unsigned>(n_qt) * B * H;
   kern<<<grid, THREADS, Cfg<D>::SMEM, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), H, S, n_qt, B * H, ob, oh, os,
+      tq, tk, tv, static_cast<bf16*>(o), H, Sq, Sk, n_qt, B * H, ob, oh, os,
       causal, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace flash_tc
 
-// bf16 q, k, v [B, H, S, D] share the element strides (sb, sh, ss) (each a
-// multiple of 8, i.e. 16 bytes, as TMA needs; base addresses 16-byte
-// aligned); o has (ob, oh, os); D in {64, 128}, contiguous in all four.
-// Returns 0, a cudaError_t, or 10000 + a CUresult of the tensor-map encode.
-extern "C" int flash_attention_tc_launch(const void* q, const void* k,
-                                         const void* v, void* o, int B, int H,
-                                         int S, int D, long long sb,
-                                         long long sh, long long ss,
-                                         long long ob, long long oh,
-                                         long long os, int causal, int window,
-                                         void* stream) {
+// bf16 q [B, H, Sq, D] has the element strides (qb, qh, qs), k and v [B,
+// H, Sk, D] share (kb, kh, ks) (each a multiple of 8, i.e. 16 bytes, as
+// TMA needs; base addresses 16-byte aligned); o has (ob, oh, os); D in
+// {64, 128}, contiguous in all four. Returns 0, a cudaError_t, or 10000 +
+// a CUresult of the tensor-map encode.
+extern "C" int flash_attention_tc_launch(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int Sq, int Sk, int D, long long qb, long long qh, long long qs,
+    long long kb, long long kh, long long ks, long long ob, long long oh,
+    long long os, int causal, int window, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return flash_tc::launch<64>(q, k, v, o, B, H, S, sb, sh, ss, ob, oh, os,
-                                  causal, window, s);
+      return flash_tc::launch<64>(q, k, v, o, B, H, Sq, Sk, qb, qh, qs, kb, kh,
+                                  ks, ob, oh, os, causal, window, s);
     case 128:
-      return flash_tc::launch<128>(q, k, v, o, B, H, S, sb, sh, ss, ob, oh,
-                                   os, causal, window, s);
+      return flash_tc::launch<128>(q, k, v, o, B, H, Sq, Sk, qb, qh, qs, kb,
+                                   kh, ks, ob, oh, os, causal, window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -360,7 +360,10 @@ def gossip_mix_quant(idx, val, scale, q):
                          ("slices" if branch == 1 else "gather"), out)
 
 
-FLASH_HEAD_DIMS = (32, 64, 128)
+# the SIMT kernel takes any head dim up to this whose rows are whole
+# 4-byte words (it instantiates 32, 64 and 128 and masks the columns past
+# D); the tensor-core kernel takes D in FLASH_TC_HEAD_DIMS
+FLASH_MAX_HEAD_DIM = 128
 FLASH_TC_HEAD_DIMS = (64, 128)
 FLASH_TC_TILE = 128           # query rows per CTA of the tensor-core kernel
 ROUTER_MAX_EXPERTS, ROUTER_MAX_K = 512, 32
@@ -383,8 +386,9 @@ def flash_kernel(dtype, d: int) -> str:
 class _FlashAttention(torch.autograd.Function):
     """The flash kernel under autograd: the forward launches the kernel
     (``_flash_forward``); the backward recomputes the plain version
-    (``ref.flash_attention_ref``) from the saved q, k, v and takes its
-    gradient. No backward kernel exists (the JAX package has none)."""
+    (``ref.flash_attention_ref``, k and v of their own length) from the
+    saved q, k, v and takes its gradient. No backward kernel exists (the
+    JAX package has none)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
@@ -413,22 +417,26 @@ def _no_card_gradient(name: str, *ts) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """Attention with scale 1/sqrt(D) over q, k, v [B, H, S, D] of one
-    shape and dtype (f32 or bf16), D in ``FLASH_HEAD_DIMS``. ``causal``
-    hides keys after the query, ``window > 0`` keys at or before
-    ``q - window``. On the card q, k and v must share their strides, with
-    D contiguous (a [B, S, H, D] tensor's ``transpose(1, 2)`` is taken as
-    it is); the output has q's dtype and q's layout (``empty_like``).
+    """Attention with scale 1/sqrt(D): q [B, H, Sq, D] over k, v [B, H, Sk,
+    D] of one dtype (f32 or bf16). ``causal`` hides keys after the query,
+    ``window > 0`` keys at or before ``q - window``; both need Sk = Sq
+    (the reference's masks are all self-attention), and a call that asks
+    for either with Sk != Sq raises ``ValueError``. k and v must share
+    their strides; q has its own; D is contiguous in all three (a [B, S,
+    H, D] tensor's ``transpose(1, 2)`` is taken as it is). The output has
+    q's dtype and q's layout (``empty_like``).
 
     On the card the kernel follows from dtype and head dim alone
     (``flash_kernel``), never from a failure: bf16 at D in
     ``FLASH_TC_HEAD_DIMS`` launches the tensor-core kernel
     ``flash_attention_tc`` (TMA loads, wgmma; p enters P.V rounded to
     bf16, held to ``ref.flash_tc_limit``), which needs 16-byte aligned
-    bases and (b, h, s) strides of whole 16 bytes; f32 at any D and bf16
-    at D = 32 launch the SIMT kernel ``flash_attention`` (fp32
-    throughout), so every f32 caller, the reduced f32 models included,
-    runs it.
+    bases and (b, h, s) strides of whole 16 bytes; every other call
+    launches the SIMT kernel ``flash_attention`` (fp32 throughout), which
+    takes D up to ``FLASH_MAX_HEAD_DIM`` whose rows are whole 4-byte words
+    (any D in f32, an even D in bf16) and raises on the rest. Every f32
+    caller, the reduced f32 models included, runs it. The head dim is
+    checked on the card only: on the CPU the plain version takes any D.
 
     Under autograd (an input that needs a gradient) the call goes through
     ``_FlashAttention``: the same forward, the gradient of the plain
@@ -439,45 +447,67 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def _flash_forward(q, k, v, causal: bool, window: int):
-    if q.dim() != 4:
-        raise ValueError(f"q: expected [B, H, S, D], got {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{name}: expected [B, H, S, D], got "
+                             f"{tuple(t.shape)}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention: dtype {q.dtype} not in "
                         f"[torch.float32, torch.bfloat16]")
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise TypeError(f"{name}: dtype {t.dtype}, expected {q.dtype}")
-        if t.shape != q.shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                             f"{tuple(q.shape)}")
-    b, h, s, d = q.shape
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in "
-                         f"{FLASH_HEAD_DIMS}")
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if (k.shape[0], k.shape[1], k.shape[3]) != (b, h, d):
+        raise ValueError(f"k: shape {tuple(k.shape)}, expected [{b}, {h}, "
+                         f"Sk, {d}]")
+    if v.shape != k.shape:
+        raise ValueError(f"v: shape {tuple(v.shape)}, expected k's "
+                         f"{tuple(k.shape)}")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
-    if q.stride(-1) != 1 or _used_strides(k) != _used_strides(q) \
-            or _used_strides(v) != _used_strides(q):
-        raise ValueError("flash_attention: q, k and v must share their "
-                         "strides, with the head dim contiguous")
+    if sk != sq and (causal or window > 0):
+        raise ValueError(f"flash_attention: Sq = {sq} != Sk = {sk} takes "
+                         f"no causal or window mask (causal={causal}, "
+                         f"window={window})")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 \
+            or _used_strides(v) != _used_strides(k):
+        raise ValueError("flash_attention: k and v must share their "
+                         "strides, with the head dim contiguous in q, k "
+                         "and v")
     if not _on_card(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     if flash_kernel(q.dtype, d) == "flash_attention_tc":
         return _flash_attention_tc(q, k, v, causal, window)
+    return _flash_attention_simt(q, k, v, causal, window)
+
+
+def _flash_attention_simt(q, k, v, causal, window):
+    """The SIMT kernel's card-side branch of ``flash_attention`` (inputs
+    already checked but for what this kernel takes)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    size = q.element_size()
+    if not 0 < d <= FLASH_MAX_HEAD_DIM or d * size % 4:
+        raise ValueError(f"flash_attention: head dim {d}: the SIMT kernel "
+                         f"takes D up to {FLASH_MAX_HEAD_DIM} whose rows are "
+                         f"whole 4-byte words")
     if b * h > 65535:
         raise ValueError(f"flash_attention: B*H = {b * h} > 65535")
     # the kernel copies rows of D elements in 4-byte words
     if any(t.data_ptr() % 16 for t in (q, k, v)) or any(
-            st * q.element_size() % 4 for i, st in _used_strides(q) if i < 3):
+            st * size % 4 for t in (q, k) for i, st in _used_strides(t)
+            if i < 3):
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
                          "with rows on 4-byte boundaries")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     return _launch("flash_attention", out, q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), out.data_ptr(), b * h, h, s, d,
-                   *q.stride()[:3], *out.stride()[:3], int(causal),
-                   int(window), _DTYPE_CODE[q.dtype])
+                   v.data_ptr(), out.data_ptr(), b * h, h, sq, sk, d,
+                   *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
+                   int(causal), int(window), _DTYPE_CODE[q.dtype])
 
 
 def _tma_strides(t):
@@ -490,23 +520,26 @@ def _tma_strides(t):
 
 def _flash_attention_tc(q, k, v, causal, window):
     """The tensor-core kernel's card-side branch of ``flash_attention``
-    (bf16, D in ``FLASH_TC_HEAD_DIMS``, inputs already checked)."""
-    b, h, s, d = q.shape
-    strides = _tma_strides(q)
+    (bf16, D in ``FLASH_TC_HEAD_DIMS``, inputs already checked): q's tensor
+    map from Sq and q's strides, k's and v's from Sk and theirs."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    q_strides, kv_strides = _tma_strides(q), _tma_strides(k)
     if any(t.data_ptr() % 16 for t in (q, k, v)) or any(
-            st % 8 or st * 2 >= 2 ** 40 for st in strides):
+            st % 8 or st * 2 >= 2 ** 40 for st in q_strides + kv_strides):
         raise ValueError("flash_attention: bf16 q, k, v go through TMA, "
                          "which needs 16-byte aligned bases and (b, h, s) "
                          "strides of whole 16 bytes")
-    if b * h * -(-s // FLASH_TC_TILE) >= 2 ** 31:
-        raise ValueError(f"flash_attention: B*H*ceil(S/{FLASH_TC_TILE}) "
+    if b * h * -(-sq // FLASH_TC_TILE) >= 2 ** 31:
+        raise ValueError(f"flash_attention: B*H*ceil(Sq/{FLASH_TC_TILE}) "
                          f"must stay below 2**31")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     return _launch("flash_attention_tc", out, q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), out.data_ptr(), b, h, s, d, *strides,
-                   *out.stride()[:3], int(causal), int(window))
+                   v.data_ptr(), out.data_ptr(), b, h, sq, sk, d,
+                   *q_strides, *kv_strides, *out.stride()[:3], int(causal),
+                   int(window))
 
 
 def _check_router(name, logits, k):

@@ -34,30 +34,38 @@ def gossip_mix_quant_ref(idx, val, scale, q):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """q, k, v: [B, H, S, D] (same S). Full-matrix attention with scale
-    1/sqrt(D), computed in fp32 and returned in q's dtype. Keys at
+    """q: [B, H, Sq, D]; k, v: [B, H, Sk, D]. Full-matrix attention with
+    scale 1/sqrt(D), computed in fp32 and returned in q's dtype. Keys at
     ``k > q`` are masked when ``causal``, keys at ``k <= q - window`` when
-    ``window > 0``."""
-    s, d = q.shape[2], q.shape[3]
+    ``window > 0``. Sk may differ from Sq only unmasked (``causal=False,
+    window=0``: the reference's cross-attention); a mask between two
+    lengths raises ``ValueError``."""
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    if sk != sq and (causal or window > 0):
+        raise ValueError(f"flash_attention: Sq = {sq} != Sk = {sk} takes "
+                         f"no causal or window mask (causal={causal}, "
+                         f"window={window})")
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     scores = scores / math.sqrt(d)
-    qpos = torch.arange(s, device=q.device)[:, None]
-    kpos = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window > 0:
-        mask &= kpos > qpos - window
-    scores = scores.masked_fill(~mask, float("-inf"))
+    if causal or window > 0:
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
+        scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
 
 
 def flash_tc_limit(q, k, v, want, *, causal: bool = True, window: int = 0):
     """Per-element limit of the tensor-core flash kernel against the plain
-    version's output ``want``: |want| * 2**-6 + 2**-8 * (P.|v|) + 1e-5,
-    where P.|v| = sum_k p_k |v_k| / l is this plain version applied to |v|
-    in f32. The kernel rounds p to bf16 before P.V (8 significant bits:
+    version's output ``want`` (q [B, H, Sq, D], k and v [B, H, Sk, D], the
+    masks of ``flash_attention_ref``): |want| * 2**-6 + 2**-8 * (P.|v|) +
+    1e-5, where P.|v| = sum_k p_k |v_k| / l is this plain version applied
+    to |v| in f32. The kernel rounds p to bf16 before P.V (8 significant bits:
     each term moves by at most 2**-8 relative) and sums l from the fp32 p
     as this version does; got and want are each rounded once to bf16
     (half an ulp each, ulp(x) <= |x| * 2**-7). Derivation in

@@ -211,6 +211,9 @@ def build_pod_gossip_step(cfg: ModelConfig, defta_cfg, npods: int, sizes, *,
 # ---------------------------------------------------------------------------
 
 def build_prefill_step(cfg: ModelConfig, *, moe_strategy="grouped"):
+    """``prefill_step(params, batch) -> logits``; ``batch`` carries
+    ``frame_embeds`` (encoder-decoder) or ``vision_embeds`` (vlm) beside
+    the tokens."""
     @torch.no_grad()
     def prefill_step(params, batch):
         logits, _ = model_mod.forward(params, cfg, batch,
@@ -220,8 +223,11 @@ def build_prefill_step(cfg: ModelConfig, *, moe_strategy="grouped"):
 
 
 def build_decode_step(cfg: ModelConfig, *, moe_strategy="dense"):
+    """``decode_step(params, tokens, cache, pos, enc_out=None) -> (logits,
+    cache)``; an encoder-decoder passes its encoder states."""
     @torch.no_grad()
-    def decode_step(params, tokens, cache, pos: int):
+    def decode_step(params, tokens, cache, pos: int, enc_out=None):
         return model_mod.decode_step(params, cfg, tokens, cache, pos,
+                                     enc_out=enc_out,
                                      moe_strategy=moe_strategy)
     return decode_step

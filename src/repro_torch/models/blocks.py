@@ -8,8 +8,10 @@ repeated pattern's parameters under ``scan`` with a leading layer axis
 (when ``cfg.scan_layers``), and the rest under ``layers``. The reference's
 ``lax.scan`` over the stacked axis becomes a Python loop that indexes it,
 which takes views, not copies; the decode caches are stacked the same way
-and every layer updates its views in place. Cross-attention (whisper) is
-not ported yet.
+and every layer updates its views in place. With ``cross`` (whisper's
+decoder) every block also holds ``ln_x`` and a cross-attention ``xattn``
+over the encoder states ``enc_out``, applied between its attention and its
+FFN.
 """
 from __future__ import annotations
 
@@ -69,12 +71,15 @@ def _scanned(cfg: ModelConfig, repeats: int) -> bool:
 # Single block init / apply
 # ---------------------------------------------------------------------------
 
-def init_block(b: Builder, cfg: ModelConfig, kind: str):
+def init_block(b: Builder, cfg: ModelConfig, kind: str, cross: bool = False):
     b.ones("ln1", (cfg.d_model,))
     if kind in ATTN_KINDS:
         attn_mod.init_attention(b.sub("attn"), cfg)
     else:
         ssm_mod.init_ssm(b.sub("ssm"), cfg)
+    if cross:
+        b.ones("ln_x", (cfg.d_model,))
+        attn_mod.init_attention(b.sub("xattn"), cfg, cross=True)
     if kind in MOE_KINDS:
         b.ones("ln2", (cfg.d_model,))
         moe_mod.init_moe(b.sub("moe"), cfg)
@@ -100,20 +105,25 @@ def _ffn(params, cfg: ModelConfig, kind: str, x, moe_strategy: str):
 
 
 def block_apply(params, cfg: ModelConfig, kind: str, x, positions, aux,
-                *, window: int = 0, moe_strategy="grouped"):
-    """Prefill. x: [B,S,D] -> (x, aux)."""
+                *, window: int = 0, enc_out=None, moe_strategy="grouped"):
+    """Prefill. x: [B,S,D] -> (x, aux); ``enc_out`` [B,F,D] runs the
+    block's cross-attention."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if kind in ATTN_KINDS:
         h = attn_mod.attention(params["attn"], cfg, h, positions,
                                window=window)
     else:
         h = ssm_mod.ssm_block(params["ssm"], cfg, h)
-    x, moe_aux = _ffn(params, cfg, kind, x + h, moe_strategy)
+    x = x + h
+    if enc_out is not None:
+        h = rms_norm(x, params["ln_x"], cfg.norm_eps)
+        x = x + attn_mod.cross_attention(params["xattn"], cfg, h, enc_out)
+    x, moe_aux = _ffn(params, cfg, kind, x, moe_strategy)
     return x, aux if moe_aux is None else aux + moe_aux
 
 
 def block_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int,
-                 *, window: int = 0, moe_strategy="dense"):
+                 *, window: int = 0, enc_out=None, moe_strategy="dense"):
     """One-token decode. x: [B,1,D] -> (x, cache), the cache updated in
     place."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
@@ -122,7 +132,12 @@ def block_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int,
                                              pos, window=window)
     else:
         h, cache = ssm_mod.ssm_decode_step(params["ssm"], cfg, h, cache)
-    x, _ = _ffn(params, cfg, kind, x + h, moe_strategy)
+    x = x + h
+    if enc_out is not None:
+        h = rms_norm(x, params["ln_x"], cfg.norm_eps)
+        x = x + attn_mod.decode_cross_attention(params["xattn"], cfg, h,
+                                                enc_out)
+    x, _ = _ffn(params, cfg, kind, x, moe_strategy)
     return x, cache
 
 
@@ -130,31 +145,32 @@ def block_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int,
 # Stack init: prefix blocks + per-position stacked pattern params
 # ---------------------------------------------------------------------------
 
-def init_stack(b: Builder, cfg: ModelConfig):
+def init_stack(b: Builder, cfg: ModelConfig, cross: bool = False):
     schedule = cfg.block_schedule()
     prefix_len, pattern, repeats = factor_schedule(schedule)
     pb = b.sub("prefix")
     for i in range(prefix_len):
-        init_block(pb.sub(str(i)), cfg, schedule[i])
+        init_block(pb.sub(str(i)), cfg, schedule[i], cross)
     if _scanned(cfg, repeats):
         # allocate each stacked leaf once, then draw one layer's slice at a
         # time into it (peak memory: the model plus one slice's fp32 draw)
         sb = b.sub("scan")
         for pos, kind in enumerate(pattern):
             shapes = Builder(None, b.dtype, abstract=True)
-            init_block(shapes, cfg, kind)
+            init_block(shapes, cfg, kind, cross)
             stacked = tree_map(lambda t: b.empty((repeats,) + t.shape),
                                shapes.params)
             if not b.abstract:
                 for r in range(repeats):
                     init_block(Builder(b.gen, b.dtype, b.device,
                                        into=tree_map(lambda t: t[r],
-                                                     stacked)), cfg, kind)
+                                                     stacked)), cfg, kind,
+                               cross)
             sb.params[str(pos)] = stacked
     else:
         lb = b.sub("layers")
         for i in range(prefix_len, len(schedule)):
-            init_block(lb.sub(str(i)), cfg, schedule[i])
+            init_block(lb.sub(str(i)), cfg, schedule[i], cross)
     return prefix_len, pattern, repeats
 
 
@@ -176,12 +192,12 @@ def _layers(params, cfg: ModelConfig):
 
 
 def stack_apply(params, cfg: ModelConfig, x, positions, *, window: int = 0,
-                moe_strategy="grouped"):
+                enc_out=None, moe_strategy="grouped"):
     """Apply the whole layer stack. Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in _layers(params, cfg):
         x, aux = block_apply(p, cfg, kind, x, positions, aux, window=window,
-                             moe_strategy=moe_strategy)
+                             enc_out=enc_out, moe_strategy=moe_strategy)
     return x, aux
 
 
@@ -229,10 +245,10 @@ def _layer_caches(cache, cfg: ModelConfig):
 
 
 def stack_decode(params, cfg: ModelConfig, x, cache, pos: int, *,
-                 window: int = 0, moe_strategy="dense"):
+                 window: int = 0, enc_out=None, moe_strategy="dense"):
     """One-token decode through every layer; ``cache`` is updated in place
     and returned."""
     for (p, kind), c in zip(_layers(params, cfg), _layer_caches(cache, cfg)):
         x, _ = block_decode(p, cfg, kind, x, c, pos, window=window,
-                            moe_strategy=moe_strategy)
+                            enc_out=enc_out, moe_strategy=moe_strategy)
     return x, cache

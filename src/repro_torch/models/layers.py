@@ -8,6 +8,8 @@ ported: on one card they are the identity.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -127,6 +129,51 @@ def apply_rope(x, positions, theta):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sinusoidal positions (whisper)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=8)
+def _sinusoid_table(seq_len: int, d_model: int, pinned: bool):
+    """The float32 table, computed in float64 numpy and cast once, as the
+    reference's table is; kept per shape (whisper's 1,500 x 384 costs
+    milliseconds of host time: PERF.md) and never handed out, only copied
+    from (in pinned host memory for the card)."""
+    half = d_model // 2
+    freqs = np.exp(-np.log(10_000.0) * np.arange(half) / max(half - 1, 1))
+    pos = np.arange(seq_len)[:, None] * freqs[None, :]
+    table = torch.from_numpy(np.concatenate([np.sin(pos), np.cos(pos)],
+                                            axis=1).astype(np.float32))
+    return table.pin_memory() if pinned else table
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, device=None,
+                         dtype=torch.float32):
+    """Whisper-style fixed sinusoidal table [S, D] on ``device`` (default
+    the CPU) in ``dtype``: a fresh tensor each call. To the card it is
+    copied from pinned host memory, so the host does not wait for the
+    stream."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda":
+        return _sinusoid_table(seq_len, d_model, True).to(
+            device, non_blocking=True).to(dtype)
+    return _sinusoid_table(seq_len, d_model, False).to(dtype=dtype,
+                                                       copy=True)
+
+
+def sinusoidal_at(pos: int, d_model: int, device=None):
+    """The sinusoidal embedding [D] of one position, computed in float32
+    throughout (the reference's scalar form, which decode uses; it differs
+    from the table's row in the last bits)."""
+    half = d_model // 2
+    log_1e4 = float(np.log(np.float32(10_000.0)))       # the float32 log
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=device)
+                      * -log_1e4 / max(half - 1, 1))
+    # host scalars enter as kernel arguments: no copy to the card, no sync
+    angles = freqs * float(pos)
+    return torch.cat([torch.sin(angles), torch.cos(angles)])
 
 
 # ---------------------------------------------------------------------------

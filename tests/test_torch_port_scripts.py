@@ -99,9 +99,10 @@ def test_port_examples_run_on_the_cpu(capsys):
     m, m2 = quick.main(["--device", "cpu", "--epochs", "2"])
     assert 0.0 <= m <= 1.0 and 0.0 <= m2 <= 1.0
     serve = load("examples/port_serve_decode.py", "port_serve_decode")
-    out = serve.main(["--device", "cpu", "--arch", "mamba2-780m",
-                      "--batch", "2", "--prompt-len", "3", "--max-new", "2"])
-    assert tuple(out.shape) == (2, 2)
+    for arch in ("mamba2-780m", "whisper-tiny"):
+        out = serve.main(["--device", "cpu", "--arch", arch, "--batch", "2",
+                          "--prompt-len", "3", "--max-new", "2"])
+        assert tuple(out.shape) == (2, 2)
     text = capsys.readouterr().out
     assert "DeFTA   (+1 malicious)" in text and "tok/s on cpu" in text
 

@@ -1,9 +1,9 @@
 """The port's LM training path against live JAX on the CPU.
 
 * ``model.loss_fn`` and ``launch.steps.build_train_step`` on every reduced
-  architecture the port carries (``test_arch_smoke.py``'s, less whisper and
-  the vlm): two SGD steps from the reference's initial params, losses and
-  params within 1e-4.
+  architecture (``test_arch_smoke.py``'s; whisper with its frames, the vlm
+  with its vision embeddings): two SGD steps from the reference's initial
+  params, losses and params within 1e-4.
 * Micro-batched = full batch (``test_distributed.py``'s world), and both
   equal the reference's.
 * The FL step and the gossip steps over pods (``test_distributed.py``'s
@@ -71,7 +71,7 @@ def one_torch_thread():
     torch.set_num_threads(n)
 ARCHS = ["paper-small", "qwen3-0.6b", "qwen2.5-32b", "granite-3-2b",
          "granite-20b", "deepseek-moe-16b", "kimi-k2-1t-a32b",
-         "mamba2-780m", "jamba-v0.1-52b"]
+         "mamba2-780m", "jamba-v0.1-52b", "whisper-tiny", "internvl2-2b"]
 
 
 def np_tree(tree):
@@ -97,13 +97,24 @@ def pair(arch, seed=1):
 
 
 def batches(cfg, b=2, s=16, seed=0):
+    """Tokens and labels, plus the frames of an encoder-decoder and the
+    vision embeddings of a vlm, from numpy."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (b, s))
     labs = rng.integers(0, cfg.vocab_size, (b, s))
     labs[0, -3:] = -1                              # masked targets
-    return ({"tokens": jnp.asarray(toks, jnp.int32),
-             "labels": jnp.asarray(labs, jnp.int32)},
-            {"tokens": torch.tensor(toks), "labels": torch.tensor(labs)})
+    jb = {"tokens": jnp.asarray(toks, jnp.int32),
+          "labels": jnp.asarray(labs, jnp.int32)}
+    tb = {"tokens": torch.tensor(toks), "labels": torch.tensor(labs)}
+    extra = {}
+    if cfg.is_encoder_decoder:
+        extra["frame_embeds"] = (cfg.encoder_seq_len, cfg.d_model)
+    if cfg.family == "vlm":
+        extra["vision_embeds"] = (cfg.num_vision_tokens, cfg.d_model)
+    for name, shape in extra.items():
+        x = rng.normal(size=(b,) + shape).astype(np.float32)
+        jb[name], tb[name] = jnp.asarray(x), torch.tensor(x)
+    return jb, tb
 
 
 @pytest.mark.parametrize("arch", ARCHS)
