@@ -264,6 +264,30 @@
    Whisper in f32 at full width and at the reduced D = 42, card vs CPU as
    in 5: logits within 1e-4, equal greedy tokens, teacher-forced decode
    within 2e-3 of the prefill, through the SIMT kernel only.
+9. Training the moe, ssm and hybrid families; expert parallelism. The
+   three kernels' autograd Functions (kernel forward, the plain version's
+   gradient recomputed; the routers' gates at the kernel's own picks):
+   the route-and-slot kernel at DeepSeekMoE's train step (T = 1,024, E =
+   64, k = 6, f32), the router at T = 4,096 and ``ssd_chunk_tc`` at
+   Mamba2-780M's train step ([8, 48, 256, 128, 64]), each gradient equal
+   to the plain version's within 1e-6 of its max; kernel forward,
+   recomputed backward and plain forward + backward timed. Full-width
+   ``build_train_step`` steps, bf16, random weights from a seed:
+   DeepSeekMoE-16B cut to its dense first layer and three MoE layers (Adam,
+   B = 2, S = 512, grouped dispatch; 4 tensor-core flash + 3 route-and-slot
+   launches a step), Mamba2-780M whole (Adam, B = 2, S = 1,024; 48
+   ``ssd_chunk_tc``), Jamba's first five layers (mamba, mamba_moe, mamba,
+   mamba_moe, attn_dense; SGD, B = 1, S = 1,024; 4 + 1 + 2): losses and
+   gradient norms finite, exact launches a step, ms a step, peak memory.
+   Expert parallelism on a (4, 2) ("data", "model") mesh on
+   ``["cuda:0"] * 8``, one full-width DeepSeekMoE MoE layer in bf16:
+   ``eplocal`` at B = 4, S = 512 against ``grouped`` at ``cap_factor=8``
+   (no pair drops) within ``EP_BF16_LIMIT``, ``eplocal_fp8``'s dispatch
+   bytes beside bf16's, the replicated path at B = 1, S = 4,096 against
+   ``dense``, each call's ms and device operations beside the one-device
+   dispatch's; one train step of the cut DeepSeekMoE through ``eplocal``
+   (12 route-and-slot launches); the reduced f32 DeepSeekMoE's ``eplocal``
+   loss and gradient card vs CPU (``["cpu"] * 8``) within 1e-4.
 
 Exits non-zero, before the last line, on any failure or without a card.
 The last lines are the card's name and power limit, one JSON object with
@@ -4175,6 +4199,443 @@ def prefill_jamba_period(dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# [9] training the moe, ssm and hybrid families; expert parallelism
+# ---------------------------------------------------------------------------
+
+# (B, S) of the train steps: DeepSeekMoE (its route at T = 1,024, E = 64,
+# k = 6), Mamba2-780M (its ssd_chunk_tc at [G, H, T, N, P] = [8, 48, 256,
+# 128, 64]), the Jamba slice, and DeepSeekMoE through eplocal
+MOE_TRAIN, MAMBA_TRAIN, JAMBA_TRAIN, EP_TRAIN = (2, 512), (2, 1024), \
+    (1, 1024), (4, 256)
+TRAIN_STEPS = 3
+EP_MESH = (4, 2)                  # ("data", "model") on ["cuda:0"] * 8
+# eplocal against grouped (no drops) and the replicated path against
+# dense, in bf16: the expert outputs of each model shard are rounded to
+# bf16 before the psum over "model" (the reference's order), where the
+# one-device dispatch rounds the whole F sum once; each rounding is within
+# u = 2**-8 of its value, and a partial may exceed the sum. Limit 8 u of
+# the largest |y|.
+EP_BF16_LIMIT = 2.0 ** -5
+
+
+def grad_check(label, name, fn, plain, inputs, go, fwd_err):
+    """The autograd Function of one kernel (``fn``, whose forward launches
+    ``name`` once and whose backward recomputes a plain version) against
+    ``plain``'s gradient at the same inputs. The backward is a plain
+    version's own, so the check is of the plumbing (the saved inputs reach
+    the recompute, the gradients come back in the inputs' layout); limit
+    1e-6 of each gradient's max |.|. ``fwd_err(got, want)`` checks the
+    forward. Times the kernel forward (no autograd), the Function's
+    forward + recomputed backward and the plain forward + backward."""
+    from repro_torch.kernels import ops
+
+    def leaves():
+        return [t.detach().clone().requires_grad_() for t in inputs]
+    xs = leaves()
+    before = dict(ops.LAUNCHES)
+    out = fn(*xs)
+    first = out[0] if isinstance(out, tuple) else out
+    grads = torch.autograd.grad(first, xs, go)
+    grad_fn = type(first.grad_fn).__name__
+    torch.cuda.synchronize()
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+    if launched != {k: int(k == name) for k in ops.LAUNCHES}:
+        fail(f"9 {label}: launches {launched}")
+    ps = leaves()
+    want = plain(*ps)
+    pfirst = want[0] if isinstance(want, tuple) else want
+    pgrads = torch.autograd.grad(pfirst, ps, go)
+    with torch.no_grad():
+        fwd_err(out, want)
+    gerr = [float((g - p).abs().max()) for g, p in zip(grads, pgrads)]
+    glim = [1e-6 * float(p.abs().max()) for p in pgrads]
+    fwd_ms = device_ms(lambda: fn(*inputs))
+
+    def both():
+        x = leaves()
+        o = fn(*x)
+        torch.autograd.grad(o[0] if isinstance(o, tuple) else o, x, go)
+
+    def plain_both():
+        x = leaves()
+        o = plain(*x)
+        torch.autograd.grad(o[0] if isinstance(o, tuple) else o, x, go)
+    both_ms, plain_ms = event_ms(both), event_ms(plain_both)
+    print(f"  9 grad {label:40s} {grad_fn}: grad max_abs_err "
+          f"{['%.2e' % e for e in gerr]} (limits "
+          f"{['%.2e' % e for e in glim]}); kernel fwd {fwd_ms:.4f} ms, "
+          f"fwd + recompute bwd {both_ms:.4f} ms (bwd "
+          f"{both_ms - fwd_ms:.4f}), plain fwd + bwd {plain_ms:.4f} ms",
+          flush=True)
+    if not grad_fn.startswith("_") or any(not e <= lim for e, lim in
+                                          zip(gerr, glim)):
+        fail(f"9 {label}: grad_fn {grad_fn}, gradient errors {gerr} "
+             f"(limits {glim})")
+    return dict(fwd_ms=fwd_ms, bwd_ms=both_ms - fwd_ms, plain_ms=plain_ms)
+
+
+def check_train_grads(dev):
+    """The three kernels' autograd Functions at the shapes the training
+    paths run: the route-and-slot kernel at DeepSeekMoE's train step (T =
+    1,024, E = 64, k = 6, f32 logits, cap 120) and the router at the
+    replicated eplocal path's T = 4,096, their gates' gradient against the
+    plain version's (the same picks: idx equal); ssd_chunk_tc at
+    Mamba2-780M's train step ([8, 48, 256, 128, 64], the model's layout),
+    the gradients of all five inputs against the plain version's."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(91)
+    out = {}
+    for name, t in (("moe_route_slots", MOE_TRAIN[0] * MOE_TRAIN[1]),
+                    ("moe_router", 4096)):
+        logits, _ = router_rows(gen, t, 64, dev, torch.float32)
+        go = torch.randn(t, 6, generator=gen, device=dev)
+        if name == "moe_router":
+            fn = lambda lg: ops.moe_router_topk(lg, 6)
+            plain = lambda lg: ref.moe_router_topk_ref(lg, 6)
+        else:
+            cap = moe.grouped_capacity(t, 64, 6)
+            fn = lambda lg: ops.moe_route_slots(lg, 6, cap)
+            plain = lambda lg: ref.moe_route_slots_ref(lg, 6, cap)
+
+        def fwd_err(got, want, name=name):
+            if not torch.equal(got[1], want[1]) or float(
+                    (got[0] - want[0]).abs().max()) > 1e-6:
+                fail(f"9 grad {name}: picks or gates differ from the plain "
+                     f"version's")
+        out[name] = grad_check(f"{name} T={t} E=64 k=6 f32", name, fn,
+                               plain, (logits,), go, fwd_err)
+    tag, b, s, h, n, p, chunk = ("mamba2-780m train", *MAMBA_TRAIN, 48, 128,
+                                 64, 256)
+    args = ssd_inputs(gen, b, s, h, n, p, chunk, dev)
+    go = torch.randn(args[4].shape, generator=gen, device=dev)
+
+    def ssd_err(got, want):
+        lim = 1e-5 * float(want.abs().max())
+        if not float((got - want).abs().max()) <= lim:
+            fail("9 grad ssd_chunk_tc: forward beyond 1e-5 max|y|")
+    g = args[4].shape[0]
+    out["ssd_chunk_tc"] = grad_check(
+        f"ssd_chunk_tc {tag} [{g}, {h}, {chunk}, {n}, {p}]",
+        "ssd_chunk_tc", ops.ssd_chunk, ref.ssd_chunk_ref, args, go, ssd_err)
+    return out
+
+
+def grad_norm(grads) -> torch.Tensor:
+    from repro_torch.core import pods
+    return torch.sqrt(sum(g.float().square().sum()
+                          for g in pods.flatten(grads).values()))
+
+
+def train_steps(label, cfg, params, opt, shape, want, moe_strategy="grouped",
+                steps=TRAIN_STEPS):
+    """``steps`` ``build_train_step`` steps on the card from ``params`` on
+    a batch of random tokens and labels of ``shape``: each step's loss and
+    gradient norm finite, exactly ``want`` kernel launches a step (forward
+    launches; the recomputed backwards launch none; 0 for the others).
+    Prints the losses, norms, ms a step and peak memory; returns (the
+    params, the launches of the run)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step
+    gen = torch.Generator(device=params["embedding"].device)
+    gen.manual_seed(7)
+    batch = {k: torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                              device=params["embedding"].device)
+             for k in ("tokens", "labels")}
+    norms = []
+
+    def update(p, g, st, step):
+        norms.append(grad_norm(g))
+        return opt.update(p, g, st, step)
+    step_fn = build_train_step(cfg, dataclasses.replace(opt, update=update),
+                               moe_strategy=moe_strategy)
+    state = opt.init(params)
+    losses, times = [], []
+    ops.reset_launches()
+    for i in range(steps):
+        before = dict(ops.LAUNCHES)
+        (params, state, _, loss), ms = wall_ms(
+            lambda: step_fn(params, state, i, batch))
+        delta = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+        if delta != {k: want.get(k, 0) for k in ops.LAUNCHES}:
+            fail(f"9 train {label}: launches {delta}, expected {want}")
+        losses.append(float(loss))
+        times.append(ms)
+    counts = dict(ops.LAUNCHES)
+    norms = [float(x) for x in norms]
+    print(f"  9 train {label}: {opt.name} B={shape[0]} S={shape[1]} losses "
+          f"{[round(x, 4) for x in losses]} grad norms "
+          f"{['%.3e' % x for x in norms]} ms a step "
+          f"{[round(x, 2) for x in times]} (the first cold); launches a "
+          f"step {want}; peak {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+          f" GB", flush=True)
+    if not np.isfinite(losses + norms).all():
+        fail(f"9 train {label}: losses {losses}, norms {norms}")
+    del state
+    return params, counts
+
+
+def kernels_per_call(fn) -> int:
+    """Device operations (kernels, copies, sets) of one call, from
+    torch.profiler, after a warm-up call; 0 where the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def median_ms(fn, calls=5):
+    fn()
+    return statistics.median(wall_ms(fn)[1] for _ in range(calls))
+
+
+def ep_close(label, got, want):
+    err = float((got.float() - want.float()).abs().max())
+    lim = EP_BF16_LIMIT * float(want.float().abs().max())
+    print(f"  9 {label}: max|y|={float(want.float().abs().max()):.3e} "
+          f"max_abs_err={err:.3e} err/limit={err / lim:.3f}", flush=True)
+    if not bool(torch.isfinite(got).all()) or not err <= lim:
+        fail(f"9 {label}: {err} beyond {lim}")
+
+
+def expert_parallel_layer(dev, cfg, moe_p):
+    """One full-width DeepSeekMoE MoE layer (bf16) on the (4, 2) mesh
+    ``["cuda:0"] * 8``: ``eplocal`` at B = 4, S = 512 against ``grouped``,
+    both at ``cap_factor=8.0``, where no pair drops (checked: every
+    expert's count within both capacities), within ``EP_BF16_LIMIT``, aux
+    within 1e-5; ``eplocal_fp8`` with its dispatch bytes beside the bf16
+    dispatch's (``moe_eplocal.EXCHANGE``); the replicated path at B = 1, S
+    = 4,096 against ``dense``. Launches: 4 route-and-slot a call on the
+    all_to_all path, 1 router on the replicated one. ms and device
+    operations a call of each beside the one-device dispatch's. Returns
+    the launches of these calls."""
+    from repro_torch import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, moe_eplocal
+    ep, tp = EP_MESH
+    mesh = sharding.make_mesh(EP_MESH, ("data", "model"), ["cuda:0"] * 8)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    d, e, k = cfg.d_model, cfg.moe.num_experts, cfg.moe.top_k
+    dtype = getattr(torch, cfg.dtype)
+    x = torch.randn(4, 512, d, generator=gen, device=dev).to(dtype)
+    x1 = torch.randn(1, 4096, d, generator=gen, device=dev).to(dtype)
+    counts = {name: 0 for name in ops.LAUNCHES}
+
+    def counted(fn, want):
+        before = dict(ops.LAUNCHES)
+        out = fn()
+        delta = {n: ops.LAUNCHES[n] - before[n] for n in ops.LAUNCHES}
+        if delta != {n: want.get(n, 0) for n in ops.LAUNCHES}:
+            fail(f"9 eplocal: launches {delta}, expected {want}")
+        for n in delta:
+            counts[n] += delta[n]
+        return out
+
+    with torch.no_grad(), sharding.logical_rules(mesh, {}):
+        # no drops: each expert's pairs within both capacities
+        idx = ops.moe_router_topk(moe.router_logits(moe_p, x.view(-1, d)),
+                                  k)[1].long().view(ep, -1)
+        per_shard = max(int(torch.bincount(r, minlength=e).max())
+                        for r in idx)
+        whole = int(torch.bincount(idx.view(-1), minlength=e).max())
+        cap_ep = moe.grouped_capacity(512, e, k, 8.0)
+        cap_g = moe.grouped_capacity(4 * 512, e, k, 8.0)
+        if per_shard > cap_ep or whole > cap_g:
+            fail(f"9 eplocal: pairs drop ({per_shard} > {cap_ep} or "
+                 f"{whole} > {cap_g})")
+        ops.reset_launches()
+        moe_eplocal.reset_exchange()
+        y_ep, aux_ep = counted(lambda: moe_eplocal.moe_eplocal(
+            moe_p, cfg, x, cap_factor=8.0), {"moe_route_slots": ep})
+        bf16_bytes = dict(moe_eplocal.EXCHANGE)
+        y_g, aux_g = moe.moe_grouped(moe_p, cfg, x.view(-1, d),
+                                     capacity_factor=8.0)
+        ep_close(f"eplocal vs grouped B=4 S=512 cap_factor=8 (most per "
+                 f"expert: {per_shard} of {cap_ep} a shard, {whole} of "
+                 f"{cap_g})", y_ep, y_g.view(x.shape))
+        if not abs(float(aux_ep) - float(aux_g)) <= 1e-5:
+            fail(f"9 eplocal aux {float(aux_ep)} vs grouped "
+                 f"{float(aux_g)}")
+        moe_eplocal.reset_exchange()
+        y_f8, _ = counted(lambda: moe_eplocal.moe_eplocal(
+            moe_p, cfg, x, cap_factor=8.0, a2a_fp8=True),
+            {"moe_route_slots": ep})
+        fp8_bytes = dict(moe_eplocal.EXCHANGE)
+        f8_err = float((y_f8.float() - y_ep.float()).abs().max())
+        print(f"  9 eplocal_fp8: dispatch bytes {fp8_bytes['dispatch']} "
+              f"vs bf16 {bf16_bytes['dispatch']} (ratio "
+              f"{fp8_bytes['dispatch'] / bf16_bytes['dispatch']:.4f}); "
+              f"combine bytes {fp8_bytes['combine']} (bf16 "
+              f"{bf16_bytes['combine']}); max |y_fp8 - y_bf16| = "
+              f"{f8_err:.3e}", flush=True)
+        if not bool(torch.isfinite(y_f8).all()) or \
+                not fp8_bytes["dispatch"] < 0.52 * bf16_bytes["dispatch"]:
+            fail("9 eplocal_fp8: not finite or not about half the bytes")
+        y_rep, aux_rep = counted(lambda: moe_eplocal.moe_eplocal(
+            moe_p, cfg, x1), {"moe_router": 1})
+        y_d, aux_d = moe.moe_dense(moe_p, cfg, x1.view(-1, d))
+        ep_close("eplocal replicated B=1 S=4096 vs dense", y_rep,
+                 y_d.view(x1.shape))
+        if not abs(float(aux_rep) - float(aux_d)) <= 1e-5:
+            fail(f"9 eplocal replicated aux {float(aux_rep)} vs "
+                 f"{float(aux_d)}")
+        for label, fn, one in (
+                ("B=4 S=512", lambda: moe_eplocal.moe_eplocal(
+                    moe_p, cfg, x), lambda: moe.moe_grouped(
+                        moe_p, cfg, x.view(-1, d))),
+                ("B=4 S=512 fp8", lambda: moe_eplocal.moe_eplocal(
+                    moe_p, cfg, x, a2a_fp8=True), None),
+                ("B=1 S=4096 replicated", lambda: moe_eplocal.moe_eplocal(
+                    moe_p, cfg, x1), lambda: moe.moe_dense(
+                        moe_p, cfg, x1.view(-1, d)))):
+            ep_ms, ep_ops = median_ms(fn), kernels_per_call(fn)
+            line = (f"  9 eplocal {label}: {ep_ms:.3f} ms, {ep_ops} device "
+                    f"operations a call")
+            if one is not None:
+                line += (f"; one device ({'grouped' if 'S=512' in label else 'dense'}): "
+                         f"{median_ms(one):.3f} ms, {kernels_per_call(one)} "
+                         f"device operations")
+            print(line, flush=True)
+    return counts
+
+
+def reduced_eplocal_card_vs_cpu(dev):
+    """The reduced DeepSeekMoE (f32) loss and gradient through ``eplocal``
+    on the (4, 2) mesh, on the card (``["cuda:0"] * 8``) and on the CPU
+    (``["cpu"] * 8``), from one set of parameters and tokens: the loss
+    within 1e-4, every gradient leaf within 1e-4 of its max |.|. Returns
+    the card's launches."""
+    from repro_torch import sharding
+    from repro_torch.config import reduced
+    from repro_torch.configs import get_config
+    from repro_torch.core import pods
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    cfg = reduced(get_config("deepseek-moe-16b"))
+    gen = torch.Generator()
+    gen.manual_seed(23)
+    params = model.init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 4, 16), generator=gen)
+    out = {}
+    for where in ("cpu", dev):
+        flat = {k: v.to(where).requires_grad_()
+                for k, v in pods.flatten(params).items()}
+        batch = {"tokens": toks[0].to(where), "labels": toks[1].to(where)}
+        mesh = sharding.make_mesh(EP_MESH, ("data", "model"),
+                                  [where] * 8)
+        ops.reset_launches()
+        with sharding.logical_rules(mesh, {}):
+            loss, _ = model.loss_fn(pods.rebuild(params, flat), cfg, batch,
+                                    moe_strategy="eplocal")
+        grads = torch.autograd.grad(loss, list(flat.values()),
+                                    allow_unused=True)
+        out[str(where)] = (float(loss.detach()), [
+            torch.zeros_like(v) if g is None else g.cpu()
+            for v, g in zip(flat.values(), grads)], dict(ops.LAUNCHES))
+    (lc, gc, _), (lg, gg, launched) = out["cpu"], out[str(dev)]
+    gerr = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(gg, gc))
+    print(f"  9 reduced deepseek-moe f32 eplocal card vs CPU: loss "
+          f"{lg:.6f} vs {lc:.6f} (diff {abs(lg - lc):.2e}), worst gradient "
+          f"err / its max {gerr:.2e}; card launches "
+          f"{ {k: v for k, v in launched.items() if v} }", flush=True)
+    if not abs(lg - lc) <= 1e-4 or not gerr <= 1e-4 or \
+            launched["moe_route_slots"] != EP_MESH[0]:
+        fail("9 reduced eplocal card vs CPU")
+    return launched
+
+
+def train_and_expert_parallel(dev):
+    """Phase [9]; returns {kernel: launches of the training and
+    expert-parallel runs} and the gradient checks' times."""
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.optim import make_optimizer
+    launches = {}
+
+    def flash(cfg):
+        return ops.flash_kernel(getattr(torch, cfg.dtype), cfg.head_dim)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    grad_times = check_train_grads(dev)
+    # DeepSeekMoE-16B cut to its dense first layer and three MoE layers
+    # (2.27B parameters: with Adam's fp32 moments, old and new side by
+    # side in an update, ~50 GB)
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), num_layers=4)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init_params(gen, cfg)
+    print(f"  9 deepseek-moe-16b cut to {cfg.num_layers} layers "
+          f"{cfg.block_schedule()}: {n_params(params)} parameters",
+          flush=True)
+    params, counts = train_steps(
+        "deepseek-moe-16b (grouped)", cfg, params,
+        make_optimizer("adam", 1e-4), MOE_TRAIN,
+        {flash(cfg): 4, "moe_route_slots": 3})
+    add(counts)
+    # the first MoE layer (views of the stacked leaves of a scanned stack)
+    moe_p = {k: v[0] for k, v in params["scan"]["0"]["moe"].items()} \
+        if cfg.scan_layers else params["layers"]["1"]["moe"]
+    add(expert_parallel_layer(dev, cfg, moe_p))
+    del moe_p
+    mesh = sharding.make_mesh(EP_MESH, ("data", "model"), ["cuda:0"] * 8)
+    with sharding.logical_rules(mesh, {}):
+        params, counts = train_steps(
+            "deepseek-moe-16b (eplocal, 4 x 2 on one card)", cfg, params,
+            make_optimizer("sgd", 1e-3), EP_TRAIN,
+            {flash(cfg): 4, "moe_route_slots": 3 * EP_MESH[0]},
+            moe_strategy="eplocal", steps=1)
+    add(counts)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("mamba2-780m")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(gen, cfg)
+    if n_params(params) != MAMBA2_PARAMS:
+        fail("9 mamba2-780m parameter count")
+    params, counts = train_steps("mamba2-780m (whole)", cfg, params,
+                                 make_optimizer("adam", 1e-4), MAMBA_TRAIN,
+                                 {"ssd_chunk_tc": cfg.num_layers})
+    add(counts)
+    del params
+    torch.cuda.empty_cache()
+
+    # Jamba's first five layers: mamba, mamba_moe, mamba, mamba_moe,
+    # attn_dense (7.15B parameters; Adam's moments would need ~115 GB more)
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=5)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(gen, cfg)
+    sched = cfg.block_schedule()
+    print(f"  9 jamba-v0.1-52b cut to {cfg.num_layers} layers {sched}: "
+          f"{n_params(params)} parameters", flush=True)
+    params, counts = train_steps(
+        "jamba-v0.1-52b slice", cfg, params, make_optimizer("sgd", 1e-3),
+        JAMBA_TRAIN, {"ssd_chunk_tc": sum(s.startswith("mamba")
+                                          for s in sched),
+                      flash(cfg): sum(s.startswith("attn") for s in sched),
+                      "moe_route_slots": sum(s.endswith("moe")
+                                             for s in sched)})
+    add(counts)
+    del params
+    torch.cuda.empty_cache()
+    add(reduced_eplocal_card_vs_cpu(dev))
+    return launches, grad_times
+
+
 def spills(log: str) -> dict:
     """{entry function: spilled bytes (stores + loads)} from ptxas -v."""
     out, entry = {}, None
@@ -4307,6 +4768,14 @@ def main() -> int:
             dev, "whisper-tiny", seq, attention=True,
             cfg=cfg)["flash_attention"]
     print(f"  [8] {time.perf_counter() - t8:.1f}s", flush=True)
+
+    print("[9] training the moe, ssm and hybrid families; expert "
+          "parallelism", flush=True)
+    t9 = time.perf_counter()
+    counts, _ = train_and_expert_parallel(dev)
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"  [9] {time.perf_counter() - t9:.1f}s", flush=True)
 
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],

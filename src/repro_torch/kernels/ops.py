@@ -383,6 +383,15 @@ def flash_kernel(dtype, d: int) -> str:
         and d in FLASH_TC_HEAD_DIMS else "flash_attention"
 
 
+def _plain_grads(fn, inputs, grad_out):
+    """The gradient of the plain version ``fn`` at ``inputs`` (recomputed
+    from detached copies) against ``grad_out``, one per input."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+    return torch.autograd.grad(out, leaves, grad_out)
+
+
 class _FlashAttention(torch.autograd.Function):
     """The flash kernel under autograd: the forward launches the kernel
     (``_flash_forward``); the backward recomputes the plain version
@@ -398,22 +407,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = ref.flash_attention_ref(*qkv, causal=ctx.causal,
-                                          window=ctx.window)
-        return (*torch.autograd.grad(out, qkv, grad_out), None, None)
-
-
-def _no_card_gradient(name: str, *ts) -> None:
-    """A kernel without a gradient, called on the card under autograd with
-    an input that needs one, raises: the moe and ssm families do not train
-    on the card yet. Their plain versions on the CPU differentiate."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            f"{name}: no gradient on the card (training the moe and ssm "
-            f"families there): ROADMAP.md queue 1a, item 11b")
+        fn = lambda q, k, v: ref.flash_attention_ref(
+            q, k, v, causal=ctx.causal, window=ctx.window)
+        return (*_plain_grads(fn, ctx.saved_tensors, grad_out), None, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -561,11 +557,22 @@ def moe_router_topk(logits, k: int):
     (gates [T, k] f32, idx [T, k] int32). The k largest softmax
     probabilities in descending order, the lower expert index first on a
     tie, renormalized by their sum + 1e-9. E <= 512, 1 <= k <= min(E,
-    32)."""
+    32).
+
+    On the card under autograd (logits that need a gradient) the call goes
+    through ``_MoeRouterTopk``: the same launch, the gates' gradient at the
+    kernel's picks."""
     t, e = _check_router("moe_router_topk", logits, k)
     if not _on_card(logits):
         return ref.moe_router_topk_ref(logits, k)
-    _no_card_gradient("moe_router_topk", logits)
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return _MoeRouterTopk.apply(logits, k)
+    return _router_forward(logits, k)
+
+
+def _router_forward(logits, k: int):
+    """The router kernel's launch (inputs already checked)."""
+    t, e = logits.shape
     gates = torch.empty((t, k), dtype=torch.float32, device=logits.device)
     idx = torch.empty((t, k), dtype=torch.int32, device=logits.device)
     if t == 0:
@@ -618,14 +625,24 @@ def moe_route_slots(logits, k: int, cap: int):
     synchronisation, so a CUDA graph may capture it. The kernel keeps a
     persistent scratch per device (``_route_scratch``): calls on one
     device must not overlap in time, and a call at the largest T must
-    run once before a graph captures one."""
+    run once before a graph captures one. Under autograd (logits that need
+    a gradient) the call goes through ``_MoeRouteSlots``: the same launch,
+    the gates' gradient at the kernel's picks; idx, slot and src take
+    none."""
     t, e = _check_router("moe_route_slots", logits, k)
     if cap < 1 or e * cap >= 2 ** 31 or t * k >= 2 ** 31:
         raise ValueError(f"moe_route_slots: cap = {cap}, T*k = {t * k}; "
                          f"need cap >= 1 and E*cap, T*k below 2**31")
     if not _on_card(logits):
         return ref.moe_route_slots_ref(logits, k, cap)
-    _no_card_gradient("moe_route_slots", logits)
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return _MoeRouteSlots.apply(logits, k, cap)
+    return _route_slots_forward(logits, k, cap)
+
+
+def _route_slots_forward(logits, k: int, cap: int):
+    """The route-and-slot kernel's launch (inputs already checked)."""
+    t, e = logits.shape
     dev = logits.device
     gates = torch.empty((t, k), dtype=torch.float32, device=dev)
     idx = torch.empty((t, k), dtype=torch.int32, device=dev)
@@ -668,7 +685,9 @@ def ssd_chunk(C, B, acum, dt, x):
     ``ssd_chunk_tc`` (mma.sync TF32 in three products per product, so
     fp32-accurate, cp.async loads), P = 16 the SIMT ``ssd_chunk`` (fp32
     FMAs). Both take the same arguments and are held to the same limit,
-    1e-5 * max|y|."""
+    1e-5 * max|y|. Under autograd (an input that needs a gradient) the call
+    goes through ``_SsdChunk``: the same launch, the gradient of the plain
+    version recomputed for all five inputs."""
     if x.dim() != 4:
         raise ValueError(f"x: expected [G, H, T, P], got {tuple(x.shape)}")
     g, h, t, p = x.shape
@@ -690,7 +709,17 @@ def ssd_chunk(C, B, acum, dt, x):
         raise ValueError("ssd_chunk: x must have its head dim contiguous")
     if not _on_card(C, B, acum, dt, x):
         return ref.ssd_chunk_ref(C, B, acum, dt, x)
-    _no_card_gradient("ssd_chunk", C, B, acum, dt, x)
+    args = (C, B, acum, dt, x)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _SsdChunk.apply(*args)
+    return _ssd_forward(*args)
+
+
+def _ssd_forward(C, B, acum, dt, x):
+    """The SSD kernel's card-side branch of ``ssd_chunk`` (inputs already
+    checked but for what the kernel takes)."""
+    g, h, t, p = x.shape
+    n = C.shape[-1]
     if g > 65535:
         raise ValueError(f"ssd_chunk: G = {g} > 65535")
     # C, B and x rows are copied 16 bytes at a time
@@ -705,3 +734,67 @@ def ssd_chunk(C, B, acum, dt, x):
                    acum.data_ptr(), dt.data_ptr(), x.data_ptr(),
                    y.data_ptr(), g, h, t, n, p, *x.stride()[:3],
                    *y.stride()[:3])
+
+
+def _gates_grad(ctx, grad_gates):
+    """The router kernels' backward: the gradient of the gates at the
+    saved picks (``ref.router_gates_at``) with respect to the saved
+    logits."""
+    logits, idx = ctx.saved_tensors
+    g, = _plain_grads(lambda lg: ref.router_gates_at(lg, idx), (logits,),
+                      grad_gates)
+    return g
+
+
+class _MoeRouterTopk(torch.autograd.Function):
+    """The router kernel under autograd: the forward launches it
+    (``_router_forward``); the backward differentiates the gates at the
+    kernel's own picks (``ref.router_gates_at``: the softmax gathered at
+    idx, renormalised), never by picking again, so a tie or a near-tie
+    cannot move the gradient to other experts. idx takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, k):
+        gates, idx = _router_forward(logits, k)
+        ctx.save_for_backward(logits, idx)
+        ctx.mark_non_differentiable(idx)
+        return gates, idx
+
+    @staticmethod
+    def backward(ctx, grad_gates, _):
+        return _gates_grad(ctx, grad_gates), None
+
+
+class _MoeRouteSlots(torch.autograd.Function):
+    """The route-and-slot kernel under autograd: the forward launches it
+    (``_route_slots_forward``); the backward is ``_MoeRouterTopk``'s, at
+    the kernel's own picks. idx, slot and src take no gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, k, cap):
+        gates, idx, slot, src = _route_slots_forward(logits, k, cap)
+        ctx.save_for_backward(logits, idx)
+        ctx.mark_non_differentiable(idx, slot, src)
+        return gates, idx, slot, src
+
+    @staticmethod
+    def backward(ctx, grad_gates, *_):
+        return _gates_grad(ctx, grad_gates), None, None
+
+
+class _SsdChunk(torch.autograd.Function):
+    """The SSD kernel under autograd: the forward launches it
+    (``_ssd_forward``); the backward recomputes the plain version
+    (``ref.ssd_chunk_ref``) from the saved C, B, acum, dt, x and returns
+    its gradient for all five (in Mamba2 acum and dt come from dt and A, so
+    all five carry one). No backward kernel exists (the JAX package has
+    none)."""
+
+    @staticmethod
+    def forward(ctx, C, B, acum, dt, x):
+        ctx.save_for_backward(C, B, acum, dt, x)
+        return _ssd_forward(C, B, acum, dt, x)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        return _plain_grads(ref.ssd_chunk_ref, ctx.saved_tensors, grad_y)

@@ -137,13 +137,26 @@ def moe_router_topk_ref(logits, k: int):
     softmax (exp(x - max) / sum), its k largest entries in descending order
     with the lower expert index first on a tie (a stable sort; torch.topk
     promises no tie order), renormalized by their sum + 1e-9."""
-    x = logits.float()
-    ex = torch.exp(x - x.max(dim=-1, keepdim=True).values)
-    probs = ex / ex.sum(dim=-1, keepdim=True)
+    probs = _router_softmax(logits)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     vals, idx = vals[:, :k], idx[:, :k]
     gates = vals / (vals.sum(dim=-1, keepdim=True) + 1e-9)
     return gates, idx.to(torch.int32)
+
+
+def _router_softmax(logits):
+    """The routers' fp32 softmax, exp(x - max) / sum."""
+    x = logits.float()
+    ex = torch.exp(x - x.max(dim=-1, keepdim=True).values)
+    return ex / ex.sum(dim=-1, keepdim=True)
+
+
+def router_gates_at(logits, idx):
+    """The gates of ``moe_router_topk_ref`` at given picks idx [T, k]: the
+    softmax gathered at idx, renormalized by its sum + 1e-9. The router
+    kernels' backward differentiates this at the kernel's own picks."""
+    vals = _router_softmax(logits).gather(1, idx.long())
+    return vals / (vals.sum(dim=-1, keepdim=True) + 1e-9)
 
 
 def route_slots_ref(idx, num_experts: int, cap: int):

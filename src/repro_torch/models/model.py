@@ -154,10 +154,10 @@ def loss_fn(params, cfg: ModelConfig, batch, *, moe_strategy="grouped"):
     ``tokens`` and ``labels`` [B, S]; labels below 0 are masked out.
     Returns (loss, {"ce", "aux"}).
 
-    On the card the dense family's attention runs the flash kernel under
-    autograd (``ops.flash_attention``: the kernel forward, the plain
-    version's gradient); the MoE router and SSD kernels have no gradient
-    there yet and raise (ROADMAP.md queue 1a, item 11b). On the CPU every
+    On the card every kernel runs under autograd as its forward with the
+    plain version's gradient (``ops.flash_attention``, ``ops.ssd_chunk``;
+    the routers' gates differentiated at the kernel's own picks,
+    ``ops.moe_route_slots`` and ``ops.moe_router_topk``). On the CPU every
     family trains through the plain versions."""
     logits, aux = forward(params, cfg, batch, moe_strategy=moe_strategy)
     logits = logits[:, :-1].float()

@@ -19,7 +19,9 @@ Two dispatch strategies, as in the reference:
                 pack is one gather and the combine another, with no host
                 synchronisation.
 
-``eplocal`` (expert parallelism across devices) is not ported yet.
+``eplocal`` / ``eplocal_fp8`` — expert parallelism over the ("data",
+"model") mesh of the active sharding context (``models.moe_eplocal``; the
+fp8 variant quantizes the dispatch).
 """
 from __future__ import annotations
 
@@ -143,11 +145,11 @@ def moe_grouped(params, cfg: ModelConfig, x, capacity_factor: float = 1.25):
 
 
 def moe_ffn(params, cfg: ModelConfig, x, strategy: str = "grouped"):
-    """x: [B, S, D] -> ([B, S, D], aux_loss). strategies: dense | grouped."""
+    """x: [B, S, D] -> ([B, S, D], aux_loss). strategies: dense | grouped |
+    eplocal | eplocal_fp8 (expert parallelism; needs a mesh context)."""
     if strategy.startswith("eplocal"):
-        raise NotImplementedError(
-            "moe_strategy='eplocal*' (expert parallelism) is not ported yet: "
-            "ROADMAP.md queue 1a, item 9")
+        from repro_torch.models.moe_eplocal import moe_eplocal
+        return moe_eplocal(params, cfg, x, a2a_fp8=strategy.endswith("fp8"))
     b_, s, d = x.shape
     flat = x.reshape(b_ * s, d)
     if strategy == "dense":

@@ -1,6 +1,6 @@
-"""Worker-axis sharding (port of the worker-axis part of
-``repro.sharding``): the W (or enrolled-N) rows of every per-worker buffer
-split over an ordered list of torch devices, one per shard.
+"""Sharding (port of ``repro.sharding``). Worker-axis sharding: the W (or
+enrolled-N) rows of every per-worker buffer split over an ordered list of
+torch devices, one per shard.
 
 The reference shards over a 1-D mesh of one process's local devices and
 lets GSPMD place every ``[W, ...]`` leaf. Here the placement is explicit:
@@ -18,14 +18,22 @@ shards on the CPU. This stands in for the reference's
 ``XLA_FLAGS=--xla_force_host_platform_device_count=N``, which torch has
 no counterpart of. Distinct cards make the block copies peer copies.
 
-The logical-axis rules of the reference module (``logical_rules``,
-``resolve_spec``, ``constrain``, ``named_sharding``) serve model
-parallelism and are not part of this port yet (ROADMAP.md, queue 1a,
-items 9, 10 and 12).
+The model-parallel part is the device mesh that expert parallelism
+(``models.moe_eplocal``) reads: ``Mesh``, a grid of devices with named
+axes (``("data", "model")``), made by ``make_mesh`` from a device list as
+``WorkerShards`` is (``["cuda:0"] * 8`` puts a 4 x 2 mesh on one card),
+and installed by ``logical_rules``, whose context ``_ctx()`` holds it as
+the reference's does. The reference's logical-axis resolution
+(``resolve_spec``, ``constrain``, ``named_sharding``) places GSPMD arrays
+on a TPU mesh and is not ported (ROADMAP.md, queue 1a, item 12): the
+rules ``logical_rules`` installs are kept but read by nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
+import threading
 import warnings
 from typing import Optional, Sequence
 
@@ -34,6 +42,79 @@ import torch
 from repro_torch.device import resolve_device
 
 _DEMOTION_WARNED: set = set()
+_state = threading.local()
+
+
+def _ctx():
+    """The thread's sharding context: ``rules`` and ``mesh`` (None
+    outside ``logical_rules``)."""
+    if not hasattr(_state, "rules"):
+        _state.rules = None
+        _state.mesh = None
+    return _state
+
+
+@contextlib.contextmanager
+def logical_rules(mesh, rules: dict):
+    """Install a mesh (and the reference's logical -> mesh-axis rules, kept
+    for its signature) for the model code under this context."""
+    s = _ctx()
+    prev = (s.rules, s.mesh)
+    s.rules, s.mesh = rules, mesh
+    try:
+        yield
+    finally:
+        s.rules, s.mesh = prev
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A grid of devices with named axes: ``devices[i][j]`` is the device
+    at index i of the first axis and j of the second (a device may
+    repeat). ``shape`` maps each axis name to its size, as a JAX mesh's
+    does."""
+    devices: tuple
+    axis_names: tuple
+
+    @property
+    def shape(self) -> dict:
+        sizes, grid = [], self.devices
+        for _ in self.axis_names:
+            sizes.append(len(grid))
+            grid = grid[0]
+        return dict(zip(self.axis_names, sizes))
+
+
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A ``Mesh`` of ``shape`` over a flat device list in row-major order
+    (the reference's ``jax.make_mesh``). ``devices`` such as ``["cuda:0"]
+    * 8`` or ``["cpu"] * 8`` may repeat a device; without it the mesh takes
+    the first prod(shape) visible cards, raising ``ValueError`` when fewer
+    are visible."""
+    shape, names = tuple(int(n) for n in shape), tuple(axis_names)
+    if len(shape) != len(names) or min(shape, default=0) < 1:
+        raise ValueError(f"make_mesh: shape {shape} for axes {names}")
+    n = math.prod(shape)
+    if devices is None:
+        visible = torch.cuda.device_count()
+        if n > visible:
+            raise ValueError(f"make_mesh: a {shape} mesh needs {n} devices "
+                             f"but only {visible} are visible (pass devices="
+                             f"['cuda:0'] * {n} to put it on one card)")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    devs = [resolve_device(d) for d in devices]
+    if len(devs) != n:
+        raise ValueError(f"make_mesh: {len(devs)} devices for a {shape} "
+                         f"mesh")
+
+    def grid(flat, dims):
+        if len(dims) == 1:
+            return tuple(flat)
+        step = len(flat) // dims[0]
+        return tuple(grid(flat[i * step:(i + 1) * step], dims[1:])
+                     for i in range(dims[0]))
+    return Mesh(grid(devs, shape), names)
 
 
 def tree_map(fn, tree):

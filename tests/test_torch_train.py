@@ -14,8 +14,12 @@
   given gradients, and the schedules, within 1e-6.
 * The checkpoint files: a tree the port saves loads in the reference and
   the other way round, bf16 words bit for bit, the files byte for byte.
-* The flash kernel's autograd wrapper on the CPU, and the no-gradient guard
-  of the MoE router and SSD kernels on the card side.
+* The flash kernel's autograd wrapper on the CPU, and the router and SSD
+  kernels' autograd Functions on the card side (``ops._on_card`` forced,
+  ``ops._launch`` filling the kernels' outputs from their plain versions):
+  gradients equal the plain versions', the routers' at the kernel's own
+  picks on a tie. The reduced DeepSeekMoE, Mamba2 and Jamba also take
+  their loss and two train steps through that card side.
 * The geometry channel's half-mass tie on its recorded inputs (ROADMAP.md
   queue 3, item 3): the reference's float32 ``weighted_median`` leaves the
   exact lower weighted median there, the port's ``anchored_median`` does
@@ -23,6 +27,7 @@
 """
 from __future__ import annotations
 
+import ctypes
 import zipfile
 
 import jax
@@ -117,23 +122,110 @@ def batches(cfg, b=2, s=16, seed=0):
     return jb, tb
 
 
+def at(ptr: int, shape, strides, dtype):
+    """A CPU tensor over the memory at ``ptr`` (a kernel argument), of
+    ``shape`` and element ``strides``."""
+    span = 1 + sum((n - 1) * st for n, st in zip(shape, strides))
+    size = torch.tensor([], dtype=dtype).element_size()
+    buf = (ctypes.c_char * (span * size)).from_address(ptr)
+    return torch.frombuffer(buf, dtype=dtype, count=span).as_strided(
+        shape, strides)
+
+
+def contiguous(shape):
+    return torch.empty(shape).stride()
+
+
+CODE_DTYPE = {0: torch.float32, 1: torch.bfloat16}
+
+
+def emulated_launch(calls):
+    """An ``ops._launch`` for CPU tensors: it reads the kernel's inputs and
+    writes its outputs through the pointers the wrapper passes, computing
+    them with the plain version, and records the kernel's name."""
+    def launch(name, out, *a):
+        calls.append(name)
+        if name in ("moe_router", "moe_route_slots"):
+            t, e, k = a[-4:-1] if name == "moe_router" else a[7:10]
+            logits = at(a[0], (t, e), (e, 1), CODE_DTYPE[a[-1]])
+            if name == "moe_router":
+                got = ref.moe_router_topk_ref(logits, k)
+                shapes = [(t, k)] * 2
+            else:
+                cap = a[10]
+                got = ref.moe_route_slots_ref(logits, k, cap)
+                shapes = [(t, k)] * 3 + [(e * cap,)]
+            for ptr, shape, v in zip(a[1:], shapes, got):
+                at(ptr, shape, contiguous(shape), v.dtype).copy_(v)
+        elif name.startswith("ssd_chunk"):
+            g, h, t, n, p = a[6:11]
+            C, B = (at(ptr, (g, t, n), contiguous((g, t, n)), torch.float32)
+                    for ptr in a[:2])
+            acum, dt = (at(ptr, (g, h, t), contiguous((g, h, t)),
+                           torch.float32) for ptr in a[2:4])
+            x = at(a[4], (g, h, t, p), a[11:14] + (1,), torch.float32)
+            out.copy_(ref.ssd_chunk_ref(C, B, acum, dt, x))
+        else:                                    # the flash kernels
+            tc = name == "flash_attention_tc"
+            b, h = (a[4], a[5]) if tc else (a[4] // a[5], a[5])
+            sq, sk, d = a[6:9]
+            dtype = torch.bfloat16 if tc else CODE_DTYPE[a[-1]]
+            q = at(a[0], (b, h, sq, d), a[9:12] + (1,), dtype)
+            k, v = (at(ptr, (b, h, sk, d), a[12:15] + (1,), dtype)
+                    for ptr in a[1:3])
+            out.copy_(ref.flash_attention_ref(q, k, v, causal=bool(a[18]),
+                                              window=a[19]))
+        return out
+    return launch
+
+
+def card_side(monkeypatch):
+    """Run the wrappers' card-side branches on CPU tensors; returns the
+    list of kernels launched."""
+    calls = []
+    monkeypatch.setattr(ops, "_ROUTE_SCRATCH", {})
+    monkeypatch.setattr(ops, "_ROUTE_RETIRED", [])
+    monkeypatch.setattr(ops, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(ops, "_launch", emulated_launch(calls))
+    return calls
+
+
+# trained here also through the card-side branches, with the kernels
+# each must launch
+CARD_SIDE = {"deepseek-moe-16b": {"flash_attention", "moe_route_slots"},
+             "mamba2-780m": {"ssd_chunk_tc"},
+             "jamba-v0.1-52b": {"flash_attention", "moe_route_slots",
+                                "ssd_chunk_tc"}}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
-def test_loss_and_train_step_match_jax(arch):
-    jcfg, cfg, jp, tp = pair(arch)
+def test_loss_and_train_step_match_jax(arch, monkeypatch):
+    """Loss and two SGD steps; the moe, ssm and hybrid families a second
+    time through the card-side branches (the kernels' autograd
+    Functions), against the same reference step."""
+    jcfg, cfg, jp, tp0 = pair(arch)
     jb, tb = batches(cfg)
     jloss, jm = jmodel.loss_fn(jp, jcfg, jb)
-    loss, m = model.loss_fn(tp, cfg, tb)
-    np.testing.assert_allclose(float(loss), float(jloss), **TOL)
-    np.testing.assert_allclose(float(m["ce"]), float(jm["ce"]), **TOL)
-    jopt, opt = jmake_optimizer("sgd", 0.05), make_optimizer("sgd", 0.05)
+    jopt = jmake_optimizer("sgd", 0.05)
     jstep = jax.jit(jsteps.build_train_step(jcfg, jopt))
-    tstep = steps.build_train_step(cfg, opt)
-    js, ts = jopt.init(jp), opt.init(tp)
+    js, jlosses = jopt.init(jp), []
     for i in range(2):
         jp, js, _, jl = jstep(jp, js, jnp.int32(i), jb)
-        tp, ts, _, tl = tstep(tp, ts, i, tb)
-        np.testing.assert_allclose(float(tl), float(jl), **TOL)
-    assert_tree_close(tp, jp)
+        jlosses.append(float(jl))
+    for card in (False, True) if arch in CARD_SIDE else (False,):
+        calls = card_side(monkeypatch) if card else []
+        loss, m = model.loss_fn(tp0, cfg, tb)
+        np.testing.assert_allclose(float(loss), float(jloss), **TOL)
+        np.testing.assert_allclose(float(m["ce"]), float(jm["ce"]), **TOL)
+        opt = make_optimizer("sgd", 0.05)
+        tstep = steps.build_train_step(cfg, opt)
+        tp, ts = tp0, opt.init(tp0)
+        for i in range(2):
+            tp, ts, _, tl = tstep(tp, ts, i, tb)
+            np.testing.assert_allclose(float(tl), jlosses[i], **TOL)
+        assert_tree_close(tp, jp)
+        if card:
+            assert set(calls) == CARD_SIDE[arch]
 
 
 def test_microbatched_step_equals_full_batch_and_the_reference():
@@ -352,23 +444,70 @@ def test_flash_attention_trains_through_its_autograd_function():
 
 
 @pytest.mark.parametrize("kernel", ["moe_router_topk", "moe_route_slots",
-                                    "ssd_chunk"])
+                                    "ssd_chunk", "moe_router_topk-tie"])
 def test_kernels_without_a_gradient_refuse_training_on_the_card(
         kernel, monkeypatch):
-    monkeypatch.setattr(ops, "_on_card", lambda *ts: True)
-    monkeypatch.setattr(ops, "_launch", lambda *a: pytest.fail("launched"))
-    logits = torch.randn(8, 16, requires_grad=True)
+    """(The kernels refused autograd on the card until they had a gradient;
+    this now checks the gradient that replaced the refusal.) On the card
+    side, with the launch emulated by the plain version, a call under
+    autograd goes through its Function (one launch) and its gradients
+    equal the plain version's; the SSD term's for all five inputs. The
+    tie case: two equal logits at the k-th place, and a kernel that picks
+    the higher index of the two (the plain version picks the lower): the
+    gradient is that of the gates at the kernel's picks."""
+    calls = card_side(monkeypatch)
+    g = torch.Generator().manual_seed(0)
     if kernel == "ssd_chunk":
-        args = [torch.randn(1, 8, 16), torch.randn(1, 8, 16),
-                torch.randn(1, 2, 8), torch.rand(1, 2, 8),
-                torch.randn(1, 2, 8, 32, requires_grad=True)]
-        call = lambda: ops.ssd_chunk(*args)
-    elif kernel == "moe_router_topk":
-        call = lambda: ops.moe_router_topk(logits, 2)
+        args = [torch.randn(1, 8, 16, generator=g),
+                torch.randn(1, 8, 16, generator=g),
+                -torch.rand(1, 2, 8, generator=g).cumsum(-1),
+                torch.rand(1, 2, 8, generator=g),
+                torch.randn(1, 8, 2, 32, generator=g).transpose(1, 2)]
+        args = [a.requires_grad_() for a in args]
+        out = ops.ssd_chunk(*args)
+        go = torch.randn(out.shape, generator=g)
+        want = torch.autograd.grad(ref.ssd_chunk_ref(*args), args, go)
+        assert type(out.grad_fn).__name__ == "_SsdChunkBackward"
+        assert calls == ["ssd_chunk_tc"]
+        for a, b in zip(torch.autograd.grad(out, args, go), want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        return
+    logits = torch.randn(8, 16, generator=g)
+    if kernel.endswith("tie"):
+        logits = logits.clamp(max=0.0)
+        logits[:, 0] = 2.0
+        logits[:, 5] = logits[:, 6] = 1.0           # the tie at k = 2
+        plain = emulated_launch(calls)
+
+        def higher_of_the_tie(name, out, *a):
+            plain(name, out, *a)
+            idx = at(a[2], (8, 2), (2, 1), torch.int32)
+            idx[idx == 5] = 6
+            return out
+        monkeypatch.setattr(ops, "_launch", higher_of_the_tie)
+    logits.requires_grad_()
+    k = 2
+    if kernel.startswith("moe_router_topk"):
+        gates, idx = ops.moe_router_topk(logits, k)
+        name, fn = "moe_router", "_MoeRouterTopkBackward"
     else:
-        call = lambda: ops.moe_route_slots(logits, 2, 4)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        call()
+        gates, idx, slot, src = ops.moe_route_slots(logits, k, 4)
+        name, fn = "moe_route_slots", "_MoeRouteSlotsBackward"
+        assert not slot.requires_grad and not src.requires_grad
+    assert calls == [name] and type(gates.grad_fn).__name__ == fn
+    assert not idx.requires_grad
+    go = torch.randn(gates.shape, generator=g)
+    got, = torch.autograd.grad(gates, logits, go)
+    want, = torch.autograd.grad(ref.router_gates_at(logits, idx), logits, go)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    pgates, pidx = ref.moe_router_topk_ref(logits, k)
+    plain, = torch.autograd.grad(pgates, logits, go)
+    if kernel.endswith("tie"):
+        assert (idx == 6).any() and not (pidx == 6).any()
+        assert not torch.equal(got, plain)
+    else:
+        assert torch.equal(idx, pidx)
+        torch.testing.assert_close(got, plain, rtol=0, atol=0)
 
 
 # the recorded half-mass ties (ROADMAP.md queue 3, item 3): per row the
