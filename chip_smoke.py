@@ -274,11 +274,16 @@
    recomputed backward and plain forward + backward timed. Full-width
    ``build_train_step`` steps, bf16, random weights from a seed:
    DeepSeekMoE-16B cut to its dense first layer and three MoE layers (Adam,
-   B = 2, S = 512, grouped dispatch; 4 tensor-core flash + 3 route-and-slot
-   launches a step), Mamba2-780M whole (Adam, B = 2, S = 1,024; 48
-   ``ssd_chunk_tc``), Jamba's first five layers (mamba, mamba_moe, mamba,
-   mamba_moe, attn_dense; SGD, B = 1, S = 1,024; 4 + 1 + 2): losses and
-   gradient norms finite, exact launches a step, ms a step, peak memory.
+   B = 2, S = 512, grouped dispatch; 7 tensor-core flash + 6
+   route-and-slot launches a step), Mamba2-780M whole (Adam, B = 2, S =
+   1,024; 96 ``ssd_chunk_tc``), Jamba's first five layers (mamba,
+   mamba_moe, mamba, mamba_moe, attn_dense; SGD, B = 1, S = 1,024; 4 + 1
+   + 2): losses and gradient norms finite, exact launches a step, ms a
+   step, peak memory. Both full configs set ``remat``: each repeat of a
+   scanned stack (DeepSeekMoE's three MoE layers, Mamba2's 48) runs under
+   ``torch.utils.checkpoint`` and recomputes its forward in the backward,
+   so its kernels launch twice a step; the Jamba slice's five layers
+   repeat no pattern, are not scanned and launch once.
    Expert parallelism on a (4, 2) ("data", "model") mesh on
    ``["cuda:0"] * 8``, one full-width DeepSeekMoE MoE layer in bf16:
    ``eplocal`` at B = 4, S = 512 against ``grouped`` at ``cap_factor=8``
@@ -286,8 +291,21 @@
    bytes beside bf16's, the replicated path at B = 1, S = 4,096 against
    ``dense``, each call's ms and device operations beside the one-device
    dispatch's; one train step of the cut DeepSeekMoE through ``eplocal``
-   (12 route-and-slot launches); the reduced f32 DeepSeekMoE's ``eplocal``
-   loss and gradient card vs CPU (``["cpu"] * 8``) within 1e-4.
+   (24 route-and-slot launches, 12 of them the recompute's); the reduced
+   f32 DeepSeekMoE's ``eplocal`` loss and gradient card vs CPU (``["cpu"]
+   * 8``) within 1e-4.
+10. Launch costing (``launch.dryrun``): three pairs of the dry run, each
+   cut to fit the card (``COSTING_PAIRS``: qwen3-0.6b ``train_4k`` at B =
+   2, S = 4,096 with Adam and remat; deepseek-moe-16b ``prefill_32k`` at
+   B = 1, expert parallelism's replicated path, and at B = 8, S = 4,096,
+   its all_to_all path; mamba2-780m ``prefill_32k`` at B = 1), counted on
+   meta and then run on
+   the card under the same counter (``dryrun.measure``): the card's
+   counted flops, bytes and kernel calls equal the meta count's, the
+   launches of ``flash_attention_tc``, ``moe_router``, ``moe_route_slots``
+   and ``ssd_chunk_tc`` equal the counted calls, and the measured peak less
+   what stood before the pair's state lies within 10 % or 256 MB of the
+   meta peak; prints the step's ms and the roofline share.
 
 Exits non-zero, before the last line, on any failure or without a card.
 The last lines are the card's name and power limit, one JSON object with
@@ -309,10 +327,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-FP32_FLOPS = 67e12                 # H100 SXM, fp32 outside tensor cores
-BF16_FLOPS = 989e12                # H100 SXM, bf16 tensor cores, dense
-TF32_FLOPS = 495e12                # H100 SXM, TF32 tensor cores, dense
 REPLACES = {
     "gossip_mix": "src/repro/kernels/gossip_mix.py:40",
     "gossip_mix_sparse": "src/repro/kernels/gossip_mix_sparse.py:66",
@@ -636,25 +650,14 @@ def device_ms(fn, calls: int = 50, repeats: int = 7) -> float:
     return statistics.median(times)
 
 
+# The five bounds live in launch/roofline.py, built from the kernels' costs
+# (kernels/cost.py); they are imported at call time, after main() has put
+# src/ on the path.
 def bound(name, w, k_nnz, k_slots, f, in_bytes, tensor_cores=False):
-    """(bound_ms, bound_by): bytes over the card's memory rate vs the
-    operations over their peak rate, each input read once and the output
-    written once. The operations are fp32 FMAs on the CUDA cores, or, for
-    the dense mix's tile regime (``tensor_cores``), its TF32 products on
-    the tensor cores: three per product for an f32 payload, two for bf16
-    and int8."""
-    if name == "gossip_mix":
-        nbytes = w * f * in_bytes + w * f * 4 + w * w * 4
-        flops = 2 * w * w * f
-    else:
-        nbytes = w * f * in_bytes + w * f * 4 + w * k_slots * 8
-        nbytes += w * 4 if name == "gossip_mix_quant" else 0
-        flops = 2 * k_nnz * f
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    if tensor_cores:
-        t_ops = (3 if in_bytes == 4 else 2) * flops / TF32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
-        else "operations"
+    """``launch.roofline.bound`` (the kernel costs' one source)."""
+    from repro_torch.launch import roofline
+    return roofline.bound(name, w, k_nnz, k_slots, f, in_bytes,
+                          tensor_cores=tensor_cores)
 
 
 def time_kernels(dev, tag, w, kp, f):
@@ -998,27 +1001,15 @@ def check_grouped_capture(dev):
 
 
 def flash_bound(b, h, s, d, itemsize, causal=True, sk=None):
-    """(bound_ms, bound_by): q and out [B, H, S, D], k and v [B, H, Sk, D]
-    (Sk = S unless given) read or written once, against 4*D flops per
-    visible (q, k) pair at the bf16 tensor-core peak (bf16 inputs) or the
-    fp32 CUDA-core peak."""
-    sk = s if sk is None else sk
-    pairs = s * (s + 1) // 2 if causal else s * sk
-    nbytes = 2 * b * h * (s + sk) * d * itemsize
-    flops = 4 * b * h * pairs * d
-    peak = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
-        else "operations"
+    """``launch.roofline.flash_bound`` (the kernel costs' one source)."""
+    from repro_torch.launch import roofline
+    return roofline.flash_bound(b, h, s, d, itemsize, causal=causal, sk=sk)
 
 
 def router_bound(t, e, k, itemsize):
-    """Logits read once, gates and indices written once, against the
-    softmax's 3 and the k rounds' k fp32 operations per logit."""
-    nbytes = t * e * itemsize + t * k * 8
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, t * e * (3 + k) / FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
-        else "operations"
+    """``launch.roofline.router_bound`` (the kernel costs' one source)."""
+    from repro_torch.launch import roofline
+    return roofline.router_bound(t, e, k, itemsize)
 
 
 def simt_flash(q, k, v, causal=True):
@@ -1117,12 +1108,10 @@ def time_encdec_flash(dev):
 
 
 def route_slots_bound(t, e, k, cap, itemsize):
-    """Logits read once; gates, indices, slots and the inverse map written
-    once; against ``router_bound``'s operations."""
-    nbytes = t * e * itemsize + t * k * 12 + e * cap * 4
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, t * e * (3 + k) / FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
-        else "operations"
+    """``launch.roofline.route_slots_bound`` (the kernel costs' one
+    source)."""
+    from repro_torch.launch import roofline
+    return roofline.route_slots_bound(t, e, k, cap, itemsize)
 
 
 def replaced_route(x, k, cap):
@@ -1187,25 +1176,9 @@ def ssd_inputs(gen, b, s, h, n, p, chunk, dev):
 
 
 def ssd_bound(g, h, t, n, p):
-    """(bound_ms, bound_by, cuda_core_ms) of the SSD intra-chunk term for a
-    kernel on the tensor cores: C, B, acum, dt, x read and y written once
-    (fp32) over the memory rate, against the operations: the products (2N
-    flops per causal (q, k) pair for the scores, 2P per pair and head for
-    w . x), three TF32 products each in 3xTF32, at the TF32 tensor-core
-    rate, and the exponent and the two scalings (4 per pair and head) at
-    the fp32 CUDA-core rate; the two pipes run side by side, so the larger
-    of the two. ``cuda_core_ms`` is the earlier yardstick, every operation
-    (2N per pair, 2P + 4 per pair and head) at the fp32 CUDA-core rate,
-    which the SIMT kernel cannot beat but a tensor-core kernel can."""
-    pairs = t * (t + 1) // 2
-    nbytes = 4 * (2 * g * t * n + 2 * g * h * t + 2 * g * h * t * p)
-    products = g * pairs * (2 * n + 2 * p * h)
-    scalar = g * pairs * h * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(3 * products / TF32_FLOPS, scalar / FP32_FLOPS)
-    cuda_core = max(t_bytes, (products + scalar) / FP32_FLOPS)
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
-        else "operations", cuda_core * 1e3
+    """``launch.roofline.ssd_bound`` (the kernel costs' one source)."""
+    from repro_torch.launch import roofline
+    return roofline.ssd_bound(g, h, t, n, p)
 
 
 # (tag, batch, seq, heads, d_state, head_dim, chunk); G = batch * seq / chunk
@@ -4333,8 +4306,11 @@ def train_steps(label, cfg, params, opt, shape, want, moe_strategy="grouped",
                 steps=TRAIN_STEPS):
     """``steps`` ``build_train_step`` steps on the card from ``params`` on
     a batch of random tokens and labels of ``shape``: each step's loss and
-    gradient norm finite, exactly ``want`` kernel launches a step (forward
-    launches; the recomputed backwards launch none; 0 for the others).
+    gradient norm finite, exactly ``want`` kernel launches a step (the
+    forward's, and again those of every scanned layer under ``remat``,
+    whose checkpoint recomputes its forward in the backward; the
+    Functions' recomputed plain backwards launch none; 0 for the
+    others).
     Prints the losses, norms, ms a step and peak memory; returns (the
     params, the launches of the run)."""
     from repro_torch.kernels import ops
@@ -4584,7 +4560,7 @@ def train_and_expert_parallel(dev):
     params, counts = train_steps(
         "deepseek-moe-16b (grouped)", cfg, params,
         make_optimizer("adam", 1e-4), MOE_TRAIN,
-        {flash(cfg): 4, "moe_route_slots": 3})
+        {flash(cfg): 4 + 3, "moe_route_slots": 3 + 3})
     add(counts)
     # the first MoE layer (views of the stacked leaves of a scanned stack)
     moe_p = {k: v[0] for k, v in params["scan"]["0"]["moe"].items()} \
@@ -4596,7 +4572,7 @@ def train_and_expert_parallel(dev):
         params, counts = train_steps(
             "deepseek-moe-16b (eplocal, 4 x 2 on one card)", cfg, params,
             make_optimizer("sgd", 1e-3), EP_TRAIN,
-            {flash(cfg): 4, "moe_route_slots": 3 * EP_MESH[0]},
+            {flash(cfg): 4 + 3, "moe_route_slots": 2 * 3 * EP_MESH[0]},
             moe_strategy="eplocal", steps=1)
     add(counts)
     del params
@@ -4609,7 +4585,7 @@ def train_and_expert_parallel(dev):
         fail("9 mamba2-780m parameter count")
     params, counts = train_steps("mamba2-780m (whole)", cfg, params,
                                  make_optimizer("adam", 1e-4), MAMBA_TRAIN,
-                                 {"ssd_chunk_tc": cfg.num_layers})
+                                 {"ssd_chunk_tc": 2 * cfg.num_layers})
     add(counts)
     del params
     torch.cuda.empty_cache()
@@ -4634,6 +4610,71 @@ def train_and_expert_parallel(dev):
     torch.cuda.empty_cache()
     add(reduced_eplocal_card_vs_cpu(dev))
     return launches, grad_times
+
+
+# ---------------------------------------------------------------------------
+# [10] launch costing: the dry run's counts against the card's
+# ---------------------------------------------------------------------------
+
+# (arch, shape, cut batch, cut length): each pair of the dry run at a cut
+# that fits the card (0 keeps the shape's length). DeepSeekMoE's batch of
+# 1 takes expert parallelism's replicated path (the router kernel); its
+# batch of 8 at a cut length the all_to_all path (route-and-slot)
+COSTING_PAIRS = (("qwen3-0.6b", "train_4k", 2, 0),
+                 ("deepseek-moe-16b", "prefill_32k", 1, 0),
+                 ("deepseek-moe-16b", "prefill_32k", 8, 4096),
+                 ("mamba2-780m", "prefill_32k", 1, 0))
+# the measured peak against the meta count: allocator rounding and
+# library workspaces (cuBLAS) are not tensors
+PEAK_MARGIN, PEAK_FLOOR = 0.10, 256e6
+
+
+def launch_costing(dev):
+    """Phase [10]: each pair of ``COSTING_PAIRS`` through
+    ``dryrun.measure`` (its policies: Adam and remat for the train pair,
+    ``eplocal`` on a ("data", "model") = (8, 1) mesh of ``dev`` repeated
+    for the MoE, whose batch of 1 takes the replicated path): the counted
+    flops, bytes and kernel calls on the card equal the meta count's at
+    the same cut, the launches equal the counted calls (and are above
+    zero), and the measured peak (``max_memory_allocated`` less what
+    stood before the pair's state) lies within ``PEAK_MARGIN`` or
+    ``PEAK_FLOOR`` of the meta peak. Prints each pair's counts, the peak
+    gap, the step's ms and the roofline share; returns {kernel:
+    launches}."""
+    from repro_torch.launch import dryrun
+    launches = {}
+    for arch, shape, batch, seq in COSTING_PAIRS:
+        r = dryrun.measure(arch, shape, batch=batch, seq=seq, device=dev,
+                           repeats=2)
+        m, d = r["meta"], r["device"]
+        label = f"10 {arch} {shape} ({', '.join(r['cuts']) or 'uncut'})"
+        if (m["flops"], m["bytes"], m["calls"]) != \
+                (d["flops"], d["bytes"], d["calls"]):
+            fail(f"{label}: card counts {d} differ from meta's {m}; ops "
+                 f"(meta, card) that differ: {r['ops_gap']}")
+        if r["launches"] != d["calls"] or not sum(r["launches"].values()):
+            fail(f"{label}: launches {r['launches']} against counted calls "
+                 f"{d['calls']}")
+        gap = r["measured_peak_bytes"] - m["peak_bytes"]
+        limit = max(PEAK_MARGIN * m["peak_bytes"], PEAK_FLOOR)
+        print(f"  {label}: {r['optimizer']}, {r['moe_strategy']}, remat "
+              f"{r['remat']}; flops {d['flops']:.6e}, bytes "
+              f"{d['bytes']:.6e} (card = meta); launches {r['launches']} "
+              f"= counted calls; peak meta {m['peak_bytes'] / 1e9:.3f} GB, "
+              f"measured {r['measured_peak_bytes'] / 1e9:.3f} GB, gap "
+              f"{gap / 1e9:+.3f} GB (limit {limit / 1e9:.3f}); step "
+              f"{r['step_ms']:.2f} ms "
+              f"{[round(t, 2) for t in r['step_ms_all']]}; roofline "
+              f"{r['roofline_ms']:.3f} ms, share "
+              f"{r['roofline_share']:.4f}; meta count {m['seconds']:.1f} s; "
+              f"{card_line()}", flush=True)
+        if abs(gap) > limit:
+            fail(f"{label}: measured peak {r['measured_peak_bytes']} B, "
+                 f"meta {m['peak_bytes']} B: gap beyond {limit:.0f} B")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+    return launches
 
 
 def spills(log: str) -> dict:
@@ -4776,6 +4817,13 @@ def main() -> int:
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
     print(f"  [9] {time.perf_counter() - t9:.1f}s", flush=True)
+
+    print("[10] launch costing: the dry run's counts against the card's",
+          flush=True)
+    t10 = time.perf_counter()
+    for k, v in launch_costing(dev).items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"  [10] {time.perf_counter() - t10:.1f}s", flush=True)
 
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],

@@ -6,7 +6,9 @@ comments of the reference apply, and fields the port does not carry yet
 raise ``NotImplementedError`` where the engine is built
 (``core.engine.check_supported``). ``MoEConfig``, ``SSMConfig``,
 ``ModelConfig``, the block kinds and ``reduced`` describe the model zoo
-(``repro_torch.configs``) and are verbatim copies.
+(``repro_torch.configs``), and ``ShapeConfig``, ``SHAPES`` and
+``MeshConfig`` the dry run's shapes and meshes (``launch.dryrun``); all
+are verbatim copies.
 """
 from __future__ import annotations
 
@@ -188,6 +190,53 @@ def reduced(cfg: ModelConfig, *, num_layers: int = 2, d_model: int = 256,
         num_vision_tokens=min(cfg.num_vision_tokens, 16),
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
         dtype="float32", scan_layers=False, remat=False)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                        # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Mesh / distribution
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+    data: int = 16
+    model: int = 16
+    pods: int = 2
+
+    @property
+    def shape(self):
+        return (self.pods, self.data, self.model) if self.multi_pod \
+            else (self.data, self.model)
+
+    @property
+    def axis_names(self):
+        return ("pod", "data", "model") if self.multi_pod \
+            else ("data", "model")
+
+    @property
+    def num_devices(self):
+        n = self.data * self.model
+        return n * self.pods if self.multi_pod else n
 
 
 # ---------------------------------------------------------------------------

@@ -47,6 +47,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import counting
 from repro_torch.core import secagg as sa
 from repro_torch.kernels import ops
 
@@ -469,9 +470,12 @@ def mix_pytree_ppermute(P, pod_rows: list, devices, *, adjacency=None,
                                devices[dst])
             got = []
             for li, (q, s_, _) in enumerate(enc[src]):
-                RING["bytes"] += q.numel() * q.element_size() + \
+                nbytes = q.numel() * q.element_size() + \
                     (4 * s_.numel() if s_ is not None else 0)
+                RING["bytes"] += nbytes
                 RING["blocks"] += 1
+                counting.collective("collective-permute", nbytes, pod=src,
+                                    across_pods=True)
                 if secagg is None:
                     got.append((q.to(devices[dst]), None if s_ is None
                                 else s_.to(devices[dst]), None))
@@ -766,9 +770,11 @@ def mix_rows_sharded(P_rows, stacked_rows, shards, *, adjacency=None,
             pads_in = pads_out if devs[src] == devs[dst] else _shard_pads(
                 plan, secagg, round_, src, dst, widths, wire, devs[dst])
         for li, (q, s_) in enumerate(zip(qs[src], ss[src])):
-            RING["bytes"] += q.numel() * q.element_size() + \
+            nbytes = q.numel() * q.element_size() + \
                 (4 * s_.numel() if s_ is not None else 0)
+            RING["bytes"] += nbytes
             RING["blocks"] += 1
+            counting.collective("collective-permute", nbytes, device=src)
             if secagg is None:
                 out.append((q.to(devs[dst]),
                             None if s_ is None else s_.to(devs[dst])))

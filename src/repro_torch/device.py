@@ -3,7 +3,8 @@
 Entry points take ``device=None``, which means the card (``"cuda"``). With
 no card present that raises: a run lands on the CPU only when the caller
 asks for it (``device="cpu"``), as the tests do. There is no silent CPU
-fallback.
+fallback. ``"meta"`` (shapes, no storage) is taken for the dry run
+(``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ def resolve_device(device=None) -> torch.device:
                 "available; pass device='cpu' to run the plain versions")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -8,8 +8,22 @@ Each wrapper checks device, dtype, shape and layout, then runs the plain
 PyTorch version (``ref``) when the tensors lie on the CPU and the CUDA
 kernel (``csrc/``, built by ``build``) when they lie on the card. On the
 card it launches the kernel or raises; it never falls back. Every output
-is a fresh tensor. ``LAUNCHES[name]`` counts kernel launches (never
-plain-version calls), so a run can show that it went through the kernels.
+is a fresh tensor, in the layout the kernel writes (the CPU copies the
+plain version's result into it). ``LAUNCHES[name]`` counts kernel
+launches (never plain-version calls), so a run can show that it went
+through the kernels.
+
+On torch's ``meta`` device (the dry run, ``launch.dryrun``) a wrapper runs
+its checks, the card's included (regime, grid and alignment), and returns
+empty meta outputs of the kernel's shapes, dtypes and layout: it computes
+nothing, launches nothing and counts no launch or regime. On every device
+a call records the kernel it stands for, with its
+``cost.kernel_cost``, in the active counting pass
+(``repro_torch.counting``), once per call that launches (or would launch) a
+kernel; the ops inside the wrapper are not counted. Under autograd the
+router, route-and-slot and SSD wrappers go through their Functions on
+every device, as flash attention does, so the CPU, the card and the dry
+run count one program.
 
 The padded-CSR ``idx`` must lie in [0, W) (``core.gossip.sparse_weights``
 builds it so). It is not checked on the card, where a check would cost a
@@ -17,11 +31,14 @@ device synchronize per call.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
 
+from repro_torch import counting
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.cost import kernel_cost
 
 LAUNCHES = {name: 0 for name in build.KERNELS}
 # launches of the gossip mixes by regime or branch ("gossip_mix/stream",
@@ -53,6 +70,32 @@ def _check(name, t, dtypes, shape):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _on_meta(*ts) -> bool:
+    """True for meta tensors (the dry run), False for any others; raises
+    on meta tensors mixed with others."""
+    kinds = {t.device.type for t in ts}
+    if "meta" not in kinds:
+        return False
+    if kinds != {"meta"}:
+        raise ValueError(f"tensors on several devices: {sorted(kinds)}")
+    return True
+
+
+def _cost(name: str, numel: int, **shape):
+    """The active counting pass's record of one call of kernel ``name`` at
+    ``shape`` (``cost.kernel_cost``); nothing where no pass is active
+    or the call launches nothing (an empty output)."""
+    if counting.active() is None or numel == 0:
+        return contextlib.nullcontext()
+    return counting.kernel(name, *kernel_cost(name, **shape))
+
+
+def _into(like, value):
+    """``value`` copied into a fresh tensor of ``like``'s layout (the
+    layout the card's kernel writes)."""
+    return torch.empty_like(like).copy_(value)
 
 
 def _on_card(*ts) -> bool:
@@ -150,8 +193,14 @@ def gossip_mix(P, w):
     n, f = w.shape
     _check("P", P, (torch.float32,), (n, n))
     _check("w", w, tuple(_DTYPE_CODE), (n, f))
-    if not _on_card(P, w):
-        return ref.gossip_mix_ref(P, w)
+    with _cost("gossip_mix", n * f, w=n, f=f, in_bytes=w.element_size()):
+        if not _on_meta(P, w) and not _on_card(P, w):
+            return ref.gossip_mix_ref(P, w)
+        return _gossip_mix_launch(P, w)
+
+
+def _gossip_mix_launch(P, w):
+    n, f = w.shape
     regime, cols, smem = gossip_mix_plan(n, f, w.dtype)
     grid = -(-f // cols) if regime == "stream" else \
         -(-n // GOSSIP_TILE[0]) * -(-f // GOSSIP_TILE[1])
@@ -159,7 +208,7 @@ def gossip_mix(P, w):
         raise ValueError(f"gossip_mix: W = {n}, F = {f} needs {grid} CTAs, "
                          f"more than a grid holds")
     out = torch.empty((n, f), dtype=torch.float32, device=w.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or out.is_meta:
         return out
     flags = (W_ROWS16 * (f * w.element_size() % 16 == 0
                          and w.data_ptr() % 16 == 0)
@@ -281,8 +330,16 @@ def gossip_mix_sparse(idx, val, w):
     _check("idx", idx, (torch.int32,), (n, k))
     _check("val", val, (torch.float32,), (n, k))
     _check("w", w, (torch.float32, torch.bfloat16), (n, f))
-    if not _on_card(idx, val, w):
-        return ref.gossip_mix_sparse_ref(idx, val, w)
+    with _cost("gossip_mix_sparse", n * f, w=n, k=k, f=f,
+               in_bytes=w.element_size()):
+        if not _on_meta(idx, val, w) and not _on_card(idx, val, w):
+            return ref.gossip_mix_sparse_ref(idx, val, w)
+        return _gossip_mix_sparse_launch(idx, val, w)
+
+
+def _gossip_mix_sparse_launch(idx, val, w):
+    n, f = w.shape
+    k = idx.shape[1]
     plan = gossip_mix_sparse_plan(n, k, f, w.dtype, w.data_ptr())
     grid = -(-f // plan.cols) if plan.branch == 1 else \
         n * -(-f // (SPARSE_GATHER_THREADS * 16 // w.element_size()))
@@ -291,7 +348,7 @@ def gossip_mix_sparse(idx, val, w):
                          f"needs {grid} CTAs and {n * k} slots; both must "
                          f"stay below 2**31")
     out = torch.empty((n, f), dtype=torch.float32, device=w.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or out.is_meta:
         return out
     _launch("gossip_mix_sparse", out, idx.data_ptr(), val.data_ptr(),
             w.data_ptr(), out.data_ptr(), n, k, f, _DTYPE_CODE[w.dtype],
@@ -339,8 +396,16 @@ def gossip_mix_quant(idx, val, scale, q):
     _check("val", val, (torch.float32,), (n, k))
     _check("scale", scale, (torch.float32,), (n,))
     _check("q", q, (torch.int8,), (n, f))
-    if not _on_card(idx, val, scale, q):
-        return ref.gossip_mix_quant_ref(idx, val, scale, q)
+    with _cost("gossip_mix_quant", n * f, w=n, k=k, f=f, in_bytes=1):
+        if not _on_meta(idx, val, scale, q) and \
+                not _on_card(idx, val, scale, q):
+            return ref.gossip_mix_quant_ref(idx, val, scale, q)
+        return _gossip_mix_quant_launch(idx, val, scale, q)
+
+
+def _gossip_mix_quant_launch(idx, val, scale, q):
+    n, f = q.shape
+    k = idx.shape[1]
     branch, cols, rows, smem = gossip_mix_quant_plan(n, k, f)
     grid = -(-f // cols) if branch == 1 else n * -(-f // 4096)
     if grid > GOSSIP_GRID_MAX or n * k > GOSSIP_GRID_MAX:
@@ -348,7 +413,7 @@ def gossip_mix_quant(idx, val, scale, q):
                          f"needs {grid} CTAs and {n * k} slots; both must "
                          f"stay below 2**31")
     out = torch.empty((n, f), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or out.is_meta:
         return out
     ptr = q.data_ptr()
     align = 16 if f % 16 == 0 and ptr % 16 == 0 else \
@@ -420,7 +485,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     for either with Sk != Sq raises ``ValueError``. k and v must share
     their strides; q has its own; D is contiguous in all three (a [B, S,
     H, D] tensor's ``transpose(1, 2)`` is taken as it is). The output has
-    q's dtype and q's layout (``empty_like``).
+    q's dtype and q's layout (``empty_like``) on every device.
 
     On the card the kernel follows from dtype and head dim alone
     (``flash_kernel``), never from a failure: bf16 at D in
@@ -472,11 +537,16 @@ def _flash_forward(q, k, v, causal: bool, window: int):
         raise ValueError("flash_attention: k and v must share their "
                          "strides, with the head dim contiguous in q, k "
                          "and v")
-    if not _on_card(q, k, v):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    if flash_kernel(q.dtype, d) == "flash_attention_tc":
-        return _flash_attention_tc(q, k, v, causal, window)
-    return _flash_attention_simt(q, k, v, causal, window)
+    name = flash_kernel(q.dtype, d)
+    with _cost(name, q.numel(), b=b, h=h, s=sq, d=d,
+               itemsize=q.element_size(), causal=causal, sk=sk,
+               window=window):
+        if not _on_meta(q, k, v) and not _on_card(q, k, v):
+            return _into(q, ref.flash_attention_ref(q, k, v, causal=causal,
+                                                    window=window))
+        if name == "flash_attention_tc":
+            return _flash_attention_tc(q, k, v, causal, window)
+        return _flash_attention_simt(q, k, v, causal, window)
 
 
 def _flash_attention_simt(q, k, v, causal, window):
@@ -498,7 +568,7 @@ def _flash_attention_simt(q, k, v, causal, window):
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
                          "with rows on 4-byte boundaries")
     out = torch.empty_like(q)
-    if out.numel() == 0:
+    if out.numel() == 0 or out.is_meta:
         return out
     return _launch("flash_attention", out, q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), out.data_ptr(), b * h, h, sq, sk, d,
@@ -530,7 +600,7 @@ def _flash_attention_tc(q, k, v, causal, window):
         raise ValueError(f"flash_attention: B*H*ceil(Sq/{FLASH_TC_TILE}) "
                          f"must stay below 2**31")
     out = torch.empty_like(q)
-    if out.numel() == 0:
+    if out.numel() == 0 or out.is_meta:
         return out
     return _launch("flash_attention_tc", out, q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), out.data_ptr(), b, h, sq, sk, d,
@@ -559,27 +629,33 @@ def moe_router_topk(logits, k: int):
     tie, renormalized by their sum + 1e-9. E <= 512, 1 <= k <= min(E,
     32).
 
-    On the card under autograd (logits that need a gradient) the call goes
-    through ``_MoeRouterTopk``: the same launch, the gates' gradient at the
-    kernel's picks."""
-    t, e = _check_router("moe_router_topk", logits, k)
-    if not _on_card(logits):
-        return ref.moe_router_topk_ref(logits, k)
+    Under autograd (logits that need a gradient) the call goes through
+    ``_MoeRouterTopk`` on every device: the same forward, the gates'
+    gradient at the kernel's picks."""
+    _check_router("moe_router_topk", logits, k)
     if torch.is_grad_enabled() and logits.requires_grad:
         return _MoeRouterTopk.apply(logits, k)
     return _router_forward(logits, k)
 
 
 def _router_forward(logits, k: int):
-    """The router kernel's launch (inputs already checked)."""
+    """The router kernel's launch (inputs already checked); the plain
+    version on the CPU, empty outputs on meta."""
     t, e = logits.shape
-    gates = torch.empty((t, k), dtype=torch.float32, device=logits.device)
-    idx = torch.empty((t, k), dtype=torch.int32, device=logits.device)
-    if t == 0:
+    with _cost("moe_router", t, t=t, e=e, k=k,
+               itemsize=logits.element_size()):
+        meta = _on_meta(logits)
+        if not meta and not _on_card(logits):
+            gates, idx = ref.moe_router_topk_ref(logits, k)
+            return gates.contiguous(), idx.contiguous()
+        gates = torch.empty((t, k), dtype=torch.float32,
+                            device=logits.device)
+        idx = torch.empty((t, k), dtype=torch.int32, device=logits.device)
+        if t == 0 or meta:
+            return gates, idx
+        _launch("moe_router", gates, logits.data_ptr(), gates.data_ptr(),
+                idx.data_ptr(), t, e, k, _DTYPE_CODE[logits.dtype])
         return gates, idx
-    _launch("moe_router", gates, logits.data_ptr(), gates.data_ptr(),
-            idx.data_ptr(), t, e, k, _DTYPE_CODE[logits.dtype])
-    return gates, idx
 
 
 ROUTE_TILE = 32           # rows per CTA of moe_route_slots
@@ -626,37 +702,44 @@ def moe_route_slots(logits, k: int, cap: int):
     persistent scratch per device (``_route_scratch``): calls on one
     device must not overlap in time, and a call at the largest T must
     run once before a graph captures one. Under autograd (logits that need
-    a gradient) the call goes through ``_MoeRouteSlots``: the same launch,
-    the gates' gradient at the kernel's picks; idx, slot and src take
-    none."""
+    a gradient) the call goes through ``_MoeRouteSlots`` on every device:
+    the same forward, the gates' gradient at the kernel's picks; idx, slot
+    and src take none."""
     t, e = _check_router("moe_route_slots", logits, k)
     if cap < 1 or e * cap >= 2 ** 31 or t * k >= 2 ** 31:
         raise ValueError(f"moe_route_slots: cap = {cap}, T*k = {t * k}; "
                          f"need cap >= 1 and E*cap, T*k below 2**31")
-    if not _on_card(logits):
-        return ref.moe_route_slots_ref(logits, k, cap)
     if torch.is_grad_enabled() and logits.requires_grad:
         return _MoeRouteSlots.apply(logits, k, cap)
     return _route_slots_forward(logits, k, cap)
 
 
 def _route_slots_forward(logits, k: int, cap: int):
-    """The route-and-slot kernel's launch (inputs already checked)."""
+    """The route-and-slot kernel's launch (inputs already checked); the
+    plain version on the CPU, empty outputs on meta."""
     t, e = logits.shape
     dev = logits.device
-    gates = torch.empty((t, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((t, k), dtype=torch.int32, device=dev)
-    slot = torch.empty((t, k), dtype=torch.int32, device=dev)
-    if t == 0:                                 # every slot empty: src = T
-        return gates, idx, slot, torch.zeros(e * cap, dtype=torch.int32,
-                                              device=dev)
-    src = torch.empty(e * cap, dtype=torch.int32, device=dev)
-    state, words = _route_scratch(dev, -(-t // ROUTE_TILE) * e)
-    _launch("moe_route_slots", gates, logits.data_ptr(), gates.data_ptr(),
-            idx.data_ptr(), slot.data_ptr(), src.data_ptr(),
-            words.data_ptr(), state.data_ptr(), t, e, k, cap, words.numel(),
-            _DTYPE_CODE[logits.dtype])
-    return gates, idx, slot, src
+    with _cost("moe_route_slots", t, t=t, e=e, k=k, cap=cap,
+               itemsize=logits.element_size()):
+        meta = _on_meta(logits)
+        if not meta and not _on_card(logits):
+            return tuple(o.contiguous()
+                         for o in ref.moe_route_slots_ref(logits, k, cap))
+        gates = torch.empty((t, k), dtype=torch.float32, device=dev)
+        idx = torch.empty((t, k), dtype=torch.int32, device=dev)
+        slot = torch.empty((t, k), dtype=torch.int32, device=dev)
+        if t == 0:                             # every slot empty: src = T
+            return gates, idx, slot, torch.zeros(e * cap, dtype=torch.int32,
+                                                  device=dev)
+        src = torch.empty(e * cap, dtype=torch.int32, device=dev)
+        if meta:
+            return gates, idx, slot, src
+        state, words = _route_scratch(dev, -(-t // ROUTE_TILE) * e)
+        _launch("moe_route_slots", gates, logits.data_ptr(), gates.data_ptr(),
+                idx.data_ptr(), slot.data_ptr(), src.data_ptr(),
+                words.data_ptr(), state.data_ptr(), t, e, k, cap,
+                words.numel(), _DTYPE_CODE[logits.dtype])
+        return gates, idx, slot, src
 
 
 SSD_STATE_DIMS = (16, 32, 64, 128)
@@ -686,8 +769,8 @@ def ssd_chunk(C, B, acum, dt, x):
     fp32-accurate, cp.async loads), P = 16 the SIMT ``ssd_chunk`` (fp32
     FMAs). Both take the same arguments and are held to the same limit,
     1e-5 * max|y|. Under autograd (an input that needs a gradient) the call
-    goes through ``_SsdChunk``: the same launch, the gradient of the plain
-    version recomputed for all five inputs."""
+    goes through ``_SsdChunk`` on every device: the same forward, the
+    gradient of the plain version recomputed for all five inputs."""
     if x.dim() != 4:
         raise ValueError(f"x: expected [G, H, T, P], got {tuple(x.shape)}")
     g, h, t, p = x.shape
@@ -707,8 +790,6 @@ def ssd_chunk(C, B, acum, dt, x):
                          f"[1, {SSD_MAX_CHUNK}]")
     if x.stride(-1) != 1:
         raise ValueError("ssd_chunk: x must have its head dim contiguous")
-    if not _on_card(C, B, acum, dt, x):
-        return ref.ssd_chunk_ref(C, B, acum, dt, x)
     args = (C, B, acum, dt, x)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return _SsdChunk.apply(*args)
@@ -716,6 +797,18 @@ def ssd_chunk(C, B, acum, dt, x):
 
 
 def _ssd_forward(C, B, acum, dt, x):
+    """``ssd_chunk`` past its checks: the plain version on the CPU, an
+    empty output on meta, the kernel on the card."""
+    g, h, t, p = x.shape
+    n = C.shape[-1]
+    with _cost(ssd_kernel(n, p), x.numel(), g=g, h=h, t=t, n=n, p=p):
+        if not _on_meta(C, B, acum, dt, x) and \
+                not _on_card(C, B, acum, dt, x):
+            return _into(x, ref.ssd_chunk_ref(C, B, acum, dt, x))
+        return _ssd_launch(C, B, acum, dt, x)
+
+
+def _ssd_launch(C, B, acum, dt, x):
     """The SSD kernel's card-side branch of ``ssd_chunk`` (inputs already
     checked but for what the kernel takes)."""
     g, h, t, p = x.shape
@@ -728,7 +821,7 @@ def _ssd_forward(C, B, acum, dt, x):
         raise ValueError("ssd_chunk: C, B, x must be 16-byte aligned with "
                          "x's rows on 16-byte boundaries")
     y = torch.empty_like(x)
-    if y.numel() == 0:
+    if y.numel() == 0 or y.is_meta:
         return y
     return _launch(ssd_kernel(n, p), y, C.data_ptr(), B.data_ptr(),
                    acum.data_ptr(), dt.data_ptr(), x.data_ptr(),

@@ -15,16 +15,25 @@ The reference vmaps its train step over the pod axis. ``torch.func.vmap``
 cannot map a kernel called through ``ctypes``, so the FL step is a loop
 over pods, each on its pod's device: a step launches the flash kernel
 pods x layers times (forward only: its gradient is the plain version's,
-``kernels.ops.flash_attention``). The reference's abstract-input and
-sharding builders cost a TPU mesh and are not ported (ROADMAP.md queue
-1a, item 12).
+``kernels.ops.flash_attention``).
+
+* ``abstract_state`` / ``input_specs``: the state and the inputs of a step
+  as meta tensors (shapes, no storage), the counterpart of the reference's
+  ShapeDtypeStructs, for the dry run (``launch.dryrun``). The reference
+  attaches GSPMD shardings to them; the port places nothing (tensor
+  parallelism inside a pod is ROADMAP.md queue 1a item 12b).
+
+The steps mark their parts for the counting pass (``repro_torch.counting``):
+the optimizer update is replicated work, each FL pod's step is its pod's,
+and the gradients are all-reduced over the data axis in closed form.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch import counting
+from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.core import pods as pods_mod
 from repro_torch.core.gossip import normalize_wire
 from repro_torch.models import model as model_mod
@@ -76,7 +85,10 @@ def build_train_step(cfg: ModelConfig, optimizer, *, moe_strategy="grouped",
             grads = pods_mod.rebuild(params, {
                 k: (acc[k] / microbatches).to(flat[k].dtype) for k in acc})
             loss = torch.stack(losses).mean()
-        params, opt_state = optimizer.update(params, grads, opt_state, step)
+        counting.gradient_allreduce(grads)
+        with counting.replicated():
+            params, opt_state = optimizer.update(params, grads, opt_state,
+                                                 step)
         return params, opt_state, step + 1, loss
     return train_step
 
@@ -98,8 +110,10 @@ def build_fl_train_step(cfg: ModelConfig, optimizer, *,
         new_p, new_o, losses = [], [], []
         for p, (params, opt) in enumerate(zip(pod_params, pod_opt)):
             dev = _device_of(params)
-            b = {k: torch.as_tensor(v[p]).to(dev) for k, v in batch.items()}
-            p2, o2, _, loss = inner(params, opt, step, b)
+            with counting.pod(p):
+                b = {k: torch.as_tensor(v[p]).to(dev)
+                     for k, v in batch.items()}
+                p2, o2, _, loss = inner(params, opt, step, b)
             new_p.append(p2)
             new_o.append(o2)
             losses.append(loss)
@@ -231,3 +245,65 @@ def build_decode_step(cfg: ModelConfig, *, moe_strategy="dense"):
                                      enc_out=enc_out,
                                      moe_strategy=moe_strategy)
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Abstract state and inputs (meta tensors: shapes, no storage)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
+                rules=None, *, fl_pods: int = 0):
+    """The inputs of a ``shape.mode`` step as meta tensors (the reference's
+    ``input_specs`` without its shardings): tokens and labels [B, S] for
+    train (``fl_pods`` > 0 prepends the pod axis: [pods, B / pods, S]),
+    tokens for prefill, one token, ``pos`` and the decode cache for decode;
+    a vlm's ``vision_embeds`` and an encoder-decoder's ``frame_embeds`` (or
+    ``enc_out`` for decode) at the model's dtype. ``pos`` is a Python int,
+    as the port's decode step takes it. ``mesh`` and ``rules`` are taken
+    for the reference's signature; nothing is placed by them."""
+    del mesh, rules
+    b, s = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+    lead = (fl_pods, b // fl_pods) if fl_pods and shape.mode == "train" \
+        else (b,)
+    specs = {}
+    if shape.mode in ("train", "prefill"):
+        specs["tokens"] = _meta(lead + (s,), torch.int64)
+        if shape.mode == "train":
+            specs["labels"] = _meta(lead + (s,), torch.int64)
+        if cfg.family == "vlm":
+            specs["vision_embeds"] = _meta(
+                lead + (cfg.num_vision_tokens, cfg.d_model), dt)
+        if cfg.is_encoder_decoder:
+            specs["frame_embeds"] = _meta(
+                lead + (cfg.encoder_seq_len, cfg.d_model), dt)
+    else:
+        specs["tokens"] = _meta((b, 1), torch.int64)
+        specs["pos"] = s - 1
+        specs["cache"] = model_mod.init_cache(cfg, b, s, device="meta")
+        if cfg.is_encoder_decoder:
+            specs["enc_out"] = _meta((b, cfg.encoder_seq_len, cfg.d_model),
+                                     dt)
+    return specs
+
+
+def abstract_state(cfg: ModelConfig, optimizer_name: str, lr: float = 1e-3,
+                   mesh=None, rules=None, *, fl_pods: int = 0):
+    """(params, opt_state, optimizer) on meta: the parameters
+    (``model.abstract_params``) and the optimizer's state made by its own
+    ``init`` on them. With ``fl_pods`` the params and the state are lists
+    of per-pod trees, the port's pod axis (``core.pods``). ``mesh`` and
+    ``rules`` are taken for the reference's signature."""
+    from repro_torch.optim import make_optimizer
+
+    del mesh, rules
+    opt = make_optimizer(optimizer_name, lr)
+    if fl_pods:
+        pods = [model_mod.abstract_params(cfg) for _ in range(fl_pods)]
+        return pods, [opt.init(p) for p in pods], opt
+    params = model_mod.abstract_params(cfg)
+    return params, opt.init(params), opt

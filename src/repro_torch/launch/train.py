@@ -54,7 +54,7 @@ without one; ``--device cpu`` runs the kernels' plain versions.
 simulation modes over S devices (``repro_torch.sharding``): the first S
 cards, or S CPU shards with ``--device cpu``. ``--debug-mesh`` (the
 reference's tensor-parallel mesh inside a pod) raises
-``NotImplementedError`` (ROADMAP.md queue 1a, item 12).
+``NotImplementedError`` (ROADMAP.md queue 1a, item 12b).
 """
 from __future__ import annotations
 
@@ -281,7 +281,9 @@ def train_lm(args, *, params=None, draws=None) -> dict:
 
     if args.debug_mesh:
         _not_ported("--debug-mesh (tensor parallelism inside a pod)",
-                    "item 12: launch costing")
+                    "item 12b: tensor parallelism inside a pod — "
+                    "resolve_spec, constrain, sharding_tree, zero1_axes "
+                    "and the mesh's model axis")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -641,7 +643,7 @@ def parser() -> argparse.ArgumentParser:
                          "restores its best-eval backup")
     lm.add_argument("--debug-mesh", action="store_true",
                     help="the reference's tensor-parallel mesh inside a "
-                         "pod (not ported: queue 1a item 12)")
+                         "pod (not ported: queue 1a item 12b)")
     lm.add_argument("--checkpoint-dir", default="")
     lm.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")

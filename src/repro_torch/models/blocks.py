@@ -8,17 +8,22 @@ repeated pattern's parameters under ``scan`` with a leading layer axis
 (when ``cfg.scan_layers``), and the rest under ``layers``. The reference's
 ``lax.scan`` over the stacked axis becomes a Python loop that indexes it,
 which takes views, not copies; the decode caches are stacked the same way
-and every layer updates its views in place. With ``cross`` (whisper's
-decoder) every block also holds ``ln_x`` and a cross-attention ``xattn``
-over the encoder states ``enc_out``, applied between its attention and its
-FFN.
+and every layer updates its views in place. With ``cfg.remat`` each repeat
+of the scanned pattern runs under ``torch.utils.checkpoint`` when a
+gradient is taken (the reference's ``jax.checkpoint`` of the scan body):
+its activations are recomputed in the backward, so its kernels launch
+again there. With ``cross`` (whisper's decoder) every block also holds
+``ln_x`` and a cross-attention ``xattn`` over the encoder states
+``enc_out``, applied between its attention and its FFN.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.config import ATTN_DENSE, ATTN_MOE, MAMBA_MOE, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -193,11 +198,45 @@ def _layers(params, cfg: ModelConfig):
 
 def stack_apply(params, cfg: ModelConfig, x, positions, *, window: int = 0,
                 enc_out=None, moe_strategy="grouped"):
-    """Apply the whole layer stack. Returns (x, aux_loss)."""
+    """Apply the whole layer stack. Returns (x, aux_loss).
+
+    With ``cfg.remat`` on a scanned stack, while grad is enabled, each
+    repeat of the pattern runs under ``checkpoint(..., use_reentrant=False)``
+    (the reference checkpoints its scan body); the prefix layers run
+    outside it, as in the reference. No random op runs in a block, so no
+    RNG state is kept for the recompute."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, kind in _layers(params, cfg):
-        x, aux = block_apply(p, cfg, kind, x, positions, aux, window=window,
-                             enc_out=enc_out, moe_strategy=moe_strategy)
+    schedule = cfg.block_schedule()
+    prefix_len, pattern, repeats = factor_schedule(schedule)
+    if not (cfg.remat and _scanned(cfg, repeats)
+            and torch.is_grad_enabled()):
+        for p, kind in _layers(params, cfg):
+            x, aux = block_apply(p, cfg, kind, x, positions, aux,
+                                 window=window, enc_out=enc_out,
+                                 moe_strategy=moe_strategy)
+        return x, aux
+    for i in range(prefix_len):
+        x, aux = block_apply(params["prefix"][str(i)], cfg, schedule[i], x,
+                             positions, aux, window=window, enc_out=enc_out,
+                             moe_strategy=moe_strategy)
+
+    # the recompute runs in the backward, which the autograd engine runs on
+    # a thread of its own for a card: it takes the forward's sharding
+    # context (expert parallelism's mesh) with it
+    ctx = sharding._ctx()
+    mesh, rules = ctx.mesh, ctx.rules
+
+    def body(r, x, aux):
+        with sharding.logical_rules(mesh, rules):
+            for pos, kind in enumerate(pattern):
+                p = tree_map(lambda t: t[r], params["scan"][str(pos)])
+                x, aux = block_apply(p, cfg, kind, x, positions, aux,
+                                     window=window, enc_out=enc_out,
+                                     moe_strategy=moe_strategy)
+        return x, aux
+    for r in range(repeats):
+        x, aux = checkpoint(body, r, x, aux, use_reentrant=False,
+                            preserve_rng_state=False)
     return x, aux
 
 

@@ -156,8 +156,8 @@ def sinusoidal_positions(seq_len: int, d_model: int, device=None,
     copied from pinned host memory, so the host does not wait for the
     stream."""
     device = torch.device("cpu" if device is None else device)
-    if device.type == "cuda":
-        return _sinusoid_table(seq_len, d_model, True).to(
+    if device.type != "cpu":            # the card; meta makes the same ops
+        return _sinusoid_table(seq_len, d_model, device.type == "cuda").to(
             device, non_blocking=True).to(dtype)
     return _sinusoid_table(seq_len, d_model, False).to(dtype=dtype,
                                                        copy=True)

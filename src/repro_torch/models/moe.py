@@ -58,11 +58,20 @@ def router_probs(params, x):
     return torch.softmax(logits, dim=-1), logits
 
 
+def expert_counts(expert_index, num_experts):
+    """Pairs routed to each expert, fp32 [E]: the one-hot sum over tokens
+    and choices. Written as a comparison with ``arange`` rather than
+    ``F.one_hot``, whose ops differ by device (the CPU checks the index
+    range, meta and CUDA do not), so that every device runs one
+    program."""
+    e = torch.arange(num_experts, device=expert_index.device)
+    return (expert_index[..., None] == e).float().sum(dim=(0, 1))
+
+
 def load_balance_loss(probs, expert_index, num_experts):
     """Switch-transformer aux loss: E * sum_e f_e * P_e."""
     t = probs.shape[0]
-    onehot = F.one_hot(expert_index, num_experts).float()
-    f = onehot.sum(dim=(0, 1)) / t             # fraction routed per expert
+    f = expert_counts(expert_index, num_experts) / t   # fraction per expert
     p = probs.mean(dim=0)                      # mean router prob per expert
     return num_experts * torch.sum(f * p)
 

@@ -51,16 +51,23 @@ shards (blocks from a shard to itself are not counted): the dispatch into
 every device of the mesh, ``tp * ep * (ep - 1)`` blocks of E_loc * C rows
 (fp8: one byte an element plus a bf16 scale a row), the combine into each
 data shard once, ``ep * (ep - 1)`` blocks in x's dtype.
+
+For the counting pass (``repro_torch.counting``) each device's work runs under
+``counting.device`` (its flat index in the mesh, i * tp + j), the
+all_to_alls' bytes count as all-to-all at the receiving device, and the
+sums over "model" (and, on the replicated path, over both axes) and the
+load-balance statistics' average over "data" as all-reduce.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import counting
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.moe import _shared, grouped_capacity, \
-    load_balance_loss, router_logits
+from repro_torch.models.moe import _shared, expert_counts, \
+    grouped_capacity, load_balance_loss, router_logits
 from repro_torch.sharding import _ctx
 
 EXCHANGE = {"dispatch": 0, "combine": 0}
@@ -73,6 +80,13 @@ def reset_exchange() -> None:
 
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _exchange(kind: str, nbytes: int) -> None:
+    """One all_to_all block of ``nbytes`` into the current device:
+    ``EXCHANGE[kind]`` and the counting pass's all-to-all."""
+    EXCHANGE[kind] += nbytes
+    counting.collective("all-to-all", nbytes)
 
 
 def _quantize_fp8(x):
@@ -129,7 +143,10 @@ def _shared_tp(params, mesh, i: int, xf, tp: int, dev):
         part = {"shared_wi": params["shared_wi"][:, cols].to(dj),
                 "shared_wg": params["shared_wg"][:, cols].to(dj),
                 "shared_wo": params["shared_wo"][cols].to(dj)}
-        ys = _shared(part, xf.to(dj)).to(dev)
+        with counting.device(i * tp + j):
+            ys = _shared(part, xf.to(dj)).to(dev)
+            if out is not None:
+                counting.collective("all-reduce", _nbytes(ys))
         out = ys if out is None else out + ys
     return out
 
@@ -157,14 +174,17 @@ def _local_moe(params, cfg: ModelConfig, x, mesh, ep: int, tp: int,
     # ---- 1-2. route and pack, once per data shard ----------------------
     shards = []
     for i, dev in enumerate(home):
-        xf = x[i * b_loc:(i + 1) * b_loc].to(dev).reshape(t, d)
-        logits = router_logits({"router": params["router"].to(dev)}, xf)
-        gates, idx, slot, src = ops.moe_route_slots(logits, k, cap)
-        idx = idx.long()
-        f_loc = F.one_hot(idx, e).float().sum(dim=(0, 1)) / t
-        p_loc = torch.softmax(logits, dim=-1).mean(dim=0)
-        send = F.pad(xf, (0, 0, 0, 1)).index_select(0, src) \
-            .view(ep, e_loc, cap, d)
+        with counting.device(i * tp):
+            xf = x[i * b_loc:(i + 1) * b_loc].to(dev).reshape(t, d)
+            logits = router_logits({"router": params["router"].to(dev)}, xf)
+            gates, idx, slot, src = ops.moe_route_slots(logits, k, cap)
+            idx = idx.long()
+            f_loc = expert_counts(idx, e) / t
+            p_loc = torch.softmax(logits, dim=-1).mean(dim=0)
+            send = F.pad(xf, (0, 0, 0, 1)).index_select(0, src) \
+                .view(ep, e_loc, cap, d)
+            if i:
+                counting.collective("all-reduce", _nbytes(f_loc, p_loc))
         shards.append(dict(xf=xf, gates=gates, idx=idx, slot=slot,
                            send=send, f=f_loc, p=p_loc))
 
@@ -181,49 +201,55 @@ def _local_moe(params, cfg: ModelConfig, x, mesh, ep: int, tp: int,
         for j in range(tp):
             dev = mesh.devices[i2][j]
             blocks = []
-            for i, sh in enumerate(shards):
-                if a2a_fp8:
-                    # each device quantizes its own copy, as every model
-                    # shard does in the reference (the scales are per row,
-                    # so a block's are the buffer's): an fp8 tensor then has
-                    # one consumer, and no gradient is summed in fp8
-                    q, scale = (a.to(dev)
-                                for a in _quantize_fp8(sh["send"][i2]))
-                    if i != i2:
-                        EXCHANGE["dispatch"] += _nbytes(q, scale)
-                    blocks.append(_dequantize_fp8(q, scale, x.dtype))
-                else:
-                    blk = sh["send"][i2].to(dev)
-                    if i != i2:
-                        EXCHANGE["dispatch"] += _nbytes(blk)
-                    blocks.append(blk)
-            # recv[i] = send_from_shard_i[i2]: each local expert's rows in
-            # source-shard order
-            recv = torch.stack(blocks).transpose(0, 1) \
-                .reshape(e_loc, ep * cap, d)
-            yj = _swiglu(recv, *_expert_cols(params, i2 * e_loc,
-                                             (i2 + 1) * e_loc, j, tp,
-                                             dev)).to(home[i2])
+            with counting.device(i2 * tp + j):
+                for i, sh in enumerate(shards):
+                    if a2a_fp8:
+                        # each device quantizes its own copy, as every
+                        # model shard does in the reference (the scales are
+                        # per row, so a block's are the buffer's): an fp8
+                        # tensor then has one consumer, and no gradient is
+                        # summed in fp8
+                        q, scale = (a.to(dev)
+                                    for a in _quantize_fp8(sh["send"][i2]))
+                        if i != i2:
+                            _exchange("dispatch", _nbytes(q, scale))
+                        blocks.append(_dequantize_fp8(q, scale, x.dtype))
+                    else:
+                        blk = sh["send"][i2].to(dev)
+                        if i != i2:
+                            _exchange("dispatch", _nbytes(blk))
+                        blocks.append(blk)
+                # recv[i] = send_from_shard_i[i2]: each local expert's rows
+                # in source-shard order
+                recv = torch.stack(blocks).transpose(0, 1) \
+                    .reshape(e_loc, ep * cap, d)
+                yj = _swiglu(recv, *_expert_cols(params, i2 * e_loc,
+                                                 (i2 + 1) * e_loc, j, tp,
+                                                 dev)).to(home[i2])
+                if y is not None:
+                    counting.collective("all-reduce", _nbytes(yj))
             y = yj if y is None else y + yj
         y_home.append(y.view(e_loc, ep, cap, d).transpose(0, 1))
 
     # ---- 5. return trip and combine ------------------------------------
     outs = []
     for i, sh in enumerate(shards):
-        parts = []
-        for i2 in range(ep):
-            blk = y_home[i2][i].to(home[i])
-            if i != i2:
-                EXCHANGE["combine"] += _nbytes(blk)
-            parts.append(blk)
-        back = torch.stack(parts).reshape(e * cap, d)
-        keep = sh["slot"] < cap
-        at = sh["idx"] * cap + sh["slot"].clamp(max=cap - 1)
-        y_tok = back.index_select(0, at.view(-1)).view(t, k, d)
-        w = (sh["gates"] * keep).to(x.dtype)
-        out = (y_tok * w[..., None]).sum(dim=1)
-        if m.num_shared_experts:
-            out = out + _shared_tp(params, mesh, i, sh["xf"], tp, home[i])
+        with counting.device(i * tp):
+            parts = []
+            for i2 in range(ep):
+                blk = y_home[i2][i].to(home[i])
+                if i != i2:
+                    _exchange("combine", _nbytes(blk))
+                parts.append(blk)
+            back = torch.stack(parts).reshape(e * cap, d)
+            keep = sh["slot"] < cap
+            at = sh["idx"] * cap + sh["slot"].clamp(max=cap - 1)
+            y_tok = back.index_select(0, at.view(-1)).view(t, k, d)
+            w = (sh["gates"] * keep).to(x.dtype)
+            out = (y_tok * w[..., None]).sum(dim=1)
+            if m.num_shared_experts:
+                out = out + _shared_tp(params, mesh, i, sh["xf"], tp,
+                                       home[i])
         outs.append(out.view(b_loc, s, d).to(x.device))
     return torch.cat(outs), aux
 
@@ -248,14 +274,17 @@ def _local_moe_replicated(params, cfg: ModelConfig, x, mesh, ep: int,
     for i in range(ep):
         for j in range(tp):
             dev = mesh.devices[i][j]
-            xd, gd, idd = xf.to(dev), gates.to(dev), idx.to(dev)
-            wi, wg, wo = _expert_cols(params, i * e_loc, (i + 1) * e_loc,
-                                      j, tp, dev)
-            for jj in range(e_loc):
-                # each token picks an expert at most once: one gate or 0
-                w_tok = (gd * (idd == i * e_loc + jj)).sum(dim=-1)
-                ye = (F.silu(xd @ wg[jj]) * (xd @ wi[jj])) @ wo[jj]
-                y = y + (ye.float() * w_tok[:, None]).to(x.device)
+            with counting.device(i * tp + j):
+                xd, gd, idd = xf.to(dev), gates.to(dev), idx.to(dev)
+                wi, wg, wo = _expert_cols(params, i * e_loc,
+                                          (i + 1) * e_loc, j, tp, dev)
+                for jj in range(e_loc):
+                    # each token picks an expert at most once: one gate or 0
+                    w_tok = (gd * (idd == i * e_loc + jj)).sum(dim=-1)
+                    ye = (F.silu(xd @ wg[jj]) * (xd @ wi[jj])) @ wo[jj]
+                    y = y + (ye.float() * w_tok[:, None]).to(x.device)
+                if i or j:          # the sum over both axes
+                    counting.collective("all-reduce", _nbytes(y))
     out = y.to(x.dtype)
     if m.num_shared_experts:
         # tokens are replicated over "data": one data shard's shared

@@ -25,8 +25,10 @@ axes (``("data", "model")``), made by ``make_mesh`` from a device list as
 and installed by ``logical_rules``, whose context ``_ctx()`` holds it as
 the reference's does. The reference's logical-axis resolution
 (``resolve_spec``, ``constrain``, ``named_sharding``) places GSPMD arrays
-on a TPU mesh and is not ported (ROADMAP.md, queue 1a, item 12): the
-rules ``logical_rules`` installs are kept but read by nothing.
+on a TPU mesh and is not ported (ROADMAP.md, queue 1a, item 12b): of the
+rules ``logical_rules`` installs, only the dry run reads one ("batch",
+``launch.costing.batch_split``). ``["meta"] * 8`` makes the dry run's mesh
+(``launch.mesh``), which allocates nothing.
 """
 from __future__ import annotations
 

@@ -218,12 +218,65 @@ def test_run_ledger_copy_equal():
 
 
 @pytest.mark.parametrize("name", ["DeFTAConfig", "TrainConfig", "MoEConfig",
-                                  "SSMConfig", "ModelConfig"])
+                                  "SSMConfig", "ModelConfig", "ShapeConfig",
+                                  "MeshConfig"])
 def test_config_fields_and_defaults_equal(name):
     ours = dataclasses.fields(getattr(config, name))
     theirs = dataclasses.fields(getattr(jconfig, name))
     assert [(f.name, f.default) for f in ours] == \
         [(f.name, f.default) for f in theirs]
+
+
+def test_shapes_and_mesh_configs_equal():
+    """The dry run's shapes and the mesh config's derived properties."""
+    assert config.SHAPES == {k: config.ShapeConfig(**dataclasses.asdict(v))
+                             for k, v in jconfig.SHAPES.items()}
+    for kw in ({}, {"multi_pod": True}, {"multi_pod": True, "data": 8,
+                                         "model": 1, "pods": 2}):
+        ours, theirs = config.MeshConfig(**kw), jconfig.MeshConfig(**kw)
+        assert (ours.shape, ours.axis_names, ours.num_devices) == \
+            (theirs.shape, theirs.axis_names, theirs.num_devices)
+
+
+def _function_source(path: Path, name: str) -> str:
+    """A top-level definition's source read from a file, not imported (the
+    reference's dry run sets ``XLA_FLAGS`` when it is imported)."""
+    import ast
+    text = path.read_text()
+    for node in ast.parse(text).body:
+        targets = [t.id for t in getattr(node, "targets", [])
+                   if isinstance(t, ast.Name)]
+        if getattr(node, "name", None) == name or name in targets:
+            return ast.get_source_segment(text, node)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("module,name", [
+    ("launch/sharding_rules.py", "base_rules"),
+    ("launch/roofline.py", "model_flops_estimate"),
+    ("launch/dryrun.py", "SKIPS"),
+    ("launch/dryrun.py", "SCENARIO_HORIZON"),
+    ("launch/dryrun.py", "SLIDING_WINDOW_FOR_LONG"),
+    ("launch/dryrun.py", "FULL_ATTENTION_FAMILIES"),
+    ("launch/dryrun.py", "pick_optimizer"),
+    ("launch/dryrun.py", "pick_microbatches"),
+    ("launch/dryrun.py", "pick_moe_strategy"),
+    ("launch/dryrun.py", "effective_config")])
+def test_launch_costing_copies_are_verbatim(module, name):
+    """The dry run's policies, its skips and horizon, the sharding rules
+    and the model-flops estimate are the reference's, source for source;
+    ``base_rules`` also gives equal rules for every variant."""
+    ours = _function_source(ROOT / "src" / "repro_torch" / module, name)
+    assert ours == _function_source(ROOT / "src" / "repro" / module, name)
+    if name == "base_rules":
+        from repro.launch.sharding_rules import base_rules as jbase
+
+        from repro_torch.launch.sharding_rules import base_rules
+        for multi in (False, True):
+            for variant in ("baseline", "no_seqshard", "expert_model",
+                            "pure_dp", "zero1"):
+                assert base_rules(multi, variant=variant) == \
+                    jbase(multi, variant=variant)
 
 
 def test_block_kinds_equal():
@@ -378,6 +431,12 @@ def test_port_sources_import_no_jax_or_repro():
               "benchmarks/port_shard_scaling.py",
               "examples/port_train_federated.py",
               "src/repro_torch/launch/steps.py",
+              "src/repro_torch/launch/costing.py",
+              "src/repro_torch/counting.py",
+              "src/repro_torch/kernels/cost.py",
+              "src/repro_torch/launch/dryrun.py",
+              "src/repro_torch/launch/mesh.py",
+              "src/repro_torch/launch/sharding_rules.py",
               "src/repro_torch/core/pods.py",
               "src/repro_torch/optim/optimizers.py",
               "src/repro_torch/checkpoint/checkpoint.py",

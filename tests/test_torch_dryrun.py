@@ -1,0 +1,180 @@
+"""The port's dry run (``python -m repro_torch.launch.dryrun``) on the CPU.
+
+* The entry point at the reference's own test pair (whisper-tiny,
+  ``train_4k``): exit 0, the ``bottleneck=`` line, a JSON the reference's
+  ``benchmarks/roofline_table.py`` renders unchanged, beside the skipped
+  pair (``SKIPS``), recorded as ``skipped``.
+* The production mesh and its counted shares: a multi-pod FL train step
+  (both pods) gives a device the same flops, bytes and collectives as the
+  single-pod step on one pod's share of the batch; the batch splits over
+  the data axis.
+* Traffic between pods (a pod is one node) is priced at the link between
+  nodes: the gossip step's time is ``gossip_cost``'s, and the FedAvg
+  baseline's gradient all-reduce crosses pods.
+* ``measure`` on the CPU (a reduced config): the device's counted flops,
+  bytes and kernel calls equal the meta count's at the same cut.
+* ``--debug-mesh`` names queue 1a item 12b.
+
+No model is compiled and nothing is trained with JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.config import SHAPES, reduced
+from repro_torch.configs import get_config
+from repro_torch.launch import costing, dryrun
+from repro_torch.launch import roofline as rf
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_entry_point_and_the_references_table(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "whisper-tiny", "--shape", "train_4k", "--out", str(tmp_path)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "bottleneck=" in r.stdout
+    res = json.loads((tmp_path / "whisper-tiny_train_4k_single.json")
+                     .read_text())
+    assert res["status"] == "ok" and res["chips"] == 8
+    rf = res["roofline"]
+    assert rf["bottleneck"] in ("compute", "memory", "collective")
+    assert rf["hlo_gflops_total"] > 0 and rf["bytes_per_device"] > 0
+    # 12 forward (4 encoder, 4 causal, 4 cross) and 8 more in the backward:
+    # the decoder's four scanned layers recomputed under remat
+    assert res["counted"]["kernel_calls"] == {"flash_attention_tc": 20}
+    assert res["counted"]["closed_form_collectives"] == ["all-reduce"]
+    skipped = dryrun.run_dryrun("whisper-tiny", "long_500k", verbose=False)
+    assert skipped["status"] == "skipped"
+    assert skipped["reason"] == dryrun.SKIPS[("whisper-tiny", "long_500k")]
+    (tmp_path / "whisper-tiny_long_500k_single.json").write_text(
+        json.dumps(skipped))
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    try:
+        import roofline_table
+    finally:
+        sys.path.remove(str(ROOT / "benchmarks"))
+    table = roofline_table.markdown(roofline_table.load(str(tmp_path)))
+    assert "| whisper-tiny | train_4k | single | ok | " \
+        f"{res['memory']['peak_per_device_gb']:.2f} |" in table
+    assert "| whisper-tiny | long_500k | single | skipped |" in table
+
+
+def small(arch, layers=4):
+    return dataclasses.replace(reduced(get_config(arch), max_experts=8),
+                               num_layers=layers, scan_layers=True,
+                               remat=True, dtype="bfloat16")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-moe-16b"])
+def test_a_devices_share_of_the_fl_step_is_one_pods(arch):
+    """Two pods of the FL step (each pod's work its own) give a device what
+    the single-pod step gives on half the batch; with the batch split over
+    the data axis of 8. The MoE runs expert parallelism on each pod's
+    mesh."""
+    cfg = small(arch)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=32,
+                                seq_len=16)
+    multi = dryrun.plan(arch, shape, multi_pod=True, config=cfg)
+    single = dryrun.plan(arch, dataclasses.replace(shape, global_batch=16),
+                         config=cfg)
+    assert (multi.fl_pods, multi.chips, single.chips) == (2, 16, 8)
+    assert multi.moe_strategy == single.moe_strategy == \
+        ("eplocal" if cfg.moe else "grouped")
+    cm = dryrun.count_step(multi, dryrun.build_state(multi))
+    cs = dryrun.count_step(single, dryrun.build_state(single))
+    assert cm.split == cs.split == 8
+    assert cm.flops == 2 * cs.flops
+    assert cm.per_device("flops") == cs.per_device("flops")
+    # bytes: the FL loop's own few (stacking the pods' losses) aside
+    assert cm.per_device("bytes") == pytest.approx(cs.per_device("bytes"),
+                                                   rel=1e-6)
+    assert cm.collectives() == pytest.approx(cs.collectives(), rel=1e-12)
+    assert cm.peak_device_bytes == pytest.approx(cs.peak_device_bytes,
+                                                 rel=0.05)
+    assert cs.per_device("flops") < cs.flops / 2
+    if cfg.moe:
+        assert cs.collectives()["all-to-all"] > 0
+
+
+@pytest.mark.parametrize("fl", [True, False])
+def test_traffic_across_pods_is_priced_between_nodes(fl):
+    """The FL step's gradient all-reduce stays inside a pod (NVLink); its
+    gossip step's ring crosses pods, and its time equals ``gossip_cost``'s
+    egress time at the parameters' wire (bf16). The FedAvg baseline's
+    all-reduce spans both pods' 16 devices and crosses between nodes."""
+    cfg = small("qwen3-0.6b")
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=32,
+                                seq_len=16)
+    p = dryrun.plan("qwen3-0.6b", shape, multi_pod=True, fl=fl, config=cfg)
+    state = dryrun.build_state(p)
+    c = dryrun.count_step(p, state)
+    coll, dcn = c.collectives(), c.collectives(dcn=True)
+    roof = rf.analyze("qwen3-0.6b", "train_4k", "multi", p.chips,
+                      {"flops": 1.0}, "", 1.0, 0, coll_override=coll,
+                      dcn_override=dcn)
+    assert coll["all-reduce"] > 0
+    if not fl:
+        assert p.grad_ranks == 16 and dcn == coll
+        assert roof.t_collective == coll["all-reduce"] / rf.DCN_BW
+        return
+    assert p.grad_ranks == 8 and sum(dcn.values()) == 0
+    assert roof.t_collective == coll["all-reduce"] / rf.ICI_BW
+    info = dryrun._gossip_info(cfg, p.fl_pods, state[0], scenario="",
+                               cd_enrolled=40, cd_sample_k=8,
+                               shard_workers=4, verbose=False)
+    want = costing.gossip_cost(cfg, p.fl_pods, wire="bf16")
+    assert info["collective_breakdown"]["collective-permute"] * 1e9 == \
+        pytest.approx(want["payload_bytes"] * (p.fl_pods - 1), rel=1e-12)
+    assert info["t_collective_s"] == pytest.approx(want["t_ici_s"],
+                                                   rel=1e-12)
+
+
+@pytest.mark.parametrize("arch,shape,batch", [
+    ("qwen3-0.6b", "train_4k", 2), ("deepseek-moe-16b", "prefill_32k", 1),
+    ("mamba2-780m", "prefill_32k", 1)])
+def test_measure_counts_the_device_as_meta(arch, shape, batch):
+    """chip_smoke [10]'s three pairs, reduced, on the CPU: the device's
+    counts equal meta's at the cut (the CPU launches no kernel)."""
+    r = dryrun.measure(arch, shape, batch=batch, seq=32, device="cpu",
+                       config=small(arch), repeats=1, verbose=False)
+    m, d = r["meta"], r["device"]
+    assert (m["flops"], m["bytes"], m["calls"]) == \
+        (d["flops"], d["bytes"], d["calls"])
+    assert sum(m["calls"].values()) > 0 and r["launches"] == {}
+    assert r["cuts"] == [f"global_batch {SHAPES[shape].global_batch} -> "
+                         f"{batch}", f"seq_len {SHAPES[shape].seq_len} -> 32"]
+    assert r["step_ms"] > 0 and 0 < r["roofline_share"]
+
+
+def test_measure_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.measure("mamba2-780m", "prefill_32k", batch=1,
+                       config=small("mamba2-780m"), verbose=False)
+
+
+def test_debug_mesh_names_item_12b():
+    from repro_torch.launch import train
+    with pytest.raises(NotImplementedError, match="item 12b: tensor "
+                       "parallelism inside a pod"):
+        train.main(["--fl", "--smoke", "--device", "cpu", "--debug-mesh"])

@@ -28,6 +28,7 @@
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import zipfile
 
 import jax
@@ -508,6 +509,103 @@ def test_kernels_without_a_gradient_refuse_training_on_the_card(
     else:
         assert torch.equal(idx, pidx)
         torch.testing.assert_close(got, plain, rtol=0, atol=0)
+
+
+REMAT_LAYERS = {"qwen3-0.6b": 4, "deepseek-moe-16b": 4, "mamba2-780m": 4,
+                "jamba-v0.1-52b": 8}
+
+
+@pytest.mark.parametrize("arch", sorted(REMAT_LAYERS))
+def test_remat_checkpoints_each_scanned_repeat(arch):
+    """``cfg.remat`` on a scanned stack: each repeat runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+    scan body). The loss equals the one without remat bit for bit, every
+    gradient is within 1e-6 of its max, the scanned layers' kernels are
+    called again in the backward (the recompute), the prefix's are not,
+    and the counted peak on meta is lower."""
+    from repro_torch import counting
+    from repro_torch.models.blocks import factor_schedule
+
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              num_layers=REMAT_LAYERS[arch],
+                              scan_layers=True, remat=True)
+    prefix, pattern, repeats = factor_schedule(cfg.block_schedule())
+    assert repeats > 1
+    g = torch.Generator().manual_seed(0)
+    params = model.init_params(g, cfg)
+    _, tb = batches(cfg, b=2, s=16)
+    out = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        leaves = {k: v.detach().requires_grad_()
+                  for k, v in pods.flatten(params).items()}
+        with counting.Counter() as cnt:
+            loss, _ = model.loss_fn(pods.rebuild(params, leaves), c, tb)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+        meta = dataclasses.replace(c, dtype="bfloat16")
+        mp = model.abstract_params(meta)
+        mb = {"tokens": torch.empty((2, 64), dtype=torch.int64,
+                                    device="meta"),
+              "labels": torch.empty((2, 64), dtype=torch.int64,
+                                    device="meta")}
+        with counting.Counter() as mc:
+            mc.track(mp)
+            ml = {k: v.detach().requires_grad_()
+                  for k, v in pods.flatten(mp).items()}
+            loss_m, _ = model.loss_fn(pods.rebuild(mp, ml), meta, mb)
+            torch.autograd.grad(loss_m, list(ml.values()),
+                                allow_unused=True)
+        out[remat] = (loss, grads, dict(cnt.calls), mc.peak_bytes)
+    (l0, g0, c0, p0), (l1, g1, c1, p1) = out[False], out[True]
+    assert torch.equal(l0, l1)
+    for a, b in zip(g0, g1):
+        if a is not None:
+            assert float((a - b).abs().max()) <= 1e-6 * float(
+                a.abs().max())
+    # the scanned repeats' calls twice, the prefix layers' once
+    assert set(c1) == set(c0) and sum(c1.values()) > sum(c0.values())
+    for k in c0:
+        again = c1[k] - c0[k]
+        assert again % repeats == 0 and 0 <= c0[k] - again, (k, c0, c1)
+        if prefix == 0:
+            assert c1[k] == 2 * c0[k]
+    assert p1 < p0, (p0, p1)
+
+
+def test_remat_recompute_keeps_the_mesh_on_the_backwards_thread():
+    """For a card the autograd engine runs the backward, and so remat's
+    recompute, on a thread of its own, where the thread-local sharding
+    context is unset: expert parallelism's recompute must take the
+    forward's mesh with it. Here the backward runs on another thread."""
+    import threading
+
+    from repro_torch import sharding
+    cfg = dataclasses.replace(
+        reduced(get_config("deepseek-moe-16b"), max_experts=8),
+        num_layers=4, scan_layers=True, remat=True)
+    params = model.init_params(torch.Generator().manual_seed(0), cfg)
+    leaves = {k: v.detach().requires_grad_()
+              for k, v in pods.flatten(params).items()}
+    _, tb = batches(cfg, b=4, s=8)
+    mesh = sharding.make_mesh((4, 2), ("data", "model"), ["cpu"] * 8)
+    with sharding.logical_rules(mesh, {}):
+        loss, _ = model.loss_fn(pods.rebuild(params, leaves), cfg, tb,
+                                moe_strategy="eplocal")
+    got = {}
+
+    def backward():
+        try:
+            got["grads"] = torch.autograd.grad(loss, list(leaves.values()),
+                                               allow_unused=True)
+        except Exception as e:          # reported below, on this thread
+            got["error"] = e
+    t = threading.Thread(target=backward)
+    t.start()
+    t.join()
+    assert "error" not in got, got.get("error")
+    assert all(torch.isfinite(g).all() for g in got["grads"]
+               if g is not None)
 
 
 # the recorded half-mass ties (ROADMAP.md queue 3, item 3): per row the
