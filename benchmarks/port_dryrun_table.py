@@ -11,7 +11,9 @@ GB (1e9 B, from the roofline's ``bytes_per_device``; the JSON's
 ``peak_per_device_gb`` is GiB, the reference's unit), counted TFLOP, GB moved, collective GB, the three roofline times in
 ms on an NVIDIA H100 80GB HBM3 at 700 W (``launch.roofline``), the
 bottleneck, the useful ratio (model flops / counted flops) and whether
-the peak fits the card's 80 GB.
+the peak fits the card's 80 GB (if not: "params > pod", the whole bf16
+parameters above a pod's 640 GB; "state", a device's placed parameters,
+optimizer state and inputs alone above 80 GB; else "activations").
 """
 from __future__ import annotations
 
@@ -48,9 +50,23 @@ COLUMNS = (
     ("t_coll ms", lambda r, f: f"{f['t_collective'] * 1e3:.3g}"),
     ("bottleneck", lambda r, f: f["bottleneck"]),
     ("useful", lambda r, f: f"{f['useful_ratio']:.3f}"),
-    ("fits 80 GB", lambda r, f: "yes" if f["bytes_per_device"] <= 80e9
-     else "no: 12b"),
+    ("fits 80 GB", lambda r, f: _fits(r, f)),
 )
+
+POD_BYTES = 8 * 80e9             # a pod's eight cards
+
+
+def _fits(r, f) -> str:
+    """Whether a device's peak fits the card, and if not why: the whole
+    parameters (bf16) above a pod's 640 GB, a device's placed state and
+    inputs alone above 80 GB, or the step's activations."""
+    if f["bytes_per_device"] <= 80e9:
+        return "yes"
+    if r["params_b"] * 1e9 * 2 > POD_BYTES:
+        return "no: params > pod"
+    if r["memory"]["arg_gb"] * 2 ** 30 > 80e9:
+        return "no: state"
+    return "no: activations"
 
 
 def markdown(single: dict, multi: dict) -> str:

@@ -53,7 +53,12 @@
    at P = 16, and the main shape with x contiguous, each through the
    kernel ``ops.ssd_kernel`` picks (the tensor-core ``ssd_chunk_tc`` at
    P in {32, 64}, the SIMT ``ssd_chunk`` at P = 16) and through the SIMT
-   kernel's C entry; limit 1e-5 * max|y| of each call.
+   kernel's C entry; limit 1e-5 * max|y| of each call. The tensor-parallel
+   shards' full-width shapes ([10], [11]): flash on a model shard's query
+   heads, [B, H / tp, S, 128] (``TP_FLASH``: [2, 4, 4096], [8, 4, 4096],
+   [1, 4, 32768] (the plain version 4,096 queries at a time) and [2, 4,
+   512] in bf16, [2, 4, 128] in f32), and ``ssd_chunk`` on its 12 heads
+   at Mamba2-780M's S = 32,768 and the reduced model's 4 and 8.
 3. Timings: device time per call (CUDA graphs of back-to-back calls, timed
    with CUDA events) of the kernel, its plain version and, where one
    exists, one PyTorch library call computing the same function, at the
@@ -294,18 +299,37 @@
    (24 route-and-slot launches, 12 of them the recompute's); the reduced
    f32 DeepSeekMoE's ``eplocal`` loss and gradient card vs CPU (``["cpu"]
    * 8``) within 1e-4.
-10. Launch costing (``launch.dryrun``): three pairs of the dry run, each
+10. Launch costing (``launch.dryrun``): four pairs of the dry run, each
    cut to fit the card (``COSTING_PAIRS``: qwen3-0.6b ``train_4k`` at B =
    2, S = 4,096 with Adam and remat; deepseek-moe-16b ``prefill_32k`` at
    B = 1, expert parallelism's replicated path, and at B = 8, S = 4,096,
-   its all_to_all path; mamba2-780m ``prefill_32k`` at B = 1), counted on
-   meta and then run on
-   the card under the same counter (``dryrun.measure``): the card's
-   counted flops, bytes and kernel calls equal the meta count's, the
-   launches of ``flash_attention_tc``, ``moe_router``, ``moe_route_slots``
-   and ``ssd_chunk_tc`` equal the counted calls, and the measured peak less
-   what stood before the pair's state lies within 10 % or 256 MB of the
-   meta peak; prints the step's ms and the roofline share.
+   its all_to_all path; mamba2-780m ``prefill_32k`` at B = 1), on the
+   production pod's ("data", "model") = (2, 4) mesh of the card repeated,
+   the state placed by logical axis and the steps tensor-parallel, counted
+   on meta and then run on the card under the same counter
+   (``dryrun.measure``): the card's counted flops, bytes and kernel calls
+   equal the meta count's, the launches of ``flash_attention_tc``,
+   ``moe_router``, ``moe_route_slots`` and ``ssd_chunk_tc`` equal the
+   counted calls, and the measured peak less what stood before the pair's
+   state lies within 10 % or 256 MB of the meta peak; prints the step's ms
+   and the roofline share.
+11. Tensor parallelism inside a pod: reduced f32 qwen3-0.6b, granite-20b
+   (one kv head), mamba2-780m, deepseek-moe-16b (eplocal) and whisper-tiny,
+   each placed on (2, 2) and (2, 4) meshes of the card repeated against
+   the same model unsharded on the card: logits and the loss within 1e-5,
+   gradients within 1e-4 of their max, 8 greedy decode steps' logits within
+   2e-3 with equal tokens; a forward launches the flash (or SSD) kernel
+   layers x tp times. Full-width f32 qwen3-0.6b on (2, 4): a prefill (112
+   SIMT flash launches against 28) with logits within 1e-5 and 8 greedy
+   decode steps with tokens equal to unsharded, ms beside unsharded; one
+   bf16 full-width train step (Adam, remat: 2 x 28 x 4 tensor-core flash
+   launches) beside the unsharded one: the loss, the new parameters, Adam's
+   moments and each leaf's update held to the unsharded step's
+   (``TRAIN_STATE_LIMITS``, ``TRAIN_UPDATE_LIMIT``).
+   [11c]: every flash and ssd_chunk shape that [10] and [11] launched
+   (recorded by ``launched_shapes``) and [2] did not check is held against
+   its plain version on fresh inputs in the model's layout, so that no
+   shape a main path runs goes unchecked.
 
 Exits non-zero, before the last line, on any failure or without a card.
 The last lines are the card's name and power limit, one JSON object with
@@ -313,6 +337,7 @@ every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -727,12 +752,12 @@ def flash_err(got, want, dtype):
     return float(err.max()), float((err / lim).max())
 
 
-def main_path_qkv(gen, b, s, dev, h=16):
-    """q, k, v as attention.py hands them to the kernel: bf16 [B, H, S,
-    128] views of [B, S, H, 128] tensors (DeepSeekMoE-16B's 16 heads;
-    Jamba's 32)."""
-    return tuple(torch.randn(b, s, h, 128, generator=gen, device=dev)
-                 .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+def main_path_qkv(gen, b, s, dev, h=16, dtype=torch.bfloat16, d=128):
+    """q, k, v as attention.py hands them to the kernel: [B, H, S, D]
+    views of [B, S, H, D] tensors (bf16 at D = 128 by default:
+    DeepSeekMoE-16B's 16 heads; Jamba's 32)."""
+    return tuple(torch.randn(b, s, h, d, generator=gen, device=dev)
+                 .to(dtype).transpose(1, 2) for _ in range(3))
 
 
 def cross_qkv(gen, b, h, sq, sk, d, dev, dtype=torch.bfloat16):
@@ -743,6 +768,25 @@ def cross_qkv(gen, b, h, sq, sk, d, dev, dtype=torch.bfloat16):
     k, v = (torch.randn(b, sk, h, d, generator=gen, device=dev)
             for _ in range(2))
     return tuple(t.to(dtype).transpose(1, 2) for t in (q, k, v))
+
+
+# (label, dtype, B, H / tp, S) of the flash calls of the tensor-parallel
+# main paths at full width ([10] and [11]: a model shard's query heads,
+# D = 128, views of the shard's [B, S, H / tp, D] projections; the data
+# axis's coordinate 0 runs the whole batch). The reduced models' calls in
+# [11] are checked after it (``check_launched_shapes``)
+TP_FLASH = (("10 qwen3-0.6b train_4k shard tp=4", torch.bfloat16, 2, 4, 4096),
+            ("10 deepseek-moe-16b prefill_32k B=8 shard tp=4",
+             torch.bfloat16, 8, 4, 4096),
+            ("10 deepseek-moe-16b prefill_32k B=1 shard tp=4",
+             torch.bfloat16, 1, 4, 32768),
+            ("11 qwen3-0.6b bf16 train step shard tp=4", torch.bfloat16, 2,
+             4, 512),
+            ("11 qwen3-0.6b f32 prefill shard tp=4", torch.float32, 2, 4,
+             128))
+# the plain version computes this many queries at a time above it, so
+# that S = 32768's scores are never held whole
+REF_ROWS = 4096
 
 
 # (label, B, H, Sq, Sk, D, causal) of the flash calls of the whisper-tiny
@@ -800,6 +844,8 @@ def check_flash(dev):
         cases.append(("main-path strided" if h == 16 else
                       "jamba strided", main_path_qkv(gen, b, s, dev, h),
                       True, 0))
+    for tag, dtype, b, h, s in TP_FLASH:
+        cases.append((tag, main_path_qkv(gen, b, s, dev, h, dtype), True, 0))
     for dtype in (torch.float32, torch.bfloat16):
         for sq in (1, 17, 448):
             for sk in (64, 1500):
@@ -818,32 +864,61 @@ def check_flash(dev):
     worst = {"flash_attention": 0.0, "flash_attention_tc": 0.0}
     worst_ratio = dict(worst)
     for tag, (q, k, v), causal, window in cases:
-        name = ops.flash_kernel(q.dtype, q.shape[-1])
-        before = dict(ops.LAUNCHES)
-        got = ops.flash_attention(q, k, v, causal=causal, window=window)
-        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        launched = {n: ops.LAUNCHES[n] - before[n] for n in worst}
-        if name == "flash_attention_tc":
-            lim = ref.flash_tc_limit(q, k, v, want, causal=causal,
-                                     window=window)
-            diff = (got.float() - want.float()).abs()
-            err, ratio = float(diff.max()), float((diff / lim).max())
-        else:
-            err, ratio = flash_err(got, want, q.dtype)
-        sk = f" Sk={k.shape[2]}" if k.shape[2] != q.shape[2] else ""
-        print(f"  check {name:18s} {list(q.shape)}{sk} "
-              f"{str(q.dtype)[6:]:8s} causal={causal:d} window={window:3d} "
-              f"max_abs_err={err:.3e} worst_err/limit={ratio:.3f} {tag}")
-        if launched != {n: int(n == name) for n in worst}:
-            fail(f"flash_attention {tag}: launches {launched}, expected one "
-                 f"of {name}")
-        if got.dtype != q.dtype or got.shape != q.shape or not ratio <= 1.0:
-            fail(f"{name} disagrees with its plain version")
+        name, err, ratio = flash_case(tag, q, k, v, causal, window)
         worst[name] = max(worst[name], err)
         worst_ratio[name] = max(worst_ratio[name], ratio)
     print(f"  flash worst err/limit: {worst_ratio}")
     return worst
+
+
+# the shape keys of the kernel calls held against their plain versions
+# (``flash_key``, ``ssd_key``)
+CHECKED = set()
+
+
+def flash_key(q, k, causal, window):
+    return ("flash", str(q.dtype)[6:], *q.shape, k.shape[2], causal, window)
+
+
+def ssd_key(args):
+    g, h, t, p = args[4].shape
+    return ("ssd", g, h, t, args[0].shape[-1], p)
+
+
+def flash_case(tag, q, k, v, causal, window):
+    """One flash_attention call against its plain version: it must launch
+    the kernel its dtype and D select, once, and agree within that
+    kernel's limit (``ref.flash_tc_limit`` for the tensor cores,
+    ``flash_err`` for SIMT). Returns (kernel, max |error|, worst
+    error/limit)."""
+    from repro_torch.kernels import ops, ref
+    kernels = ("flash_attention", "flash_attention_tc")
+    name = ops.flash_kernel(q.dtype, q.shape[-1])
+    rows = REF_ROWS if q.shape[2] > REF_ROWS else 0
+    before = dict(ops.LAUNCHES)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   rows=rows)
+    torch.cuda.synchronize()
+    launched = {n: ops.LAUNCHES[n] - before[n] for n in kernels}
+    if name == "flash_attention_tc":
+        lim = ref.flash_tc_limit(q, k, v, want, causal=causal,
+                                 window=window, rows=rows)
+        diff = (got.float() - want.float()).abs()
+        err, ratio = float(diff.max()), float((diff / lim).max())
+    else:
+        err, ratio = flash_err(got, want, q.dtype)
+    sk = f" Sk={k.shape[2]}" if k.shape[2] != q.shape[2] else ""
+    print(f"  check {name:18s} {list(q.shape)}{sk} "
+          f"{str(q.dtype)[6:]:8s} causal={causal:d} window={window:3d} "
+          f"max_abs_err={err:.3e} worst_err/limit={ratio:.3f} {tag}")
+    if launched != {n: int(n == name) for n in kernels}:
+        fail(f"flash_attention {tag}: launches {launched}, expected one "
+             f"of {name}")
+    if got.dtype != q.dtype or got.shape != q.shape or not ratio <= 1.0:
+        fail(f"{name} disagrees with its plain version")
+    CHECKED.add(flash_key(q, k, causal, window))
+    return name, err, ratio
 
 
 def router_rows(gen, t, e, dev, dtype):
@@ -1188,7 +1263,16 @@ SSD_CASES = (SSD_MAIN,
              ("ragged T=200", 2, 200, 48, 128, 64, 200),
              ("jamba", 1, 1024, 128, 16, 64, 256),
              ("reduced", 2, 64, 16, 16, 32, 32),
-             ("H=12 P=16 N=32 T=100", 2, 100, 12, 32, 16, 100))
+             ("H=12 P=16 N=32 T=100", 2, 100, 12, 32, 16, 100),
+             # a model shard's heads under tensor parallelism: [10]'s
+             # Mamba2 prefill_32k at tp 4, [11]'s reduced mamba2 at tp 4
+             # and 2; then Mamba2 at tp 2 and Jamba at tp 4, which no
+             # phase runs (extra coverage)
+             ("mamba2-780m shard tp=4", 1, 32768, 12, 128, 64, 256),
+             ("reduced shard tp=4", 2, 32, 4, 16, 32, 32),
+             ("reduced shard tp=2", 2, 32, 8, 16, 32, 32),
+             ("mamba2-780m shard tp=2 (extra)", 4, 2048, 24, 128, 64, 256),
+             ("jamba shard tp=4 (extra)", 1, 1024, 32, 16, 64, 256))
 # the timed shapes: Mamba2-780M's two prefill shapes, Jamba's at S = 4096
 SSD_TIMED = (SSD_MAIN, SSD_CASES[1],
              ("jamba B=1 S=4096", 1, 4096, 128, 16, 64, 256))
@@ -1221,7 +1305,6 @@ def check_ssd(dev):
     fp32; the tensor-core kernel in 3xTF32, ~2^-21 relative per product;
     both take the exponent of the same fp32 difference). Returns the worst
     max |error| of each kernel."""
-    from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     worst = {"ssd_chunk": 0.0, "ssd_chunk_tc": 0.0}
@@ -1231,32 +1314,47 @@ def check_ssd(dev):
         args = ssd_inputs(gen, b, s, h, n, p, chunk, dev)
         if tag == "main contiguous x":
             args = args[:4] + (args[4].contiguous(),)
-        name = ops.ssd_kernel(n, p)
-        before = dict(ops.LAUNCHES)
-        got = ops.ssd_chunk(*args)
-        launched = {k: ops.LAUNCHES[k] - before[k] for k in worst}
-        simt = simt_ssd(*args)
-        want = ref.ssd_chunk_ref(*args)
-        torch.cuda.synchronize()
-        if launched != {k: int(k == name) for k in worst}:
-            fail(f"ssd_chunk {tag}: launches {launched}, expected one of "
-                 f"{name}")
-        lim = 1e-5 * float(want.abs().max())
-        shape = [args[4].shape[0], h, args[4].shape[2], n, p]
-        for kname, out in ((name, got), ("ssd_chunk", simt)):
-            err = float((out - want).abs().max())
-            print(f"  check {kname:12s} {tag:24s} [G,H,T,N,P]={shape} "
-                  f"max|y|={float(want.abs().max()):.3e} max_abs_err="
-                  f"{err:.3e} err/limit={err / lim:.3f} "
-                  f"min(acum)={float(args[2].min()):.1f}"
-                  + (" (C entry)" if out is simt else ""))
-            if out.shape != want.shape or out.dtype != torch.float32 \
-                    or not bool(torch.isfinite(out).all()) or not err <= lim:
-                fail(f"{kname} {tag} disagrees with its plain version")
+        for kname, err, ratio in ssd_case(tag, args):
             worst[kname] = max(worst[kname], err)
-            worst_ratio[kname] = max(worst_ratio[kname], err / lim)
+            worst_ratio[kname] = max(worst_ratio[kname], ratio)
     print(f"  ssd worst err/limit {worst_ratio}")
     return worst
+
+
+def ssd_case(tag, args):
+    """One ssd_chunk call through ``ops`` (one launch of the kernel
+    ``ops.ssd_kernel`` picks) and through the SIMT kernel's C entry,
+    against the plain version within 1e-5 * max|y|. Returns [(kernel,
+    max |error|, error/limit)] of both calls."""
+    from repro_torch.kernels import ops, ref
+    kernels = ("ssd_chunk", "ssd_chunk_tc")
+    g, h, t, p = args[4].shape
+    n = args[0].shape[-1]
+    name = ops.ssd_kernel(n, p)
+    before = dict(ops.LAUNCHES)
+    got = ops.ssd_chunk(*args)
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in kernels}
+    simt = simt_ssd(*args)
+    want = ref.ssd_chunk_ref(*args)
+    torch.cuda.synchronize()
+    if launched != {k: int(k == name) for k in kernels}:
+        fail(f"ssd_chunk {tag}: launches {launched}, expected one of "
+             f"{name}")
+    lim = 1e-5 * float(want.abs().max())
+    out_rows = []
+    for kname, out in ((name, got), ("ssd_chunk", simt)):
+        err = float((out - want).abs().max())
+        print(f"  check {kname:12s} {tag:24s} [G,H,T,N,P]={[g, h, t, n, p]} "
+              f"max|y|={float(want.abs().max()):.3e} max_abs_err="
+              f"{err:.3e} err/limit={err / lim:.3f} "
+              f"min(acum)={float(args[2].min()):.1f}"
+              + (" (C entry)" if out is simt else ""))
+        if out.shape != want.shape or out.dtype != torch.float32 \
+                or not bool(torch.isfinite(out).all()) or not err <= lim:
+            fail(f"{kname} {tag} disagrees with its plain version")
+        out_rows.append((kname, err, err / lim))
+    CHECKED.add(ssd_key(args))
+    return out_rows
 
 
 def time_ssd(dev):
@@ -4632,8 +4730,9 @@ PEAK_MARGIN, PEAK_FLOOR = 0.10, 256e6
 def launch_costing(dev):
     """Phase [10]: each pair of ``COSTING_PAIRS`` through
     ``dryrun.measure`` (its policies: Adam and remat for the train pair,
-    ``eplocal`` on a ("data", "model") = (8, 1) mesh of ``dev`` repeated
-    for the MoE, whose batch of 1 takes the replicated path): the counted
+    ``eplocal`` for the MoE, whose batch of 1 takes the replicated path; the
+    production pod's ("data", "model") = (2, 4) mesh of ``dev`` repeated,
+    the state placed and the steps tensor-parallel): the counted
     flops, bytes and kernel calls on the card equal the meta count's at
     the same cut, the launches equal the counted calls (and are above
     zero), and the measured peak (``max_memory_allocated`` less what
@@ -4675,6 +4774,361 @@ def launch_costing(dev):
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# [11] tensor parallelism inside a pod
+# ---------------------------------------------------------------------------
+
+TP_REDUCED = ("qwen3-0.6b", "granite-20b", "mamba2-780m", "deepseek-moe-16b",
+              "whisper-tiny")
+TP_SHAPES = ((2, 2), (2, 4))
+
+
+def tp_mesh(dev, shape):
+    from repro_torch import sharding
+    return sharding.make_mesh(shape, ("data", "model"),
+                              [str(dev)] * (shape[0] * shape[1]))
+
+
+def tp_run(cfg, params, batch, mesh, rules, strategy, placed, steps=8):
+    """One model's logits, loss, gradients (a flat dict) and ``steps``
+    greedy decode steps (logits, tokens), placed on ``mesh`` or whole;
+    with the kernel launches of its first forward."""
+    from repro_torch import sharding
+    from repro_torch.core import pods as pods_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import model
+    dev = batch["tokens"].device
+    b = batch["tokens"].shape[0]
+    with sharding.logical_rules(mesh, rules):
+        tree = model.place_params(params, cfg, mesh, rules) if placed \
+            else params
+        before = dict(ops.LAUNCHES)
+        with torch.no_grad():
+            logits, _ = model.forward(tree, cfg, batch,
+                                      moe_strategy=strategy)
+        torch.cuda.synchronize()
+        fwd = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES
+               if ops.LAUNCHES[k] != before[k]}
+        if placed:
+            loss, g = steps_mod.placed_grads(cfg, tree, batch, strategy)
+            grads = pods_mod.flatten(sharding.unplace(g))
+        else:
+            leaves = {k: v.detach().requires_grad_()
+                      for k, v in pods_mod.flatten(params).items()}
+            loss, _ = model.loss_fn(pods_mod.rebuild(params, leaves), cfg,
+                                    batch, moe_strategy=strategy)
+            gl = torch.autograd.grad(loss, list(leaves.values()))
+            loss = loss.detach()
+            grads = dict(zip(leaves, gl))
+        with torch.no_grad():
+            cache = model.init_cache(cfg, b, steps, device=dev)
+            if placed:
+                cache = model.place_cache(cache, cfg, mesh, rules)
+            enc = model.encode(tree, cfg, batch["frame_embeds"]) \
+                if cfg.is_encoder_decoder else None
+            tok = batch["tokens"][:, :1]
+            dec = []
+            for pos in range(steps):
+                lg, cache = model.decode_step(tree, cfg, tok, cache, pos,
+                                              enc_out=enc)
+                tok = lg.argmax(dim=-1)
+                dec.append((lg, tok))
+    return logits, float(loss), grads, dec, fwd
+
+
+def tp_reduced_card(dev):
+    """The reduced f32 models of ``TP_REDUCED`` placed on (2, 2) and
+    (2, 4) meshes of ``dev`` repeated against the same model unsharded on
+    the card (eplocal against eplocal on the whole tree): logits and loss
+    within 1e-5, gradients within 1e-4 of their max, 8 decode steps'
+    logits within 2e-3 and equal tokens; a forward launches flash (or
+    ssd_chunk_tc) attention layers x tp times. Returns the launches."""
+    from repro_torch.config import reduced
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding_rules import base_rules
+    from repro_torch.models import model
+    rules = base_rules(False)
+    total = {}
+    for arch in TP_REDUCED:
+        cfg = reduced(get_config(arch))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = model.init_params(gen, cfg)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 32),
+                                         generator=gen, device=dev)}
+        batch["labels"] = batch["tokens"]
+        if cfg.is_encoder_decoder:
+            batch["frame_embeds"] = torch.randn(
+                (2, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+                device=dev)
+        strategy = "eplocal" if cfg.moe else "grouped"
+        attn = sum(k in ("attn_dense", "attn_moe")
+                   for k in cfg.block_schedule())
+        if cfg.is_encoder_decoder:
+            attn = 2 * attn + cfg.num_encoder_layers
+        ssd = cfg.num_layers - sum(k in ("attn_dense", "attn_moe")
+                                   for k in cfg.block_schedule())
+        for shape in TP_SHAPES:
+            mesh = tp_mesh(dev, shape)
+            want = tp_run(cfg, params, batch, mesh, rules, strategy, False)
+            got = tp_run(cfg, params, batch, mesh, rules, strategy, True)
+            tp = shape[1]
+            err = float((got[0] - want[0]).abs().max())
+            lerr = abs(got[1] - want[1])
+            top = max(float(g.abs().max()) for g in want[2].values())
+            gerr = max(float((got[2][k] - want[2][k]).abs().max())
+                       for k in want[2])
+            derr = max(float((a[0] - b[0]).abs().max())
+                       for a, b in zip(got[3], want[3]))
+            same = all(torch.equal(a[1], b[1]) for a, b in zip(got[3],
+                                                              want[3]))
+            flash = got[4].get("flash_attention", 0) + \
+                got[4].get("flash_attention_tc", 0)
+            ssd_n = got[4].get("ssd_chunk_tc", 0)
+            print(f"  11 {cfg.name} tp {shape}: logits {err:.3e} (tol "
+                  f"1e-5), loss {lerr:.3e} (1e-5), grads {gerr:.3e} / max "
+                  f"{top:.3e} (1e-4 of it), decode {derr:.3e} (2e-3), "
+                  f"tokens equal {same}; forward launches {got[4]} "
+                  f"(unsharded {want[4]}); {card_line()}", flush=True)
+            if not (err <= 1e-5 and lerr <= 1e-5 and gerr <= 1e-4 * top
+                    and derr <= 2e-3 and same):
+                fail(f"11 {cfg.name} {shape}: tensor-parallel and "
+                     f"unsharded disagree")
+            if flash != attn * tp or ssd_n != ssd * tp:
+                fail(f"11 {cfg.name} {shape}: forward launches {got[4]}, "
+                     f"expected flash {attn} x {tp}, ssd {ssd} x {tp}")
+            for k, v in got[4].items():
+                total[k] = total.get(k, 0) + v
+            torch.cuda.empty_cache()
+    return total
+
+
+# [11]'s full-width limits. f32 prefill logits: the CPU tests' 1e-5 (read
+# on an H100: 2.98e-6). The bf16 train step, placed against unsharded,
+# each leaf's worst |difference| over its largest |value|: the loss
+# before the update within 2e-2; Adam's moments m (0.1 g) and v (0.001
+# g^2) carry the bf16 gradients' rounding (read: 3.39e-2 and 6.90e-2), the
+# new parameters a bf16 step each (read: 4.18e-3, under 2**-6, two ulps of
+# the largest); ``TRAIN_UPDATE_LIMIT`` bounds sum |dp - du| / sum |du| of
+# each leaf's update (read: 2.09e-2; a leaf updated wrongly or not at all
+# reads ~1). A wrong gradient moves m and v by their own size.
+TP_LOGITS_LIMIT = 1e-5
+TRAIN_STATE_LIMITS = {"params": 2.0 ** -6, "m": 1e-1, "v": 2e-1}
+TRAIN_UPDATE_LIMIT = 0.1
+
+
+def leaf_gap(a: dict, b: dict) -> float:
+    """Worst leaf of max |a - b| / max |b| over two flat dicts."""
+    worst = 0.0
+    for k, want in b.items():
+        want = want.float()
+        diff = float((a[k].float() - want).abs().max())
+        top = float(want.abs().max())
+        worst = max(worst, diff / top if top else diff)
+    return worst
+
+
+def update_gap(new_a: dict, new_b: dict, old: dict) -> float:
+    """Worst leaf of sum |(a - old) - (b - old)| / sum |b - old|."""
+    worst = 0.0
+    for k, o in old.items():
+        du = new_b[k].float() - o.float()
+        num = float((new_a[k].float() - o.float() - du).abs().sum())
+        den = float(du.abs().sum())
+        worst = max(worst, num / den if den else num)
+    return worst
+
+
+def tp_full_width(dev):
+    """Full-width qwen3-0.6b on the (2, 4) mesh of ``dev`` repeated: f32
+    prefill (B = 2, S = 128) and 8 greedy decode steps against unsharded
+    (prefill logits within ``TP_LOGITS_LIMIT``, tokens equal, decode logits
+    within 2e-3), launches 28 x 4 SIMT flash per prefill; one bf16 train
+    step (Adam, remat, B = 2, S = 512) beside the unsharded one:
+    tensor-core flash 2 x 28 x 4, the loss, the new parameters and Adam's
+    moments within ``TRAIN_STATE_LIMITS`` and each leaf's update within
+    ``TRAIN_UPDATE_LIMIT``. Each runs twice in the order unsharded, placed,
+    unsharded, placed; the second run's ms and peaks are printed. Returns
+    the launches of the second placed runs."""
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.core import pods as pods_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.sharding_rules import base_rules
+    from repro_torch.models import model
+    from repro_torch.optim import make_optimizer
+    rules = base_rules(False)
+    mesh = tp_mesh(dev, (2, 4))
+    total = {}
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init_params(gen, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen,
+                           device=dev)
+    runs = {}
+    # unsharded, placed, then both again: the second of each is kept (the
+    # first calls pay the library's first-use costs)
+    for placed in (False, True, False, True):
+        with sharding.logical_rules(mesh, rules), torch.no_grad():
+            tree = model.place_params(params, cfg, mesh, rules) if placed \
+                else params
+            before = dict(ops.LAUNCHES)
+            logits, ms = wall_ms(lambda: model.forward(tree, cfg, {
+                "tokens": tokens})[0])
+            launched = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES
+                        if ops.LAUNCHES[k] != before[k]}
+            cache = model.init_cache(cfg, 2, 8, device=dev)
+            if placed:
+                cache = model.place_cache(cache, cfg, mesh, rules)
+            tok, dec = tokens[:, :1], []
+            t0 = time.perf_counter()
+            for pos in range(8):
+                lg, cache = model.decode_step(tree, cfg, tok, cache, pos)
+                tok = lg.argmax(dim=-1)
+                dec.append((lg, tok))
+            torch.cuda.synchronize()
+            dms = (time.perf_counter() - t0) * 1e3 / 8
+        runs[placed] = (logits, dec, ms, dms, launched)
+        del tree
+    (la, da, ma, dma, ka), (lb, db, mb, dmb, kb) = runs[False], runs[True]
+    err = float((la - lb).abs().max())
+    derr = max(float((a[0] - b[0]).abs().max()) for a, b in zip(da, db))
+    same = all(torch.equal(a[1], b[1]) for a, b in zip(da, db))
+    print(f"  11 qwen3-0.6b f32 full width (2, 4): prefill B=2 S=128 "
+          f"{mb:.2f} ms (unsharded {ma:.2f}), launches {kb} (unsharded "
+          f"{ka}); logits {err:.3e}; decode {dmb:.2f} ms a step (unsharded "
+          f"{dma:.2f}), logits {derr:.3e} (tol 2e-3), tokens equal {same}; "
+          f"{card_line()}", flush=True)
+    if kb.get("flash_attention") != 28 * 4 or not same or derr > 2e-3 \
+            or not err <= TP_LOGITS_LIMIT:
+        fail(f"11 qwen3-0.6b full width: launches {kb} (expected 112 SIMT "
+             f"flash), prefill logits {err} (limit {TP_LOGITS_LIMIT}) or "
+             f"decode disagrees")
+    for k, v in kb.items():
+        total[k] = total.get(k, 0) + v
+    del params, runs
+    torch.cuda.empty_cache()
+
+    cfg = get_config("qwen3-0.6b")
+    gen.manual_seed(0)
+    params = model.init_params(gen, cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 512),
+                                     generator=gen, device=dev)}
+    batch["labels"] = batch["tokens"]
+    opt = make_optimizer("adam", 1e-4)
+    step0 = torch.zeros((), dtype=torch.int64, device=dev)
+    out = {}
+    for placed in (False, True, False, True):
+        with sharding.logical_rules(mesh, rules):
+            state = opt.init(params)
+            tree = params
+            if placed:
+                tree, state = steps_mod.place_state(cfg, params, state,
+                                                    "adam", mesh, rules)
+            step = steps_mod.build_train_step(cfg, opt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = dict(ops.LAUNCHES)
+            res, ms = wall_ms(lambda: step(tree, state, step0, batch))
+            launched = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES
+                        if ops.LAUNCHES[k] != before[k]}
+            peak = torch.cuda.max_memory_allocated(dev)
+            new_p, new_s = res[0], res[1]
+            if placed:
+                new_p, new_s = sharding.unplace(new_p), sharding.unplace(new_s)
+            out[placed] = (float(res[3]), ms, launched, peak, {
+                "params": pods_mod.flatten(new_p),
+                "m": pods_mod.flatten(new_s["m"]),
+                "v": pods_mod.flatten(new_s["v"])})
+            del res, tree, state, new_p, new_s
+        torch.cuda.empty_cache()
+    (l0, m0, k0, p0, s0), (l1, m1, k1, p1, s1) = out[False], out[True]
+    gaps = {k: leaf_gap(s1[k], s0[k]) for k in TRAIN_STATE_LIMITS}
+    upd = update_gap(s1["params"], s0["params"], pods_mod.flatten(params))
+    print(f"  11 qwen3-0.6b bf16 train step (2, 4), Adam, remat, B=2 "
+          f"S=512: loss {l1:.5f} (unsharded {l0:.5f}), {m1:.1f} ms "
+          f"(unsharded {m0:.1f}), peak {p1 / 1e9:.3f} GB (unsharded "
+          f"{p0 / 1e9:.3f}), launches {k1} (unsharded {k0}); after the "
+          f"step, worst leaf gap / its max: "
+          + ", ".join(f"{k} {v:.3e} (limit {TRAIN_STATE_LIMITS[k]:.3e})"
+                      for k, v in gaps.items())
+          + f"; update gap {upd:.3e} (limit {TRAIN_UPDATE_LIMIT}); "
+          f"{card_line()}", flush=True)
+    if not (np.isfinite(l1) and abs(l1 - l0) <= 2e-2) or \
+            k1.get("flash_attention_tc") != 2 * 28 * 4 or \
+            any(not gaps[k] <= TRAIN_STATE_LIMITS[k] for k in gaps) or \
+            not upd <= TRAIN_UPDATE_LIMIT:
+        fail(f"11 qwen3-0.6b bf16 train step: loss {l1} against {l0}, "
+             f"launches {k1}, state gaps {gaps}, update gap {upd}")
+    for k, v in k1.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def tensor_parallel(dev):
+    """Phase [11] (see the module docstring). Returns the launches."""
+    total = tp_reduced_card(dev)
+    for k, v in tp_full_width(dev).items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+@contextlib.contextmanager
+def launched_shapes(seen: set):
+    """Adds to ``seen`` the shape key (``flash_key``, ``ssd_key``) of every
+    ``ops.flash_attention`` and ``ops.ssd_chunk`` call made while active:
+    the model code calls both through the ``ops`` module."""
+    from repro_torch.kernels import ops
+    flash, ssd = ops.flash_attention, ops.ssd_chunk
+
+    def flash_seen(q, k, v, *, causal=True, window=0):
+        seen.add(flash_key(q, k, causal, window))
+        return flash(q, k, v, causal=causal, window=window)
+
+    def ssd_seen(*args):
+        seen.add(ssd_key(args))
+        return ssd(*args)
+    ops.flash_attention, ops.ssd_chunk = flash_seen, ssd_seen
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.ssd_chunk = flash, ssd
+
+
+def check_launched_shapes(dev, seen: set, max_err: dict):
+    """Holds every flash and ssd_chunk shape in ``seen`` that [2] did not
+    check against its plain version, on fresh inputs in the model's
+    layout (flash: views of [B, S, H, D] tensors; ssd_chunk:
+    ``ssd_inputs``); raises ``max_err``'s entries where these are worse."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    new = sorted(seen - CHECKED, key=str)
+    print(f"  {len(seen)} shapes launched, {len(seen) - len(new)} of them "
+          f"checked in [2]; checking {len(new)}: {new}", flush=True)
+    for key in new:
+        if key[0] == "flash":
+            _, dtype, b, h, sq, d, sk, causal, window = key
+            dtype = getattr(torch, dtype)
+            if sk == sq:
+                qkv = main_path_qkv(gen, b, sq, dev, h, dtype, d)
+            else:
+                qkv = cross_qkv(gen, b, h, sq, sk, d, dev, dtype)
+            name, err, _ = flash_case("launched in [10]/[11]", *qkv, causal,
+                                      window)
+            max_err[name] = max(max_err[name], err)
+        else:
+            _, g, h, t, n, p = key
+            args = ssd_inputs(gen, g, t, h, n, p, t, dev)
+            for name, err, _ in ssd_case("launched in [10]/[11]", args):
+                max_err[name] = max(max_err[name], err)
+    if seen - CHECKED:
+        fail(f"shapes left unchecked: {sorted(seen - CHECKED, key=str)}")
 
 
 def spills(log: str) -> dict:
@@ -4818,12 +5272,26 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     print(f"  [9] {time.perf_counter() - t9:.1f}s", flush=True)
 
+    seen = set()
     print("[10] launch costing: the dry run's counts against the card's",
           flush=True)
     t10 = time.perf_counter()
-    for k, v in launch_costing(dev).items():
+    with launched_shapes(seen):
+        tp_launches = launch_costing(dev)
+    for k, v in tp_launches.items():
         launches[k] = launches.get(k, 0) + v
     print(f"  [10] {time.perf_counter() - t10:.1f}s", flush=True)
+
+    print("[11] tensor parallelism inside a pod", flush=True)
+    t11 = time.perf_counter()
+    with launched_shapes(seen):
+        tp_launches = tensor_parallel(dev)
+    for k, v in tp_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"  [11] {time.perf_counter() - t11:.1f}s", flush=True)
+    print("[11c] the kernel shapes of [10] and [11] against the plain "
+          "versions", flush=True)
+    check_launched_shapes(dev, seen, max_err)
 
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],

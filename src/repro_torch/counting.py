@@ -43,21 +43,52 @@ What it counts (one ``TorchDispatchMode`` over every aten op):
   take the link between nodes, the rest NVLink.
 
 The kernel wrappers, the models and the gossip transports call this
-module's hooks (``kernel``, ``collective``, ``device``, ``pod``,
+module's hooks (``kernel``, ``collective``, ``device``, ``shard``, ``pod``,
 ``replicated``), each a no-op without an active counter; it imports
 nothing of the port, so every layer of it may.
 
 **A device's share.** The port is single-controller: one process runs the
 whole mesh's work. Work is attributed to places: ops inside
-``device(d)`` (``moe_eplocal``'s per-device loops) to device d, ops inside
-``replicated()`` (the optimizer update) to every device whole, ops inside
-``pod(p)`` (the FL step's pod loop) to pod p, and the rest to the batch,
-which splits over ``split`` devices. A device's figure is that of the
-busiest device: ``split``'s share of the batch's work, plus the
-replicated work, plus its own. Live storage is attributed the same way;
-storage made outside those scopes is the batch's, except that a tensor
-with the shape of a registered whole leaf or of one layer of it (a
-gradient, an accumulator) is counted whole.
+``device(d)`` (``moe_eplocal``'s per-device loops, the optimizer's update
+of a block; d a flat mesh index i * tp + j, or a tuple of them) to those
+devices whole; ops inside ``shard(j)`` (a tensor-parallel model shard's
+work, ``sharding.TensorParallel``) to every device of model index j, for
+the data axis's share of the batch (over ``split``); ops inside
+``replicated()`` to every device whole; ops inside ``pod(p)`` (the FL
+step's pod loop) to pod p; and the rest to the batch, which splits over
+``split`` devices. An op outside every scope that reads a tensor made
+inside one (the backward of a scoped forward) takes that scope: the
+device's, else the shard's, where its inputs name only one. A device's
+figure is that of the busiest
+device: ``split``'s share of the batch's work, plus the replicated work,
+plus its own and its model shard's. Live storage is attributed the same
+way; storage made outside those scopes is the batch's, except that a
+tensor with the shape of a registered whole leaf or of one layer of it (a
+gradient, an accumulator) is counted whole (whole on its shard's devices
+inside ``shard(j)``). ``track_placed`` registers a placed tree
+(``sharding.Placed``) block by block on the devices that hold each block.
+
+**Tensor-parallel collectives** (``sharding.TensorParallel``; tp the model
+axis, n a tensor's whole bytes, a ring's traffic through each device):
+an all-reduce moves 2 (tp - 1) / tp x n, a reduce-scatter and an
+all-gather (tp - 1) / tp x n. Per layer of B x S tokens of width D in
+bytes b (activation bytes A = B S D b):
+
+- outside sequence parallelism, and at decode (S = 1), one all-reduce
+  after each row-parallel projection (attention's ``wo``, the MLP's
+  ``wo``, the mixer's ``out_proj``, the shared experts): 2 (tp - 1) / tp
+  x A each, so 4 (tp - 1) / tp x A for a block of two branches;
+- under sequence parallelism ("act_seq" -> "model", S divisible by tp)
+  an all-gather before and a reduce-scatter after each branch: (tp - 1)
+  / tp x A each, the same 4 (tp - 1) / tp x A a block;
+- an all-gather of k and v along head_dim where the kv heads do not
+  split (granite-20b's one): 2 (tp - 1) / tp x B S Hkv hd b; of q too
+  where the heads do not split (whisper's 6 at tp 4);
+- the mixer's gated norm all-reduces its sum of squares: 2 (tp - 1) / tp
+  x B S x 4 bytes;
+- the vocabulary-parallel embedding reduce-scatters (or all-reduces) A
+  once; the parallel cross-entropy all-reduces three [B, S] float32
+  vectors (max, sum of exponents, target logit).
 """
 from __future__ import annotations
 
@@ -140,9 +171,14 @@ class Counter(TorchDispatchMode):
     they span pods."""
 
     def __init__(self, split: int = 1, grad_ranks: int = 1,
-                 grad_across_pods: bool = False):
+                 grad_across_pods: bool = False, tp: int = 1,
+                 devices: int = 0):
         super().__init__()
         self.split = max(int(split), 1)
+        self.tp = max(int(tp), 1)
+        # the devices of a pod's mesh (default: the batch's times the model
+        # axis)
+        self.n_devices = int(devices) or self.split * self.tp
         self.grad_ranks = max(int(grad_ranks), 1)
         self.grad_across_pods = bool(grad_across_pods)
         self.calls: dict = defaultdict(int)
@@ -154,14 +190,17 @@ class Counter(TorchDispatchMode):
         self._bytes: dict = defaultdict(float)
         self._coll: dict = defaultdict(lambda: defaultdict(float))
         self._dcn: dict = defaultdict(lambda: defaultdict(float))
-        self._pod = self._dev = None
+        self._pod = self._dev = self._shard = None
         self._repl = False
         self._quiet = 0
         self._live: dict = {}                    # storage -> (nbytes, tag)
-        # live bytes by pod: whole, the batch's, and by mesh device
+        # live bytes by pod: whole, the batch's, by mesh device, and by
+        # model shard (whole, and the batch's share)
         self._whole: dict = defaultdict(int)
         self._split: dict = defaultdict(int)
         self._on_dev: dict = defaultdict(int)    # (pod, device) -> bytes
+        self._sh_whole: dict = defaultdict(int)  # (pod, shard) -> bytes
+        self._sh_split: dict = defaultdict(int)
         self._whole_shapes: set = set()
         self.live_bytes = self.peak_bytes = 0
         self.peak_device_bytes = 0.0
@@ -180,6 +219,44 @@ class Counter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         ins = _tensors((args, kwargs))
+        if self._dev is None and self._shard is None and not self._repl:
+            inferred = self._infer(ins)
+            if inferred is not None:
+                prev = (self._dev, self._shard)
+                self._dev, self._shard = inferred
+                try:
+                    return self._dispatch(func, args, kwargs, ins)
+                finally:
+                    self._dev, self._shard = prev
+        return self._dispatch(func, args, kwargs, ins)
+
+    def _infer(self, ins):
+        """The scope of a backward op run outside every scope that reads
+        tensors made inside one scope: (device, None) where they name one
+        device, else (None, shard) where they name one shard, else
+        None."""
+        if torch._C._current_autograd_node() is None:
+            return None
+        devs, shards = set(), set()
+        for t in ins:
+            try:
+                tag = self._live.get(t.untyped_storage()._cdata)
+            except (RuntimeError, NotImplementedError):
+                continue
+            if tag is None or not isinstance(tag[1][1], tuple):
+                continue
+            kind = tag[1][1]
+            if kind[0] == "device":
+                devs.add(kind[1])
+            elif kind[0] in ("shard", "shard_whole"):
+                shards.add(kind[1])
+        if len(devs) == 1:
+            return next(iter(devs)), None
+        if not devs and len(shards) == 1:
+            return None, next(iter(shards))
+        return None
+
+    def _dispatch(self, func, args, kwargs, ins):
         out = _run(func, args, kwargs, ins)
         if not self._quiet and not func.is_view \
                 and func.overloadpacket not in _NO_TRAFFIC:
@@ -200,7 +277,7 @@ class Counter(TorchDispatchMode):
         return out
 
     def _place(self):
-        return (self._pod, self._dev, self._repl)
+        return (self._pod, self._dev, self._repl, self._shard)
 
     def _add(self, flops, nbytes):
         place = self._place()
@@ -209,11 +286,12 @@ class Counter(TorchDispatchMode):
 
     # -- live storage ----------------------------------------------------
     def _kind(self, t):
+        whole = self._repl or tuple(t.shape) in self._whole_shapes
         if self._dev is not None:
             return ("device", self._dev)
-        if self._repl or tuple(t.shape) in self._whole_shapes:
-            return "whole"
-        return "split"
+        if self._shard is not None:
+            return ("shard_whole" if whole else "shard", self._shard)
+        return "whole" if whole else "split"
 
     def _track(self, out, kind=None, pod=None):
         for t in _tensors(out):
@@ -241,8 +319,13 @@ class Counter(TorchDispatchMode):
             self._whole[pod] += n
         elif kind == "split":
             self._split[pod] += n
-        else:
-            self._on_dev[(pod, kind[1])] += n
+        elif kind[0] == "shard":
+            self._sh_split[(pod, kind[1])] += n
+        elif kind[0] == "shard_whole":
+            self._sh_whole[(pod, kind[1])] += n
+        else:                               # "device" or "held": devices
+            for d in kind[1]:
+                self._on_dev[(pod, d)] += n
 
     def _release(self, key):
         n, tag = self._live.pop(key, (0, None))
@@ -253,18 +336,26 @@ class Counter(TorchDispatchMode):
     def _device_live(self) -> float:
         """The live bytes of the busiest device now."""
         pods = {p for p in (*self._whole, *self._split)} | \
-            {p for p, _ in self._on_dev}
+            {p for p, _ in (*self._on_dev, *self._sh_whole, *self._sh_split)}
         pods = {p for p in pods if p is not None} or {None}
         best = 0.0
         for p in pods:
             shared = p is not None
-            own = {}
-            for (q, d), n in self._on_dev.items():
-                if q == p or (shared and q is None):
-                    own[d] = own.get(d, 0) + n
+
+            def mine(acc):
+                out = defaultdict(int)
+                for (q, d), n in acc.items():
+                    if q == p or (shared and q is None):
+                        out[d] += n
+                return out
+            own, shw, shs = (mine(self._on_dev), mine(self._sh_whole),
+                             mine(self._sh_split))
+            per = max((own[d] + shw[d % self.tp] + shs[d % self.tp]
+                       / self.split for d in set(own) | set(range(
+                           self.n_devices))), default=0)
             best = max(best, self._whole[p] + shared * self._whole[None]
                        + (self._split[p] + shared * self._split[None])
-                       / self.split + max(own.values(), default=0))
+                       / self.split + per)
         return best
 
     def track(self, tree, *, kind: str = "whole", pod=None):
@@ -273,11 +364,35 @@ class Counter(TorchDispatchMode):
         as live. A whole leaf's shape, and one layer's, marks later
         tensors of that shape whole (gradients, accumulators)."""
         if kind == "whole":
-            for t in _tensors(tree):
-                self._whole_shapes.add(tuple(t.shape))
-                if t.dim() > 1:
-                    self._whole_shapes.add(tuple(t.shape[1:]))
+            self._mark_whole(_tensors(tree))
         self._track(tree, kind=kind, pod=pod)
+
+    def _mark_whole(self, tensors):
+        for t in tensors:
+            self._whole_shapes.add(tuple(t.shape))
+            if t.dim() > 1:
+                self._whole_shapes.add(tuple(t.shape[1:]))
+
+    def track_placed(self, leaves, *, batch: bool = False, pod=None):
+        """Register placed leaves (``sharding.Placed``; a list of them)
+        block by block on the devices holding each block: a parameter's or
+        an optimizer state's whole on each holder, a decode cache's
+        (``batch``) for the data axis's share, by its model shard."""
+        everyone = None
+        for p in leaves:
+            if not batch:
+                self._mark_whole(p.parts)
+            for k, part in enumerate(p.parts):
+                held = p.holders(k)
+                if everyone is None:
+                    everyone = len(p.owners)
+                if len(held) == everyone:
+                    kind = "split" if batch else "whole"
+                elif batch:
+                    kind = ("shard", held[0] % self.tp)
+                else:
+                    kind = ("held", held)
+                self._track(part, kind=kind, pod=pod)
 
     # -- results ---------------------------------------------------------
     @property
@@ -291,18 +406,26 @@ class Counter(TorchDispatchMode):
     def _share(self, acc) -> float:
         """A device's share of ``acc`` (place -> amount): the busiest
         pod's batch work over ``split``, its replicated work, and its
-        busiest device's own."""
+        busiest device's own and its model shard's."""
         def one(p):
-            batch = sum(v for (q, d, r), v in acc.items()
-                        if q == p and d is None and not r)
-            repl = sum(v for (q, d, r), v in acc.items()
-                       if q == p and d is None and r)
-            devs = defaultdict(float)
-            for (q, d, r), v in acc.items():
-                if q == p and d is not None:
-                    devs[d] += v
-            return batch / self.split + repl + max(devs.values(), default=0)
-        pods = [one(p) for p in {q for q, _, _ in acc if q is not None}]
+            batch = repl = 0.0
+            devs, shard = defaultdict(float), defaultdict(float)
+            for (q, d, r, s), v in acc.items():
+                if q != p:
+                    continue
+                if d is not None:
+                    for x in d:
+                        devs[x] += v
+                elif s is not None:
+                    shard[s] += v if r else v / self.split
+                elif r:
+                    repl += v
+                else:
+                    batch += v
+            per = max((devs[d] + shard[d % self.tp] for d in
+                       set(devs) | set(range(self.n_devices))), default=0)
+            return batch / self.split + repl + per
+        pods = [one(p) for p in {q for q, _, _, _ in acc if q is not None}]
         return one(None) + max(pods, default=0.0)
 
     def per_device(self, what: str) -> float:
@@ -324,7 +447,9 @@ def _run(func, args, kwargs, tensors):
     (torch's meta kernels, many of them Python references, cost far more
     than the counting itself)."""
     if not tensors or any(t.device.type != "meta" for t in tensors) \
-            or not _functional(func):
+            or not _functional(func) or func.overloadpacket in _NO_TRAFFIC:
+        # (``_unsafe_view`` returns a view its schema does not declare: a
+        # made output would hold a storage of its own)
         return func(*args, **kwargs)
     try:
         key = (func, _key(args), _key(kwargs))
@@ -366,9 +491,16 @@ def _scoped(attr: str, value):
         setattr(c, attr, prev)
 
 
-def device(d: int):
-    """Attribute the work under it to mesh device ``d`` (flat index)."""
-    return _scoped("_dev", d)
+def device(d):
+    """Attribute the work under it to mesh device ``d`` (a flat index, or
+    a tuple of them: each does it whole)."""
+    return _scoped("_dev", (d,) if isinstance(d, int) else tuple(d))
+
+
+def shard(j: int):
+    """Attribute the work under it to model shard ``j``: each device of
+    model index j does the data axis's share of it."""
+    return _scoped("_shard", j)
 
 
 def pod(p: int):
@@ -409,8 +541,10 @@ def collective(kind: str, nbytes: float, *, closed_form: bool = False,
         return
     if kind not in COLLECTIVES:
         raise ValueError(f"collective kind {kind!r} not in {COLLECTIVES}")
+    if isinstance(device, int):
+        device = (device,)
     place = (c._pod if pod is None else pod,
-             c._dev if device is None else device, c._repl)
+             c._dev if device is None else device, c._repl, c._shard)
     c._coll[kind][place] += nbytes
     if across_pods:
         c._dcn[kind][place] += nbytes
@@ -418,16 +552,23 @@ def collective(kind: str, nbytes: float, *, closed_form: bool = False,
         c.closed_form.add(kind)
 
 
-def gradient_allreduce(grads) -> None:
+def gradient_allreduce(grads, held=None) -> None:
     """The gradient all-reduce over the counter's ``grad_ranks`` devices in
     closed form: a ring moves 2 (D - 1) / D x the gradient bytes through
     each of the D devices, across pods where its ranks span them (the
     FedAvg baseline's). Each device holds the whole result, so it is
-    replicated work."""
+    replicated work. ``held`` (a placed step's blocks: a list of (tensor,
+    holders)) counts each block at the devices that hold it."""
     c = active()
     if c is None or c.grad_ranks <= 1:
         return
     d = c.grad_ranks
+    if held is not None:
+        for t, devs in held:
+            collective("all-reduce", 2 * (d - 1) / d * _nbytes(t),
+                       closed_form=True, across_pods=c.grad_across_pods,
+                       device=devs)
+        return
     n = sum(_nbytes(t) for t in _tensors(grads))
     with replicated():
         collective("all-reduce", 2 * (d - 1) / d * n, closed_form=True,

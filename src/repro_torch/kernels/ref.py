@@ -33,22 +33,34 @@ def gossip_mix_quant_ref(idx, val, scale, q):
     return torch.einsum("wk,wkf->wf", val.float(), deq[idx.long()])
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        rows: int = 0):
     """q: [B, H, Sq, D]; k, v: [B, H, Sk, D]. Full-matrix attention with
     scale 1/sqrt(D), computed in fp32 and returned in q's dtype. Keys at
     ``k > q`` are masked when ``causal``, keys at ``k <= q - window`` when
     ``window > 0``. Sk may differ from Sq only unmasked (``causal=False,
     window=0``: the reference's cross-attention); a mask between two
-    lengths raises ``ValueError``."""
-    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    lengths raises ``ValueError``. ``rows > 0`` computes the same function
+    ``rows`` queries at a time, so that a long sequence's [Sq, Sk] scores
+    are never held whole."""
+    sq, sk = q.shape[2], k.shape[2]
     if sk != sq and (causal or window > 0):
         raise ValueError(f"flash_attention: Sq = {sq} != Sk = {sk} takes "
                          f"no causal or window mask (causal={causal}, "
                          f"window={window})")
+    step = rows if rows > 0 else sq
+    return torch.cat([_attend_rows(q[:, :, i:i + step], k, v, i, causal,
+                                   window) for i in range(0, sq, step)],
+                     dim=2)
+
+
+def _attend_rows(q, k, v, q0: int, causal: bool, window: int):
+    """``flash_attention_ref`` for the queries at q0, q0 + 1, ..."""
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     scores = scores / math.sqrt(d)
     if causal or window > 0:
-        qpos = torch.arange(sq, device=q.device)[:, None]
+        qpos = torch.arange(q0, q0 + sq, device=q.device)[:, None]
         kpos = torch.arange(sk, device=q.device)[None, :]
         mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
         if causal:
@@ -60,18 +72,19 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
 
 
-def flash_tc_limit(q, k, v, want, *, causal: bool = True, window: int = 0):
+def flash_tc_limit(q, k, v, want, *, causal: bool = True, window: int = 0,
+                   rows: int = 0):
     """Per-element limit of the tensor-core flash kernel against the plain
     version's output ``want`` (q [B, H, Sq, D], k and v [B, H, Sk, D], the
     masks of ``flash_attention_ref``): |want| * 2**-6 + 2**-8 * (P.|v|) +
     1e-5, where P.|v| = sum_k p_k |v_k| / l is this plain version applied
-    to |v| in f32. The kernel rounds p to bf16 before P.V (8 significant bits:
-    each term moves by at most 2**-8 relative) and sums l from the fp32 p
-    as this version does; got and want are each rounded once to bf16
-    (half an ulp each, ulp(x) <= |x| * 2**-7). Derivation in
-    csrc/flash_attention_tc.cu."""
+    to |v| in f32 (``rows`` queries at a time, as there). The kernel rounds
+    p to bf16 before P.V (8 significant bits: each term moves by at most
+    2**-8 relative) and sums l from the fp32 p as this version does; got
+    and want are each rounded once to bf16 (half an ulp each, ulp(x) <=
+    |x| * 2**-7). Derivation in csrc/flash_attention_tc.cu."""
     pv_abs = flash_attention_ref(q.float(), k.float(), v.float().abs(),
-                                 causal=causal, window=window)
+                                 causal=causal, window=window, rows=rows)
     return want.float().abs() * 2.0 ** -6 + 2.0 ** -8 * pv_abs + 1e-5
 
 

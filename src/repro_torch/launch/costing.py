@@ -13,7 +13,8 @@ Two halves:
   counting pass on torch's ``meta`` device (``repro_torch.counting``)
   where the reference compiles with XLA. Each figure is a device's share
   (``Counter.per_device``): the batch's work over the devices the batch
-  splits over, the optimizer update (replicated) whole on each device.
+  splits over, a model shard's over its share, the optimizer update of a
+  device's blocks (the state placed by logical axis on the mesh) whole.
   XLA counts a scanned loop body once, so the reference adds (repeats - 1)
   x one pattern's cost (``body_cost``, applied by ``corrected_cost``);
   eager torch runs every layer, so the port's counts need no such
@@ -299,33 +300,52 @@ def train_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, rules, *,
     reference's ``body_cost``) corrects XLA's once-counted scan and is
     not ported. D, the optimizer update, is replicated: counted whole on each
     device. Returns (flops, bytes, coll_dict)."""
-    from repro_torch.launch.steps import abstract_state, input_specs
+    from repro_torch.launch.mesh import pod_mesh
+    from repro_torch.launch.steps import (abstract_state, input_specs,
+                                          placed_gradient_allreduce,
+                                          placed_grads)
 
     pods = max(fl_pods, 1)
     mb_shape = dataclasses.replace(
         shape, global_batch=shape.global_batch // pods // microbatches)
-    params, opt_state, opt = abstract_state(cfg, optimizer)
+    pm = None if mesh is None else pod_mesh(mesh)
+    params, opt_state, opt = abstract_state(cfg, optimizer, mesh=pm,
+                                            rules=rules)
     specs = input_specs(cfg, mb_shape)
     split = batch_split(mesh, rules, mb_shape.global_batch)
     ranks = _grad_ranks(mesh)
+    kw = {} if pm is None else dict(tp=pm.shape.get("model", 1),
+                                    devices=math.prod(pm.shape.values()))
+    placed = sharding.is_placed(params)
+
+    def track(c, tree):
+        if placed:
+            c.track_placed([p for t in tree for _, p in
+                            sharding.placed_leaves(t)])
+        else:
+            c.track(tree)
 
     # ---- B: one-microbatch grads ---------------------------------------
     with _ctx(mesh, rules), \
-            counting.Counter(split=split, grad_ranks=ranks) as cb:
-        cb.track(params)
+            counting.Counter(split=split, grad_ranks=ranks, **kw) as cb:
+        track(cb, (params,))
         cb.track(specs, kind="split")
-        tree, leaves = _leaves_requiring_grad(params)
-        loss, _ = model_mod.loss_fn(tree, cfg, specs,
-                                    moe_strategy=moe_strategy)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        counting.gradient_allreduce([g for g in grads if g is not None])
+        if placed:
+            _, g = placed_grads(cfg, params, specs, moe_strategy)
+            placed_gradient_allreduce(g)
+        else:
+            tree, leaves = _leaves_requiring_grad(params)
+            loss, _ = model_mod.loss_fn(tree, cfg, specs,
+                                        moe_strategy=moe_strategy)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            counting.gradient_allreduce([g for g in grads if g is not None])
     bf, bb, bcoll = _result(cb)
 
-    # ---- D: optimizer update (replicated) --------------------------------
+    # ---- D: optimizer update (a device's blocks) -------------------------
     grads = params                       # a meta tree of the params' shapes
     step = torch.zeros((), dtype=torch.int64, device="meta")
-    with counting.Counter(split=split) as cd:
-        cd.track((params, opt_state))
+    with counting.Counter(split=split, **kw) as cd:
+        track(cd, (params, opt_state))
         with counting.replicated():
             opt.update(params, grads, opt_state, step)
     df, db, dcoll = _result(cd)

@@ -8,16 +8,23 @@ Usage (the CPU is enough: meta needs no card):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
+        --shape train_4k --variant zero1
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
         --shape train_4k --measure --batch 2     # on the card
 
 The mesh is the H100 production mesh (``launch.mesh``): one HGX node of
-8 cards, ("data", "model") = (8, 1), or two of them with the pod axis.
-The counted program is the port's own step (``launch.steps``), run by the
-counting pass (``repro_torch.counting``); a device's figures are the busiest
-device's share (``Counter.per_device``). On a multi-pod mesh the FL train
-step runs both pods; a step without the pod loop (prefill, decode, the
-FedAvg baseline) is counted for one pod's share of the batch, the same
-figures a device. The roofline's times are predictions for an NVIDIA
+8 cards, ("data", "model") = (2, 4), or two of them with the pod axis.
+The state is placed by logical axis under the reference's rules
+(``sharding_rules.base_rules``, ``--variant``: zero1, no_seqshard,
+expert_model, pure_dp, noremat, mb16, fp8, as the reference's), each leaf's
+blocks live on their devices; the step runs tensor-parallel over the model
+axis. The counted program is the port's own step (``launch.steps``), run by
+the counting pass (``repro_torch.counting``); a device's figures are the
+busiest device's share (``Counter.per_device``): its blocks, its model
+shard's work on the data axis's share of the batch, its own. On a
+multi-pod mesh the FL train step runs both pods; a step without the pod
+loop (prefill, decode, the FedAvg baseline) is counted for one pod's share
+of the batch, the same figures a device. The roofline's times are predictions for an NVIDIA
 H100 80GB HBM3 at 700 W (``roofline``): collective bytes inside a pod
 over NVLink, those that cross pods (the gossip ring, the FedAvg
 baseline's gradient all-reduce) over the link between nodes.
@@ -119,18 +126,25 @@ class Plan:
     chips: int
     grad_ranks: int
     grad_across_pods: bool
+    variant: str = "baseline"
 
 
 def plan(arch: str, shape: ShapeConfig, *, multi_pod: bool = False,
-         fl: bool = True, devices=None, config: ModelConfig = None) -> Plan:
+         fl: bool = True, devices=None, config: ModelConfig = None,
+         variant: str = "baseline", pod=None) -> Plan:
     """The pair's ``Plan`` on the production mesh over ``devices``
     (default meta), with the reference's policies (``pick_optimizer``,
-    ``pick_microbatches``, ``pick_moe_strategy``, ``effective_config``).
-    ``config`` replaces the arch's config (a reduced one in the tests)."""
-    cfg = config or effective_config(arch, shape)
-    mesh = make_production_mesh(multi_pod=multi_pod, devices=devices)
+    ``pick_microbatches``, ``pick_moe_strategy``, ``effective_config``) and
+    rules under ``variant``. ``config`` replaces the arch's config (a
+    reduced one in the tests); ``pod`` a pod's (data, model) shape (default
+    ``mesh.H100_POD``'s)."""
+    cfg = config or effective_config(arch, shape, variant)
+    if config is not None and "noremat" in variant:
+        cfg = dataclasses.replace(cfg, remat=False)
+    mesh = make_production_mesh(multi_pod=multi_pod, devices=devices,
+                                pod=pod)
     chips = math.prod(mesh.shape.values())
-    rules = base_rules(multi_pod)
+    rules = base_rules(multi_pod, variant=variant)
     fl_pods = mesh.shape.get("pod", 0) if (multi_pod and fl and
                                            shape.mode == "train") else 0
     pods = mesh.shape.get("pod", 1)
@@ -146,14 +160,16 @@ def plan(arch: str, shape: ShapeConfig, *, multi_pod: bool = False,
             shape = dataclasses.replace(
                 shape, global_batch=shape.global_batch // pods)
     microbatches = pick_microbatches(cfg, shape, fl_pods)
-    moe_strategy = pick_moe_strategy(cfg)
+    if "mb16" in variant:
+        microbatches = max(microbatches, 16)
+    moe_strategy = pick_moe_strategy(cfg, variant)
     if cfg.moe is not None and cfg.moe.num_experts % data:
         # expert parallelism needs the experts to split over the data
         # axis (every full config's do; a reduced one's may not)
         moe_strategy = "grouped"
     return Plan(cfg, shape, mesh, rules, fl_pods, pick_optimizer(cfg),
                 microbatches, moe_strategy, chips, grad_ranks,
-                grad_across_pods)
+                grad_across_pods, variant)
 
 
 def _materialize(tree, gen, vocab: int):
@@ -175,53 +191,88 @@ def _materialize(tree, gen, vocab: int):
 
 
 def build_state(p: Plan, device="meta", seed: int = 0):
-    """(params, opt_state, opt, inputs) of the pair on ``device``: meta
-    from ``steps.abstract_state`` / ``input_specs``; a real device takes
-    random weights from ``model.init_params`` (seed ``seed``), the
-    optimizer's own init and random inputs of the same shapes."""
-    from repro_torch.launch.steps import abstract_state, input_specs
+    """(params, opt_state, opt, inputs) of the pair on ``device``, placed
+    by logical axis on the pair's mesh (pod p's on pod p's): meta from
+    ``steps.abstract_state`` / ``input_specs``; a real device takes random
+    weights from ``model.init_params`` (seed ``seed``), the optimizer's own
+    init and random inputs of the same shapes, placed the same way
+    (``steps.place_state``, ``model.place_cache``)."""
+    from repro_torch.launch.steps import (abstract_state, input_specs,
+                                          place_state)
     from repro_torch.models import model as model_mod
 
     opt_name = p.opt_name if p.shape.mode == "train" else "sgd"
-    params, opt_state, opt = abstract_state(p.cfg, opt_name,
-                                            fl_pods=p.fl_pods)
-    inputs = input_specs(p.cfg, p.shape, fl_pods=p.fl_pods)
     if torch.device(device).type == "meta":
+        params, opt_state, opt = abstract_state(
+            p.cfg, opt_name, mesh=p.mesh, rules=p.rules, fl_pods=p.fl_pods)
+        inputs = input_specs(p.cfg, p.shape, p.mesh, p.rules,
+                             fl_pods=p.fl_pods)
         return params, opt_state, opt, inputs
+    _, _, opt = abstract_state(p.cfg, opt_name)
+    inputs = input_specs(p.cfg, p.shape, fl_pods=p.fl_pods)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    if p.fl_pods:
-        params = [model_mod.init_params(gen, p.cfg)
-                  for _ in range(p.fl_pods)]
-        opt_state = [opt.init(x) for x in params]
-    else:
+
+    def one(pod):
         params = model_mod.init_params(gen, p.cfg)
-        opt_state = opt.init(params)
-    return params, opt_state, opt, _materialize(inputs, gen,
-                                                p.cfg.vocab_size)
+        return place_state(p.cfg, params, opt.init(params), opt_name,
+                           pod_mesh(p.mesh, pod), p.rules)
+    if p.fl_pods:
+        trees = [one(i) for i in range(p.fl_pods)]
+        params, opt_state = [t[0] for t in trees], [t[1] for t in trees]
+    else:
+        params, opt_state = one(0)
+    inputs = _materialize(inputs, gen, p.cfg.vocab_size)
+    if "cache" in inputs:
+        inputs["cache"] = model_mod.place_cache(inputs["cache"], p.cfg,
+                                                pod_mesh(p.mesh), p.rules)
+    return params, opt_state, opt, inputs
 
 
 def count_step(p: Plan, state):
     """Run the pair's step once under a ``counting.Counter`` (on whatever
     device ``state`` lies) and return the counter. The state and inputs
-    are registered first: the parameters and optimizer state whole on each
-    device (an FL step's per pod), the inputs (and a decode cache) the
-    batch's, which splits over the pod's data axis."""
+    are registered first: the placed parameters and optimizer state block
+    by block on the devices holding each (an FL step's per pod), the
+    inputs the batch's, which splits over the pod's data axis, and a
+    decode cache's blocks by model shard for that share."""
     from repro_torch.launch.costing import batch_split
 
     params, opt_state, _, inputs = state
-    split = batch_split(pod_mesh(p.mesh), p.rules,
+    pm = pod_mesh(p.mesh)
+    split = batch_split(pm, p.rules,
                         p.shape.global_batch // max(p.fl_pods, 1))
     with counting.Counter(split=split, grad_ranks=p.grad_ranks,
-                          grad_across_pods=p.grad_across_pods) as c:
+                          grad_across_pods=p.grad_across_pods,
+                          tp=pm.shape.get("model", 1),
+                          devices=math.prod(pm.shape.values())) as c:
         if p.fl_pods:
             for i in range(p.fl_pods):
-                c.track((params[i], opt_state[i]), pod=i)
+                c.track_placed(_placed((params[i], opt_state[i])), pod=i)
         else:
-            c.track((params, opt_state))
-        c.track(inputs, kind="split")
+            c.track_placed(_placed((params, opt_state)))
+        plain = {k: v for k, v in inputs.items() if k != "cache"}
+        c.track(plain, kind="split")
+        if "cache" in inputs:
+            c.track_placed(_placed(inputs["cache"]), batch=True)
         run_step(p, state)
     return c
+
+
+def _placed(tree):
+    """The ``Placed`` leaves of a tree of dicts, lists and tuples."""
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _placed(t)]
+    return [pl for _, pl in sharding.placed_leaves(tree)]
+
+
+def _device_bytes(tree) -> float:
+    """The busiest device's bytes of a placed tree (its blocks)."""
+    leaves = _placed(tree)
+    if not leaves:
+        return float(_tree_bytes(tree))
+    coords = leaves[0].owners
+    return max(sum(pl.device_bytes(cd) for pl in leaves) for cd in coords)
 
 
 def _gb(tree_bytes: float) -> float:
@@ -257,7 +308,8 @@ def _gossip_info(cfg, fl_pods, params, *, scenario, cd_enrolled,
     mix = torch.empty((fl_pods, fl_pods), dtype=torch.float32,
                       device="meta")
     with counting.Counter() as g:
-        mix_pytree_ppermute(mix, [pods_mod.flatten(p) for p in params],
+        mix_pytree_ppermute(mix, [pods_mod.flatten(sharding.unplace(p))
+                                  for p in params],
                             ["meta"] * fl_pods,
                             adjacency=make_topology("dense", fl_pods,
                                                     fl_pods - 1))
@@ -371,7 +423,7 @@ def _gossip_info(cfg, fl_pods, params, *, scenario, cd_enrolled,
 
 
 def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
-               fl: bool = True,
+               fl: bool = True, variant: str = "baseline",
                scenario: str = "", cd_enrolled: int = 10_000,
                cd_sample_k: int = 64, shard_workers: int = 8,
                verbose: bool = True):
@@ -391,15 +443,21 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
     if (arch, shape_name) in SKIPS:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped", "reason": SKIPS[(arch, shape_name)]}
-    p = plan(arch, shape, multi_pod=multi_pod, fl=fl)
+    p = plan(arch, shape, multi_pod=multi_pod, fl=fl, variant=variant)
     t0 = time.time()
     state = build_state(p)
     t_lower = time.time() - t0
     t0 = time.time()
     c = count_step(p, state)
     t_compile = time.time() - t0
-    args_dev = (_tree_bytes(state[:2]) / max(p.fl_pods, 1)
-                + _tree_bytes(state[3]) / c.split)
+    pods_state = state[:2] if not p.fl_pods else (state[0][0],
+                                                   state[1][0])
+    cache = state[3].get("cache")
+    args_dev = (_device_bytes(pods_state)
+                + _tree_bytes({k: v for k, v in state[3].items()
+                               if k != "cache"}) / c.split
+                + (_device_bytes(cache) / c.split if cache is not None
+                   else 0))
 
     gossip_info = None
     if p.fl_pods:
@@ -418,6 +476,8 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
     result = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "status": "ok", "chips": p.chips, "optimizer": p.opt_name,
+        "variant": p.variant,
+        "mesh_shape": dict(p.mesh.shape),
         "params_b": p.cfg.param_count() / 1e9,
         "microbatches": p.microbatches,
         "moe_strategy": p.moe_strategy,
@@ -467,7 +527,7 @@ def _sync(device):
 def measure(arch: str, shape_name: str, *, batch: int = 0, seq: int = 0,
             device=None, multi_pod: bool = False, repeats: int = 3,
             verbose: bool = True,
-            config: ModelConfig = None):
+            config: ModelConfig = None, pod=None):
     """Count the pair at a cut (``batch``, ``seq``; 0 keeps the shape's) on
     meta, then run it on ``device`` (default the card; ``"cpu"`` for
     tests) under the same counter, then time it there without the counter
@@ -489,7 +549,7 @@ def measure(arch: str, shape_name: str, *, batch: int = 0, seq: int = 0,
     cuts = [f"{k} {getattr(full, k)} -> {getattr(shape, k)}"
             for k in ("global_batch", "seq_len")
             if getattr(full, k) != getattr(shape, k)]
-    kw = dict(multi_pod=multi_pod, config=config)
+    kw = dict(multi_pod=multi_pod, config=config, pod=pod)
 
     def one_plan(d):
         p = plan(arch, full, **kw, devices=[d] * (16 if multi_pod else 8))
@@ -578,8 +638,11 @@ def run_step(p: Plan, state):
                   microbatches=p.microbatches)(params, opt_state, step,
                                                inputs)
         elif p.shape.mode == "prefill":
+            # the logits stay in their shards' layout, as the reference's
+            # constraint leaves them
             steps_mod.build_prefill_step(
-                p.cfg, moe_strategy=p.moe_strategy)(params, inputs)
+                p.cfg, moe_strategy=p.moe_strategy,
+                whole_logits=False)(params, inputs)
         else:
             dec = p.moe_strategy if p.cfg.moe is not None else "dense"
             kw = {"enc_out": inputs["enc_out"]} if "enc_out" in inputs \
@@ -595,6 +658,10 @@ def main(argv=None):
     ap.add_argument("--shape", default="")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--variant", default="baseline",
+                    help="the reference's rule variants (zero1, "
+                    "no_seqshard, expert_model, pure_dp, noremat, mb16, "
+                    "fp8; joined, e.g. zero1_fp8)")
     ap.add_argument("--fedavg-baseline", action="store_true",
                     help="multi-pod without the FL pod axis (params "
                     "replicated across pods; grad AR crosses pods)")
@@ -649,10 +716,13 @@ def main(argv=None):
         tag = f"{arch}_{shape}_{'multi' if args.multi_pod else 'single'}"
         if args.fedavg_baseline:
             tag += "_fedavg"
+        if args.variant != "baseline":
+            tag += f"_{args.variant}"
         out_path = os.path.join(args.out, tag + ".json")
         try:
             res = run_dryrun(arch, shape, multi_pod=args.multi_pod,
                              fl=not args.fedavg_baseline,
+                             variant=args.variant,
                              scenario=args.scenario,
                              cd_enrolled=args.cd_enrolled,
                              cd_sample_k=args.cd_sample_k,

@@ -52,9 +52,12 @@ The run lands on the card (``--device cuda``, the default) and raises
 without one; ``--device cpu`` runs the kernels' plain versions.
 ``--shard-workers S`` shards the worker (or enrolled) axis of the
 simulation modes over S devices (``repro_torch.sharding``): the first S
-cards, or S CPU shards with ``--device cpu``. ``--debug-mesh`` (the
-reference's tensor-parallel mesh inside a pod) raises
-``NotImplementedError`` (ROADMAP.md queue 1a, item 12b).
+cards, or S CPU shards with ``--device cpu``. ``--debug-mesh`` trains
+LM steps tensor-parallel on the reference's debug mesh
+(``launch.mesh.make_debug_mesh``: ("data", "model") = (2, 2), with
+``--fl`` (pods, 2, 2)) over ``--device`` repeated: the parameters and the
+optimizer state placed by logical axis under the reference's rules, each
+pod's on its own (2, 2); the gossip round mixes the whole trees.
 """
 from __future__ import annotations
 
@@ -65,13 +68,12 @@ import os
 import sys
 import time
 
+import contextlib
+
 import numpy as np
 import torch
 
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1a, {item})")
+from repro_torch import sharding
 
 
 def make_ledger(args, cfg, mode: str):
@@ -240,6 +242,19 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _whole(trees):
+    return [sharding.unplace(t) for t in trees]
+
+
+def _gossip_placed(gossip_rnd, pstate, pod_params, losses, start, place):
+    """The pod round on whole trees: placed pods (``--debug-mesh``) are
+    assembled, mixed, and placed again (``place``)."""
+    if place is None:
+        return gossip_rnd(pstate, pod_params, losses, start)
+    pstate, mixed = gossip_rnd(pstate, _whole(pod_params), losses, start)
+    return pstate, [place(t, i)[0] for i, t in enumerate(mixed)]
+
+
 def _stack_pods(trees):
     """Per-pod trees -> one tree of [npods, ...] tensors (the reference's
     stacked layout, for its checkpoint files)."""
@@ -279,11 +294,6 @@ def train_lm(args, *, params=None, draws=None) -> dict:
     from repro_torch.models import model as model_mod
     from repro_torch.optim import make_optimizer
 
-    if args.debug_mesh:
-        _not_ported("--debug-mesh (tensor parallelism inside a pod)",
-                    "item 12b: tensor parallelism inside a pod — "
-                    "resolve_spec, constrain, sharding_tree, zero1_axes "
-                    "and the mesh's model axis")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -294,153 +304,183 @@ def train_lm(args, *, params=None, draws=None) -> dict:
     if params is None:
         params = model_mod.init_params(
             torch.Generator(device=dev).manual_seed(0), cfg)
-    step = 0
-    out = {"losses": [], "step_s": [], "gossip_s": [], "transport": None,
-           "pstate": None}
+    mesh = rules = None
+    ctx = contextlib.nullcontext()
+    if args.debug_mesh:
+        from repro_torch.launch.mesh import make_debug_mesh, pod_mesh
+        from repro_torch.launch.sharding_rules import base_rules
+        from repro_torch.launch.steps import place_state
+        mesh = make_debug_mesh(pods=pods,
+                               devices=[dev] * (4 * max(pods, 1)))
+        rules = base_rules(multi_pod=bool(pods))
+        if pods:
+            # each pod's step runs on its own ("data", "model") mesh
+            rules = {**rules, "batch": ("data",)}
+        ctx = sharding.logical_rules(pod_mesh(mesh), rules)
 
-    if args.fl:
-        from repro_torch.config import DeFTAConfig
-        from repro_torch.core.engine import (init_pod_state,
-                                             resolve_dts_signal,
-                                             sketch_shape)
-        from repro_torch.core.gossip import uses_error_feedback
-        from repro_torch.launch.steps import build_pod_gossip_step
-        from repro_torch.rng import TorchDraws
-        from repro_torch.scenarios import compile_scenario, get_scenario
-        from repro_torch.scenarios.robust_agg import ROBUST_RULES
+        def placed(tree, p=0):
+            return place_state(cfg, tree, opt.init(tree), args.optimizer,
+                               pod_mesh(mesh, p), rules)
+    with ctx:
+        step = 0
+        out = {"losses": [], "step_s": [], "gossip_s": [], "transport": None,
+               "pstate": None}
 
-        devices = [dev] * pods
-        pod_params = pods_mod.replicate(params, devices)
-        pod_opt = [opt.init(p) for p in pod_params]
-        fl_step = build_fl_train_step(cfg, opt)
-        adj = make_topology("dense", pods, pods - 1)
-        sizes = np.full(pods, args.batch)
+        if args.fl:
+            from repro_torch.config import DeFTAConfig
+            from repro_torch.core.engine import (init_pod_state,
+                                                 resolve_dts_signal,
+                                                 sketch_shape)
+            from repro_torch.core.gossip import uses_error_feedback
+            from repro_torch.launch.steps import build_pod_gossip_step
+            from repro_torch.rng import TorchDraws
+            from repro_torch.scenarios import compile_scenario, get_scenario
+            from repro_torch.scenarios.robust_agg import ROBUST_RULES
 
-        robust = args.aggregation in ROBUST_RULES
-        if args.dts_signal != "loss" and not (args.pod_dts
-                                              and not robust):
-            raise SystemExit(f"--dts-signal {args.dts_signal} needs "
-                             f"--pod-dts (and a non-robust "
-                             f"--aggregation): without DTS no trust "
-                             f"update runs, the flag would be "
-                             f"silently inert")
-        dcfg = DeFTAConfig(
-            num_workers=pods, avg_peers=pods - 1,
-            num_sampled=min(2, pods - 1), topology="dense",
-            aggregation=args.aggregation,
-            use_dts=args.pod_dts and not robust,
-            dts_signal=args.dts_signal,
-            time_machine=args.pod_time_machine and not robust,
-            gossip_dtype="float32" if robust else args.gossip_wire,
-            gossip_error_feedback=not args.no_gossip_ef,
-            gossip_wire_round=args.gossip_wire_round,
-            secagg="pairwise" if args.secagg and not robust else None,
-            secagg_mode=args.secagg_mode,
-            dp_sigma=args.dp_sigma,
-            dp_update_clip=args.dp_update_clip)
+            devices = [dev] * pods
+            pod_params = pods_mod.replicate(params, devices)
+            pod_opt = [opt.init(p) for p in pod_params]
+            plain_params = pod_params
+            if mesh is not None:
+                trees = [placed(t, i) for i, t in enumerate(pod_params)]
+                pod_params = [t[0] for t in trees]
+                pod_opt = [t[1] for t in trees]
+            fl_step = build_fl_train_step(cfg, opt)
+            adj = make_topology("dense", pods, pods - 1)
+            sizes = np.full(pods, args.batch)
 
-        # the scenario's epoch axis is the gossip round index
-        rounds = max(args.steps // args.gossip_every, 1)
-        scenario = None
-        if args.scenario:
-            n_app = get_scenario(args.scenario, pods) \
-                .num_appended_attackers()
-            vanilla = pods - n_app
-            if vanilla <= 0:
-                raise SystemExit(
-                    f"scenario {args.scenario} appends {n_app} "
-                    f"attackers but the mesh only has {pods} pods — "
-                    f"attackers occupy pod slots; use more --pods")
-            scenario = compile_scenario(
-                get_scenario(args.scenario, vanilla), vanilla, rounds,
+            robust = args.aggregation in ROBUST_RULES
+            if args.dts_signal != "loss" and not (args.pod_dts
+                                                  and not robust):
+                raise SystemExit(f"--dts-signal {args.dts_signal} needs "
+                                 f"--pod-dts (and a non-robust "
+                                 f"--aggregation): without DTS no trust "
+                                 f"update runs, the flag would be "
+                                 f"silently inert")
+            dcfg = DeFTAConfig(
+                num_workers=pods, avg_peers=pods - 1,
+                num_sampled=min(2, pods - 1), topology="dense",
+                aggregation=args.aggregation,
+                use_dts=args.pod_dts and not robust,
+                dts_signal=args.dts_signal,
+                time_machine=args.pod_time_machine and not robust,
+                gossip_dtype="float32" if robust else args.gossip_wire,
+                gossip_error_feedback=not args.no_gossip_ef,
+                gossip_wire_round=args.gossip_wire_round,
+                secagg="pairwise" if args.secagg and not robust else None,
+                secagg_mode=args.secagg_mode,
+                dp_sigma=args.dp_sigma,
+                dp_update_clip=args.dp_update_clip)
+
+            # the scenario's epoch axis is the gossip round index
+            rounds = max(args.steps // args.gossip_every, 1)
+            scenario = None
+            if args.scenario:
+                n_app = get_scenario(args.scenario, pods) \
+                    .num_appended_attackers()
+                vanilla = pods - n_app
+                if vanilla <= 0:
+                    raise SystemExit(
+                        f"scenario {args.scenario} appends {n_app} "
+                        f"attackers but the mesh only has {pods} pods — "
+                        f"attackers occupy pod slots; use more --pods")
+                scenario = compile_scenario(
+                    get_scenario(args.scenario, vanilla), vanilla, rounds,
+                    device=dev)
+                assert scenario.num_workers == pods
+                print(f"--fl scenario {scenario.spec.name}: "
+                      f"{scenario.summary(adj)}")
+
+            self_eval = None
+            if dcfg.time_machine:
+                # the held-out self-eval batch: an index the training loop
+                # never reaches, a per-pod-sized share, the same for every pod
+                hb = batcher.batch_at(args.steps + 1)
+                hbatch = {k: torch.as_tensor(v)[:args.batch // pods]
+                          for k, v in hb.items()}
+
+                @torch.no_grad()
+                def self_eval(pod_trees):
+                    return torch.stack([model_mod.loss_fn(
+                        p, cfg, {k: v.to(d) for k, v in hbatch.items()})[0]
+                        .to(dev) for p, d in zip(pod_trees, devices)])
+
+            if draws is None:
+                draws = TorchDraws(
+                    torch.Generator(device=dev).manual_seed(101))
+            gossip_rnd, pod_tr = build_pod_gossip_step(
+                cfg, dcfg, pods, sizes, adjacency=adj, draws=draws,
+                transport=args.transport, pods=devices, scenario=scenario,
+                self_eval=self_eval, device=dev)
+            pstate = init_pod_state(
+                pods, plain_params,
+                wire_error=uses_error_feedback(dcfg) and not robust,
+                time_machine=dcfg.time_machine, sketch=sketch_shape(dcfg),
                 device=dev)
-            assert scenario.num_workers == pods
-            print(f"--fl scenario {scenario.spec.name}: "
-                  f"{scenario.summary(adj)}")
+            print(f"--fl pod pipeline: transport={pod_tr.kind} "
+                  f"wire={pod_tr.wire or 'fp32'} ef={pod_tr.use_ef} "
+                  f"aggregation={args.aggregation} dts={dcfg.use_dts} "
+                  f"signal={dcfg.dts_signal} tm={dcfg.time_machine}")
 
-        self_eval = None
-        if dcfg.time_machine:
-            # the held-out self-eval batch: an index the training loop
-            # never reaches, a per-pod-sized share, the same for every pod
-            hb = batcher.batch_at(args.steps + 1)
-            hbatch = {k: torch.as_tensor(v)[:args.batch // pods]
-                      for k, v in hb.items()}
-
-            @torch.no_grad()
-            def self_eval(pod_trees):
-                return torch.stack([model_mod.loss_fn(
-                    p, cfg, {k: v.to(d) for k, v in hbatch.items()})[0]
-                    .to(dev) for p, d in zip(pod_trees, devices)])
-
-        if draws is None:
-            draws = TorchDraws(torch.Generator(device=dev).manual_seed(101))
-        gossip_rnd, pod_tr = build_pod_gossip_step(
-            cfg, dcfg, pods, sizes, adjacency=adj, draws=draws,
-            transport=args.transport, pods=devices, scenario=scenario,
-            self_eval=self_eval, device=dev)
-        pstate = init_pod_state(
-            pods, pod_params,
-            wire_error=uses_error_feedback(dcfg) and not robust,
-            time_machine=dcfg.time_machine, sketch=sketch_shape(dcfg),
-            device=dev)
-        print(f"--fl pod pipeline: transport={pod_tr.kind} "
-              f"wire={pod_tr.wire or 'fp32'} ef={pod_tr.use_ef} "
-              f"aggregation={args.aggregation} dts={dcfg.use_dts} "
-              f"signal={dcfg.dts_signal} tm={dcfg.time_machine}")
-
-        # the geometry and correlation signals score true local-train
-        # deltas: keep what the pods depart from each gossip interval
-        track_start = bool(resolve_dts_signal(dcfg))
-        gossip_start = [pods_mod.copy_to(p) for p in pod_params] \
-            if track_start else None
-        for i in range(args.steps):
-            b = batcher.batch_at(i)
-            batch = {k: torch.as_tensor(v).reshape(
-                pods, args.batch // pods, -1) for k, v in b.items()}
-            t0 = time.time()
-            pod_params, pod_opt, step, losses = fl_step(
-                pod_params, pod_opt, step, batch)
-            gossip = (i + 1) % args.gossip_every == 0
-            if gossip:
-                _sync(dev)
-                g0 = time.time()
-                pstate, pod_params = gossip_rnd(pstate, pod_params, losses,
-                                                gossip_start)
-                _sync(dev)
-                out["gossip_s"].append(time.time() - g0)
-                if track_start:
-                    gossip_start = [pods_mod.copy_to(p) for p in pod_params]
-            row = losses.tolist()
-            out["step_s"].append(time.time() - t0)
-            out["losses"].append(row)
-            print(f"step {i:4d} losses={[round(x, 4) for x in row]} "
-                  f"({out['step_s'][-1]:.2f}s)"
-                  + ("  [gossip]" if gossip else ""))
-        params, opt_state = pod_params, pod_opt
-        out.update(pstate=pstate, transport=pod_tr)
-        saved = {"params": _stack_pods(pod_params),
-                 "opt": _stack_pods(pod_opt)}
-    else:
-        opt_state = opt.init(params)
-        tstep = build_train_step(cfg, opt)
-        for i in range(args.steps):
-            b = batcher.batch_at(i)
-            batch = {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
-            t0 = time.time()
-            params, opt_state, step, loss = tstep(params, opt_state, step,
-                                                  batch)
-            out["losses"].append(float(loss))
-            out["step_s"].append(time.time() - t0)
-            print(f"step {i:4d} loss={out['losses'][-1]:.4f} "
-                  f"({out['step_s'][-1]:.2f}s)")
-        saved = {"params": params, "opt": opt_state}
-    print_launches()
-    if args.checkpoint_dir:
-        from repro_torch.checkpoint import save_checkpoint
-        path = save_checkpoint(args.checkpoint_dir, saved, int(step))
-        print("checkpoint saved:", path)
-    out.update(params=params, opt=opt_state)
-    return out
+            # the geometry and correlation signals score true local-train
+            # deltas: keep what the pods depart from each gossip interval
+            track_start = bool(resolve_dts_signal(dcfg))
+            gossip_start = [pods_mod.copy_to(p) for p in plain_params] \
+                if track_start else None
+            for i in range(args.steps):
+                b = batcher.batch_at(i)
+                batch = {k: torch.as_tensor(v).reshape(
+                    pods, args.batch // pods, -1) for k, v in b.items()}
+                t0 = time.time()
+                pod_params, pod_opt, step, losses = fl_step(
+                    pod_params, pod_opt, step, batch)
+                gossip = (i + 1) % args.gossip_every == 0
+                if gossip:
+                    _sync(dev)
+                    g0 = time.time()
+                    pstate, pod_params = _gossip_placed(
+                        gossip_rnd, pstate, pod_params, losses,
+                        gossip_start, placed if mesh is not None else None)
+                    _sync(dev)
+                    out["gossip_s"].append(time.time() - g0)
+                    if track_start:
+                        gossip_start = [pods_mod.copy_to(p) for p in
+                                        (pod_params if mesh is None
+                                         else _whole(pod_params))]
+                row = losses.tolist()
+                out["step_s"].append(time.time() - t0)
+                out["losses"].append(row)
+                print(f"step {i:4d} losses={[round(x, 4) for x in row]} "
+                      f"({out['step_s'][-1]:.2f}s)"
+                      + ("  [gossip]" if gossip else ""))
+            params, opt_state = pod_params, pod_opt
+            out.update(pstate=pstate, transport=pod_tr)
+            saved = {"params": _stack_pods(_whole(pod_params)),
+                     "opt": _stack_pods(_whole(pod_opt))}
+        else:
+            opt_state = opt.init(params)
+            if mesh is not None:
+                params, opt_state = placed(params)
+            tstep = build_train_step(cfg, opt)
+            for i in range(args.steps):
+                b = batcher.batch_at(i)
+                batch = {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+                t0 = time.time()
+                params, opt_state, step, loss = tstep(params, opt_state, step,
+                                                      batch)
+                out["losses"].append(float(loss))
+                out["step_s"].append(time.time() - t0)
+                print(f"step {i:4d} loss={out['losses'][-1]:.4f} "
+                      f"({out['step_s'][-1]:.2f}s)")
+            saved = {"params": sharding.unplace(params),
+                     "opt": sharding.unplace(opt_state)}
+        print_launches()
+        if args.checkpoint_dir:
+            from repro_torch.checkpoint import save_checkpoint
+            path = save_checkpoint(args.checkpoint_dir, saved, int(step))
+            print("checkpoint saved:", path)
+        out.update(params=params, opt=opt_state)
+        return out
 
 
 def parse_cd_attacks(text: str):

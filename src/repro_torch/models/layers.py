@@ -3,8 +3,12 @@ of ``repro.models.layers``).
 
 Parameters are plain nested dicts of tensors with the reference's names
 and layouts, so ``convert`` carries a reference tree across leaf by leaf.
-The reference's logical-axes trees and sharding constraints are not
-ported: on one card they are the identity.
+The ``Builder`` records each leaf's logical axes as the reference's does
+(``model.param_axes``; ``sharding.resolve_spec`` maps them to mesh axes),
+and a leaf's column layout where its columns follow heads
+(``models.ssm.head_layout``). The tensor-parallel forms (``mlp_tp``,
+``gelu_mlp_tp``, ``embed_tp``, ``unembed_tp``) run each model shard's
+columns or rows (``sharding.TensorParallel``).
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ class Builder:
     tree of tensors in place instead of allocating (``blocks.init_stack``
     fills one layer's slice of the stacked parameters at a time). Normal
     draws are made in fp32 and cast into the tensor, as the reference
-    does.
+    does. ``axes`` holds each leaf's logical axes, ``layouts`` a leaf's
+    ``(dim, fn(tp) -> (groups, shared))`` column layout.
     """
 
     def __init__(self, gen, dtype, device=None, abstract: bool = False,
@@ -41,6 +46,8 @@ class Builder:
         self.abstract = abstract
         self.into = into
         self.params = {}
+        self.axes = {}
+        self.layouts = {}
 
     def empty(self, shape):
         """An uninitialised tensor of the builder's dtype (meta when
@@ -48,7 +55,13 @@ class Builder:
         dev = "meta" if self.abstract else self.device
         return torch.empty(tuple(shape), dtype=self.dtype, device=dev)
 
-    def _put(self, name, shape, fill):
+    def _put(self, name, shape, axes, fill, layout=None):
+        if axes is None:                    # replicated
+            axes = (None,) * len(shape)
+        assert len(shape) == len(axes), (name, shape, axes)
+        self.axes[name] = tuple(axes)
+        if layout is not None:
+            self.layouts[name] = layout
         if self.into is not None:
             t = self.into[name]
             assert tuple(t.shape) == tuple(shape), (name, t.shape, shape)
@@ -59,30 +72,33 @@ class Builder:
         self.params[name] = t
         return t
 
-    def normal(self, name, shape, scale=0.02):
+    def normal(self, name, shape, axes=None, scale=0.02, layout=None):
         def fill(t):
             draw = torch.randn(t.shape, generator=self.gen,
                                dtype=torch.float32, device=t.device)
             t.copy_(draw.mul_(scale))
-        return self._put(name, shape, fill)
+        return self._put(name, shape, axes, fill, layout)
 
-    def zeros(self, name, shape):
-        return self._put(name, shape, lambda t: t.zero_())
+    def zeros(self, name, shape, axes=None, layout=None):
+        return self._put(name, shape, axes, lambda t: t.zero_(), layout)
 
-    def ones(self, name, shape):
-        return self._put(name, shape, lambda t: t.fill_(1))
+    def ones(self, name, shape, axes=None):
+        return self._put(name, shape, axes, lambda t: t.fill_(1))
 
-    def const(self, name, value):
+    def const(self, name, value, axes=None):
         """A given value (array-like, computed in fp32) cast to the
         builder's dtype (round to nearest even, as the reference's
         ``jnp.asarray(value, dtype)``)."""
         value = torch.as_tensor(value)
-        return self._put(name, tuple(value.shape), lambda t: t.copy_(value))
+        return self._put(name, tuple(value.shape), axes,
+                         lambda t: t.copy_(value))
 
     def sub(self, name):
         into = None if self.into is None else self.into[name]
         b = Builder(self.gen, self.dtype, self.device, self.abstract, into)
         self.params[name] = b.params
+        self.axes[name] = b.axes
+        self.layouts[name] = b.layouts
         return b
 
 
@@ -181,9 +197,9 @@ def sinusoidal_at(pos: int, d_model: int, device=None):
 # ---------------------------------------------------------------------------
 
 def init_mlp(b: Builder, d_model: int, d_ff: int):
-    b.normal("wi", (d_model, d_ff))
-    b.normal("wg", (d_model, d_ff))
-    b.normal("wo", (d_ff, d_model))
+    b.normal("wi", (d_model, d_ff), ("embed", "mlp"))
+    b.normal("wg", (d_model, d_ff), ("embed", "mlp"))
+    b.normal("wo", (d_ff, d_model), ("mlp", "embed"))
 
 
 def mlp(params, x):
@@ -194,10 +210,10 @@ def mlp(params, x):
 
 
 def init_gelu_mlp(b: Builder, d_model: int, d_ff: int):
-    b.normal("wi", (d_model, d_ff))
-    b.zeros("bi", (d_ff,))
-    b.normal("wo", (d_ff, d_model))
-    b.zeros("bo", (d_model,))
+    b.normal("wi", (d_model, d_ff), ("embed", "mlp"))
+    b.zeros("bi", (d_ff,), ("mlp",))
+    b.normal("wo", (d_ff, d_model), ("mlp", "embed"))
+    b.zeros("bo", (d_model,), ("embed",))
 
 
 def gelu_mlp(params, x):
@@ -211,9 +227,11 @@ def gelu_mlp(params, x):
 # ---------------------------------------------------------------------------
 
 def init_embed(b: Builder, cfg: ModelConfig):
-    b.normal("embedding", (cfg.vocab_size, cfg.d_model), scale=0.01)
+    b.normal("embedding", (cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+             scale=0.01)
     if not cfg.tie_embeddings:
-        b.normal("lm_head", (cfg.d_model, cfg.vocab_size))
+        b.normal("lm_head", (cfg.d_model, cfg.vocab_size),
+                 ("embed", "vocab"))
 
 
 def embed(params, tokens):
@@ -224,3 +242,68 @@ def unembed(params, x, tie: bool):
     if tie:
         return x @ params["embedding"].t()
     return x @ params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel forms (``sharding.TensorParallel``; ``ps[j]`` is model
+# shard j's blocks of the layer's parameters)
+# ---------------------------------------------------------------------------
+
+def rms_norm_tp(tp, x, ps, name, eps):
+    """``rms_norm`` of each shard's block of x (any layout but partial)
+    with the replicated weight ``ps[j][name]``."""
+    from repro_torch.sharding import Act
+    return Act(tp.each(lambda j: rms_norm(x.parts[j], ps[j][name], eps)),
+               split=x.split)
+
+
+def mlp_tp(tp, ps, x, d_ff: int):
+    """SwiGLU MLP with "mlp" over the model axis: shard j's wi, wg
+    columns and wo rows over the whole x (an ``Act`` whole on each shard).
+    Returns partial sums (an ``Act``); where "mlp" is replicated each
+    shard's output is whole."""
+    from repro_torch.sharding import Act
+    parts = tp.each(lambda j: mlp(ps[j], x.parts[j]))
+    return Act(parts, partial=ps[0]["wi"].shape[-1] < d_ff)
+
+
+def gelu_mlp_tp(tp, ps, x, d_ff: int):
+    """``gelu_mlp`` by model shard: the bias ``bo`` enters shard 0's
+    partial sum only."""
+    from repro_torch.sharding import Act
+    split = ps[0]["wi"].shape[-1] < d_ff
+
+    def one(j):
+        p = ps[j]
+        h = F.gelu(x.parts[j] @ p["wi"] + p["bi"], approximate="tanh")
+        y = h @ p["wo"]
+        return y + p["bo"] if (j == 0 or not split) else y
+    return Act(tp.each(one), partial=split)
+
+
+def embed_tp(tp, ps, tokens, vocab: int):
+    """Vocabulary-parallel lookup: shard j reads the tokens in its rows
+    (the others give 0), so the shards' partial sums are the embedding;
+    with "vocab" replicated every shard looks up whole."""
+    from repro_torch.sharding import Act
+    rows = ps[0]["embedding"].shape[0]
+    if rows == vocab:
+        return Act(tp.each(lambda j: embed(ps[j], tokens.to(
+            tp.devices[j]))))
+
+    def one(j):
+        t = tokens.to(tp.devices[j]) - j * rows
+        inside = (t >= 0) & (t < rows)
+        e = F.embedding(t.clamp(0, rows - 1), ps[j]["embedding"])
+        return e * inside[..., None].to(e.dtype)
+    return Act(tp.each(one), partial=True)
+
+
+def unembed_tp(tp, ps, x, tie: bool, vocab: int):
+    """Vocabulary-parallel logits: shard j's [..., V / tp] columns from the
+    whole x (``Act`` whole on each shard), split along the last dim; with
+    "vocab" replicated every shard's logits are whole."""
+    from repro_torch.sharding import Act
+    parts = tp.each(lambda j: unembed(ps[j], x.parts[j], tie))
+    split = parts[0].shape[-1] < vocab
+    return Act(parts, split=parts[0].dim() - 1 if split else None)

@@ -22,8 +22,16 @@ Two dispatch strategies, as in the reference:
 ``eplocal`` / ``eplocal_fp8`` — expert parallelism over the ("data",
 "model") mesh of the active sharding context (``models.moe_eplocal``; the
 fp8 variant quantizes the dispatch).
+
+Under tensor parallelism (``moe_ffn_tp``) eplocal reads its expert blocks
+from the placement (experts -> "data", expert_mlp -> "model") and returns
+the whole output; the grouped and dense dispatches run on each model
+shard with its F columns of every expert (gathered over "data") and its
+shared-expert columns (mlp -> "model"), giving partial sums.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -31,20 +39,21 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Builder
+from repro_torch.sharding import Act, Placed, axes_of
 
 
 def init_moe(b: Builder, cfg: ModelConfig):
     m = cfg.moe
     d, f, e = cfg.d_model, m.d_expert, m.num_experts
-    b.normal("router", (d, e))
-    b.normal("wi", (e, d, f))
-    b.normal("wg", (e, d, f))
-    b.normal("wo", (e, f, d))
+    b.normal("router", (d, e), ("embed", "experts_r"))
+    b.normal("wi", (e, d, f), ("experts", "embed", "expert_mlp"))
+    b.normal("wg", (e, d, f), ("experts", "embed", "expert_mlp"))
+    b.normal("wo", (e, f, d), ("experts", "expert_mlp", "embed"))
     if m.num_shared_experts:
         fs = f * m.num_shared_experts
-        b.normal("shared_wi", (d, fs))
-        b.normal("shared_wg", (d, fs))
-        b.normal("shared_wo", (fs, d))
+        b.normal("shared_wi", (d, fs), ("embed", "mlp"))
+        b.normal("shared_wg", (d, fs), ("embed", "mlp"))
+        b.normal("shared_wo", (fs, d), ("mlp", "embed"))
 
 
 def router_logits(params, x):
@@ -159,6 +168,9 @@ def moe_ffn(params, cfg: ModelConfig, x, strategy: str = "grouped"):
     if strategy.startswith("eplocal"):
         from repro_torch.models.moe_eplocal import moe_eplocal
         return moe_eplocal(params, cfg, x, a2a_fp8=strategy.endswith("fp8"))
+    # placed leaves (split over the data axis) are read whole
+    params = {k: v.read((), x.device) if isinstance(v, Placed) else v
+              for k, v in params.items()}
     b_, s, d = x.shape
     flat = x.reshape(b_ * s, d)
     if strategy == "dense":
@@ -168,3 +180,43 @@ def moe_ffn(params, cfg: ModelConfig, x, strategy: str = "grouped"):
     else:
         raise ValueError(f"unknown moe_strategy {strategy!r}")
     return y.reshape(b_, s, d), aux
+
+
+def moe_ffn_tp(tp, params, cfg: ModelConfig, x, strategy: str = "grouped"):
+    """``moe_ffn`` under tensor parallelism (``sharding.TensorParallel``;
+    ``params`` one layer's placed MoE leaves, x an ``Act`` whole on each
+    shard) -> (an ``Act``, aux). eplocal's output is whole on each shard;
+    the grouped and dense dispatches give partial sums over the F columns
+    (a part that does not split over "model" enters shard 0's only)."""
+    if strategy.startswith("eplocal"):
+        from repro_torch.models.moe_eplocal import moe_eplocal
+        y, aux = moe_eplocal(params, cfg, x.parts[0],
+                             a2a_fp8=strategy.endswith("fp8"))
+        return Act([y.to(d) for d in tp.devices]), aux
+    m = cfg.moe
+    split = "model" in axes_of(params["wi"].spec[-1])
+    shared = m.num_shared_experts and "model" in axes_of(
+        params["shared_wi"].spec[-1])
+    routed_cfg = dataclasses.replace(
+        cfg, moe=dataclasses.replace(m, num_shared_experts=0))
+    f = params["wi"].shape[-1] // (tp.size if split else 1)
+    auxes = []
+
+    def one(j):
+        dev = tp.devices[j]
+        cols = slice(j * f, (j + 1) * f) if split else slice(None)
+        p = {"router": tp.read(params["router"], j),
+             "wi": params["wi"].read((slice(None), slice(None), cols), dev),
+             "wg": params["wg"].read((slice(None), slice(None), cols), dev),
+             "wo": params["wo"].read((slice(None), cols), dev)}
+        xj = x.parts[j]
+        y, aux = moe_ffn(p, routed_cfg, xj, strategy=strategy)
+        auxes.append(aux)
+        if j and shared and not split:
+            y = torch.zeros_like(y)     # the whole routed part: shard 0's
+        if m.num_shared_experts and (shared or j == 0 or not split):
+            loc = tp.params(params, j)
+            y = y + _shared(loc, xj.reshape(-1, xj.shape[-1])).view(
+                xj.shape)
+        return y
+    return Act(tp.each(one), partial=bool(split or shared)), auxes[0]

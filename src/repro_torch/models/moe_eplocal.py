@@ -35,10 +35,11 @@ Per data shard i on the all_to_all path (B divisible by the data axis):
 5. combine: block [i] of every data shard's output back to data shard i,
    one gather of each pair's row, weighted by its gate.
 
-The parameters stay whole on the caller's device, and each shard takes
-its slices per call: views where its device is the caller's (a mesh on
-one card), copies on another card (holding them on distinct cards is
-ROADMAP.md item 10's).
+Each device reads its experts' blocks: from a placed tree
+(``sharding.Placed``: experts -> "data", expert_mlp -> "model",
+``launch.steps.place_state``) the block device (i, j) holds, with no
+copy; from a whole tree, slices per call (views on the caller's device,
+copies on another card).
 
 The shared experts split F over "model" only. The replicated path (B not
 divisible by the data axis) routes once with ``ops.moe_router_topk``, runs
@@ -68,7 +69,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.moe import _shared, expert_counts, \
     grouped_capacity, load_balance_loss, router_logits
-from repro_torch.sharding import _ctx
+from repro_torch.sharding import Placed, _ctx
 
 EXCHANGE = {"dispatch": 0, "combine": 0}
 FP8_MAX = 448.0                 # float8_e4m3fn's largest finite value
@@ -122,14 +123,24 @@ def _check(cfg: ModelConfig, mesh, params):
     return ep, tp
 
 
+def _leaf(params, name: str, region, dev):
+    """``params[name][region]`` on ``dev``: the block a placed leaf holds
+    there (``Placed.read``), else a slice of the whole."""
+    t = params[name]
+    if isinstance(t, Placed):
+        return t.read(region, dev)
+    return t[region].to(dev)
+
+
 def _expert_cols(params, e0: int, e1: int, j: int, tp: int, dev):
     """Experts e0:e1's SwiGLU weights with model shard j's F columns on
     ``dev`` (wi, wg split on F's last dim, wo on its rows)."""
     f = params["wi"].shape[-1] // tp
     cols = slice(j * f, (j + 1) * f)
-    return (params["wi"][e0:e1, :, cols].to(dev),
-            params["wg"][e0:e1, :, cols].to(dev),
-            params["wo"][e0:e1, cols].to(dev))
+    ex = slice(e0, e1)
+    return (_leaf(params, "wi", (ex, slice(None), cols), dev),
+            _leaf(params, "wg", (ex, slice(None), cols), dev),
+            _leaf(params, "wo", (ex, cols), dev))
 
 
 def _shared_tp(params, mesh, i: int, xf, tp: int, dev):
@@ -140,9 +151,11 @@ def _shared_tp(params, mesh, i: int, xf, tp: int, dev):
     for j in range(tp):
         dj = mesh.devices[i][j]
         cols = slice(j * f, (j + 1) * f)
-        part = {"shared_wi": params["shared_wi"][:, cols].to(dj),
-                "shared_wg": params["shared_wg"][:, cols].to(dj),
-                "shared_wo": params["shared_wo"][cols].to(dj)}
+        part = {"shared_wi": _leaf(params, "shared_wi",
+                                   (slice(None), cols), dj),
+                "shared_wg": _leaf(params, "shared_wg",
+                                   (slice(None), cols), dj),
+                "shared_wo": _leaf(params, "shared_wo", (cols,), dj)}
         with counting.device(i * tp + j):
             ys = _shared(part, xf.to(dj)).to(dev)
             if out is not None:
@@ -176,7 +189,8 @@ def _local_moe(params, cfg: ModelConfig, x, mesh, ep: int, tp: int,
     for i, dev in enumerate(home):
         with counting.device(i * tp):
             xf = x[i * b_loc:(i + 1) * b_loc].to(dev).reshape(t, d)
-            logits = router_logits({"router": params["router"].to(dev)}, xf)
+            logits = router_logits({"router": _leaf(params, "router", (),
+                                                    dev)}, xf)
             gates, idx, slot, src = ops.moe_route_slots(logits, k, cap)
             idx = idx.long()
             f_loc = expert_counts(idx, e) / t
@@ -265,7 +279,8 @@ def _local_moe_replicated(params, cfg: ModelConfig, x, mesh, ep: int,
     b_, s, d = x.shape
     t = b_ * s
     xf = x.reshape(t, d)
-    logits = router_logits(params, xf)
+    logits = router_logits({"router": _leaf(params, "router", (),
+                                            x.device)}, xf)
     gates, idx = ops.moe_router_topk(logits, k)
     idx = idx.long()
     aux = load_balance_loss(torch.softmax(logits, dim=-1), idx, e)

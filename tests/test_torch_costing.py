@@ -56,18 +56,9 @@ from repro_torch.launch import roofline as rf
 from repro_torch.launch import steps
 from repro_torch.models import model, moe, moe_eplocal
 from repro_torch.scenarios import compile_scenario, get_scenario
+from torch_threads import one_torch_thread  # noqa: F401
 
 V5E = {"PEAK_FLOPS": 197e12, "HBM_BW": 819e9, "ICI_BW": 50e9}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: this module's counted steps make many small
-    ops, and the suite runs beside five other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -41,6 +41,8 @@ from repro_torch.convert import (cross_device_state_from_jax,
 from repro_torch.core.cross_device import run_cross_device
 from repro_torch.core.tasks import mlp_task
 from repro_torch.scenarios.cross_device import CrossDeviceSpec
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 TRAIN = dict(learning_rate=0.05, batch_size=8)
 FP32_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -47,19 +47,10 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve
 from repro_torch.launch.steps import build_decode_step, build_prefill_step
 from repro_torch.models import layers, model
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, PLEN, NEW = 2, 10, 5, 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's many small torch ops (the
-    suite runs beside other workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def flat(tree, prefix=""):

@@ -45,6 +45,7 @@ from repro_torch.convert import model_params_from_jax
 from repro_torch.core import pods
 from repro_torch.kernels import ops
 from repro_torch.models import model, moe, moe_eplocal
+from torch_threads import one_torch_thread  # noqa: F401
 
 MESH = (4, 2)
 # case -> (arch, max_experts, batch, seq, cap_factor, a2a_fp8, grad)
@@ -56,16 +57,6 @@ CASES = {
     "replicated": ("jamba-v0.1-52b", 4, 1, 8, 1.25, False, False),
 }
 LOSS_ARCH, LOSS_BATCH = "deepseek-moe-16b", (4, 16)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's many small torch ops (the
-    suite runs beside five other workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def cfgs(arch, max_experts=4):

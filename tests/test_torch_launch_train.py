@@ -8,7 +8,7 @@ keys in the same order and the same ``t`` stamps, and the port's ledger
 renders through ``benchmarks/render_experiments.render_telemetry_panel``.
 The CI's two ``--shard-workers 8`` commands run on 8 CPU shards with the
 reference launcher's unsharded ledger layout. The refusals
-(``--dts-signal`` without DTS, the unported modes, no card) and
+(``--dts-signal`` without DTS, attackers past the pods, no card) and
 ``--profile``'s trace are checked on the port.
 """
 from __future__ import annotations
@@ -24,21 +24,10 @@ import torch
 from repro.launch import train as jtrain
 
 from repro_torch.launch import train
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's torch work: its training
-    runs make many small ops, and under the suite's parallel workers
-    torch's default of a thread a core oversubscribes the CPU (an FL
-    parity run took 143 s with the default and 30 s with one thread,
-    beside five busy processes on 8 cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 MODES = {
     "scenario": ["--scenario", "churn_signflip", "--sim-epochs", "2",
@@ -151,7 +140,6 @@ def test_profile_leaves_a_trace(tmp_path):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--fl", "--smoke", "--debug-mesh"], NotImplementedError, "item 12"),
     (["--fl", "--smoke", "--pods", "4", "--dts-signal", "geom"],
      SystemExit, "needs --pod-dts"),
     (["--fl", "--smoke", "--pods", "2", "--scenario", "paper_noise@2"],
@@ -207,6 +195,10 @@ FL_RUNS = {
     "ring_int8_scenario": FL + ["--gossip-wire", "int8", "--transport",
                                 "ppermute", "--scenario", "churn_signflip"],
     "single_pod": ["--smoke", "--steps", "2", "--seq", "16"],
+    # the port tensor-parallel on a (2, 2) mesh a pod against the
+    # reference unsharded (its own --debug-mesh needs a forced device
+    # count and Auto mesh axes: test_torch_tensor_parallel.py)
+    "fl_debug_mesh": FL + ["--debug-mesh"],
 }
 
 
@@ -242,7 +234,8 @@ def test_lm_training_losses_match_the_reference_launcher(run, monkeypatch,
     from repro_torch.convert import model_params_from_jax
 
     argv = FL_RUNS[run]
-    monkeypatch.setattr(sys, "argv", ["repro.launch.train", *argv])
+    monkeypatch.setattr(sys, "argv", ["repro.launch.train", *[
+        a for a in argv if a != "--debug-mesh"]])
     jtrain.main()                        # LM training returns, no exit
     ref_out = capsys.readouterr().out
     want = printed_losses(ref_out)
@@ -267,6 +260,9 @@ def test_lm_training_losses_match_the_reference_launcher(run, monkeypatch,
             "in_process", "in_jit") == ref_line
         assert out.count("[gossip]") == 2
         assert got["pstate"].round == 2
+    if "--debug-mesh" in argv:            # each pod's tree placed on (2, 2)
+        assert all(p["embedding"].mesh.shape == {"data": 2, "model": 2}
+                   for p in got["params"])
 
 
 def test_fl_smoke_main_and_checkpoint_load_in_the_reference(tmp_path):

@@ -39,6 +39,8 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.launch.steps import build_decode_step, build_prefill_step
 from repro_torch.models import attention, blocks, layers, model, moe, ssm
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

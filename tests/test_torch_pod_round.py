@@ -50,23 +50,11 @@ from repro_torch.core import engine, gossip
 from repro_torch.core.aggregation import mixing_matrix
 from repro_torch.launch import roofline
 from repro_torch.rng import RoundDraws
+from torch_threads import one_torch_thread  # noqa: F401
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 TOL = dict(rtol=1e-4, atol=1e-4)
 PODS = 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's torch work: its training
-    runs make many small ops, and under the suite's parallel workers
-    torch's default of a thread a core oversubscribes the CPU (an FL
-    parity run took 143 s with the default and 30 s with one thread,
-    beside five busy processes on 8 cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class JaxPodDraws:

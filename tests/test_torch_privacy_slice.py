@@ -56,6 +56,8 @@ from repro_torch.rng import RoundDraws, TorchDraws
 from repro_torch.scenarios.cross_device import CrossDeviceSpec
 from repro_torch.sharding import WorkerShards
 from repro_torch.telemetry import RunLedger
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 EPOCHS = 6
 FP32_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -44,6 +44,8 @@ from repro_torch.core.tasks import mlp_task
 from repro_torch.core.topology import make_topology
 from repro_torch.rng import RoundDraws, TorchDraws
 from repro_torch.scenarios.compile import compile_scenario
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 EPOCHS = 8
 CFG = dict(num_workers=10, avg_peers=2, num_sampled=1, local_epochs=1)

@@ -29,7 +29,6 @@ import warnings
 import jax
 import numpy as np
 import pytest
-import torch
 
 import repro.scenarios.spec as jspec
 import test_torch_slice as slice_helpers
@@ -62,6 +61,8 @@ from repro_torch.core.defta import run_defta
 from repro_torch.core.tasks import mlp_task
 from repro_torch.scenarios.cross_device import CrossDeviceSpec
 from repro_torch.telemetry import RunLedger
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 EXACT = ("epoch", "last_part", "obs", "sketch", "sketch_round")

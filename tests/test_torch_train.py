@@ -56,6 +56,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch import steps
 from repro_torch.models import model
 from repro_torch.optim import make_optimizer, schedules
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 # the int8 wire: port and reference quantize alike (round half to even on
@@ -64,17 +65,6 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 INT8_TOL = dict(rtol=0, atol=1e-6)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's torch work: its training
-    runs make many small ops, and under the suite's parallel workers
-    torch's default of a thread a core oversubscribes the CPU (an FL
-    parity run took 143 s with the default and 30 s with one thread,
-    beside five busy processes on 8 cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 ARCHS = ["paper-small", "qwen3-0.6b", "qwen2.5-32b", "granite-3-2b",
          "granite-20b", "deepseek-moe-16b", "kimi-k2-1t-a32b",
          "mamba2-780m", "jamba-v0.1-52b", "whisper-tiny", "internvl2-2b"]
@@ -249,6 +239,33 @@ def test_microbatched_step_equals_full_batch_and_the_reference():
     a, b = pods.flatten(out[1]), pods.flatten(out[4])
     for k in a:        # the reference's own bound for this check
         np.testing.assert_allclose(a[k].numpy(), b[k].numpy(), atol=3e-5)
+
+
+def test_placed_microbatched_step_equals_the_reference():
+    """Four micro-batches on a state placed on a (2, 2) mesh: the blocks'
+    gradients accumulated block by block, then SGD per block (linear in
+    the gradient, as the full-batch test above), against the reference's
+    micro-batched step."""
+    from repro_torch import sharding
+    from repro_torch.launch.sharding_rules import base_rules
+    jcfg, cfg, jp, tp = pair("qwen3-0.6b", seed=0)
+    toks = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (8, 16), 0,
+                                         cfg.vocab_size))
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)}
+    tb = {"tokens": torch.tensor(toks), "labels": torch.tensor(toks)}
+    jopt, opt = jmake_optimizer("sgd", 0.01), make_optimizer("sgd", 0.01)
+    jp2, _, _, jl = jax.jit(jsteps.build_train_step(
+        jcfg, jopt, microbatches=4))(jp, jopt.init(jp), jnp.int32(0), jb)
+    mesh = sharding.make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    rules = base_rules(False)
+    with sharding.logical_rules(mesh, rules):
+        pp, ps = steps.place_state(cfg, tp, opt.init(tp), "sgd", mesh,
+                                   rules)
+        tp2, _, _, tl = steps.build_train_step(cfg, opt, microbatches=4)(
+            pp, ps, torch.zeros((), dtype=torch.int64), tb)
+    assert sharding.is_placed(tp2)
+    np.testing.assert_allclose(float(tl), float(jl), **TOL)
+    assert_tree_close(sharding.unplace(tp2), jp2)
 
 
 @pytest.fixture(scope="module")
