@@ -330,6 +330,26 @@
    (recorded by ``launched_shapes``) and [2] did not check is held against
    its plain version on fresh inputs in the model's layout, so that no
    shape a main path runs goes unchecked.
+12. The benchmark harness (``benchmarks/port_kernel_bench.py``, the port
+   of the reference's ``kernel_bench.py``) at cut epochs
+   (``HARNESS_EPOCHS``): ``bench_gossip``'s nine cells (W in {20, 100,
+   500} x density in {0.05, 0.3, 1.0}, F = 4096: the sparse and int8
+   mixes at K up to 500, the dense mix in both regimes), each mix
+   launching once and agreeing with the plain product within 1e-4 (the
+   int8 mix with its plain version within one quantization step), the
+   int8 wire at most 0.3x fp32's bytes; ``run()``'s four rows (the dense
+   mix at [20, 65536], the SIMT flash at f32 [1, 4, 512, 64], the router
+   at T = 2048, E = 64, k = 6, ``ssd_chunk_tc`` at [4, 4, 128, 64, 64]),
+   one launch each, timed beside the plain version and the library call;
+   the contract benches (``bench_superstep`` 20 epochs in chunks of 5,
+   ``bench_quant_convergence`` 20, ``bench_fedavg_dispatch`` 12,
+   ``bench_scenario_overhead`` 12, ``bench_geom_trust``,
+   ``bench_corr_trust`` and ``bench_telemetry`` at 8 epochs of 10 local
+   epochs): chunks within budget and equal across each bench's variants,
+   equal kernel launches a round, int8 + EF21 within 0.02 of fp32; the
+   wall ratios printed, not gated. [12c]: every gossip, router, flash and
+   ssd_chunk shape [12] launched (``launched_kernel_shapes``) that [2]
+   did not check is held against its plain version on fresh inputs.
 
 Exits non-zero, before the last line, on any failure or without a card.
 The last lines are the card's name and power limit, one JSON object with
@@ -545,6 +565,7 @@ def check_kernels(dev):
                 if not err <= tol:
                     fail(f"{name} disagrees with its plain version")
                 max_err[name] = max(max_err[name], err)
+                CHECKED.add(gossip_key(name, idx, w_in))
     want_seen = {"gossip_mix/stream", "gossip_mix/tile",
                  "gossip_mix_sparse/slices", "gossip_mix_sparse/gather",
                  "gossip_mix_quant/slices", "gossip_mix_quant/gather"}
@@ -872,8 +893,17 @@ def check_flash(dev):
 
 
 # the shape keys of the kernel calls held against their plain versions
-# (``flash_key``, ``ssd_key``)
+# (``flash_key``, ``ssd_key``, ``gossip_key``, ``router_key``)
 CHECKED = set()
+
+
+def gossip_key(name, idx, w_in):
+    """A gossip mix's shape key: (kernel, payload dtype, W, F) for the
+    dense mix, (kernel, payload dtype, W, K, F) for the padded-CSR ones."""
+    dtype = str(w_in.dtype)[6:]
+    if name == "gossip_mix":
+        return (name, dtype, *w_in.shape)
+    return (name, dtype, w_in.shape[0], idx.shape[1], w_in.shape[1])
 
 
 def flash_key(q, k, causal, window):
@@ -935,36 +965,50 @@ def router_rows(gen, t, e, dev, dtype):
 
 
 def check_router(dev):
-    """moe_router against its plain version: T in {4, 1000, 2048, 4096},
-    (E, k) in {(64, 6), (16, 2)}, f32 and bf16 logits. Indices must be
-    equal, except that on a row of random logits two experts whose fp32
-    probabilities round to within 1e-6 may swap (the two softmaxes sum in
-    another order); the gates of such a swap still agree. Rows with exact
-    ties must match exactly. Gates within 1e-6."""
-    from repro_torch.kernels import ops, ref
+    """moe_router against its plain version (``router_case``): T in {4,
+    1000, 2048, 4096}, (E, k) in {(64, 6), (16, 2)}, f32 and bf16 logits;
+    no more than two rows with swapped indices in all. Returns the worst
+    gate error."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     worst, swaps = 0.0, 0
     for t in (4, 1000, 2048, 4096):
         for e, k in ((64, 6), (16, 2)):
             for dtype in (torch.float32, torch.bfloat16):
-                x, ties = router_rows(gen, t, e, dev, dtype)
-                gates, idx = ops.moe_router_topk(x, k)
-                wgates, widx = ref.moe_router_topk_ref(x, k)
-                torch.cuda.synchronize()
-                err = float((gates - wgates).abs().max())
-                bad = (idx != widx).any(dim=1)
-                print(f"  check moe_router T={t:4d} E={e:2d} k={k} "
-                      f"{str(dtype)[6:]:8s} gate_max_abs_err={err:.3e} "
-                      f"tol=1.0e-06 idx_rows_differ={int(bad.sum())}")
-                if idx.dtype != torch.int32 or not err <= 1e-6 \
-                        or bool((bad & ties).any()):
-                    fail("moe_router disagrees with its plain version")
-                swaps += int(bad.sum())
+                err, bad = router_case(gen, t, e, k, dtype, dev)
+                swaps += bad
                 worst = max(worst, err)
     if swaps > 2:
         fail(f"moe_router: {swaps} rows with swapped indices")
     return worst
+
+
+def router_key(logits, k):
+    return ("router", str(logits.dtype)[6:], *logits.shape, k)
+
+
+def router_case(gen, t, e, k, dtype, dev):
+    """One moe_router call on ``router_rows`` against its plain version.
+    Indices must be equal, except that on a row of random logits two
+    experts whose fp32 probabilities round to within 1e-6 may swap (the two
+    softmaxes sum in another order); the gates of such a swap still agree.
+    Rows with exact ties must match exactly. Gates within 1e-6. Returns
+    (gate error, rows whose indices differ)."""
+    from repro_torch.kernels import ops, ref
+    x, ties = router_rows(gen, t, e, dev, dtype)
+    gates, idx = ops.moe_router_topk(x, k)
+    wgates, widx = ref.moe_router_topk_ref(x, k)
+    torch.cuda.synchronize()
+    err = float((gates - wgates).abs().max())
+    bad = (idx != widx).any(dim=1)
+    print(f"  check moe_router T={t:4d} E={e:2d} k={k} "
+          f"{str(dtype)[6:]:8s} gate_max_abs_err={err:.3e} "
+          f"tol=1.0e-06 idx_rows_differ={int(bad.sum())}")
+    if idx.dtype != torch.int32 or not err <= 1e-6 \
+            or bool((bad & ties).any()):
+        fail("moe_router disagrees with its plain version")
+    CHECKED.add(router_key(x, k))
+    return err, int(bad.sum())
 
 
 def graph_outputs(fn):
@@ -5101,11 +5145,104 @@ def launched_shapes(seen: set):
         ops.flash_attention, ops.ssd_chunk = flash, ssd
 
 
-def check_launched_shapes(dev, seen: set, max_err: dict):
-    """Holds every flash and ssd_chunk shape in ``seen`` that [2] did not
-    check against its plain version, on fresh inputs in the model's
-    layout (flash: views of [B, S, H, D] tensors; ssd_chunk:
-    ``ssd_inputs``); raises ``max_err``'s entries where these are worse."""
+@contextlib.contextmanager
+def launched_kernel_shapes(seen: set):
+    """``launched_shapes``, and the shape key (``gossip_key``,
+    ``router_key``) of every gossip mix and ``ops.moe_router_topk`` call
+    made while active (the round programs and the benches call them
+    through the ``ops`` module)."""
+    from repro_torch.kernels import ops
+    saved = {n: getattr(ops, n) for n in GOSSIP + ("moe_router_topk",)}
+
+    def mix(P, w):
+        seen.add(gossip_key("gossip_mix", None, w))
+        return saved["gossip_mix"](P, w)
+
+    def sparse(idx, val, w):
+        seen.add(gossip_key("gossip_mix_sparse", idx, w))
+        return saved["gossip_mix_sparse"](idx, val, w)
+
+    def quant(idx, val, scale, q):
+        seen.add(gossip_key("gossip_mix_quant", idx, q))
+        return saved["gossip_mix_quant"](idx, val, scale, q)
+
+    def router(logits, k):
+        seen.add(router_key(logits, k))
+        return saved["moe_router_topk"](logits, k)
+    ops.gossip_mix, ops.gossip_mix_sparse, ops.gossip_mix_quant = \
+        mix, sparse, quant
+    ops.moe_router_topk = router
+    try:
+        with launched_shapes(seen):
+            yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def csr_world(w: int, k: int, seed: int, dev):
+    """idx [W, K] int32, val [W, K] f32 of a padded-CSR mix with K slots:
+    slot 0 the row itself, the rest random rows, the last slot a pad (val
+    0) where K > 1; weights positive, each row summing to 1."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, w, size=(w, k)).astype(np.int32)
+    idx[:, 0] = np.arange(w)
+    val = rng.uniform(0.5, 1.5, size=(w, k))
+    if k > 1:
+        val[:, -1] = 0.0
+    val /= val.sum(1, keepdims=True)
+    return (torch.tensor(idx, device=dev),
+            torch.tensor(val, dtype=torch.float32, device=dev))
+
+
+def gossip_case(gen, key, dev):
+    """A gossip mix at a shape key (``gossip_key``) on fresh inputs against
+    its plain version: a random row-stochastic P (dense) or ``csr_world``,
+    a payload of the key's dtype (int8: quantized rows with their
+    scales); one launch; limit 1e-5 (1 + max|plain|). Returns the
+    error."""
+    from repro_torch.kernels import ops, ref
+    name, dtype, w = key[:3]
+    f = key[-1]
+    w_in, scale = payload(gen, w, f, dtype)
+    if name == "gossip_mix":
+        P = torch.rand(w, w, generator=gen, device=dev)
+        P = (P / P.sum(1, keepdim=True)).contiguous()
+        kern = lambda: ops.gossip_mix(P, w_in)              # noqa: E731
+        plain = lambda: ref.gossip_mix_ref(P, w_in)         # noqa: E731
+    else:
+        idx, val = csr_world(w, key[3], seed=w + f, dev=dev)
+        if name == "gossip_mix_quant":
+            kern = lambda: ops.gossip_mix_quant(idx, val, scale,  # noqa
+                                                w_in)
+            plain = lambda: ref.gossip_mix_quant_ref(idx, val,  # noqa
+                                                     scale, w_in)
+        else:
+            kern = lambda: ops.gossip_mix_sparse(idx, val, w_in)  # noqa
+            plain = lambda: ref.gossip_mix_sparse_ref(idx, val,  # noqa
+                                                      w_in)
+    before = ops.LAUNCHES[name]
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    err = float((got - want).abs().max())
+    tol = 1e-5 * (1.0 + float(want.abs().max()))
+    print(f"  check {name:18s} {list(key[2:])} {dtype:8s} max_abs_err="
+          f"{err:.3e} tol={tol:.1e}")
+    if ops.LAUNCHES[name] - before != 1 or got.shape != want.shape \
+            or not err <= tol:
+        fail(f"{name} at {key} disagrees with its plain version")
+    CHECKED.add(key)
+    return err
+
+
+def check_launched_shapes(dev, seen: set, max_err: dict,
+                          phases="[10]/[11]"):
+    """Holds every shape in ``seen`` that [2] did not check against its
+    plain version, on fresh inputs in the model's layout (flash: views of
+    [B, S, H, D] tensors; ssd_chunk: ``ssd_inputs``; the gossip mixes:
+    ``gossip_case``; the router: ``router_case``); raises ``max_err``'s
+    entries where these are worse."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     new = sorted(seen - CHECKED, key=str)
@@ -5119,16 +5256,125 @@ def check_launched_shapes(dev, seen: set, max_err: dict):
                 qkv = main_path_qkv(gen, b, sq, dev, h, dtype, d)
             else:
                 qkv = cross_qkv(gen, b, h, sq, sk, d, dev, dtype)
-            name, err, _ = flash_case("launched in [10]/[11]", *qkv, causal,
-                                      window)
+            name, err, _ = flash_case(f"launched in {phases}", *qkv,
+                                      causal, window)
             max_err[name] = max(max_err[name], err)
-        else:
+        elif key[0] == "ssd":
             _, g, h, t, n, p = key
             args = ssd_inputs(gen, g, t, h, n, p, t, dev)
-            for name, err, _ in ssd_case("launched in [10]/[11]", args):
+            for name, err, _ in ssd_case(f"launched in {phases}", args):
                 max_err[name] = max(max_err[name], err)
+        elif key[0] in GOSSIP:
+            max_err[key[0]] = max(max_err[key[0]],
+                                  gossip_case(gen, key, dev))
+        else:
+            _, dtype, t, e, k = key
+            err, bad = router_case(gen, t, e, k, getattr(torch, dtype),
+                                   dev)
+            if bad > 2:
+                fail(f"moe_router at {key}: {bad} rows with swapped "
+                     f"indices")
+            max_err["moe_router"] = max(max_err["moe_router"], err)
     if seen - CHECKED:
         fail(f"shapes left unchecked: {sorted(seen - CHECKED, key=str)}")
+
+
+# ---------------------------------------------------------------------------
+# [12] the benchmark harness (benchmarks/port_kernel_bench.py)
+# ---------------------------------------------------------------------------
+
+# the contract benches' epochs in [12]: (superstep epochs, eval_every),
+# quant convergence, FedAvg dispatch, scenario overhead, the trust and
+# telemetry chunks (the bench's defaults: 200/50, 200, 120, 60, 20)
+HARNESS_EPOCHS = dict(superstep=(20, 5), quant=20, fedavg=12, scenario=12,
+                      trust=8)
+
+
+def bench_harness(dev, max_err: dict):
+    """Phase [12] (see the module docstring). Returns the launches."""
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    import port_kernel_bench as kb
+    from repro_torch.kernels import ops
+    e = HARNESS_EPOCHS
+    seen = set()
+    ops.reset_launches()
+    with launched_kernel_shapes(seen):
+        rows = kb.gossip_rows(4096, dev)
+        krows = kb.run(dev)
+        c = dict(
+            superstep=kb.bench_superstep(*e["superstep"], device=dev),
+            quant_convergence=kb.bench_quant_convergence(e["quant"],
+                                                         device=dev),
+            fedavg_dispatch=kb.bench_fedavg_dispatch(e["fedavg"],
+                                                     device=dev),
+            scenario_overhead=kb.bench_scenario_overhead(e["scenario"],
+                                                         device=dev),
+            geom_trust=kb.bench_geom_trust(e["trust"], device=dev),
+            corr_trust=kb.bench_corr_trust(e["trust"], device=dev),
+            telemetry=kb.bench_telemetry(e["trust"], device=dev))
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    want_calls = {"dense": {"gossip_mix": 1},
+                  "sparse": {"gossip_mix_sparse": 1},
+                  "quant": {"gossip_mix_quant": 1}}
+    for r in rows:
+        label = f"12 gossip W={r['W']} density={r['density']}"
+        print(f"  {label} K={r['K']} F=4096: dense {r['dense_us']:.2f}us "
+              f"({r['dense_regime']}), sparse {r['sparse_us']:.2f}us, "
+              f"int8 {r['quant_us']:.2f}us, torch.matmul "
+              f"{r['einsum_us']:.2f}us, torch.sparse.mm "
+              f"{r['sparse_library_us']:.2f}us; bounds {r['bound_us']}; "
+              f"err sparse {r['max_err']:.2e} dense {r['dense_err']:.2e} "
+              f"int8 kernel {r['quant_kernel_err']:.2e} (step "
+              f"{r['quant_step']:.2e}) wire {r['quant_wire_err']:.2e}; "
+              f"int8 bytes {r['int8_fp32_byte_ratio']:.4f}x fp32")
+        if r["launches"] != want_calls:
+            fail(f"{label}: launches {r['launches']}")
+        if not (r["max_err"] <= 1e-4 and r["dense_err"] <= 1e-4
+                and r["quant_kernel_err"] <= r["quant_step"]
+                and r["int8_fp32_byte_ratio"] <= 0.3):
+            fail(f"{label}: a mix disagrees with its plain version or the "
+                 f"int8 wire's bytes exceed 0.3x fp32")
+        for name, err in (("gossip_mix", r["dense_err"]),
+                          ("gossip_mix_sparse", r["max_err"]),
+                          ("gossip_mix_quant", r["quant_kernel_err"])):
+            max_err[name] = max(max_err[name], err)
+    for r in krows:
+        lib = "-" if r["library_us"] is None else f"{r['library_us']:.2f}us"
+        print(f"  12 kernel {r['name']}: {r['us_per_call']:.2f}us, plain "
+              f"{r['ref_us']:.2f}us, library {lib}, bound "
+              f"{r['bound_us']:.3f}us ({r['bound_by']}), launches "
+              f"{r['launches']}, max_err {r['max_err']:.2e}")
+        if sum(r["launches"].values()) != 1:
+            fail(f"12 kernel {r['name']}: launches {r['launches']}")
+    ratios = {"scenario": c["scenario_overhead"]["ratio"],
+              "geom": c["geom_trust"]["ratio"],
+              "corr": c["corr_trust"]["ratio_corr"],
+              "all": c["corr_trust"]["ratio_all"],
+              "telemetry": c["telemetry"]["ratio"]}
+    print(f"  12 wall ratios (not gated): {ratios}")
+    parity = {"scenario_overhead": ("static", "scenario"),
+              "geom_trust": ("loss", "geom"),
+              "corr_trust": ("loss", "corr", "all"),
+              "telemetry": ("off", "on")}
+    for entry, variants in parity.items():
+        got = [(c[entry][f"dispatches_{v}"],
+                c[entry][f"launches_per_round_{v}"]) for v in variants]
+        print(f"  12 {entry}: (chunks, launches a round) "
+              f"{dict(zip(variants, got))}")
+        if any(g != got[0] for g in got) or not sum(got[0][1].values()):
+            fail(f"12 {entry}: chunks or launches a round differ across "
+                 f"{variants}: {got}")
+    fd = c["fedavg_dispatch"]
+    if fd["dispatches_fedavg"] != fd["dispatches_defta"]:
+        fail(f"12 fedavg_dispatch: chunks {fd}")
+    if not c["quant_convergence"]["rel_delta"] < 0.02:
+        fail(f"12 quant convergence {c['quant_convergence']}")
+    print(f"  12 launches {launches}; {len(seen)} shapes launched",
+          flush=True)
+    print("[12c] the kernel shapes of [12] against the plain versions",
+          flush=True)
+    check_launched_shapes(dev, seen, max_err, phases="[12]")
+    return launches
 
 
 def spills(log: str) -> dict:
@@ -5292,6 +5538,13 @@ def main() -> int:
     print("[11c] the kernel shapes of [10] and [11] against the plain "
           "versions", flush=True)
     check_launched_shapes(dev, seen, max_err)
+
+    print("[12] the benchmark harness (benchmarks/port_kernel_bench.py)",
+          flush=True)
+    t12 = time.perf_counter()
+    for k, v in bench_harness(dev, max_err).items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"  [12] {time.perf_counter() - t12:.1f}s", flush=True)
 
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launches[k],

@@ -257,8 +257,14 @@ def batch_split(mesh, rules, batch: int) -> int:
     return size
 
 
-def _grad_ranks(mesh) -> int:
-    return mesh.shape.get("data", 1) if mesh is not None else 1
+def _grad_ranks(mesh, rules) -> int:
+    """The devices a pod's gradient all-reduce spans: those its batch
+    splits over (the data axis, and the model axis under ``pure_dp``)."""
+    if mesh is None or not rules:
+        return 1
+    axes = sharding.axes_of(rules.get("batch"))
+    return math.prod(mesh.shape[a] for a in axes
+                     if a in mesh.shape and a != "pod")
 
 
 def _ctx(mesh, rules):
@@ -313,7 +319,7 @@ def train_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, rules, *,
                                             rules=rules)
     specs = input_specs(cfg, mb_shape)
     split = batch_split(mesh, rules, mb_shape.global_batch)
-    ranks = _grad_ranks(mesh)
+    ranks = _grad_ranks(mesh, rules)
     kw = {} if pm is None else dict(tp=pm.shape.get("model", 1),
                                     devices=math.prod(pm.shape.values()))
     placed = sharding.is_placed(params)

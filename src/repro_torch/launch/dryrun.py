@@ -18,9 +18,13 @@ The state is placed by logical axis under the reference's rules
 (``sharding_rules.base_rules``, ``--variant``: zero1, no_seqshard,
 expert_model, pure_dp, noremat, mb16, fp8, as the reference's), each leaf's
 blocks live on their devices; the step runs tensor-parallel over the model
-axis. The counted program is the port's own step (``launch.steps``), run by
-the counting pass (``repro_torch.counting``); a device's figures are the
-busiest device's share (``Counter.per_device``): its blocks, its model
+axis, except under pure_dp, where no parameter splits over it and the
+model axis splits the batch with the data axis (``models.model._tp``).
+``--optimizer`` overrides the reference's pick and ``--accum-dtype`` sets
+the micro-batches' gradient accumulators' dtype. The counted program is
+the port's own step (``launch.steps``), run by the counting pass
+(``repro_torch.counting``); a device's figures are the busiest device's
+share (``Counter.per_device``): its blocks, its model
 shard's work on the data axis's share of the batch, its own. On a
 multi-pod mesh the FL train step runs both pods; a step without the pod
 loop (prefill, decode, the FedAvg baseline) is counted for one pod's share
@@ -114,7 +118,8 @@ def effective_config(arch: str, shape: ShapeConfig,
 class Plan:
     """What a pair counts: the config, the shape it runs at (one pod's share
     of the batch where the step has no pod loop), the mesh, the rules, the
-    pods of an FL step, the optimizer, micro-batches and MoE strategy."""
+    pods of an FL step, the optimizer, micro-batches and MoE strategy, and
+    the dtype of the micro-batches' gradient accumulators."""
     cfg: ModelConfig
     shape: ShapeConfig
     mesh: object
@@ -127,17 +132,21 @@ class Plan:
     grad_ranks: int
     grad_across_pods: bool
     variant: str = "baseline"
+    accum_dtype: str = "float32"
 
 
 def plan(arch: str, shape: ShapeConfig, *, multi_pod: bool = False,
          fl: bool = True, devices=None, config: ModelConfig = None,
-         variant: str = "baseline", pod=None) -> Plan:
+         variant: str = "baseline", pod=None, optimizer: str = "",
+         accum_dtype: str = "float32") -> Plan:
     """The pair's ``Plan`` on the production mesh over ``devices``
     (default meta), with the reference's policies (``pick_optimizer``,
-    ``pick_microbatches``, ``pick_moe_strategy``, ``effective_config``) and
-    rules under ``variant``. ``config`` replaces the arch's config (a
-    reduced one in the tests); ``pod`` a pod's (data, model) shape (default
-    ``mesh.H100_POD``'s)."""
+    which ``optimizer`` overrides, ``pick_microbatches``,
+    ``pick_moe_strategy``, ``effective_config``) and rules under
+    ``variant``. ``config`` replaces the arch's config (a reduced one in
+    the tests); ``pod`` a pod's (data, model) shape (default
+    ``mesh.H100_POD``'s); ``accum_dtype`` (a torch dtype's name) the
+    micro-batches' gradient accumulators'."""
     cfg = config or effective_config(arch, shape, variant)
     if config is not None and "noremat" in variant:
         cfg = dataclasses.replace(cfg, remat=False)
@@ -149,13 +158,19 @@ def plan(arch: str, shape: ShapeConfig, *, multi_pod: bool = False,
                                            shape.mode == "train") else 0
     pods = mesh.shape.get("pod", 1)
     data = mesh.shape["data"]
-    # the FedAvg baseline all-reduces its gradients across the pods
+    batch_axes = sharding.axes_of(rules["batch"])
+    # the gradients are all-reduced over the devices the batch splits
+    # over (data, and model under pure_dp); the FedAvg baseline's across
+    # the pods too
     grad_across_pods = multi_pod and not fl_pods
-    grad_ranks = pods * data if grad_across_pods else data
+    grad_ranks = math.prod(mesh.shape[a] for a in batch_axes
+                           if a != "pod" or grad_across_pods)
     if multi_pod:
         # counted inside one pod: the FL step's pods each on their own, a
-        # step without the pod loop for one pod's share of the batch
-        rules = {**rules, "batch": ("data",)}
+        # step without the pod loop for one pod's share of the batch (the
+        # batch keeps the pod's axes the variant put it on)
+        rules = {**rules, "batch": tuple(a for a in batch_axes
+                                         if a != "pod")}
         if not fl_pods and shape.global_batch % pods == 0:
             shape = dataclasses.replace(
                 shape, global_batch=shape.global_batch // pods)
@@ -167,9 +182,10 @@ def plan(arch: str, shape: ShapeConfig, *, multi_pod: bool = False,
         # expert parallelism needs the experts to split over the data
         # axis (every full config's do; a reduced one's may not)
         moe_strategy = "grouped"
-    return Plan(cfg, shape, mesh, rules, fl_pods, pick_optimizer(cfg),
-                microbatches, moe_strategy, chips, grad_ranks,
-                grad_across_pods, variant)
+    return Plan(cfg, shape, mesh, rules, fl_pods,
+                optimizer or pick_optimizer(cfg), microbatches,
+                moe_strategy, chips, grad_ranks, grad_across_pods, variant,
+                accum_dtype)
 
 
 def _materialize(tree, gen, vocab: int):
@@ -424,6 +440,7 @@ def _gossip_info(cfg, fl_pods, params, *, scenario, cd_enrolled,
 
 def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
                fl: bool = True, variant: str = "baseline",
+               optimizer: str = "", accum_dtype: str = "float32",
                scenario: str = "", cd_enrolled: int = 10_000,
                cd_sample_k: int = 64, shard_workers: int = 8,
                verbose: bool = True):
@@ -443,7 +460,8 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
     if (arch, shape_name) in SKIPS:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped", "reason": SKIPS[(arch, shape_name)]}
-    p = plan(arch, shape, multi_pod=multi_pod, fl=fl, variant=variant)
+    p = plan(arch, shape, multi_pod=multi_pod, fl=fl, variant=variant,
+             optimizer=optimizer, accum_dtype=accum_dtype)
     t0 = time.time()
     state = build_state(p)
     t_lower = time.time() - t0
@@ -477,6 +495,7 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "status": "ok", "chips": p.chips, "optimizer": p.opt_name,
         "variant": p.variant,
+        "accum_dtype": p.accum_dtype,
         "mesh_shape": dict(p.mesh.shape),
         "params_b": p.cfg.param_count() / 1e9,
         "microbatches": p.microbatches,
@@ -635,8 +654,9 @@ def run_step(p: Plan, state):
             build = steps_mod.build_fl_train_step if p.fl_pods else \
                 steps_mod.build_train_step
             build(p.cfg, opt, moe_strategy=p.moe_strategy,
-                  microbatches=p.microbatches)(params, opt_state, step,
-                                               inputs)
+                  microbatches=p.microbatches,
+                  accum_dtype=getattr(torch, p.accum_dtype))(
+                      params, opt_state, step, inputs)
         elif p.shape.mode == "prefill":
             # the logits stay in their shards' layout, as the reference's
             # constraint leaves them
@@ -662,6 +682,12 @@ def main(argv=None):
                     help="the reference's rule variants (zero1, "
                     "no_seqshard, expert_model, pure_dp, noremat, mb16, "
                     "fp8; joined, e.g. zero1_fp8)")
+    ap.add_argument("--optimizer", default="",
+                    help="adam, adafactor or sgd in place of the "
+                    "reference's pick (adafactor above 25B parameters)")
+    ap.add_argument("--accum-dtype", default="float32",
+                    help="the micro-batches' gradient accumulators' dtype "
+                    "(a torch dtype's name: float32, bfloat16)")
     ap.add_argument("--fedavg-baseline", action="store_true",
                     help="multi-pod without the FL pod axis (params "
                     "replicated across pods; grad AR crosses pods)")
@@ -723,6 +749,8 @@ def main(argv=None):
             res = run_dryrun(arch, shape, multi_pod=args.multi_pod,
                              fl=not args.fedavg_baseline,
                              variant=args.variant,
+                             optimizer=args.optimizer,
+                             accum_dtype=args.accum_dtype,
                              scenario=args.scenario,
                              cd_enrolled=args.cd_enrolled,
                              cd_sample_k=args.cd_sample_k,

@@ -271,6 +271,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, pos: int, *,
         return _decode_tp(tp, params, cfg, tokens, cache, pos, enc_out,
                           batch, moe_strategy), cache
     params = _plain(params)
+    placed, cache = cache, _plain_cache(cache)
     x = embed(params, tokens)
     if cfg.is_encoder_decoder:
         if enc_out is None:
@@ -281,7 +282,8 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, pos: int, *,
                                    enc_out=enc_out,
                                    moe_strategy=moe_strategy)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return unembed(params, x, cfg.tie_embeddings), cache
+    logits = unembed(params, x, cfg.tie_embeddings)
+    return logits, (placed if sharding.is_placed(placed) else cache)
 
 
 # ---------------------------------------------------------------------------
@@ -289,10 +291,20 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, pos: int, *,
 # ---------------------------------------------------------------------------
 
 def _tp(params):
-    """The ``TensorParallel`` of a placed tree whose model axis is > 1,
-    else None."""
+    """The ``TensorParallel`` of a placed tree whose model axis is > 1 and
+    splits some parameter, else None. Where no parameter splits over the
+    model axis (``pure_dp``) every shard would run the same whole step:
+    the model axis is then a batch split like the data axis, and the step
+    runs once on the whole batch, the counting pass giving a device its
+    share (``costing.batch_split`` over the axes the rules put the batch
+    on)."""
     tp = sharding.tensor_parallel(params)
-    return tp if tp is not None and tp.size > 1 else None
+    if tp is None or tp.size == 1:
+        return None
+    if not any(sharding.splits_over(p, "model")
+               for _, p in sharding.placed_leaves(params)):
+        return None
+    return tp
 
 
 def _plain(params):
@@ -301,6 +313,16 @@ def _plain(params):
     tree as it is."""
     tp = sharding.tensor_parallel(params)
     return params if tp is None else tp.params(params, 0)
+
+
+def _plain_cache(cache):
+    """A placed decode cache whose blocks are whole (the model axis a
+    batch split, ``_tp``) as its tensors, which the decode updates in
+    place; a plain cache as it is."""
+    leaves = sharding.placed_leaves(cache)
+    if not leaves:
+        return cache
+    return sharding.local(cache, next(iter(leaves[0][1].owners)))
 
 
 def _ps(tp, params):

@@ -22,7 +22,9 @@ single controller runs a step's whole batch once per model shard, and the
 counting pass (``counting``) gives a device the data axis's share of it.
 
 **Tensor parallelism.** With a placed parameter tree on a mesh whose
-"model" axis is tp > 1 the models run each model shard's work explicitly
+"model" axis is tp > 1, and some parameter split over it (under
+``pure_dp`` none is, and the model axis splits the batch instead:
+``models.model._tp``), the models run each model shard's work explicitly
 (``TensorParallel``: the shards' devices, their counting scopes and the
 collectives). An activation is an ``Act``, one tensor per model shard:
 whole on each (replicated), split along a dim, or partial sums whose sum

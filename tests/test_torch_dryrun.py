@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -31,6 +32,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import sharding
 from repro_torch.config import SHAPES, reduced
 from repro_torch.configs import get_config
 from repro_torch.launch import costing, dryrun
@@ -182,3 +184,131 @@ def test_meta_peak_equals_the_cpus(arch, shape):
     r = dryrun.measure(arch, shape, batch=2, seq=256, device="cpu",
                        config=cfg, repeats=1, verbose=False)
     assert r["meta"]["peak_bytes"] == r["device"]["counted_peak_bytes"]
+
+
+# ---------------------------------------------------------------------------
+# pure_dp (ROADMAP queue 3 item 6) and --optimizer / --accum-dtype
+# ---------------------------------------------------------------------------
+
+def _cut(shape_name, batch=16, seq=32):
+    return dataclasses.replace(SHAPES[shape_name], global_batch=batch,
+                               seq_len=seq)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("shape_name", ["train_4k", "decode_32k"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m"])
+def test_pure_dp_device_runs_the_unsharded_step_on_its_rows(arch, shape_name,
+                                                            multi):
+    """Under ``pure_dp`` no parameter splits over the model axis and the
+    batch splits over data x model (x pods): a device's counted flops
+    equal the unsharded step's on its share of the batch (one device, the
+    (1, 1) pod), and the gradient all-reduce spans data x model."""
+    cfg = small(arch)
+    shape = _cut(shape_name)
+    p = dryrun.plan(arch, shape, multi_pod=multi, config=cfg,
+                    variant="pure_dp")
+    assert p.rules["batch"] == ("data", "model")
+    c = dryrun.count_step(p, dryrun.build_state(p))
+    share = 16 // (16 if multi else 8)
+    one = dryrun.plan(arch, _cut(shape_name, batch=share), config=cfg,
+                      pod=(1, 1))
+    c1 = dryrun.count_step(one, dryrun.build_state(one))
+    assert c.split == 8 and c1.split == 1
+    assert c.per_device("flops") == pytest.approx(c1.per_device("flops"),
+                                                  rel=1e-9)
+    assert c.per_device("flops") > 0
+    if shape.mode == "train":
+        assert p.grad_ranks == 8
+        assert c.collectives()["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("shape_name", ["prefill_32k", "decode_32k"])
+def test_pure_dp_multi_pod_counts_the_baselines_share(shape_name):
+    """Multi-pod ``pure_dp`` keeps the model axis in the batch: a device's
+    flops at full width stay within 10 % of the baseline's (ROADMAP queue
+    3 item 6: 4x before, 1,297.66 against 324.41 TFLOP at
+    ``prefill_32k``)."""
+    got = {v: dryrun.run_dryrun("qwen3-0.6b", shape_name, multi_pod=True,
+                                variant=v, verbose=False)
+           for v in ("baseline", "pure_dp")}
+    flops = {v: r["roofline"]["hlo_gflops_total"] / r["chips"]
+             for v, r in got.items()}
+    assert got["pure_dp"]["status"] == "ok"
+    assert flops["pure_dp"] == pytest.approx(flops["baseline"], rel=0.10)
+
+
+def test_pure_dp_step_on_the_cpu_equals_the_unsharded_step():
+    """A ``--measure``-style ``pure_dp`` train step's loss and gradients on
+    (2, 4) of ``["cpu"] * 8`` (random weights and inputs placed as the dry
+    run places them) against the same step unsharded."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import pod_mesh
+    from repro_torch.models import model
+    cfg = dataclasses.replace(small("qwen3-0.6b"), dtype="float32")
+    p = dryrun.plan("qwen3-0.6b", _cut("train_4k", batch=8, seq=16),
+                    config=cfg, variant="pure_dp", devices=["cpu"] * 8)
+    params, _, _, batch = dryrun.build_state(p, "cpu")
+    with sharding.logical_rules(pod_mesh(p.mesh), p.rules):
+        loss, grads = steps.placed_grads(cfg, params, batch, "grouped")
+    plain = sharding.unplace(params)
+    leaves = {k: v.detach().requires_grad_()
+              for k, v in _flat(plain).items()}
+    want, _ = model.loss_fn(_rebuild(plain, leaves), cfg, batch)
+    wgrads = torch.autograd.grad(want, list(leaves.values()))
+    assert float(loss) == pytest.approx(float(want), abs=1e-5)
+    got = _flat(sharding.unplace(grads))
+    for (k, g), wg in zip(leaves.items(), wgrads):
+        assert (got[k] - wg).abs().max() <= 1e-4 * wg.abs().max(), k
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+def _rebuild(tree, leaves, prefix=()):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves, prefix + (k,))
+                for k, v in tree.items()}
+    return leaves[prefix]
+
+
+def test_optimizer_and_accum_dtype_flags(tmp_path):
+    """``--optimizer adafactor --accum-dtype bfloat16`` (ROADMAP item 12c)
+    is accepted and recorded; the Adafactor state's bytes equal the closed
+    form (a row and a column vector of f32 for every matrix, the vector
+    itself otherwise), and bf16 accumulators cut the bytes the
+    micro-batches accumulate in."""
+    from repro_torch.models import model
+    assert dryrun.main(["--arch", "whisper-tiny", "--shape", "train_4k",
+                        "--optimizer", "adafactor", "--accum-dtype",
+                        "bfloat16", "--out", str(tmp_path)]) == 0
+    res = json.loads((tmp_path / "whisper-tiny_train_4k_single.json")
+                     .read_text())
+    assert res["status"] == "ok", res
+    assert (res["optimizer"], res["accum_dtype"]) == ("adafactor",
+                                                     "bfloat16")
+    p = dryrun.plan("whisper-tiny", SHAPES["train_4k"],
+                    optimizer="adafactor", accum_dtype="bfloat16")
+    _, opt_state, _, _ = dryrun.build_state(p)
+    state = sum(math.prod(pl.shape) * 4 for _, pl in
+                sharding.placed_leaves(opt_state))
+    closed = 0
+    for t in _flat(model.abstract_params(p.cfg)).values():
+        s = tuple(t.shape)
+        closed += 4 * (math.prod(s[:-1]) + math.prod(s[:-2]) * s[-1]
+                       if len(s) >= 2 else math.prod(s))
+    assert state == closed
+    cfg = small("qwen3-0.6b")
+    counted = {}
+    for adt in ("float32", "bfloat16"):
+        q = dryrun.plan("qwen3-0.6b", _cut("train_4k"), config=cfg,
+                        accum_dtype=adt)
+        q = dataclasses.replace(q, microbatches=2)
+        counted[adt] = dryrun.count_step(q, dryrun.build_state(q)).bytes
+    assert counted["bfloat16"] < counted["float32"]
