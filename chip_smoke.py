@@ -9,9 +9,9 @@
    intra-chunk term) from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel) and print ptxas's register and
    spill report and warnings; a spill in ``ssd_chunk_tc``, in any
-   instantiation of the SIMT flash kernel (head dims 32, 64 and 128, each
-   taking the widths up to it) or in the dense gossip mix's tile regime
-   fails.
+   instantiation of the SIMT flash kernel (f32 and bf16 at head dims 32,
+   64, 96, 112 and 128, each taking the widths up to it, and its merge
+   pass) or in the dense gossip mix's tile regime fails.
 2. Kernels: hold each kernel against its plain PyTorch version on the card.
    Gossip mixes at the main path's leaf shapes (W = 22), at the MLP's
    leaves in the Table 3 (W = 60), storm (W = 23) and cross-device cohort
@@ -36,9 +36,14 @@
    bf16 (tensor cores), the SIMT kernel at the reduced whisper's
    D = 42 (columns past D masked in the kernel), and the four flash calls
    of the phase [8] prefills at their shapes, B = 4 and layout
-   (``ENCDEC_FLASH``), each call checked to
-   launch the kernel its dtype and D select; the router at T in {4, 1000,
-   2048, 4096}, (E, k) in {(64, 6), (16, 2)}, with rows of exact ties;
+   (``ENCDEC_FLASH``); the SIMT kernel (``mma.sync`` on the tensor cores,
+   its key range split over CTAs where the grid is small) at Kimi-K2's
+   full-width call [1, 64, 4096, 112] bf16 in the model's layout (k and v
+   repeated from 8 kv heads), at bf16 D in {80, 96} (ragged, split,
+   across lengths) and on the adversarial cases in f32 and in bf16 at
+   D = 96; each call checked to launch the kernel its dtype and D select;
+   the router at T in {4, 1000, 2048, 4096}, (E, k) in {(64, 6), (16, 2)},
+   with rows of exact ties;
    both in f32 and bf16; the fused route-and-slot kernel on the same
    cases plus T = 32768 (1024 tiles) and routers skewed to overflow the
    capacity: gates and indices as the router's, slots and the inverse
@@ -78,7 +83,13 @@
    the phase [8] prefills' shapes (``ENCDEC_FLASH``: whisper's encoder
    [4, 6, 1500, 64], cross-attention 448 over 1,500 and causal decoder
    [4, 6, 448, 64]; InternVL2-2B's [4, 16, 768, 128]), with each shape's
-   bytes/flops bound.
+   bytes/flops bound; the SIMT kernel beside its plain version and SDPA
+   in the same dtype at the calls that reach it (``SIMT_TIMED``: the f32
+   qwen3 TP shard [2, 4, 128, 128], the example's [4, 12, 128, 64], the
+   harness's [1, 4, 512, 64], whisper's f32 encoder and 448-over-1,500
+   cross-attention, Kimi-K2's bf16 [1, 64, 4096, 112] and the C entry's
+   bf16 [64, 512, 128]), with the bound at the fp32 CUDA-core rate and,
+   for f32, at the 3xTF32 rate.
 4. DeFTA, FedAvg and AsyncDeFTA end to end, all in the Table 2 world (20
    workers + 2 noise attackers, MLP, ``local_epochs=5``). The port's
    ``run_defta`` (20 epochs) on the fp32 wire with ``auto`` (sparse
@@ -781,6 +792,17 @@ def main_path_qkv(gen, b, s, dev, h=16, dtype=torch.bfloat16, d=128):
                  .to(dtype).transpose(1, 2) for _ in range(3))
 
 
+def kimi_qkv(gen, b, s, dev, h=64, hkv=8, d=112):
+    """q, k, v as attention.py hands Kimi-K2's (``configs/kimi_k2_1t_a32b``:
+    64 query heads over 8 kv heads, D = 112, bf16) to the kernel: k and v
+    repeated to the query heads (``repeat_interleave``), all three [B, H, S,
+    D] views of [B, S, H, D] tensors."""
+    q = torch.randn(b, s, h, d, generator=gen, device=dev)
+    k, v = (torch.randn(b, s, hkv, d, generator=gen, device=dev)
+            .repeat_interleave(h // hkv, dim=2) for _ in range(2))
+    return tuple(t.to(torch.bfloat16).transpose(1, 2) for t in (q, k, v))
+
+
 def cross_qkv(gen, b, h, sq, sk, d, dev, dtype=torch.bfloat16):
     """q [B, H, Sq, D] and k, v [B, H, Sk, D] as the whisper model hands
     them to the kernel: views of [B, S, H, D] tensors of their own
@@ -882,6 +904,24 @@ def check_flash(dev):
     for label, b, h, sq, sk, d, causal in ENCDEC_FLASH:
         cases.append((f"{label} prefill", cross_qkv(gen, b, h, sq, sk, d,
                                                     dev), causal, 0))
+    # the SIMT kernel at Kimi-K2's full-width call, bf16 at D in {80, 96}
+    # (ragged, split and across lengths) and the adversarial cases in f32
+    # and in bf16 at D = 96
+    cases.append(("kimi-k2 strided", kimi_qkv(gen, 1, 4096, dev), True, 0))
+    for d in (80, 96):
+        for b, h, sq, sk in ((2, 6, 200, 200), (1, 2, 1000, 1000),
+                             (2, 6, 17, 1500)):
+            for causal, window in ((True, 0), (True, 128), (False, 0)):
+                if sq == sk or not (causal or window):
+                    cases.append((f"D={d}", cross_qkv(
+                        gen, b, h, sq, sk, d, dev), causal, window))
+    for kind in ref.FLASH_ADVERSARIAL:
+        for d, dtype in ((64, torch.float32), (128, torch.float32),
+                         (96, torch.bfloat16)):
+            *qkv, causal, window = ref.flash_adversarial(kind, d, seed=d,
+                                                         device=dev)
+            cases.append((f"adversarial {kind}",
+                          tuple(x.to(dtype) for x in qkv), causal, window))
     worst = {"flash_attention": 0.0, "flash_attention_tc": 0.0}
     worst_ratio = dict(worst)
     for tag, (q, k, v), causal, window in cases:
@@ -1178,8 +1218,11 @@ def time_serving_kernels(dev):
               f"plain={plain_ms * 1e3:.2f}us library(sdpa)="
               f"{lib_ms * 1e3:.2f}us bound={b_ms * 1e3:.2f}us ({b_by}) "
               f"simt/tc={simt_ms / ms:.2f} tc/sdpa={ms / lib_ms:.3f}")
-        if s == 4096 and not simt_ms >= 5 * ms:
-            fail(f"flash_attention_tc at [{b},16,{s},128] is not 5x faster "
+        # the routing's ground: where bf16 at D = 128 goes to the TMA +
+        # wgmma kernel, it beats the SIMT kernel (now on the tensor cores
+        # too, so the 5x of a CUDA-core SIMT kernel no longer holds)
+        if not simt_ms > ms:
+            fail(f"flash_attention_tc at [{b},16,{s},128] is not faster "
                  f"than the SIMT kernel ({ms:.4f} vs {simt_ms:.4f} ms)")
         row = {"plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
                "bound_by": b_by}
@@ -1224,6 +1267,80 @@ def time_encdec_flash(dev):
               f"library(sdpa)={lib_ms * 1e3:.2f}us bound={b_ms * 1e3:.2f}us "
               f"({b_by}) bound/kernel={b_ms / ms:.3f} tc/sdpa="
               f"{ms / lib_ms:.3f}")
+
+
+# (label, dtype, B, H, Sq, Sk, D, causal) of the SIMT kernel's timed calls:
+# the f32 main paths' (the full-width qwen3-0.6b prefill's TP shard, the
+# ~100M example's training forward, the harness's run() row, whisper's f32
+# encoder and cross-attention), Kimi-K2's bf16 call and the C entry at the
+# serving path's bf16 [64, 512, 128]
+SIMT_TIMED = (("qwen3-0.6b f32 prefill shard", torch.float32, 2, 4, 128, 128,
+               128, True),
+              ("port_train_federated f32", torch.float32, 4, 12, 128, 128, 64,
+               True),
+              ("harness run() f32", torch.float32, 1, 4, 512, 512, 64, True),
+              ("whisper f32 encoder", torch.float32, 4, 6, 1500, 1500, 64,
+               False),
+              ("whisper f32 cross", torch.float32, 4, 6, 448, 1500, 64, False),
+              ("kimi-k2 bf16", torch.bfloat16, 1, 64, 4096, 4096, 112, True),
+              ("C entry bf16", torch.bfloat16, 4, 16, 512, 512, 128, True))
+
+
+def simt_inputs(gen, label, dtype, b, h, sq, sk, d, dev):
+    """A ``SIMT_TIMED`` call's q, k, v in its caller's layout: the
+    harness's one contiguous tensor as q, k and v; Kimi-K2's
+    (``kimi_qkv``); the others [B, H, S, D] views of [B, S, H, D]
+    tensors."""
+    if label.startswith("harness"):
+        q = torch.randn(b, h, sq, d, generator=gen, device=dev).to(dtype)
+        return q, q, q
+    if label.startswith("kimi"):
+        return kimi_qkv(gen, b, sq, dev, h=h, d=d)
+    return cross_qkv(gen, b, h, sq, sk, d, dev, dtype)
+
+
+def time_simt_flash(dev):
+    """The SIMT flash kernel at ``SIMT_TIMED``, beside the plain version and
+    SDPA in the same dtype: device us a call, the split count, the bound
+    of ``flash_bound`` (f32 at the fp32 CUDA-core rate, bf16 at the bf16
+    tensor-core rate) and, for f32, at the 3xTF32 rate (three TF32 products
+    per product at 495 TFLOP/s). Returns the rows by label."""
+    from repro_torch.kernels import cost, ops, ref
+    from repro_torch.launch import roofline
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    out = {}
+    for label, dtype, b, h, sq, sk, d, causal in SIMT_TIMED:
+        q, k, v = simt_inputs(gen, label, dtype, b, h, sq, sk, d, dev)
+        calls = 20 if b * h * sq * sk <= 2 ** 26 else 3
+        if label.startswith("C entry"):      # the wrapper picks flash_tc
+            kern = lambda: simt_flash(q, k, v, causal)
+        else:
+            kern = lambda: ops.flash_attention(q, k, v, causal=causal)
+        ms = device_ms(kern, calls)
+        lib_ms = device_ms(lambda: sdpa(q, k, v, is_causal=causal), calls)
+        plain_ms = device_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal), max(2, calls // 4))
+        ms_again = device_ms(kern, calls)
+        size = q.element_size()
+        b_ms, b_by = flash_bound(b, h, sq, d, size, causal, sk)
+        pipes, nbytes = cost.pipes("flash_attention", b=b, h=h, s=sq, d=d,
+                                   itemsize=size, causal=causal, sk=sk)
+        flops = sum(pipes.values())
+        tf3 = max(nbytes / roofline.HBM_BW, 3 * flops / roofline.TF32_FLOPS)
+        splits = ops.flash_simt_splits(b, h, sq, sk)
+        tf3_txt = f" 3xTF32 bound={tf3 * 1e6:.2f}us" if size == 4 else ""
+        print(f"  time flash_attention (SIMT) {label} [{b},{h},{sq},{d}] "
+              f"Sk={sk} {str(dtype)[6:]} causal={causal:d} splits={splits} "
+              f"kernel={ms * 1e3:.2f}us (again {ms_again * 1e3:.2f}us, "
+              f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s) plain="
+              f"{plain_ms * 1e3:.2f}us library(sdpa)={lib_ms * 1e3:.2f}us "
+              f"bound={b_ms * 1e3:.2f}us ({b_by}){tf3_txt} "
+              f"kernel/sdpa={ms / lib_ms:.3f}", flush=True)
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": b_ms, "bound_by": b_by}
+    return out
 
 
 def route_slots_bound(t, e, k, cap, itemsize):
@@ -5436,6 +5553,7 @@ def main() -> int:
     time_kernels(dev, "w500", 500, 24, 4096)
     main_t.update(time_serving_kernels(dev))
     time_encdec_flash(dev)
+    time_simt_flash(dev)
     main_t.update(time_route_slots(dev))
     main_t.update(time_ssd(dev))
 

@@ -58,6 +58,14 @@ SIGNATURES = {
                       _L, _L, _L, _L, _P)),
 }
 
+# Second entry points of a library, picked by ``load`` when a call passes
+# their number of arguments: the SIMT flash kernel's split launch (its
+# scratch and split count after the dtype code; ``ops.flash_simt_splits``)
+VARIANTS = {
+    "flash_attention": ("flash_attention_split_launch",
+                        SIGNATURES["flash_attention"][1][:-1] + (_P, _I, _P)),
+}
+
 _loaded: dict = {}
 
 
@@ -127,17 +135,21 @@ def build(names=KERNELS) -> dict:
     return report
 
 
-def load(name: str):
+def load(name: str, nargs: int | None = None):
     """The C entry point of kernel ``name`` as a ctypes function with its
-    argument types declared, building the library first if needed."""
-    fn = _loaded.get(name)
+    argument types declared, building the library first if needed.
+    ``nargs`` (the arguments a call passes, the stream included) picks the
+    entry in ``VARIANTS`` where it is that entry's count."""
+    variant = name in VARIANTS and nargs == len(VARIANTS[name][1])
+    key = (name, nargs) if variant else name
+    fn = _loaded.get(key)
     if fn is None:
         path = library_path(name)
         if not path.exists():
             build((name,))
-        symbol, argtypes = SIGNATURES[name]
+        symbol, argtypes = VARIANTS[name] if variant else SIGNATURES[name]
         fn = getattr(ctypes.CDLL(str(path)), symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        _loaded[name] = fn
+        _loaded[key] = fn
     return fn

@@ -1,8 +1,9 @@
 """Wrappers of the port's kernels: the three gossip mixes, flash attention
-(a tensor-core kernel for bf16 at D in {64, 128}, a SIMT kernel for the
-rest), the MoE router (alone, and fused with the grouped dispatch's slot
-assignment) and the Mamba2 SSD intra-chunk term (a tensor-core kernel in
-3xTF32 for P in {32, 64}, a SIMT kernel for P = 16).
+(a TMA + wgmma kernel for bf16 at D in {64, 128}, an mma.sync kernel,
+``flash_attention``, for the rest), the MoE router (alone, and fused with
+the grouped dispatch's slot assignment) and the Mamba2 SSD intra-chunk
+term (a tensor-core kernel in 3xTF32 for P in {32, 64}, a SIMT kernel for
+P = 16).
 
 Each wrapper checks device, dtype, shape and layout, then runs the plain
 PyTorch version (``ref``) when the tensors lie on the CPU and the CUDA
@@ -114,7 +115,7 @@ def _on_card(*ts) -> bool:
 def _launch(name, out, *args):
     """Call the kernel's C entry on the tensors' device and its current
     stream; raise on a refused launch, count it otherwise."""
-    fn = build.load(name)
+    fn = build.load(name, len(args) + 1)
     with torch.cuda.device(out.device):
         rc = fn(*args, torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
@@ -426,11 +427,22 @@ def _gossip_mix_quant_launch(idx, val, scale, q):
 
 
 # the SIMT kernel takes any head dim up to this whose rows are whole
-# 4-byte words (it instantiates 32, 64 and 128 and masks the columns past
-# D); the tensor-core kernel takes D in FLASH_TC_HEAD_DIMS
+# 4-byte words (it instantiates 32, 64, 96, 112 and 128 and masks the
+# columns past D); the tensor-core kernel takes D in FLASH_TC_HEAD_DIMS
 FLASH_MAX_HEAD_DIM = 128
 FLASH_TC_HEAD_DIMS = (64, 128)
 FLASH_TC_TILE = 128           # query rows per CTA of the tensor-core kernel
+FLASH_SIMT_TILE = 64          # query rows per CTA of the SIMT kernel
+# where its CTAs fill fewer than half the GOSSIP_SMS SMs it splits each
+# query tile's key range over CTAs, as many as bring them to two an SM,
+# each split at least FLASH_SPLIT_KEYS keys of Sk, at most
+# FLASH_MAX_SPLITS. Set from device us per call, split / unsplit
+# (benchmarks/flash_simt_probe.py; NVIDIA H100 80GB HBM3, 700 W), f32
+# causal: [1, 4, 512, 64] (32 CTAs, 8 splits) 15.56 / 43.49; [2, 4, 128,
+# 128] (16 CTAs, 2 splits) 16.59 / 20.79; [4, 12, 128, 64] (96 CTAs, 2
+# splits) 16.76 / 13.22, where the merge pass costs more than it saves.
+FLASH_SPLIT_KEYS = 64
+FLASH_MAX_SPLITS = 16
 ROUTER_MAX_EXPERTS, ROUTER_MAX_K = 512, 32
 
 
@@ -446,6 +458,26 @@ def flash_kernel(dtype, d: int) -> str:
     ``FLASH_TC_HEAD_DIMS``, else the SIMT ``flash_attention``."""
     return "flash_attention_tc" if dtype == torch.bfloat16 \
         and d in FLASH_TC_HEAD_DIMS else "flash_attention"
+
+
+def flash_simt_splits(b: int, h: int, sq: int, sk: int) -> int:
+    """Key-range splits of the SIMT kernel's grid at q [B, H, Sq, D] over k,
+    v [B, H, Sk, D]: 1 where its B*H*ceil(Sq/64) CTAs fill half the card's
+    ``GOSSIP_SMS`` SMs or more, else as many as bring them to two an SM,
+    at most ``FLASH_MAX_SPLITS`` and each at least ``FLASH_SPLIT_KEYS``
+    keys of Sk (a causal query tile sees fewer; its parts shrink with it,
+    and a part with no key tile only writes m = -inf)."""
+    ctas = b * h * -(-sq // FLASH_SIMT_TILE)
+    if ctas == 0 or 2 * ctas >= GOSSIP_SMS:
+        return 1
+    return max(1, min(-(-2 * GOSSIP_SMS // ctas), sk // FLASH_SPLIT_KEYS,
+                      FLASH_MAX_SPLITS))
+
+
+def flash_simt_scratch(b: int, h: int, sq: int, d: int, splits: int) -> int:
+    """fp32 words of the split scratch: each split's unnormalised output
+    rows [B*H*Sq, D] and their (m, l); 0 without a split."""
+    return 0 if splits == 1 else splits * b * h * sq * (d + 2)
 
 
 def _plain_grads(fn, inputs, grad_out):
@@ -493,11 +525,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     ``flash_attention_tc`` (TMA loads, wgmma; p enters P.V rounded to
     bf16, held to ``ref.flash_tc_limit``), which needs 16-byte aligned
     bases and (b, h, s) strides of whole 16 bytes; every other call
-    launches the SIMT kernel ``flash_attention`` (fp32 throughout), which
-    takes D up to ``FLASH_MAX_HEAD_DIM`` whose rows are whole 4-byte words
-    (any D in f32, an even D in bf16) and raises on the rest. Every f32
-    caller, the reduced f32 models included, runs it. The head dim is
-    checked on the card only: on the CPU the plain version takes any D.
+    launches the kernel ``flash_attention`` ("SIMT" by its first design;
+    now mma.sync on the tensor cores: 3xTF32 products for f32, bf16
+    products with p in two bf16 parts for bf16, both within the one-ulp
+    limit of ``chip_smoke.flash_err``), which takes D up to
+    ``FLASH_MAX_HEAD_DIM`` whose rows are whole 4-byte words (any D in
+    f32, an even D in bf16) and raises on the rest. Where its grid would
+    not fill the card it splits each query tile's key range over
+    ``flash_simt_splits`` CTAs into fp32 scratch and merges the parts in
+    a second kernel of the same launch. Every f32 caller, the reduced f32
+    models included, runs it. The head dim is checked on the card only:
+    on the CPU the plain version takes any D.
 
     Under autograd (an input that needs a gradient) the call goes through
     ``_FlashAttention``: the same forward, the gradient of the plain
@@ -568,12 +606,21 @@ def _flash_attention_simt(q, k, v, causal, window):
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
                          "with rows on 4-byte boundaries")
     out = torch.empty_like(q)
+    # the split scratch, on the meta device too (the dry run's peak)
+    splits = flash_simt_splits(b, h, sq, sk)
+    part = torch.empty(flash_simt_scratch(b, h, sq, d, splits),
+                       dtype=torch.float32, device=q.device) \
+        if splits > 1 else None
     if out.numel() == 0 or out.is_meta:
         return out
-    return _launch("flash_attention", out, q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), out.data_ptr(), b * h, h, sq, sk, d,
-                   *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
-                   int(causal), int(window), _DTYPE_CODE[q.dtype])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h,
+            h, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
+            *out.stride()[:3], int(causal), int(window),
+            _DTYPE_CODE[q.dtype])
+    if part is None:
+        return _launch("flash_attention", out, *args)
+    # the C entry's split variant (build.VARIANTS): scratch, split count
+    return _launch("flash_attention", out, *args, part.data_ptr(), splits)
 
 
 def _tma_strides(t):
