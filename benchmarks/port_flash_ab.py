@@ -1,7 +1,7 @@
-"""The SIMT flash kernel of checkouts side by side, on one CUDA card.
+"""Kernels of checkouts side by side, on one CUDA card.
 
     python benchmarks/port_flash_ab.py ROOT [ROOT ...] [--rounds 2]
-        [--main-paths]
+        [--main-paths | --mode {flash,main_paths,router,route_slots,ssd16}]
 
 Runs the checkouts in the order given, then in reverse, and so on for
 ``--rounds`` passes (two roots, two rounds: A, B, B, A), each in a
@@ -21,6 +21,15 @@ calls, Kimi-K2's bf16 call at D = 112, inputs from its
 (its wrapper, whatever grid it plans), and the bf16 [64, 512, 128] row
 through that checkout's ``simt_flash`` (the wrapper sends it to the
 tensor-core kernel).
+
+``--mode router`` times each checkout's ``ops.moe_router_topk`` at E = 64,
+k = 6 (DeepSeekMoE) on f32 logits at T in {4, 2048, 4096, 32768} and on
+bf16 logits at T in {2048, 32768}; ``--mode route_slots`` its
+``ops.moe_route_slots`` at T in {2048, 32768}, E = 64, k = 6, f32,
+``moe_grouped``'s capacity; ``--mode ssd16`` its ``ops.ssd_chunk`` at the
+P = 16 shapes of this tree's ``chip_smoke.SSD_TIMED`` (inputs from its
+``ssd_inputs``), whichever kernel that checkout's wrapper launches there.
+Each builds only the kernels it times.
 """
 from __future__ import annotations
 
@@ -44,19 +53,65 @@ def load_smoke(root: Path, name: str):
     return smoke
 
 
-def time_one(root: Path, main_paths: bool = False) -> dict:
+ROUTER_T = [(t, "float32") for t in (4, 2048, 4096, 32768)] + \
+    [(t, "bfloat16") for t in (2048, 32768)]
+ROUTE_SLOTS_T = (2048, 32768)
+MODES = ("flash", "main_paths", "router", "route_slots", "ssd16")
+
+
+def time_moe(smoke, ops, gen, mode: str) -> dict:
+    """{label: µs} of the checkout's router or route-and-slot wrapper."""
+    import torch
+    from repro_torch.models.moe import grouped_capacity
+    out = {}
+    for t, dt in (ROUTER_T if mode == "router" else
+                  [(t, "float32") for t in ROUTE_SLOTS_T]):
+        x = torch.randn(t, 64, generator=gen, device="cuda").to(
+            getattr(torch, dt))
+        if mode == "router":
+            fn = lambda: ops.moe_router_topk(x, 6)
+        else:
+            cap = grouped_capacity(t, 64, 6)
+            fn = lambda: ops.moe_route_slots(x, 6, cap)
+        out[f"T={t} {dt}"] = smoke.device_ms(fn) * 1e3
+    return out
+
+
+def time_ssd16(smoke, ops, gen) -> dict:
+    """{label: µs} of the checkout's ``ops.ssd_chunk`` at P = 16."""
+    from repro_torch.kernels import build
+    here = load_smoke(Path(__file__).resolve().parents[1], "this_smoke")
+    out = {}
+    for tag, b, s, h, n, p, chunk in here.SSD_TIMED:
+        if p != 16:
+            continue
+        build.build((ops.ssd_kernel(n, p),))
+        args = here.ssd_inputs(gen, b, s, h, n, p, chunk, "cuda")
+        out[f"{tag} [{args[4].shape[0]},{h},{args[4].shape[2]},{n},{p}] "
+            f"{ops.ssd_kernel(n, p)}"] = smoke.device_ms(
+                lambda: ops.ssd_chunk(*args), 20) * 1e3
+    return out
+
+
+def time_one(root: Path, mode: str = "flash") -> dict:
     """{"B,S": µs} of the SIMT kernel of the checkout at ``root`` (with
-    ``main_paths``, {label: µs} at ``SIMT_TIMED``)."""
+    mode ``main_paths``, {label: µs} at ``SIMT_TIMED``; with ``router``,
+    ``route_slots`` or ``ssd16``, {label: µs} of that wrapper)."""
     sys.path[:0] = [str(root / "src"), str(root)]
     smoke = load_smoke(root, "chip_smoke")
     import torch
-    from repro_torch.kernels import build
-    build.build(("flash_attention",))
+    from repro_torch.kernels import build, ops
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    if mode in ("router", "route_slots"):
+        build.build(("moe_router" if mode == "router" else
+                     "moe_route_slots",))
+        return time_moe(smoke, ops, gen, mode)
+    if mode == "ssd16":
+        return time_ssd16(smoke, ops, gen)
+    build.build(("flash_attention",))
     out = {}
-    if main_paths:
-        from repro_torch.kernels import ops
+    if mode == "main_paths":
         here = load_smoke(Path(__file__).resolve().parents[1], "this_smoke")
         for label, dtype, b, h, sq, sk, d, causal in here.SIMT_TIMED:
             q, k, v = here.simt_inputs(gen, label, dtype, b, h, sq, sk, d,
@@ -79,11 +134,14 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("roots", nargs="*", type=Path)
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--main-paths", action="store_true")
+    ap.add_argument("--main-paths", action="store_true",
+                    help="the same as --mode main_paths")
+    ap.add_argument("--mode", choices=MODES, default="flash")
     ap.add_argument("--one", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    mode = "main_paths" if args.main_paths else args.mode
     if args.one:
-        print(json.dumps(time_one(args.one.resolve(), args.main_paths)))
+        print(json.dumps(time_one(args.one.resolve(), mode)))
         return 0
     roots = [r.resolve() for r in args.roots]
     runs = {str(r): [] for r in roots}
@@ -91,8 +149,8 @@ def main() -> int:
     for i in range(args.rounds):
         order += roots if i % 2 == 0 else roots[::-1]
     for root in order:
-        res = subprocess.run([sys.executable, __file__, "--one", str(root)]
-                             + ["--main-paths"] * args.main_paths,
+        res = subprocess.run([sys.executable, __file__, "--one", str(root),
+                              "--mode", mode],
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             print(res.stdout[-2000:], res.stderr[-4000:], file=sys.stderr)
@@ -101,7 +159,8 @@ def main() -> int:
         runs[str(root)].append(row)
         print(f"{root.name}: " + ", ".join(
             f"[{k}] {v:.2f}us" for k, v in row.items()), flush=True)
-    print(json.dumps({"simt_flash_us_median": {
+    key = "simt_flash" if mode in ("flash", "main_paths") else mode
+    print(json.dumps({f"{key}_us_median": {
         r.name: {k: statistics.median(x[k] for x in runs[str(r)])
                  for k in runs[str(r)][0]} for r in roots}}))
     return 0

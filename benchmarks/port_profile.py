@@ -112,7 +112,7 @@ FEDAVG_STAGES = ("split_draws", "star_broadcast", "local_train",
 FAMILIES = (("gossip_mix", ("mix_kernel",)),
             ("flash_attention", ("flash_kernel", "flash_tc_kernel")),
             ("moe_router", ("router_kernel", "route_slots_kernel")),
-            ("ssd_chunk", ("ssd_chunk_kernel", "ssd_tc_kernel")),
+            ("ssd_chunk", ("ssd_tc_kernel",)),
             ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas",
                       "sm90_")))
 # the MoE grouped dispatch's scans and sorted scatters before the fused

@@ -6,13 +6,15 @@ one CUDA card.
 1. The rate ``mma.sync.m16n8k8`` TF32 reaches alone: every warp issues
    independent products on registers, 8 accumulators, 16 warps per SM.
 2. Variants of the kernel, built from its source with one piece taken out,
-   timed at the main path's shapes (``chip_smoke.SSD_TIMED``: Mamba2-780M's
-   [32, 48, 256, 128, 64] and Jamba's [16, 128, 256, 16, 64]): ``base``
-   (the kernel as it is), ``one_pass`` (W . X with the hi.hi product only),
-   ``no_scores`` (the score phase skipped) and ``no_heads`` (the W . X
-   phase skipped). The variants' outputs are wrong by construction: only
-   their times mean anything. Each variant runs in a process of its own
-   (their libraries share symbol names).
+   timed at ``chip_smoke.SSD_TIMED``'s shapes but its second (Mamba2-780M's
+   [32, 48, 256, 128, 64], Jamba's [16, 128, 256, 16, 64] and the two
+   P = 16 shapes): ``base`` (the kernel as it is), ``one_pass`` (W . X
+   with the hi.hi product only), ``no_scores`` (the score phase skipped),
+   ``no_heads`` (the W . X phase skipped), ``hg_fewer_ctas`` and
+   ``hg_more_ctas`` (the host's head groups sized for one and four CTAs
+   an SM, against two). The variants but the last two give wrong outputs
+   by construction: only their times mean anything. Each variant runs in
+   a process of its own (their libraries share symbol names).
 
 Device ms per call as ``chip_smoke.device_ms`` takes them. Builds into
 ``build/ssd_tc_probe/``. Imports nothing of JAX or of the ``repro``
@@ -33,17 +35,23 @@ from repro_torch.kernels import build  # noqa: E402
 
 OUT = ROOT / "build" / "ssd_tc_probe"
 SOURCE = build.CSRC / "ssd_chunk_tc.cu"
+# the host's target of CTAs for its head groups: 2 * CTAS_PER_SM * SMs halves
+HG_TARGET = "(2 * static_cast<int64_t>(CTAS_PER_SM) * sms[dev] + base)"
 # variant -> (text in the kernel's source, its replacement)
 VARIANTS = {
     "base": [],
     "one_pass": [("mma_tf32(acc[2 * m], al, bh[0]);", ""),
                  ("mma_tf32(acc[2 * m + 1], al, bh[1]);", ""),
                  ("mma_tf32(acc[2 * m], ah, bl[0]);", ""),
-                 ("mma_tf32(acc[2 * m + 1], ah, bl[1]);", "")],
+                 ("mma_tf32(acc[2 * m + 1], ah, bl[1]);", ""),
+                 ("mma_tf32(acc[0], al, bh);", ""),
+                 ("mma_tf32(acc[0], ah, bl);", "")],
     "no_scores": [("const int n_items = nkt * n_nc;",
                    "const int n_items = 0;")],
     "no_heads": [("const int n_items2 = n_heads * nkt;",
                   "const int n_items2 = 0;")],
+    "hg_fewer_ctas": [(HG_TARGET, HG_TARGET.replace("2 *", "1 *", 1))],
+    "hg_more_ctas": [(HG_TARGET, HG_TARGET.replace("2 *", "4 *", 1))],
 }
 MMA_RATE = r"""
 #include <cstdio>

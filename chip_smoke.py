@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-1. Build: compile the nine kernels (three gossip mixes, the SIMT and
+1. Build: compile the eight kernels (three gossip mixes, the SIMT and
    the tensor-core flash attention, the MoE router alone and fused with
-   the grouped dispatch's slots, the SIMT and the tensor-core SSD
-   intra-chunk term) from ``src/repro_torch/kernels/csrc``
+   the grouped dispatch's slots, the tensor-core SSD intra-chunk term)
+   from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel) and print ptxas's register and
-   spill report and warnings; a spill in ``ssd_chunk_tc``, in any
+   spill report and warnings; a spill in ``ssd_chunk_tc``, in either
+   router kernel (``moe_router``, ``moe_route_slots``), in any
    instantiation of the SIMT flash kernel (f32 and bf16 at head dims 32,
    64, 96, 112 and 128, each taking the widths up to it, and its merge
    pass) or in the dense gossip mix's tile regime fails.
@@ -42,9 +43,10 @@
    repeated from 8 kv heads), at bf16 D in {80, 96} (ragged, split,
    across lengths) and on the adversarial cases in f32 and in bf16 at
    D = 96; each call checked to launch the kernel its dtype and D select;
-   the router at T in {4, 1000, 2048, 4096}, (E, k) in {(64, 6), (16, 2)},
-   with rows of exact ties;
-   both in f32 and bf16; the fused route-and-slot kernel on the same
+   the router at T in {4, 1000, 2048, 4096, 32768}, (E, k) in {(64, 6),
+   (16, 2)}, and at T in {4, 4096}, (E, k) in {(128, 8), (512, 32)}, with
+   rows of exact ties;
+   both in f32 and bf16; the fused route-and-slot kernel on the first
    cases plus T = 32768 (1024 tiles) and routers skewed to overflow the
    capacity: gates and indices as the router's, slots and the inverse
    map exact against the plain rank of the kernel's own indices, equal
@@ -55,10 +57,10 @@
    [G, H, T, N, P] = [32, 48, 256, 128, 64] and [64, 48, 256, 128, 64],
    a ragged T = 200, the Jamba shape
    (N = 16, H = 128), a reduced shape (N = 16, P = 32, T = 32), H = 12
-   at P = 16, and the main shape with x contiguous, each through the
-   kernel ``ops.ssd_kernel`` picks (the tensor-core ``ssd_chunk_tc`` at
-   P in {32, 64}, the SIMT ``ssd_chunk`` at P = 16) and through the SIMT
-   kernel's C entry; limit 1e-5 * max|y| of each call. The tensor-parallel
+   at P = 16, Mamba2-780M's inner width in heads of 16 ([32, 192, 256,
+   128, 16]; no model runs P = 16), and the main shape with x contiguous,
+   each through ``ops.ssd_chunk`` (one ``ssd_chunk_tc`` launch); limit
+   1e-5 * max|y| of each call. The tensor-parallel
    shards' full-width shapes ([10], [11]): flash on a model shard's query
    heads, [B, H / tp, S, 128] (``TP_FLASH``: [2, 4, 4096], [8, 4, 4096],
    [1, 4, 32768] (the plain version 4,096 queries at a time) and [2, 4,
@@ -73,12 +75,15 @@
    payload; flash and ssd_chunk in the main
    path's layout;
    flash as the tensor-core kernel, the SIMT kernel through its C entry
-   at the same bf16 shapes, the plain version and SDPA; ssd_chunk as the
-   tensor-core kernel, the SIMT kernel through its C entry and the plain
-   version at Mamba2-780M's two prefill shapes and Jamba's [16, 128, 256,
-   16, 64]; the fused route-and-slot kernel, its plain version and the
-   route it replaced, the router and a one-hot ``cumsum`` rank, at T in
-   {2048, 4096, 4}, E = 64, k = 6 and T = 4096, E = 16, k = 2); flash as
+   at the same bf16 shapes, the plain version and SDPA; ssd_chunk_tc and
+   the plain version at Mamba2-780M's two prefill shapes, Jamba's [16,
+   128, 256, 16, 64] and the two P = 16 shapes of [2]; the router at T
+   in {2048, 4096, 4, 32768} beside the floor of the timing (a
+   one-element ``add_``); the fused route-and-slot kernel, its plain
+   version and the route it replaced, the router and a one-hot ``cumsum``
+   rank, at T in
+   {2048, 4096, 4, 32768}, E = 64, k = 6 and T = 4096, E = 16, k = 2);
+   flash as
    the tensor-core kernel, the SIMT kernel, the plain version and SDPA at
    the phase [8] prefills' shapes (``ENCDEC_FLASH``: whisper's encoder
    [4, 6, 1500, 64], cross-attention 448 over 1,500 and causal decoder
@@ -257,7 +262,7 @@
 6. Mamba2-780M at full width and depth (48 layers, bf16, 780,148,992
    parameters, random weights from a seed) initialised on the card;
    prefill at B=4, S=2048 and B=1, S=16384 with exactly 48 ssd_chunk_tc
-   launches per call and no other kernel (0 SIMT ssd_chunk); the serve
+   launches per call and no other kernel; the serve
    loop at its defaults with no kernel launch (decode is the plain
    recurrence); peak memory. A reduced Mamba2 (f32) card vs CPU as in 5,
    at S = 40, which is not a multiple of its chunk of 32, so the pad path
@@ -265,7 +270,7 @@
 7. Jamba at full width cut to one 8-layer period (13,267,656,416
    parameters, bf16): two prefill calls at B=1, S=4096 with 7
    ssd_chunk_tc, 1 tensor-core flash and 4 route-and-slot launches each
-   (0 SIMT ssd_chunk, 0 router) and finite logits.
+   (0 router) and finite logits.
 8. Whisper-tiny (36,455,040 parameters) and InternVL2-2B (1,897,537,536)
    at full width and depth, bf16, random weights from a seed, each
    checked against its parameter count: whisper's prefill at B = 4 over
@@ -391,7 +396,6 @@ REPLACES = {
     "flash_attention_tc": "src/repro/kernels/flash_attention.py:87",
     "moe_router": "src/repro/kernels/moe_router.py:45",
     "moe_route_slots": "src/repro/kernels/moe_router.py:45",
-    "ssd_chunk": "src/repro/kernels/ssd_chunk.py:44",
     "ssd_chunk_tc": "src/repro/kernels/ssd_chunk.py:44",
 }
 GOSSIP = ("gossip_mix", "gossip_mix_sparse", "gossip_mix_quant")
@@ -1004,20 +1008,25 @@ def router_rows(gen, t, e, dev, dtype):
     return x.to(dtype), ties
 
 
+ROUTER_CASES = [(t, e, k) for t in (4, 1000, 2048, 4096, 32768)
+                for e, k in ((64, 6), (16, 2))] + \
+    [(t, e, k) for t in (4, 4096) for e, k in ((128, 8), (512, 32))]
+
+
 def check_router(dev):
     """moe_router against its plain version (``router_case``): T in {4,
-    1000, 2048, 4096}, (E, k) in {(64, 6), (16, 2)}, f32 and bf16 logits;
-    no more than two rows with swapped indices in all. Returns the worst
-    gate error."""
+    1000, 2048, 4096, 32768} at (E, k) in {(64, 6), (16, 2)}, and T in {4,
+    4096} at (E, k) in {(128, 8), (512, 32)} (16 and 32 lanes a row), f32
+    and bf16 logits; no more than two rows with swapped indices in all.
+    Returns the worst gate error."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     worst, swaps = 0.0, 0
-    for t in (4, 1000, 2048, 4096):
-        for e, k in ((64, 6), (16, 2)):
-            for dtype in (torch.float32, torch.bfloat16):
-                err, bad = router_case(gen, t, e, k, dtype, dev)
-                swaps += bad
-                worst = max(worst, err)
+    for t, e, k in ROUTER_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            err, bad = router_case(gen, t, e, k, dtype, dev)
+            swaps += bad
+            worst = max(worst, err)
     if swaps > 2:
         fail(f"moe_router: {swaps} rows with swapped indices")
     return worst
@@ -1041,7 +1050,7 @@ def router_case(gen, t, e, k, dtype, dev):
     torch.cuda.synchronize()
     err = float((gates - wgates).abs().max())
     bad = (idx != widx).any(dim=1)
-    print(f"  check moe_router T={t:4d} E={e:2d} k={k} "
+    print(f"  check moe_router T={t:5d} E={e:3d} k={k:2d} "
           f"{str(dtype)[6:]:8s} gate_max_abs_err={err:.3e} "
           f"tol=1.0e-06 idx_rows_differ={int(bad.sum())}")
     if idx.dtype != torch.int32 or not err <= 1e-6 \
@@ -1193,9 +1202,11 @@ def time_serving_kernels(dev):
     (``main_path_qkv``: [4, 16, 512, 128] and [1, 16, 4096, 128], bf16,
     causal): the tensor-core kernel (timed first and last), the SIMT
     kernel through its C entry, SDPA and the plain version, in one call;
-    and the router at T = 2048 (prefill B=4 x S=512), 4096 and 4 (a decode
-    step), E = 64, k = 6, f32 logits. Returns the rows of the first shape
-    of each."""
+    and the router at T = 2048 (prefill B=4 x S=512), 4096, 4 (a decode
+    step) and 32768 (expert parallelism's replicated path at DeepSeekMoE's
+    prefill_32k, [10]), E = 64, k = 6, f32 logits, beside the floor of
+    ``device_ms`` (a one-element in-place ``add_``). Returns the rows of
+    the first shape of each."""
     from repro_torch.kernels import ops, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device=dev)
@@ -1228,14 +1239,19 @@ def time_serving_kernels(dev):
                "bound_by": b_by}
         out.setdefault("flash_attention_tc", dict(row, ms=ms))
         out.setdefault("flash_attention", dict(row, ms=simt_ms))
-    for t in (2048, 4096, 4):
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_ms(lambda: one.add_(1.0))
+    print(f"  time floor: a one-element add_ {floor_ms * 1e3:.2f}us (the "
+          f"least a launch costs in device_ms)")
+    for t in (2048, 4096, 4, 32768):
         x = torch.randn(t, 64, generator=gen, device=dev)
         ms = device_ms(lambda: ops.moe_router_topk(x, 6))
         plain_ms = device_ms(lambda: ref.moe_router_topk_ref(x, 6))
         b_ms, b_by = router_bound(t, 64, 6, 4)
-        print(f"  time moe_router T={t:4d} E=64 k=6 f32 kernel="
+        print(f"  time moe_router T={t:5d} E=64 k=6 f32 kernel="
               f"{ms * 1e3:.2f}us plain={plain_ms * 1e3:.2f}us library=- "
-              f"bound={b_ms * 1e3:.3f}us ({b_by})")
+              f"bound={b_ms * 1e3:.3f}us ({b_by}) above the floor="
+              f"{(ms - floor_ms) * 1e3:.2f}us")
         out.setdefault("moe_router", {
             "ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by})
@@ -1367,23 +1383,27 @@ def replaced_route(x, k, cap):
 def time_route_slots(dev):
     """The fused route-and-slot kernel (timed first and last), its plain
     version and the route it replaced (``replaced_route``) at T = 2048
-    (prefill B=4 x S=512), 4096 and 4, E = 64, k = 6, and at T = 4096,
-    E = 16, k = 2 (Jamba), f32 logits, ``moe_grouped``'s capacity.
-    Returns the row of the first shape."""
+    (prefill B=4 x S=512), 4096, 4 and 32768 (expert parallelism's
+    all_to_all path a data shard at prefill_32k), E = 64, k = 6, and at
+    T = 4096, E = 16, k = 2 (Jamba), f32 logits, ``moe_grouped``'s
+    capacity. Returns the row of the first shape."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models.moe import grouped_capacity
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     out = {}
-    for t, e, k in ((2048, 64, 6), (4096, 64, 6), (4, 64, 6), (4096, 16, 2)):
+    for t, e, k in ((2048, 64, 6), (4096, 64, 6), (4, 64, 6), (4096, 16, 2),
+                    (32768, 64, 6)):
         x = torch.randn(t, e, generator=gen, device=dev)
         cap = grouped_capacity(t, e, k)
         ms = device_ms(lambda: ops.moe_route_slots(x, k, cap))
-        plain_ms = device_ms(lambda: ref.moe_route_slots_ref(x, k, cap), 10)
-        old_ms = device_ms(lambda: replaced_route(x, k, cap), 10)
+        calls = 10 if t <= 4096 else 2
+        plain_ms = device_ms(lambda: ref.moe_route_slots_ref(x, k, cap),
+                             calls)
+        old_ms = device_ms(lambda: replaced_route(x, k, cap), calls)
         ms_again = device_ms(lambda: ops.moe_route_slots(x, k, cap))
         b_ms, b_by = route_slots_bound(t, e, k, cap, 4)
-        print(f"  time moe_route_slots T={t:4d} E={e:2d} k={k} cap={cap} f32 "
+        print(f"  time moe_route_slots T={t:5d} E={e:2d} k={k} cap={cap} f32 "
               f"kernel={ms * 1e3:.2f}us (again {ms_again * 1e3:.2f}us) "
               f"plain={plain_ms * 1e3:.2f}us replaced route (router + "
               f"one-hot cumsum)={old_ms * 1e3:.2f}us library=- "
@@ -1425,6 +1445,9 @@ SSD_CASES = (SSD_MAIN,
              ("jamba", 1, 1024, 128, 16, 64, 256),
              ("reduced", 2, 64, 16, 16, 32, 32),
              ("H=12 P=16 N=32 T=100", 2, 100, 12, 32, 16, 100),
+             # Mamba2-780M's inner width (3,072) in heads of 16: synthetic,
+             # no model runs P = 16
+             ("P=16 d_inner=3072 B=4 S=2048", 4, 2048, 192, 128, 16, 256),
              # a model shard's heads under tensor parallelism: [10]'s
              # Mamba2 prefill_32k at tp 4, [11]'s reduced mamba2 at tp 4
              # and 2; then Mamba2 at tp 2 and Jamba at tp 4, which no
@@ -1434,95 +1457,71 @@ SSD_CASES = (SSD_MAIN,
              ("reduced shard tp=2", 2, 32, 8, 16, 32, 32),
              ("mamba2-780m shard tp=2 (extra)", 4, 2048, 24, 128, 64, 256),
              ("jamba shard tp=4 (extra)", 1, 1024, 32, 16, 64, 256))
-# the timed shapes: Mamba2-780M's two prefill shapes, Jamba's at S = 4096
+# the timed shapes: Mamba2-780M's two prefill shapes, Jamba's at S = 4096,
+# and the two P = 16 shapes of SSD_CASES
 SSD_TIMED = (SSD_MAIN, SSD_CASES[1],
-             ("jamba B=1 S=4096", 1, 4096, 128, 16, 64, 256))
-
-
-def simt_ssd(C, B, acum, dt, x):
-    """The SIMT ssd_chunk kernel through its C entry, on any shape it takes;
-    bypasses ``ops`` and its launch counter, so it checks and times the
-    SIMT kernel on shapes the wrapper sends to the tensor cores."""
-    from repro_torch.kernels import build
-    g, h, t, p = x.shape
-    y = torch.empty_like(x)
-    rc = build.load("ssd_chunk")(
-        C.data_ptr(), B.data_ptr(), acum.data_ptr(), dt.data_ptr(),
-        x.data_ptr(), y.data_ptr(), g, h, t, C.shape[-1], p, *x.stride()[:3],
-        *y.stride()[:3], torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        fail(f"SIMT ssd_chunk launch failed (cudaError {rc})")
-    return y
+             ("jamba B=1 S=4096", 1, 4096, 128, 16, 64, 256),
+             SSD_CASES[5], SSD_CASES[6])
 
 
 def check_ssd(dev):
     """ssd_chunk against its plain version at the main path's shapes and
     layout (Mamba2-780M at B=4/S=2048 and B=1/S=16384), a ragged T = 200,
-    the Jamba shape, a reduced shape and a last head group of 4 at P = 16,
-    all in the main path's layout, plus the main shape with x contiguous.
-    Each case runs through ``ops.ssd_chunk``, which must launch the kernel
-    ``ops.ssd_kernel`` picks once, and through the SIMT kernel's C entry.
-    Limit for both: 1e-5 * max|y| of the call (the SIMT kernel sums in
-    fp32; the tensor-core kernel in 3xTF32, ~2^-21 relative per product;
-    both take the exponent of the same fp32 difference). Returns the worst
-    max |error| of each kernel."""
+    the Jamba shape, a reduced shape, P = 16 (a last head group of 4 at
+    H = 12, and Mamba2-780M's inner width in heads of 16), all in the main
+    path's layout, plus the main shape with x contiguous. Each case runs
+    through ``ops.ssd_chunk``, which must launch ``ssd_chunk_tc`` once.
+    Limit: 1e-5 * max|y| of the call (3xTF32, ~2^-21 relative per
+    product; the exponent of the fp32 difference). Returns the worst max
+    |error|."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    worst = {"ssd_chunk": 0.0, "ssd_chunk_tc": 0.0}
-    worst_ratio = dict(worst)
+    worst = {"ssd_chunk_tc": 0.0}
+    worst_ratio = 0.0
     for tag, b, s, h, n, p, chunk in SSD_CASES + (
             ("main contiguous x",) + SSD_MAIN[1:],):
         args = ssd_inputs(gen, b, s, h, n, p, chunk, dev)
         if tag == "main contiguous x":
             args = args[:4] + (args[4].contiguous(),)
-        for kname, err, ratio in ssd_case(tag, args):
-            worst[kname] = max(worst[kname], err)
-            worst_ratio[kname] = max(worst_ratio[kname], ratio)
-    print(f"  ssd worst err/limit {worst_ratio}")
+        err, ratio = ssd_case(tag, args)
+        worst["ssd_chunk_tc"] = max(worst["ssd_chunk_tc"], err)
+        worst_ratio = max(worst_ratio, ratio)
+    print(f"  ssd worst err/limit {worst_ratio:.3f}")
     return worst
 
 
 def ssd_case(tag, args):
-    """One ssd_chunk call through ``ops`` (one launch of the kernel
-    ``ops.ssd_kernel`` picks) and through the SIMT kernel's C entry,
-    against the plain version within 1e-5 * max|y|. Returns [(kernel,
-    max |error|, error/limit)] of both calls."""
+    """One ssd_chunk call through ``ops`` (one launch of ``ssd_chunk_tc``)
+    against the plain version within 1e-5 * max|y|. Returns (max |error|,
+    error/limit)."""
     from repro_torch.kernels import ops, ref
-    kernels = ("ssd_chunk", "ssd_chunk_tc")
     g, h, t, p = args[4].shape
     n = args[0].shape[-1]
-    name = ops.ssd_kernel(n, p)
-    before = dict(ops.LAUNCHES)
+    before = ops.LAUNCHES["ssd_chunk_tc"]
     got = ops.ssd_chunk(*args)
-    launched = {k: ops.LAUNCHES[k] - before[k] for k in kernels}
-    simt = simt_ssd(*args)
+    launched = ops.LAUNCHES["ssd_chunk_tc"] - before
     want = ref.ssd_chunk_ref(*args)
     torch.cuda.synchronize()
-    if launched != {k: int(k == name) for k in kernels}:
-        fail(f"ssd_chunk {tag}: launches {launched}, expected one of "
-             f"{name}")
+    if launched != 1:
+        fail(f"ssd_chunk {tag}: {launched} ssd_chunk_tc launches, "
+             f"expected one")
     lim = 1e-5 * float(want.abs().max())
-    out_rows = []
-    for kname, out in ((name, got), ("ssd_chunk", simt)):
-        err = float((out - want).abs().max())
-        print(f"  check {kname:12s} {tag:24s} [G,H,T,N,P]={[g, h, t, n, p]} "
-              f"max|y|={float(want.abs().max()):.3e} max_abs_err="
-              f"{err:.3e} err/limit={err / lim:.3f} "
-              f"min(acum)={float(args[2].min()):.1f}"
-              + (" (C entry)" if out is simt else ""))
-        if out.shape != want.shape or out.dtype != torch.float32 \
-                or not bool(torch.isfinite(out).all()) or not err <= lim:
-            fail(f"{kname} {tag} disagrees with its plain version")
-        out_rows.append((kname, err, err / lim))
+    err = float((got - want).abs().max())
+    print(f"  check ssd_chunk_tc {tag:28s} [G,H,T,N,P]={[g, h, t, n, p]} "
+          f"max|y|={float(want.abs().max()):.3e} max_abs_err={err:.3e} "
+          f"err/limit={err / lim:.3f} min(acum)={float(args[2].min()):.1f}")
+    if got.shape != want.shape or got.dtype != torch.float32 \
+            or not bool(torch.isfinite(got).all()) or not err <= lim:
+        fail(f"ssd_chunk_tc {tag} disagrees with its plain version")
     CHECKED.add(ssd_key(args))
-    return out_rows
+    return err, err / lim
 
 
 def time_ssd(dev):
-    """The tensor-core ssd_chunk (through ``ops``, timed first and last),
-    the SIMT kernel (its C entry) and the plain version, with the bound, at
-    ``SSD_TIMED``'s shapes in the main path's layout; no single PyTorch
-    call computes this function. Returns the rows of the main shape."""
+    """ssd_chunk_tc (through ``ops``, timed first and last) and the plain
+    version, with the bound, at ``SSD_TIMED``'s shapes in the main path's
+    layout; no single PyTorch call computes this function. Returns the
+    row of the main shape."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
@@ -1530,24 +1529,18 @@ def time_ssd(dev):
     for tag, b, s, h, n, p, chunk in SSD_TIMED:
         args = ssd_inputs(gen, b, s, h, n, p, chunk, dev)
         g, t = args[4].shape[0], args[4].shape[2]
-        if ops.ssd_kernel(n, p) != "ssd_chunk_tc":
-            fail(f"ssd_chunk {tag}: not the tensor-core kernel")
         ms = device_ms(lambda: ops.ssd_chunk(*args), 20)
-        simt_ms = device_ms(lambda: simt_ssd(*args), 20)
         plain_ms = device_ms(lambda: ref.ssd_chunk_ref(*args), 5)
         ms_again = device_ms(lambda: ops.ssd_chunk(*args), 20)
         b_ms, b_by, cc_ms = ssd_bound(g, h, t, n, p)
         print(f"  time ssd_chunk_tc [{g},{h},{t},{n},{p}] f32 main-path "
               f"layout ({tag}) kernel={ms * 1e3:.2f}us (again "
-              f"{ms_again * 1e3:.2f}us) simt={simt_ms * 1e3:.2f}us "
-              f"plain={plain_ms * 1e3:.2f}us library=- bound="
-              f"{b_ms * 1e3:.2f}us ({b_by}; fp32 CUDA-core figure "
-              f"{cc_ms * 1e3:.2f}us) simt/tc={simt_ms / ms:.2f} "
-              f"tc/bound={ms / b_ms:.2f}")
-        row = {"plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
-               "bound_by": b_by}
-        out.setdefault("ssd_chunk_tc", dict(row, ms=ms))
-        out.setdefault("ssd_chunk", dict(row, ms=simt_ms))
+              f"{ms_again * 1e3:.2f}us) plain={plain_ms * 1e3:.2f}us "
+              f"library=- bound={b_ms * 1e3:.2f}us ({b_by}; fp32 CUDA-core "
+              f"figure {cc_ms * 1e3:.2f}us) tc/bound={ms / b_ms:.2f}")
+        out.setdefault("ssd_chunk_tc", {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by})
     return out
 
 
@@ -4338,9 +4331,9 @@ def serve_mamba2(dev):
     """Mamba2-780M at full width and depth (48 layers, bf16, random
     weights from seed 0): init on the card, prefill at B=4/S=2048 (G = 32)
     and B=1/S=16384 (G = 64), 3 calls each after a warm-up with 48
-    ssd_chunk_tc launches per call and nothing else (no SIMT ssd_chunk),
+    ssd_chunk_tc launches per call and nothing else,
     then the serve loop at its defaults, which launches no kernel (decode
-    is the plain recurrence). Returns both SSD kernels' launches of the
+    is the plain recurrence). Returns the SSD kernel's launches of the
     prefill calls."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -4376,8 +4369,8 @@ def serve_mamba2(dev):
                                  cfg.vocab_size, {"ssd_chunk_tc": 48}, 3)
         print(f"  prefill B={bs[0]} S={bs[1]}: wall_ms="
               f"{[round(x, 2) for x in times]} launches per call: 48 "
-              f"ssd_chunk_tc, 0 SIMT ssd_chunk")
-    counts = {k: ops.LAUNCHES[k] for k in ("ssd_chunk", "ssd_chunk_tc")}
+              f"ssd_chunk_tc")
+    counts = {"ssd_chunk_tc": ops.LAUNCHES["ssd_chunk_tc"]}
     before = dict(ops.LAUNCHES)
     tokens, st = serve.generate(params, cfg, prompts, 32)
     delta = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
@@ -4400,8 +4393,8 @@ def prefill_jamba_period(dev):
     """Jamba at full width cut to one 8-layer period (mamba, mamba_moe,
     mamba, mamba_moe, attn_dense, mamba_moe, mamba, mamba_moe; 13.3B
     parameters, bf16: the whole 32 layers, ~104 GB, do not fit one card):
-    two prefill calls at B=1, S=4096, each with 7 ssd_chunk_tc (0 SIMT
-    ssd_chunk), 1 flash and 4 route-and-slot launches (0 router)."""
+    two prefill calls at B=1, S=4096, each with 7 ssd_chunk_tc, 1 flash
+    and 4 route-and-slot launches (0 router)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import build_prefill_step
     from repro_torch.models import model
@@ -5379,8 +5372,8 @@ def check_launched_shapes(dev, seen: set, max_err: dict,
         elif key[0] == "ssd":
             _, g, h, t, n, p = key
             args = ssd_inputs(gen, g, t, h, n, p, t, dev)
-            for name, err, _ in ssd_case(f"launched in {phases}", args):
-                max_err[name] = max(max_err[name], err)
+            err, _ = ssd_case(f"launched in {phases}", args)
+            max_err["ssd_chunk_tc"] = max(max_err["ssd_chunk_tc"], err)
         elif key[0] in GOSSIP:
             max_err[key[0]] = max(max_err[key[0]],
                                   gossip_case(gen, key, dev))
@@ -5532,7 +5525,8 @@ def main() -> int:
                                                 "warning")):
                 print(f"  ptxas {name}: {line.strip()}")
         for entry, spilled in spills(r["log"]).items():
-            if spilled and (name in ("ssd_chunk_tc", "flash_attention") or (
+            if spilled and (name in ("ssd_chunk_tc", "flash_attention",
+                                     "moe_router", "moe_route_slots") or (
                     name == "gossip_mix" and "tile_mix_kernel" in entry)):
                 fail(f"{name} spills registers in {entry}")
 
@@ -5607,9 +5601,9 @@ def main() -> int:
     launches.update(serve_mamba2(dev))
     reduced = serve_reduced_card_vs_cpu(dev, "mamba2-780m", 40,
                                         attention=False)
-    if not reduced["ssd_chunk_tc"] or reduced["ssd_chunk"]:
+    if not reduced["ssd_chunk_tc"]:
         fail(f"reduced mamba2 (N = 16, P = 32): SSD launches {reduced}, "
-             f"expected ssd_chunk_tc only")
+             f"expected ssd_chunk_tc")
 
     print("[7] jamba, one period at full width", flush=True)
     prefill_jamba_period(dev)

@@ -45,7 +45,7 @@ def pipes(name: str, **kw):
         if name == "moe_route_slots":
             nbytes += t * k * 4 + e * kw["cap"] * 4
         return {"fp32": t * e * (3 + k)}, nbytes
-    if name in ("ssd_chunk", "ssd_chunk_tc"):
+    if name == "ssd_chunk_tc":
         g, h, t, n, p = kw["g"], kw["h"], kw["t"], kw["n"], kw["p"]
         pairs = t * (t + 1) // 2
         nbytes = 4 * (2 * g * t * n + 2 * g * h * t + 2 * g * h * t * p)

@@ -22,9 +22,11 @@
 // (61 of 122 ms of device time per DeepSeekMoE-16B prefill call at B = 4,
 // S = 512 on the H100) and the sorted scatter that packed the buffer.
 //
-// Design. One 1024-thread CTA per tile of ROWS = 32 consecutive rows; warp r
-// routes row r of its tile, keeps the row's k experts in shared memory and
-// sets bit r of rows_of[e] for every expert e that the row chose. A row's k
+// Design. One 1024-thread CTA per tile of ROWS = 32 consecutive rows. Its
+// first G warps route the tile's rows as the router does (router_row.cuh:
+// G lanes a row, G from E alone, 32 / G rows a warp; the other warps wait
+// at the barrier), keep each row's k experts in shared memory and set bit r
+// of rows_of[e] for every expert e that row r chose. A row's k
 // experts are distinct, so a pair's rank inside its tile is popc(rows_of[e]
 // & ((1 << r) - 1)) and the tile's count for e is popc(rows_of[e]). The
 // tiles' offsets come from an exclusive scan over tiles, one per expert, in
@@ -173,7 +175,7 @@ __device__ void lookback(const unsigned long long* words, int E, int tile,
   }
 }
 
-template <typename T, int EPL>
+template <typename T, int G, int EPL>
 __global__ void __launch_bounds__(THREADS) route_slots_kernel(Args a) {
   __shared__ unsigned rows_of[MAX_E];  // bit r: row r of the tile chose e
   __shared__ unsigned excl_of[MAX_E];  // e's pairs in the tiles before
@@ -203,20 +205,29 @@ __global__ void __launch_bounds__(THREADS) route_slots_kernel(Args a) {
   const int row0 = tile * ROWS;
   for (int e = tid; e < E; e += THREADS) hi_of[e] = tile;
 
-  // 1. route the tile's rows, one warp per row
-  const T* logits = static_cast<const T*>(a.logits);
-  for (int r = warp; r < ROWS && row0 + r < a.T; r += WARPS) {
-    const int row = row0 + r;
-    float gate;
-    int expert;
-    router::route_row<T, EPL>(logits + static_cast<int64_t>(row) * E, E, k,
-                              lane, gate, expert);
-    if (lane < k) {
-      const int64_t o = static_cast<int64_t>(row) * k + lane;
-      a.gates[o] = gate;
-      a.idx[o] = expert;
-      chosen[r][lane] = expert;
-      atomicOr(&rows_of[expert], 1u << r);
+  // 1. route the tile's rows: warp w < G takes rows (32 / G) w .. of the
+  // tile, G lanes a row (rows past T route row T - 1 and keep nothing)
+  if (warp < G) {
+    constexpr int KPL = router::kpl<G, EPL>();
+    const int r = warp * (32 / G) + lane / G, gl = lane % G;
+    const int row = min(row0 + r, a.T - 1);
+    float p[EPL], gate[KPL];
+    int expert[KPL];
+    router::load_experts<T, EPL>(
+        static_cast<const T*>(a.logits) + static_cast<int64_t>(row) * E, E,
+        gl * EPL, p);
+    router::route_row<G, EPL>(p, E, k, gl, gate, expert);
+    if (row0 + r < a.T) {
+#pragma unroll
+      for (int s = 0; s < KPL; ++s) {
+        const int j = s * G + gl;
+        if (j >= k) continue;
+        const int64_t o = static_cast<int64_t>(row) * k + j;
+        a.gates[o] = gate[s];
+        a.idx[o] = expert[s];
+        chosen[r][j] = expert[s];
+        atomicOr(&rows_of[expert[s]], 1u << r);
+      }
     }
   }
   __syncthreads();
@@ -267,22 +278,20 @@ __global__ void __launch_bounds__(THREADS) route_slots_kernel(Args a) {
   if (tid == 0) a.state->done = 0;
 }
 
-template <typename T, int EPL>
+template <typename T, int G, int EPL>
 int launch(const Args& a, cudaStream_t stream) {
   const unsigned tiles = static_cast<unsigned>((a.T + ROWS - 1) / ROWS);
-  route_slots_kernel<T, EPL><<<tiles, THREADS, 0, stream>>>(a);
+  route_slots_kernel<T, G, EPL><<<tiles, THREADS, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// EPL = ceil(E / 32) logits a lane
+// G lanes a row and EPL experts a lane, as the router picks them
 template <typename T>
 int launch_e(const Args& a, cudaStream_t s) {
-  if (a.E <= 32) return launch<T, 1>(a, s);
-  if (a.E <= 64) return launch<T, 2>(a, s);
-  if (a.E <= 128) return launch<T, 4>(a, s);
-  if (a.E <= 256) return launch<T, 8>(a, s);
-  if (a.E <= MAX_E) return launch<T, 16>(a, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = router::dispatch_lanes(a.E, [&](auto g, auto epl) {
+    return launch<T, decltype(g)::value, decltype(epl)::value>(a, s);
+  });
+  return rc < 0 ? static_cast<int>(cudaErrorInvalidValue) : rc;
 }
 
 }  // namespace route_slots

@@ -8,10 +8,17 @@
 // with C, B [G, T, N], acum, dt [G, H, T] contiguous and x, y [G, H, T, P]
 // addressed through (g, h, t) strides (P contiguous), all fp32. In the model
 // x and y are views of [G, T, H, P] tensors, read and written in place. It
-// takes N in {16, 32, 64, 128}, P in {32, 64}, 1 <= T <= 256; P = 16 stays
-// on the SIMT kernel (ssd_chunk.cu), where a warp's two 8-column tiles of
-// W . X would leave the exponent and the splits, not the products, to set
-// the time.
+// takes N in {16, 32, 64, 128}, P in {16, 32, 64}, 1 <= T <= 256.
+//
+// P = 16 (no model runs it) takes the same design with one 8-column n-tile
+// of W . X a CTA half where P = 32 takes two (scalar X loads, float2
+// stores). Measured on the H100 (PERF.md, Findings): at [32, 192, 256, 128,
+// 16] (HG = 48 heads a CTA; head groups for 1 or 4 CTAs an SM time slower)
+// 503.7 us against 1,440.4 for the SIMT kernel that held P = 16 before,
+// and at [2, 12, 100, 32, 16] 10.9 against 54.9, so that kernel was
+// deleted. It is 7.6x its 66.4 us byte bound there: the W . X phase, 240
+// items a CTA with two barriers and little work each, not the products,
+// holds it (two of the three product passes taken out save 17 %).
 //
 // Bound on an H100 SXM, at the serving path's shape [G, H, T, N, P] =
 // [32, 48, 256, 128, 64]: C, B, acum, dt and x read and y written once are
@@ -174,6 +181,7 @@ __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
                   int n_hg, int n_pairs, int64_t sxg, int sxh, int sxt,
                   int64_t syg, int syh, int syt) {
   using K = Cfg<NC, P>;
+  // NH: 8-column n-tiles of W . X a CTA half
   constexpr int CS = K::CS, XS = K::XS, STAGE = K::STAGE, NH = P / 16;
   extern __shared__ __align__(16) float smem[];
   const int n_qt = (T + BQ - 1) / BQ, TP = n_qt * BQ;
@@ -356,6 +364,16 @@ __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
           split(w10, ah[1], al[1]);
           split(w01, ah[2], al[2]);
           split(w11, ah[3], al[3]);
+          if constexpr (NH == 1) {  // P = 16: column 8 half + gq
+            const float* xr = sX + (8 * j + 2 * tq) * XS + 8 * half + gq;
+            uint32_t bh[2], bl[2];
+            split(xr[0], bh[0], bl[0]);
+            split(xr[XS], bh[1], bl[1]);
+            mma_tf32(acc[0], al, bh);
+            mma_tf32(acc[0], ah, bl);
+            mma_tf32(acc[0], ah, bh);
+            return;
+          }
           // n-tiles 2m and 2m + 1 take columns 16m + 2gq and 16m + 2gq + 1
           // of the warp's half: one 8-byte load for both
           const float* xr =
@@ -417,6 +435,15 @@ __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
         }
         if (kt == qt) {
           float* yh = yg + (h0 + hi) * syh;
+          if constexpr (NH == 1) {  // columns 8 half + 2tq, + 1
+            const int col = 8 * half + 2 * tq;
+            if (qr0 < T)
+              *reinterpret_cast<float2*>(yh + qr0 * syt + col) =
+                  make_float2(acc[0][0], acc[0][1]);
+            if (qr1 < T)
+              *reinterpret_cast<float2*>(yh + qr1 * syt + col) =
+                  make_float2(acc[0][2], acc[0][3]);
+          }
           // tile 2m + b, accumulator column c is column 16m + 2c + b
 #pragma unroll
           for (int m = 0; m < NH / 2; ++m) {
@@ -492,8 +519,8 @@ int launch(const float* C, const float* B, const float* acum, const float* dt,
 // C, B [G, T, N] and acum, dt [G, H, T] contiguous; x and y [G, H, T, P]
 // with element strides (sxg, sxh, sxt) and (syg, syh, syt), P contiguous,
 // multiples of 4 (16-byte rows; C, B and x 16-byte aligned). N in {16, 32,
-// 64, 128}, P in {32, 64}, 1 <= T <= 256 (checked by the wrapper,
-// kernels/ops.py). The same arguments as ssd_chunk_launch.
+// 64, 128}, P in {16, 32, 64}, 1 <= T <= 256 (checked by the wrapper,
+// kernels/ops.py).
 extern "C" int ssd_chunk_tc_launch(const void* C, const void* B,
                                    const void* acum, const void* dt,
                                    const void* x, void* y, int G, int H,
@@ -514,6 +541,7 @@ extern "C" int ssd_chunk_tc_launch(const void* C, const void* B,
 #define SSD_TC_LAUNCH(NC, PP)                                              \
   ssd_tc::launch<NC, PP>(c, b, a, d, xi, yo, G, H, T, N, sxg, sxh, sxt, syg, \
                          syh, syt, s)
+  if (P == 16) return N == 16 ? SSD_TC_LAUNCH(16, 16) : SSD_TC_LAUNCH(32, 16);
   if (P == 32) return N == 16 ? SSD_TC_LAUNCH(16, 32) : SSD_TC_LAUNCH(32, 32);
   if (P == 64) return N == 16 ? SSD_TC_LAUNCH(16, 64) : SSD_TC_LAUNCH(32, 64);
 #undef SSD_TC_LAUNCH

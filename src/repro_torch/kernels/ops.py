@@ -2,8 +2,7 @@
 (a TMA + wgmma kernel for bf16 at D in {64, 128}, an mma.sync kernel,
 ``flash_attention``, for the rest), the MoE router (alone, and fused with
 the grouped dispatch's slot assignment) and the Mamba2 SSD intra-chunk
-term (a tensor-core kernel in 3xTF32 for P in {32, 64}, a SIMT kernel for
-P = 16).
+term (a tensor-core kernel in 3xTF32).
 
 Each wrapper checks device, dtype, shape and layout, then runs the plain
 PyTorch version (``ref``) when the tensors lie on the CPU and the CUDA
@@ -791,16 +790,17 @@ def _route_slots_forward(logits, k: int, cap: int):
 
 SSD_STATE_DIMS = (16, 32, 64, 128)
 SSD_HEAD_DIMS = (16, 32, 64)
-SSD_TC_HEAD_DIMS = (32, 64)
 SSD_MAX_CHUNK = 256
 
 
 def ssd_kernel(n: int, p: int) -> str:
     """The kernel ``ssd_chunk`` launches on the card for state dim ``n``
-    and head dim ``p``: ``ssd_chunk_tc`` (tensor cores, 3xTF32) for P in
-    ``SSD_TC_HEAD_DIMS``, else the SIMT ``ssd_chunk``."""
-    return "ssd_chunk_tc" if n in SSD_STATE_DIMS \
-        and p in SSD_TC_HEAD_DIMS else "ssd_chunk"
+    and head dim ``p``: ``ssd_chunk_tc`` (tensor cores, 3xTF32) at every
+    N in ``SSD_STATE_DIMS`` and P in ``SSD_HEAD_DIMS``."""
+    if n not in SSD_STATE_DIMS or p not in SSD_HEAD_DIMS:
+        raise ValueError(f"ssd_kernel: N = {n}, P = {p}; need N in "
+                         f"{SSD_STATE_DIMS} and P in {SSD_HEAD_DIMS}")
+    return "ssd_chunk_tc"
 
 
 def ssd_chunk(C, B, acum, dt, x):
@@ -810,11 +810,8 @@ def ssd_chunk(C, B, acum, dt, x):
     ``SSD_STATE_DIMS``, P in ``SSD_HEAD_DIMS``, 1 <= T <= 256. Returns y
     [G, H, T, P] fp32 in x's layout (``empty_like``).
 
-    On the card the kernel follows from N and P alone (``ssd_kernel``),
-    never from a failure: P in ``SSD_TC_HEAD_DIMS`` launches
-    ``ssd_chunk_tc`` (mma.sync TF32 in three products per product, so
-    fp32-accurate, cp.async loads), P = 16 the SIMT ``ssd_chunk`` (fp32
-    FMAs). Both take the same arguments and are held to the same limit,
+    On the card it launches ``ssd_chunk_tc`` (mma.sync TF32 in three
+    products per product, so fp32-accurate, cp.async loads), held to
     1e-5 * max|y|. Under autograd (an input that needs a gradient) the call
     goes through ``_SsdChunk`` on every device: the same forward, the
     gradient of the plain version recomputed for all five inputs."""

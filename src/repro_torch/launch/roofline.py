@@ -244,8 +244,9 @@ def ssd_bound(g, h, t, n, p):
     the fp32 CUDA-core rate; the two pipes run side by side, so the larger
     of the two. ``cuda_core_ms`` is the earlier yardstick, every operation
     (2N per pair, 2P + 4 per pair and head) at the fp32 CUDA-core rate,
-    which the SIMT kernel cannot beat but a tensor-core kernel can."""
-    pipes, nbytes = cost.pipes("ssd_chunk", g=g, h=h, t=t, n=n, p=p)
+    which a kernel on the CUDA cores cannot beat but one on the tensor
+    cores can."""
+    pipes, nbytes = cost.pipes("ssd_chunk_tc", g=g, h=h, t=t, n=n, p=p)
     t_bytes = nbytes / HBM_BW
     t_ops = max(pipes["tf32"] / TF32_FLOPS, pipes["fp32"] / FP32_FLOPS)
     cuda_core = max(t_bytes, (pipes["products"] + pipes["fp32"])

@@ -191,9 +191,10 @@ def test_flash_flops_equal_flop_counter_of_the_plain_version(s, sk):
 
 
 def wrapper_calls():
-    """{kernel name: build(make) -> (wrapper, args)} for the seven
-    wrappers, on the shapes and dtypes that reach all nine kernels; the
-    tensors come from ``make(shape, dtype)``."""
+    """{kernel name[-case]: build(make) -> (wrapper, args)} for the seven
+    wrappers, on the shapes and dtypes that reach all eight kernels (the
+    SSD kernel at P = 64 and 16); the tensors come from ``make(shape,
+    dtype)``."""
     def gossip(make, wdt, name):
         idx = make((3, 2), torch.int32)
         val, w = make((3, 2), torch.float32), make((3, 40), wdt)
@@ -230,7 +231,7 @@ def wrapper_calls():
             lambda x: ops.moe_route_slots(x, 3, 4),
             (m((10, 16), torch.bfloat16),)),
         "ssd_chunk_tc": lambda m: ssd(m, 64),
-        "ssd_chunk": lambda m: ssd(m, 16),
+        "ssd_chunk_tc-p16": lambda m: ssd(m, 16),
     }
 
 
@@ -257,7 +258,8 @@ def test_wrapper_meta_outputs_match_the_cpu_and_launch_nothing(kernel):
                      dict(c.calls), c.flops, c.bytes)
     assert all(t.is_meta for t in res)
     assert out["meta"] == out["cpu"]
-    assert out["meta"][1] == {kernel: 1} and out["meta"][2] > 0
+    assert out["meta"][1] == {kernel.split("-")[0]: 1} \
+        and out["meta"][2] > 0
     assert (dict(ops.LAUNCHES), dict(ops.REGIMES)) == before
 
 

@@ -706,13 +706,12 @@ def test_ssd_chunk_card_side_launch_arguments(monkeypatch):
 @pytest.mark.parametrize("n", [16, 32, 64, 128])
 @pytest.mark.parametrize("p", [16, 32, 64])
 def test_ssd_kernel_choice_by_state_and_head_dim(monkeypatch, n, p):
-    """On the card the kernel follows from N and P alone: P in {32, 64}
-    launches the tensor-core kernel, P = 16 the SIMT kernel, at every N
-    the wrapper takes; one launch per call, of the kernel ``ssd_kernel``
-    names."""
-    want = "ssd_chunk_tc" if p in (32, 64) else "ssd_chunk"
+    """On the card every (N, P) the wrapper takes launches the tensor-core
+    kernel, P = 16 included; one launch per call, of the kernel
+    ``ssd_kernel`` names."""
+    want = "ssd_chunk_tc"
     assert ops.ssd_kernel(n, p) == want
-    assert ops.SSD_TC_HEAD_DIMS == (32, 64)
+    assert ops.SSD_HEAD_DIMS == (16, 32, 64)
     calls = stub_launches(monkeypatch)
     g, h, t = 2, 3, 40
     y = ops.ssd_chunk(torch.zeros(g, t, n), torch.zeros(g, t, n),
@@ -722,10 +721,10 @@ def test_ssd_kernel_choice_by_state_and_head_dim(monkeypatch, n, p):
 
 
 @pytest.mark.parametrize("layout", ["model", "contiguous", "model-g1"])
-@pytest.mark.parametrize("n,p", [(128, 64), (16, 64), (16, 32)])
+@pytest.mark.parametrize("n,p", [(128, 64), (16, 64), (16, 32), (32, 16)])
 def test_ssd_chunk_tc_launch_arguments(monkeypatch, layout, n, p):
-    """The tensor-core entry at the main paths' (N, P) gets the six
-    pointers in order (C, B, acum, dt, x, y), G, H, T, N, P and x's and
+    """The tensor-core entry at the main paths' (N, P) and at P = 16 gets
+    the six pointers in order (C, B, acum, dt, x, y), G, H, T, N, P and x's and
     y's (g, h, t) element strides, for the model's [G, T, H, P] view and
     a contiguous x, both read in place; y keeps x's layout. Misaligned
     bases and rows that are not whole 16 bytes are refused before any
@@ -831,13 +830,15 @@ def ssd_limit_ratio(got, want):
 
 
 @pytest.mark.parametrize("t", [40, 100, 200, 256])
-@pytest.mark.parametrize("n,p", [(128, 64), (16, 64), (16, 32)])
+@pytest.mark.parametrize("n,p", [(128, 64), (16, 64), (16, 32), (128, 16),
+                                 (32, 16)])
 @pytest.mark.parametrize("steep", [False, True])
 def test_ssd_tc_numerics_stay_inside_the_limit(t, n, p, steep):
     """The tensor-core kernel's numerics (``ssd_tc_emulation``) stay inside
     1e-5 * max|y| against the port's plain version and against the JAX
-    package's Pallas kernel in interpret mode, at the main paths' (N, P),
-    ragged T and the real model's steep decays."""
+    package's Pallas kernel in interpret mode, at the main paths' (N, P)
+    and at P = 16, ragged T and the real model's steep decays (the P = 16
+    tiles split the columns, not the sums: the emulation is the same)."""
     args = ssd_case(2, 3, t, n, p, 7 * t + n + p, steep)
     got = ssd_tc_emulation(*map(torch.tensor, args))
     assert torch.isfinite(got).all()
@@ -854,7 +855,7 @@ SSD_TC_FAULTS = [(fault, t) for fault in ({"passes": 1}, {"causal_shift": 1})
 
 
 @pytest.mark.parametrize("fault,t", SSD_TC_FAULTS)
-@pytest.mark.parametrize("n,p", [(128, 64), (16, 32)])
+@pytest.mark.parametrize("n,p", [(128, 64), (16, 32), (128, 16), (32, 16)])
 def test_ssd_tc_limit_rejects_faulty_numerics(fault, t, n, p):
     """The limit separates right from wrong: one TF32 product in place of
     three, the mask one key late, or x past a ragged T left unfilled each
