@@ -4,7 +4,13 @@ each cell "single-pod / multi-pod", from the JSON files of
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out SINGLE
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod --out MULTI
 
-Usage: python benchmarks/port_dryrun_table.py SINGLE MULTI
+Usage: python benchmarks/port_dryrun_table.py SINGLE MULTI [--brief]
+    [--by-arch] [--before SINGLE0 MULTI0]
+
+``--brief`` keeps the peak, GB moved and fits columns; ``--by-arch`` puts
+one arch on a row and its shapes side by side; ``--before`` reads an
+earlier sweep (a parent's, any subset of pairs) and shows each of its
+pairs' cells that changed as "before → after".
 
 Columns (a device's share, ``repro_torch.counting``): peak live
 GB (1e9 B, from the roofline's ``bytes_per_device``; the JSON's
@@ -69,28 +75,63 @@ def _fits(r, f) -> str:
     return "no: activations"
 
 
-def markdown(single: dict, multi: dict) -> str:
+BRIEF = ("peak GB", "GB moved", "fits 80 GB")
+
+
+def _pair(a, b, fmt) -> str:
+    x, y = cell(a, fmt), cell(b, fmt)
+    return x if x == y else f"{x} / {y}"
+
+
+def _cell(single, multi, key, fmt, before) -> str:
+    now = _pair(single.get(key), multi.get(key), fmt)
+    if before is not None and (key in before[0] or key in before[1]):
+        was = _pair(before[0].get(key), before[1].get(key), fmt)
+        now = now if was == now else f"{was} → {now}"
+    return now
+
+
+def markdown(single: dict, multi: dict, columns=COLUMNS,
+             before=None, by_arch: bool = False) -> str:
     keys = sorted(set(single) | set(multi))
-    lines = ["| arch | shape | " + " | ".join(c for c, _ in COLUMNS) + " |",
-             "|" + " --- |" * (len(COLUMNS) + 2)]
+    if by_arch:
+        archs = sorted({a for a, _ in keys})
+        shapes = sorted({s for _, s in keys})
+        head = [f"{s} {c}" for s in shapes for c, _ in columns]
+        lines = ["| arch | " + " | ".join(head) + " |",
+                 "|" + " --- |" * (len(head) + 1)]
+        for a in archs:
+            cells = [_cell(single, multi, (a, s), fmt, before)
+                     for s in shapes for _, fmt in columns]
+            lines.append(f"| {a} | " + " | ".join(cells) + " |")
+        return "\n".join(lines)
+    lines = ["| arch | shape | " + " | ".join(c for c, _ in columns) + " |",
+             "|" + " --- |" * (len(columns) + 2)]
     for key in keys:
-        a, b = single.get(key), multi.get(key)
-        cells = []
-        for _, fmt in COLUMNS:
-            x, y = cell(a, fmt), cell(b, fmt)
-            cells.append(x if x == y else f"{x} / {y}")
+        cells = [_cell(single, multi, key, fmt, before) for _, fmt in columns]
         lines.append(f"| {key[0]} | {key[1]} | " + " | ".join(cells) + " |")
     return "\n".join(lines)
 
 
 def main(argv=None) -> int:
-    args = sys.argv[1:] if argv is None else argv
+    args = list(sys.argv[1:] if argv is None else argv)
+    columns, before = COLUMNS, None
+    if "--brief" in args:
+        args.remove("--brief")
+        columns = tuple(c for c in COLUMNS if c[0] in BRIEF)
+    by_arch = "--by-arch" in args
+    if by_arch:
+        args.remove("--by-arch")
+    if "--before" in args:
+        i = args.index("--before")
+        before = (load(args[i + 1]), load(args[i + 2]))
+        del args[i:i + 3]
     single, multi = load(args[0]), load(args[1])
     bad = [k for rows in (single, multi) for k, r in rows.items()
            if r.get("status") not in ("ok", "skipped")]
     print(f"single {len(single)} pairs, multi {len(multi)}; not ok or "
           f"skipped: {bad}")
-    print(markdown(single, multi))
+    print(markdown(single, multi, columns, before, by_arch))
     return 1 if bad else 0
 
 

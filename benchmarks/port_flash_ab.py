@@ -1,7 +1,8 @@
 """Kernels of checkouts side by side, on one CUDA card.
 
     python benchmarks/port_flash_ab.py ROOT [ROOT ...] [--rounds 2]
-        [--main-paths | --mode {flash,main_paths,router,route_slots,ssd16}]
+        [--main-paths | --mode {flash,main_paths,router,route_slots,ssd16,
+                                train_4k}]
 
 Runs the checkouts in the order given, then in reverse, and so on for
 ``--rounds`` passes (two roots, two rounds: A, B, B, A), each in a
@@ -29,7 +30,10 @@ bf16 logits at T in {2048, 32768}; ``--mode route_slots`` its
 ``moe_grouped``'s capacity; ``--mode ssd16`` its ``ops.ssd_chunk`` at the
 P = 16 shapes of this tree's ``chip_smoke.SSD_TIMED`` (inputs from its
 ``ssd_inputs``), whichever kernel that checkout's wrapper launches there.
-Each builds only the kernels it times.
+Each builds only the kernels it times. ``--mode train_4k`` runs chip_smoke
+[10]'s qwen3-0.6b ``train_4k`` pair (B = 2, the (2, 4) pod on the card)
+through each checkout's ``launch.dryrun.measure``: the step's µs (median
+of 2), the meta and measured peaks (MB) and the counted bytes (GB).
 """
 from __future__ import annotations
 
@@ -56,7 +60,8 @@ def load_smoke(root: Path, name: str):
 ROUTER_T = [(t, "float32") for t in (4, 2048, 4096, 32768)] + \
     [(t, "bfloat16") for t in (2048, 32768)]
 ROUTE_SLOTS_T = (2048, 32768)
-MODES = ("flash", "main_paths", "router", "route_slots", "ssd16")
+MODES = ("flash", "main_paths", "router", "route_slots", "ssd16",
+         "train_4k")
 
 
 def time_moe(smoke, ops, gen, mode: str) -> dict:
@@ -93,6 +98,19 @@ def time_ssd16(smoke, ops, gen) -> dict:
     return out
 
 
+def time_train_4k() -> dict:
+    """[10]'s qwen3-0.6b train_4k pair of the checkout on sys.path."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    build.build(("flash_attention_tc",))
+    r = dryrun.measure("qwen3-0.6b", "train_4k", batch=2, repeats=2,
+                       verbose=False)
+    return {"step": r["step_ms"] * 1e3,
+            "peak meta MB": r["meta"]["peak_bytes"] / 1e6,
+            "peak measured MB": r["measured_peak_bytes"] / 1e6,
+            "bytes GB": r["meta"]["bytes"] / 1e9}
+
+
 def time_one(root: Path, mode: str = "flash") -> dict:
     """{"B,S": µs} of the SIMT kernel of the checkout at ``root`` (with
     mode ``main_paths``, {label: µs} at ``SIMT_TIMED``; with ``router``,
@@ -109,6 +127,8 @@ def time_one(root: Path, mode: str = "flash") -> dict:
         return time_moe(smoke, ops, gen, mode)
     if mode == "ssd16":
         return time_ssd16(smoke, ops, gen)
+    if mode == "train_4k":
+        return time_train_4k()
     build.build(("flash_attention",))
     out = {}
     if mode == "main_paths":
@@ -158,9 +178,11 @@ def main() -> int:
         row = json.loads(res.stdout.strip().splitlines()[-1])
         runs[str(root)].append(row)
         print(f"{root.name}: " + ", ".join(
-            f"[{k}] {v:.2f}us" for k, v in row.items()), flush=True)
-    key = "simt_flash" if mode in ("flash", "main_paths") else mode
-    print(json.dumps({f"{key}_us_median": {
+            f"[{k}] {v:.2f}" + ("" if " " in k else "us")
+            for k, v in row.items()), flush=True)
+    key = "simt_flash_us" if mode in ("flash", "main_paths") else \
+        mode if mode == "train_4k" else f"{mode}_us"
+    print(json.dumps({f"{key}_median": {
         r.name: {k: statistics.median(x[k] for x in runs[str(r)])
                  for k in runs[str(r)][0]} for r in roots}}))
     return 0

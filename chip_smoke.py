@@ -314,7 +314,13 @@
    dispatch's; one train step of the cut DeepSeekMoE through ``eplocal``
    (24 route-and-slot launches, 12 of them the recompute's); the reduced
    f32 DeepSeekMoE's ``eplocal`` loss and gradient card vs CPU (``["cpu"]
-   * 8``) within 1e-4.
+   * 8``) within 1e-4. Self-attention's backward above S = 2,048
+   (``check_blocked_backward``): at a shard shape [10] launches, [2, 4,
+   4,096, 128] bf16 causal, dq, dk, dv of the reference's blocked schedule
+   recomputed behind the kernel's forward against the whole plain
+   recompute's within ``ref.grad_bf16_limit``; each backward's ms and
+   peak MB, and one call of each traced (device busy ms, idle share, top
+   device ops).
 10. Launch costing (``launch.dryrun``): four pairs of the dry run, each
    cut to fit the card (``COSTING_PAIRS``: qwen3-0.6b ``train_4k`` at B =
    2, S = 4,096 with Adam and remat; deepseek-moe-16b ``prefill_32k`` at
@@ -4548,6 +4554,72 @@ def check_train_grads(dev):
     return out
 
 
+# a model shard's self-attention in [10]'s qwen3-0.6b train_4k on (2, 4):
+# 2 sequences, 4 of the 16 query heads (kv heads repeated), S = 4,096
+BLOCKED_SHARD = (2, 4, 4096, 128)
+
+
+def check_blocked_backward(dev):
+    """The flash kernel under autograd above ``BLOCKED_ATTN_THRESHOLD``: its
+    backward recomputes the reference's blocked schedule
+    (``models.attention._self_plain``, the seam ``attention`` and
+    ``attention_tp`` hand ``ops.flash_attention``) at ``BLOCKED_SHARD`` in
+    bf16, causal, in the model's layout. dq, dk, dv against the whole
+    plain recompute's (``plain=None``) within ``ref.grad_bf16_limit``;
+    both forwards launch the kernel once. Prints each backward's ms (the
+    kernel forward and the recompute backward, CUDA events), its peak MB
+    above what stood before the call and one call traced
+    (``traced_call``)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention
+    b, h, s, d = BLOCKED_SHARD
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(93)
+    base = [torch.randn(b, s, h, d, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(3)]
+    go = torch.randn(b, s, h, d, generator=gen, device=dev).to(
+        torch.bfloat16)
+    name = ops.flash_kernel(torch.bfloat16, d)
+
+    def run(plain):
+        leaves = [t.detach().clone().requires_grad_() for t in base]
+        q, k, v = (t.transpose(1, 2) for t in leaves)
+        out = ops.flash_attention(q, k, v, causal=True, plain=plain)
+        return torch.autograd.grad(out, leaves, go.transpose(1, 2))
+    got = {}
+    for label, plain in (("blocked", attention._self_plain(s, 0)),
+                         ("whole", None)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = dict(ops.LAUNCHES)
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = run(plain)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - start) / 2 ** 20
+        launched = {n: ops.LAUNCHES[n] - before[n] for n in ops.LAUNCHES}
+        if launched != {n: int(n == name) for n in ops.LAUNCHES}:
+            fail(f"9 blocked backward ({label}): launches {launched}")
+        ms = event_ms(lambda: run(plain), calls=3, repeats=3)
+        got[label] = grads
+        print(f"  9 flash backward {label:7s} {list(BLOCKED_SHARD)} bf16 "
+              f"causal: kernel fwd + recompute bwd {ms:.3f} ms, peak "
+              f"{peak:.1f} MB; {card_line()}", flush=True)
+        print(f"  9 flash backward {label:7s} traced: "
+              f"{traced_call(lambda: run(plain))}", flush=True)
+    ratios = [float(((g.float() - w.float()).abs()
+                     / ref.grad_bf16_limit(w)).max())
+              for g, w in zip(got["blocked"], got["whole"])]
+    errs = [float((g.float() - w.float()).abs().max())
+            for g, w in zip(got["blocked"], got["whole"])]
+    print(f"  9 flash backward blocked vs whole: dq/dk/dv max_abs_err "
+          f"{['%.3e' % e for e in errs]}, err/limit "
+          f"{['%.3f' % r for r in ratios]}", flush=True)
+    if not all(r <= 1.0 for r in ratios):
+        fail(f"9 blocked backward: dq/dk/dv beyond ref.grad_bf16_limit "
+             f"(err/limit {ratios})")
+
+
 def grad_norm(grads) -> torch.Tensor:
     from repro_torch.core import pods
     return torch.sqrt(sum(g.float().square().sum()
@@ -4603,6 +4675,34 @@ def train_steps(label, cfg, params, opt, shape, want, moe_strategy="grouped",
         fail(f"9 train {label}: losses {losses}, norms {norms}")
     del state
     return params, counts
+
+
+def traced_call(fn, top=4) -> str:
+    """One call of ``fn`` under torch.profiler (after a warm-up call): its
+    wall ms, the device's busy ms (the kernels' and copies' own time),
+    the idle share, the device operations and the ``top`` largest by
+    device time; "no device time traced" where the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops_ = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in ops_) / 1e3
+    if not busy:
+        return f"wall {wall:.3f} ms, no device time traced"
+    return (f"wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+            f"{1 - busy / wall:.4f}, {sum(e.count for e in ops_)} device "
+            f"ops; top: " + "; ".join(
+                f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
+                f"x{e.count}" for e in ops_[:top]))
 
 
 def kernels_per_call(fn) -> int:
@@ -4798,6 +4898,7 @@ def train_and_expert_parallel(dev):
             launches[k] = launches.get(k, 0) + v
 
     grad_times = check_train_grads(dev)
+    check_blocked_backward(dev)
     # DeepSeekMoE-16B cut to its dense first layer and three MoE layers
     # (2.27B parameters: with Adam's fp32 moments, old and new side by
     # side in an update, ~50 GB)
@@ -5241,9 +5342,9 @@ def launched_shapes(seen: set):
     from repro_torch.kernels import ops
     flash, ssd = ops.flash_attention, ops.ssd_chunk
 
-    def flash_seen(q, k, v, *, causal=True, window=0):
+    def flash_seen(q, k, v, *, causal=True, window=0, plain=None):
         seen.add(flash_key(q, k, causal, window))
-        return flash(q, k, v, causal=causal, window=window)
+        return flash(q, k, v, causal=causal, window=window, plain=plain)
 
     def ssd_seen(*args):
         seen.add(ssd_key(args))

@@ -289,3 +289,12 @@ class TrainConfig:
     grad_clip: float = 0.0
     microbatches: int = 1
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig = MeshConfig()
+    defta: DeFTAConfig = DeFTAConfig()
+    train: TrainConfig = TrainConfig()

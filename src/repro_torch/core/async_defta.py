@@ -27,8 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch.config import DeFTAConfig, TrainConfig
-from repro_torch.core.defta import (attacker_world, initial_state,
-                                    registry, scenario_world,
+from repro_torch.core.defta import (attacker_world, build_round_fn,  # noqa
+                                    init_state, initial_state, registry,
+                                    resolve_scenario, scenario_world,
                                     to_device_data)
 from repro_torch.core.engine import (DeFTAState, build_defta_round,
                                      build_fire_gated_tick, drive_ticks)

@@ -19,20 +19,32 @@ import torch
 
 from repro_torch.config import DeFTAConfig, TrainConfig
 from repro_torch.core.engine import (DeFTAState, build_defta_round,
-                                     drive_epochs, init_state, sketch_shape)
+                                     drive_epochs, init_state,
+                                     local_train_fn, sketch_shape)
 from repro_torch.core.gossip import uses_error_feedback
 from repro_torch.core.tasks import Task
 from repro_torch.core.topology import make_topology
 from repro_torch.device import resolve_device
 from repro_torch.rng import TorchDraws
+from repro_torch.scenarios.attacks import tree_select  # noqa: F401
 from repro_torch.scenarios.compile import (CompiledScenario,
                                            compile_scenario, to_device)
 from repro_torch.scenarios.spec import ScenarioSpec, get_scenario
 from repro_torch.sharding import worker_shards
 from repro_torch.telemetry.spec import Telemetry
 
-__all__ = ["DeFTAState", "evaluate", "global_model", "resolve_scenario",
-           "run_defta"]
+__all__ = ["DeFTAState", "build_round", "build_round_fn", "evaluate",
+           "global_model", "init_state", "local_train_fn",
+           "resolve_scenario", "run_defta", "tree_select"]
+
+
+# round(state, data, epoch=None) -> state: the engine's stage pipeline,
+# which ``run_defta`` drives. ``draws`` is the round's ``rng.Draws``
+# provider (the reference's key lives in its state; here
+# ``rng.TorchDraws(generator)``). The reference jits the round in
+# ``build_round``; torch has no jit, so both names are the engine's builder.
+build_round_fn = build_defta_round
+build_round = build_round_fn
 
 
 def evaluate(task: Task, state: DeFTAState, test_x, test_y,

@@ -35,6 +35,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 DAMAGE_PENALTY = 1e3       # finite stand-in for the paper's +inf loss_trust
 EXPLOSION_FACTOR = 10.0    # loss > factor * best  => damaged
 
@@ -80,6 +82,45 @@ def sample_peers(gumbel, theta, num_sampled: int):
 def is_damaged(loss, best_loss):
     return ~torch.isfinite(loss) | (loss > EXPLOSION_FACTOR *
                                     best_loss.clamp_min(1e-8) + 10.0)
+
+
+def update_confidence(conf, sampled_mask, agg_weights, loss_trust):
+    """Algorithm 3 line 12: c <- c - m o p * loss_trust."""
+    return conf - sampled_mask * agg_weights * loss_trust
+
+
+def dts_step(state, loss, sampled_mask, agg_weights, slope: float = 0.2):
+    """One phi(.) evaluation for a single worker: the loss-channel DTS step
+    as a stand-alone API (the engine's round runs it for every worker at
+    once).
+
+    state: dict(conf [W], best_loss [], last_loss []) of tensors.
+    Returns (new_state, damaged bool, loss_trust)."""
+    loss = torch.as_tensor(loss, dtype=state["conf"].dtype,
+                           device=state["conf"].device)
+    damaged = is_damaged(loss, state["best_loss"])
+    loss_trust = torch.where(damaged, torch.full_like(loss, DAMAGE_PENALTY),
+                             loss - state["last_loss"])
+    conf = update_confidence(state["conf"], sampled_mask, agg_weights,
+                             loss_trust)
+    new_state = {
+        "conf": conf,
+        "best_loss": torch.where(damaged, state["best_loss"],
+                                 torch.minimum(state["best_loss"], loss)),
+        "last_loss": torch.where(damaged, state["last_loss"], loss),
+    }
+    return new_state, damaged, loss_trust
+
+
+def init_dts_state(num_workers: int, device=None):
+    """``dts_step``'s state: zero confidence, no best loss yet, on
+    ``device`` (None: the card, as the port's entry points)."""
+    dev = resolve_device(device)
+    return {
+        "conf": torch.zeros(num_workers, device=dev),
+        "best_loss": torch.tensor(float("inf"), device=dev),
+        "last_loss": torch.tensor(0.0, device=dev),
+    }
 
 
 # ---------------------------------------------------------------------------

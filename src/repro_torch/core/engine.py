@@ -85,9 +85,11 @@ from repro_torch.config import DeFTAConfig, TrainConfig
 from repro_torch.core import dts as dts_mod
 from repro_torch.core import pods as pods_mod
 from repro_torch.core.gossip import (dynamic_mixing_matrix, mix_pytree,
-                                     mix_pytree_ppermute, mix_rows_sharded,
-                                     mixing_rows, normalize_wire,
-                                     uses_error_feedback, worker_shard_plan)
+                                     mix_pytree_ppermute,
+                                     mix_pytree_sharded,  # noqa: F401
+                                     mix_rows_sharded, mixing_rows,
+                                     normalize_wire, uses_error_feedback,
+                                     worker_shard_plan)
 from repro_torch.core.secagg import secagg_base_key
 from repro_torch.core.tasks import Task
 from repro_torch.device import resolve_device

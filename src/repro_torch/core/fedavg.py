@@ -18,15 +18,16 @@ import numpy as np
 import torch
 
 from repro_torch.config import DeFTAConfig, TrainConfig
-from repro_torch.core.defta import attacker_world, registry, to_device_data
+from repro_torch.core.defta import (attacker_world, local_train_fn,  # noqa
+                                    registry, to_device_data, tree_select)
 from repro_torch.core.engine import (FedAvgState, build_fedavg_round,
                                      drive_epochs)
 from repro_torch.core.tasks import Task
 from repro_torch.device import resolve_device
 from repro_torch.rng import TorchFedAvgDraws
 
-__all__ = ["FedAvgState", "build_round_fn", "evaluate_server", "init_state",
-           "run_fedavg"]
+__all__ = ["FedAvgState", "build_round", "build_round_fn",
+           "evaluate_server", "init_state", "run_fedavg"]
 
 
 def init_state(generator: torch.Generator, task: Task,
@@ -53,6 +54,10 @@ def build_round_fn(task: Task, cfg: DeFTAConfig, train: TrainConfig,
                               sample_workers=sample_workers,
                               server_opt=server_opt, server_lr=server_lr,
                               noise_scale=noise_scale, telemetry=telemetry)
+
+
+# the reference jits the round here; torch has no jit
+build_round = build_round_fn
 
 
 def run_fedavg(seed: int, task: Task, cfg: DeFTAConfig, train: TrainConfig,

@@ -53,6 +53,10 @@ from repro_torch.kernels import ops
 
 SPARSE_DENSITY_THRESHOLD = 0.25
 
+# bytes a parameter on each gossip wire (launch.roofline prices the wire
+# from this table)
+WIRE_BYTES = {None: 4, "fp32": 4, "bf16": 2, "int8": 1}
+
 _WIRE_ALIASES = {
     None: None, "fp32": None, "float32": None,
     "bf16": "bf16", "bfloat16": "bf16",
@@ -110,6 +114,10 @@ def dequantize_rows_int8(q, scale):
     return q.float() * scale.reshape(-1, 1)
 
 
+# sparse_support's memo hits and misses (the reference's counters)
+SUPPORT_CACHE_STATS = {"hits": 0, "misses": 0}
+
+
 @functools.lru_cache(maxsize=64)
 def _support(shape, raw: bytes):
     a0 = np.frombuffer(raw, bool).reshape(shape)
@@ -134,7 +142,11 @@ def sparse_support(adjacency) -> tuple[np.ndarray, np.ndarray]:
     own index and is masked by ``valid``. Memoized on the adjacency bytes —
     callers must not mutate the result."""
     a = np.ascontiguousarray(adjacency, bool)
-    return _support(a.shape, a.tobytes())
+    hits = _support.cache_info().hits
+    out = _support(a.shape, a.tobytes())
+    SUPPORT_CACHE_STATS["hits" if _support.cache_info().hits > hits
+                        else "misses"] += 1
+    return out
 
 
 @functools.lru_cache(maxsize=64)

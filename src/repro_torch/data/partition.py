@@ -1,5 +1,6 @@
-"""Non-i.i.d. federated partitioning: a numpy copy of
-``repro.data.partition.dirichlet_partition`` (a test pins the two equal).
+"""Non-i.i.d. federated partitioning: numpy copies of
+``repro.data.partition``'s ``dirichlet_partition`` and ``shard_partition``
+(tests pin them equal).
 """
 from __future__ import annotations
 
@@ -42,3 +43,16 @@ def dirichlet_partition(labels: np.ndarray, num_workers: int, alpha: float,
             sizes[w] += 1
             sizes[donor] -= 1
     return [np.asarray(sorted(ix)) for ix in best]
+
+
+def shard_partition(labels: np.ndarray, num_workers: int,
+                    shards_per_worker: int, rng: np.random.Generator):
+    order = np.argsort(labels, kind="stable")
+    num_shards = num_workers * shards_per_worker
+    shards = np.array_split(order, num_shards)
+    assign = rng.permutation(num_shards)
+    out = []
+    for w in range(num_workers):
+        ids = assign[w * shards_per_worker:(w + 1) * shards_per_worker]
+        out.append(np.concatenate([shards[s] for s in ids]))
+    return out

@@ -490,25 +490,27 @@ def _plain_grads(fn, inputs, grad_out):
 
 class _FlashAttention(torch.autograd.Function):
     """The flash kernel under autograd: the forward launches the kernel
-    (``_flash_forward``); the backward recomputes the plain version
-    (``ref.flash_attention_ref``, k and v of their own length) from the
-    saved q, k, v and takes its gradient. No backward kernel exists (the
-    JAX package has none)."""
+    (``_flash_forward``); the backward recomputes the plain version from
+    the saved q, k, v and takes its gradient: the caller's ``plain``
+    (``flash_attention``), else ``ref.flash_attention_ref`` whole (k and
+    v of their own length). No backward kernel exists (the JAX package
+    has none)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, plain):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
-        return _flash_forward(q, k, v, causal, window)
+        ctx.plain = plain or (lambda q, k, v: ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window))
+        return _flash_forward(q, k, v, causal, window, plain)
 
     @staticmethod
     def backward(ctx, grad_out):
-        fn = lambda q, k, v: ref.flash_attention_ref(
-            q, k, v, causal=ctx.causal, window=ctx.window)
-        return (*_plain_grads(fn, ctx.saved_tensors, grad_out), None, None)
+        return (*_plain_grads(ctx.plain, ctx.saved_tensors, grad_out), None,
+                None, None)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    plain=None):
     """Attention with scale 1/sqrt(D): q [B, H, Sq, D] over k, v [B, H, Sk,
     D] of one dtype (f32 or bf16). ``causal`` hides keys after the query,
     ``window > 0`` keys at or before ``q - window``; both need Sk = Sq
@@ -538,13 +540,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
     Under autograd (an input that needs a gradient) the call goes through
     ``_FlashAttention``: the same forward, the gradient of the plain
-    version recomputed from q, k and v."""
+    version recomputed from q, k and v.
+
+    ``plain`` is the seam that picks the plain version's schedule: a
+    function of (q, k, v) in this layout, the masks bound, that the CPU
+    forward runs and the backward recomputes on every device (the card's
+    and meta's forward launch or count the kernel whatever it is). None
+    is ``ref.flash_attention_ref``, whose [B, H, Sq, Sk] fp32 scores are
+    held whole. ``models.attention`` hands self-attention above
+    ``BLOCKED_ATTN_THRESHOLD`` the reference's memory-linear
+    ``blocked_attention_sdpa`` here, as the reference picks that schedule
+    there."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, window)
-    return _flash_forward(q, k, v, causal, window)
+        return _FlashAttention.apply(q, k, v, causal, window, plain)
+    return _flash_forward(q, k, v, causal, window, plain)
 
 
-def _flash_forward(q, k, v, causal: bool, window: int):
+def _flash_forward(q, k, v, causal: bool, window: int, plain=None):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name}: expected [B, H, S, D], got "
@@ -579,8 +591,9 @@ def _flash_forward(q, k, v, causal: bool, window: int):
                itemsize=q.element_size(), causal=causal, sk=sk,
                window=window):
         if not _on_meta(q, k, v) and not _on_card(q, k, v):
-            return _into(q, ref.flash_attention_ref(q, k, v, causal=causal,
-                                                    window=window))
+            return _into(q, plain(q, k, v) if plain else
+                         ref.flash_attention_ref(q, k, v, causal=causal,
+                                                 window=window))
         if name == "flash_attention_tc":
             return _flash_attention_tc(q, k, v, causal, window)
         return _flash_attention_simt(q, k, v, causal, window)

@@ -88,6 +88,17 @@ def flash_tc_limit(q, k, v, want, *, causal: bool = True, window: int = 0,
     return want.float().abs() * 2.0 ** -6 + 2.0 ** -8 * pv_abs + 1e-5
 
 
+def grad_bf16_limit(want):
+    """Per-element limit of a bf16 gradient against another schedule's
+    ``want`` of the same function (the blocked recompute against the whole
+    one): each side sums in fp32 and rounds once to bf16, half an ulp
+    each (ulp(x) <= |x| * 2**-7), so |want| * 2**-7, plus the two fp32
+    summation orders' difference, bounded by 2**-12 of the largest
+    |want|."""
+    w = want.float().abs()
+    return w * 2.0 ** -7 + 2.0 ** -12 * float(w.max())
+
+
 # kind -> (S, causal, window) of ``flash_adversarial``
 FLASH_ADVERSARIAL = {"diagonal": (300, True, 0),
                      "window_edge": (300, True, 64),

@@ -21,8 +21,8 @@ source), and the bounds of the port's kernels (``bound``,
 ``flash_bound``, ``router_bound``, ``route_slots_bound`` and
 ``ssd_bound``: the bound columns of ``chip_smoke.py`` and PERF.md's
 kernel table, built from ``kernels.cost``, the costs the counting pass
-records). ``WIRE_BYTES`` is the gossip wire's bytes per parameter (the
-reference's ``core.gossip.WIRE_BYTES`` plus the config spellings).
+records). ``WIRE_BYTES`` is the gossip wire's bytes per parameter
+(``core.gossip``'s table with the config spellings, as in the reference).
 ``sharded_ring_bytes`` is the independent re-derivation that
 ``core.gossip.WorkerShardPlan.ring_bytes`` and the sharded transport's
 byte counter (``gossip.RING``) are held to; ``ppermute_ring_bytes`` the
@@ -33,6 +33,7 @@ from __future__ import annotations
 from dataclasses import asdict, dataclass
 from typing import Dict
 
+from repro_torch.core.gossip import WIRE_BYTES as _WIRE_BYTES
 from repro_torch.kernels import cost
 
 # NVIDIA H100 80GB HBM3 (SXM5, 700 W) data sheet; each time this module
@@ -46,8 +47,7 @@ TF32_FLOPS = 495e12          # TF32 tensor cores, dense
 FP32_FLOPS = 67e12           # fp32 outside the tensor cores
 CARD = "NVIDIA H100 80GB HBM3, 700 W"
 
-WIRE_BYTES = {None: 4, "fp32": 4, "bf16": 2, "int8": 1,
-              "float32": 4, "bfloat16": 2}
+WIRE_BYTES = {**_WIRE_BYTES, "float32": 4, "bfloat16": 2}
 
 
 def gossip_wire_bytes(n_params: int, wire=None, *, rows: int = 1) -> int:

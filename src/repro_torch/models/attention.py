@@ -13,6 +13,16 @@ plain torch (``_sdpa``), as the reference computes it outside any kernel;
 like the reference, decode re-projects the encoder states to k and v at
 every step.
 
+**The plain schedule** (``ops.flash_attention``'s ``plain`` seam, picked
+by ``_self_plain`` from the call site and S). Self-attention (``attention``,
+``attention_tp``) above ``BLOCKED_ATTN_THRESHOLD`` hands the kernel the
+reference's memory-linear ``blocked_attention_sdpa``: the CPU forward runs
+it, and the backward recomputes it on every device (the card's forward is
+the kernel's), so no [S, S] tensor is ever live, where the whole plain
+version holds [B, H, S, S] fp32 scores, their probabilities and both
+gradients. At S <= 2048, and in cross, bidirectional and decode attention
+(where the reference runs ``_sdpa``), the whole plain version stays.
+
 **Tensor parallelism** (``attention_tp`` and the decode forms;
 ``sharding.TensorParallel``). Model shard j projects q for its query
 heads and runs the flash kernel on [B, H / tp, S, D], k and v on the kv
@@ -34,6 +44,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
@@ -110,33 +121,255 @@ def _sdpa(q, k, v, mask):
     return out.reshape(b_, sq, hq, hd)
 
 
-def _flash_heads(q, k, v, *, causal: bool, window: int = 0):
+BLOCKED_ATTN_THRESHOLD = 2048   # the memory-linear schedule above this S
+
+
+def _visible(q0: int, k0: int, bq: int, bk: int, causal: bool,
+             window: int) -> bool:
+    """Whether some query of the tile q0 .. q0 + bq sees a key of the tile
+    k0 .. k0 + bk. A tile no query sees is skipped, exactly: in the
+    forward it adds p = exp(-1e30 - m) = 0 (with alpha = 1), or, before a
+    row's first visible key, terms that the first visible tile's alpha =
+    0 wipes; in the backward every p is 0."""
+    if causal and k0 > q0 + bq - 1:                 # above the diagonal
+        return False
+    return not (window > 0 and k0 + bk - 1 <= q0 - window)
+
+
+def _hidden_keys(bq: int, bk: int, sk: int, causal: bool, window: int,
+                 device):
+    """hidden(q0, k0): the [bq, bk] keys of the tile (q0, k0) that its
+    queries do not see (kv padding, causal, window), or None where it
+    hides none. A mask depends only on k0 - q0 and on the keys left from
+    k0, so each is built once a call."""
+    memo = {}
+
+    def hidden(q0: int, k0: int):
+        key = (k0 - q0, min(sk - k0, bk))
+        if key not in memo:
+            memo[key] = None
+            if k0 + bk > sk or (causal and k0 + bk - 1 > q0) or (
+                    window > 0 and k0 <= q0 + bq - 1 - window):
+                qpos = q0 + torch.arange(bq, device=device)[:, None]
+                kpos = k0 + torch.arange(bk, device=device)[None, :]
+                hide = kpos >= sk                       # kv padding
+                if causal:
+                    hide = hide | (kpos > qpos)
+                if window > 0:
+                    hide = hide | (kpos <= qpos - window)
+                memo[key] = hide
+        return memo[key]
+    return hidden
+
+
+def _tiles(t, n: int, block: int, g: int):
+    """[B, S, H, hd] (H = hkv * g) -> [n, B * hkv, g * block, hd] in fp32,
+    S padded to n * block: tile i's rows of one kv head's g query heads,
+    each a (head, position) pair, in one contiguous block."""
+    b_, s, h, hd = t.shape
+    t = F.pad(t.float(), (0, 0, 0, 0, 0, n * block - s))
+    t = t.reshape(b_, n, block, h // g, g, hd).permute(1, 0, 3, 4, 2, 5)
+    return t.reshape(n, b_ * (h // g), g * block, hd)
+
+
+def _untiles(t, b_: int, s: int, g: int):
+    """``_tiles``'s inverse, the padding cut: [B, s, hkv * g, hd]."""
+    n, bh, rows, hd = t.shape
+    t = t.reshape(n, b_, bh // b_, g, rows // g, hd).permute(1, 0, 4, 2, 3, 5)
+    return t.reshape(b_, n * (rows // g), (bh // b_) * g, hd)[:, :s]
+
+
+class _Blocks:
+    """One call's tiles: q (scaled by 1/sqrt(hd)), k and v in fp32 as
+    ``_tiles`` lays them out, and the masks of its tiles."""
+
+    def __init__(self, q, k, v, block_q: int, block_k: int, causal: bool,
+                 window: int):
+        self.b, self.sq, hq, hd = q.shape
+        self.sk, hkv = k.shape[1], k.shape[2]
+        self.g = hq // hkv
+        self.bq, self.bk = min(block_q, self.sq), min(block_k, self.sk)
+        self.nq = -(-self.sq // self.bq)
+        self.nk = -(-self.sk // self.bk)
+        self.scale = 1.0 / (hd ** 0.5)
+        self.causal, self.window = causal, window
+        self.q = _tiles(q, self.nq, self.bq, self.g).mul_(self.scale)
+        self.k = _tiles(k, self.nk, self.bk, 1)
+        self.v = _tiles(v, self.nk, self.bk, 1)
+        self.hidden = _hidden_keys(self.bq, self.bk, self.sk, causal, window,
+                                   q.device)
+
+    def pairs(self):
+        """The (query tile, kv tile) pairs some query of which sees a key,
+        by query tile."""
+        for qi in range(self.nq):
+            yield qi, [ki for ki in range(self.nk) if _visible(
+                qi * self.bq, ki * self.bk, self.bq, self.bk, self.causal,
+                self.window)]
+
+    def scores(self, qi: int, ki: int):
+        """The tile's scores [B * hkv, g * bq, bk], fp32, hidden keys
+        -1e30."""
+        s = torch.bmm(self.q[qi], self.k[ki].transpose(1, 2))
+        hide = self.hidden(qi * self.bq, ki * self.bk)
+        if hide is not None:
+            s.view(s.shape[0], self.g, self.bq, self.bk).masked_fill_(
+                hide, -1e30)
+        return s
+
+    def forward(self):
+        """The online softmax: (out [nq, B * hkv, g * bq, hd], lse [nq, B *
+        hkv, g * bq]) in fp32, out = acc / max(l, 1e-20) and lse = m +
+        log(max(l, 1e-20))."""
+        outs, lses = [], []
+        for qi, kis in self.pairs():
+            acc = torch.zeros_like(self.q[qi])
+            m = self.q.new_full(acc.shape[:2], -1e30)
+            l = torch.zeros_like(m)
+            for ki in kis:
+                s = self.scores(qi, ki)
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                p = s.sub_(m_new[..., None]).exp_()
+                alpha = (m - m_new).exp_()
+                l = torch.addcmul(p.sum(dim=-1), l, alpha)
+                acc = torch.baddbmm(acc * alpha[..., None], p, self.v[ki])
+                m = m_new
+            l = l.clamp_min(1e-20)
+            outs.append(acc / l[..., None])
+            lses.append(m + torch.log(l))
+        return torch.stack(outs), torch.stack(lses)
+
+    def backward(self, out, lse, dout):
+        """dq, dk, dv (the tiles' layout, fp32) against dout (out's): one
+        pass over the visible tiles with no graph. p = exp(s - lse), dv +=
+        p^T do, ds = p (do v^T - rowsum(do out)), dq += ds k, dk += ds^T q
+        (q scaled, so dk is whole; dq takes the scale once)."""
+        delta = (dout * out).sum(dim=-1)
+        dq = torch.zeros_like(self.q)
+        dk, dv = torch.zeros_like(self.k), torch.zeros_like(self.v)
+        for qi, kis in self.pairs():
+            do, d_row = dout[qi], delta[qi][..., None]
+            lse_row = lse[qi][..., None]
+            for ki in kis:
+                p = self.scores(qi, ki).sub_(lse_row).exp_()
+                dv[ki].baddbmm_(p.transpose(1, 2), do)
+                ds = torch.bmm(do, self.v[ki].transpose(1, 2)).sub_(
+                    d_row).mul_(p)
+                dq[qi].baddbmm_(ds, self.k[ki])
+                dk[ki].baddbmm_(ds.transpose(1, 2), self.q[qi])
+        return dq.mul_(self.scale), dk, dv
+
+
+class _BlockedAttention(torch.autograd.Function):
+    """``blocked_attention_sdpa`` under autograd: the forward saves q, k, v
+    and the fp32 out and row log-sum-exp (linear in S); the backward is
+    ``_Blocks.backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, block_q, block_k):
+        blocks = _Blocks(q, k, v, block_q, block_k, causal, window)
+        out, lse = blocks.forward()
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (block_q, block_k, causal, window)
+        return _untiles(out, blocks.b, blocks.sq, blocks.g).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        blocks = _Blocks(q, k, v, *ctx.args)
+        dout = _tiles(grad_out, blocks.nq, blocks.bq, blocks.g)
+        dq, dk, dv = blocks.backward(out, lse, dout)
+        b_, sq, sk, g = blocks.b, blocks.sq, blocks.sk, blocks.g
+        return (_untiles(dq, b_, sq, g).to(q.dtype),
+                _untiles(dk, b_, sk, 1).to(k.dtype),
+                _untiles(dv, b_, sk, 1).to(v.dtype), None, None, None, None)
+
+
+def blocked_attention_sdpa(q, k, v, *, causal: bool = True, window: int = 0,
+                           block_q: int = 512, block_k: int = 1024):
+    """The reference's flash-style online-softmax attention in plain torch:
+    query tiles of ``block_q`` over kv tiles of ``block_k`` (k and v padded,
+    padded keys masked -1e30, as are keys after a query and, with a
+    window, keys at or before its position less the window), the online
+    softmax in fp32, the output acc / max(l, 1e-20) in q's dtype. The [S,
+    S] scores are never held: a [bq, bk] tile is all there is, in the
+    forward and in the backward. The reference takes the gradient by
+    autograd through each kv step under ``jax.checkpoint``; here the
+    backward is direct (``_BlockedAttention``): the forward keeps the fp32
+    out and each row's log-sum-exp, and the backward recomputes each
+    visible tile's probabilities from them once, in fp32, with no graph.
+    Tiles that no query sees (above the causal diagonal, before the
+    window) are skipped (``_visible``).
+
+    q: [B,Sq,Hq,hd]; k,v: [B,Sk,Hkv,hd] (query head i reads kv head
+    i // (Hq / Hkv); not repeated). Returns [B,Sq,Hq,hd] in q's dtype.
+    q, k and v enter the products in fp32, as the reference's products
+    take them (``preferred_element_type``), so that their gradients are
+    summed over the tiles in fp32 and rounded to their dtype once.
+    """
+    return _BlockedAttention.apply(q, k, v, causal, window, block_q,
+                                   block_k)
+
+
+def causal_mask(sq: int, sk: int, window: int = 0, offset: int = 0,
+                device=None):
+    """[1, 1, Sq, Sk] boolean; query i (absolute pos offset+i) sees keys
+    j<=pos and, if window>0, j > pos - window."""
+    qpos = torch.arange(sq, device=device)[:, None] + offset
+    kpos = torch.arange(sk, device=device)[None, :]
+    m = kpos <= qpos
+    if window > 0:
+        m &= kpos > qpos - window
+    return m[None, None]
+
+
+def _self_plain(s: int, window: int):
+    """The plain schedule of causal self-attention at length ``s``, as
+    ``ops.flash_attention``'s ``plain`` takes it (q, k, v [B, H, S, D]
+    views): ``blocked_attention_sdpa`` above ``BLOCKED_ATTN_THRESHOLD``,
+    else None (the whole ``ref.flash_attention_ref``), as the reference's
+    ``attention`` picks ``blocked_attention_sdpa`` or ``_sdpa``."""
+    if s <= BLOCKED_ATTN_THRESHOLD:
+        return None
+
+    def plain(q, k, v):
+        return blocked_attention_sdpa(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=window).transpose(1, 2)
+    return plain
+
+
+def _flash_heads(q, k, v, *, causal: bool, window: int = 0, plain=None):
     """q [B, Sq, Hq, hd] over k, v [B, Sk, Hkv, hd] through the flash
     kernel -> [B, Sq, Hq, hd]. k and v are expanded to the query heads
     (``repeat_interleave``, the reference's (kv head, group) order) and the
     kernel reads q, k, v in their [B, S, H, hd] layout through a
-    transposed view."""
+    transposed view. ``plain``: ``ops.flash_attention``'s plain schedule
+    (``_self_plain``)."""
     group = q.shape[2] // k.shape[2]
     if group > 1:
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
     q, k, v = (t.contiguous().transpose(1, 2) for t in (q, k, v))
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              plain=plain)
     return out.transpose(1, 2)
 
 
 def _flash(params, cfg: ModelConfig, q, k, v, *, causal: bool,
-           window: int = 0):
+           window: int = 0, plain=None):
     """``_flash_heads`` projected by ``wo`` to [B, Sq, D]."""
-    out = _flash_heads(q, k, v, causal=causal, window=window)
+    out = _flash_heads(q, k, v, causal=causal, window=window, plain=plain)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
 
 def attention(params, cfg: ModelConfig, x, positions, *, window: int = 0):
-    """Prefill self-attention. x: [B,S,D], positions: [B,S]."""
+    """Prefill self-attention. x: [B,S,D], positions: [B,S]. Above
+    ``BLOCKED_ATTN_THRESHOLD`` its plain schedule is the blocked one."""
     q, k, v = _project_qkv(params, cfg, x, x, positions, positions,
                            rope=True)
-    return _flash(params, cfg, q, k, v, causal=True, window=window)
+    return _flash(params, cfg, q, k, v, causal=True, window=window,
+                  plain=_self_plain(x.shape[1], window))
 
 
 def cross_attention(params, cfg: ModelConfig, x, enc_out):
@@ -299,8 +532,9 @@ def attention_tp(tp, params, cfg: ModelConfig, x, positions, *,
     """``attention`` by model shard: partial sums (an ``Act``), or whole
     outputs where the heads and head_dim stay replicated."""
     return _attend_tp(tp, params, cfg, x, x, positions, positions, True,
-                      lambda q, k, v: _flash_heads(q, k, v, causal=True,
-                                                   window=window))
+                      lambda q, k, v: _flash_heads(
+                          q, k, v, causal=True, window=window,
+                          plain=_self_plain(q.shape[1], window)))
 
 
 def cross_attention_tp(tp, params, cfg: ModelConfig, x, enc_out):

@@ -37,7 +37,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sharding
-from repro_torch.config import ATTN_DENSE, ATTN_MOE, MAMBA_MOE, ModelConfig
+from repro_torch.config import (ATTN_DENSE, ATTN_MOE, MAMBA,  # noqa: F401
+                                MAMBA_MOE, ModelConfig)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod

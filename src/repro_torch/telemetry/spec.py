@@ -37,8 +37,6 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.launch.roofline import WIRE_BYTES
-
 TORCH_DTYPES = {"int32": torch.int32, "float32": torch.float32,
                 "bool": torch.bool}
 
@@ -174,8 +172,10 @@ class Telemetry:
 def wire_payload_bytes(n_params: int, wire, rows: int = 1) -> float:
     """One serialized model payload priced by the gossip wire format (int8
     adds one fp32 scale per quantization row), from the port's
-    ``launch.roofline.WIRE_BYTES`` table."""
-    per = WIRE_BYTES.get(wire, 4)
+    ``core.gossip.WIRE_BYTES`` table (imported here, as in the reference:
+    ``core`` imports this module)."""
+    from repro_torch.core.gossip import WIRE_BYTES, normalize_wire
+    per = WIRE_BYTES[normalize_wire(wire)]
     b = n_params * per
     if per == 1:
         b += 4 * rows

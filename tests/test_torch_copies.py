@@ -219,12 +219,18 @@ def test_run_ledger_copy_equal():
 
 @pytest.mark.parametrize("name", ["DeFTAConfig", "TrainConfig", "MoEConfig",
                                   "SSMConfig", "ModelConfig", "ShapeConfig",
-                                  "MeshConfig"])
+                                  "MeshConfig", "RunConfig"])
 def test_config_fields_and_defaults_equal(name):
+    def default(f):
+        """A field's default; a record (RunConfig's nested configs, a
+        class of each package) by its class name and fields."""
+        d = f.default
+        return (type(d).__name__, dataclasses.asdict(d)) \
+            if dataclasses.is_dataclass(d) else d
     ours = dataclasses.fields(getattr(config, name))
     theirs = dataclasses.fields(getattr(jconfig, name))
-    assert [(f.name, f.default) for f in ours] == \
-        [(f.name, f.default) for f in theirs]
+    assert [(f.name, default(f)) for f in ours] == \
+        [(f.name, default(f)) for f in theirs]
 
 
 def test_shapes_and_mesh_configs_equal():
@@ -261,11 +267,14 @@ def _function_source(path: Path, name: str) -> str:
     ("launch/dryrun.py", "pick_optimizer"),
     ("launch/dryrun.py", "pick_microbatches"),
     ("launch/dryrun.py", "pick_moe_strategy"),
-    ("launch/dryrun.py", "effective_config")])
+    ("launch/dryrun.py", "effective_config"),
+    ("data/partition.py", "shard_partition"),
+    ("config.py", "RunConfig")])
 def test_launch_costing_copies_are_verbatim(module, name):
     """The dry run's policies, its skips and horizon, the sharding rules
     and the model-flops estimate are the reference's, source for source;
-    ``base_rules`` also gives equal rules for every variant."""
+    ``base_rules`` also gives equal rules for every variant. So are the
+    numpy-only ``shard_partition`` and the ``RunConfig`` record."""
     ours = _function_source(ROOT / "src" / "repro_torch" / module, name)
     assert ours == _function_source(ROOT / "src" / "repro" / module, name)
     if name == "base_rules":

@@ -372,9 +372,9 @@ def test_flash_calls_of_prefill_and_serving(whisper, monkeypatch):
     seen = []
     real = ops.flash_attention
 
-    def spy(q, k, v, *, causal=True, window=0):
+    def spy(q, k, v, *, causal=True, window=0, plain=None):
         seen.append((q.shape[2], k.shape[2], causal))
-        return real(q, k, v, causal=causal, window=window)
+        return real(q, k, v, causal=causal, window=window, plain=plain)
     monkeypatch.setattr(ops, "flash_attention", spy)
     _, tb = w.batches()
     build_prefill_step(w.cfg)(w.tp, tb)
